@@ -1,0 +1,793 @@
+"""Continuous batching: slot-based LLM decode serving in PyTorch.
+
+Port of ``ContinuousBatchingServer`` (``aiko_services_tpu/orchestration/
+continuous.py``) with its host protocol: the server owns ``slots`` decode
+lanes and a ``(slots, max_seq, ...)`` KV cache; a request is one slot for
+its lifetime.
+
+* Admission: prompts are right-padded to a power-of-2 bucket and each
+  admission wave prefills per-bucket groups in power-of-2 sub-batches
+  (causal attention keeps every row exact whatever its batch-mates),
+  landing each sub-batch's KV rows in its slots with one batched copy.
+  The slot is seeded with the LAST prompt token at ``prompt_len - 1``:
+  the first decode step rewrites that row with identical values and
+  emits the first generated token.
+* Decode: :func:`~..models.llama.serve_chunk_ragged` runs ``steps``
+  device-resident steps for ALL slots: per-slot state (token tail,
+  positions, active, remaining budget, sampling controls) lives on the
+  device and EOS/budget retirement happens there.  Host mirrors reach the
+  device only through :meth:`_sync_dirty`, a compact scatter of the rows
+  an admission, retirement or sampling edit touched.
+* In-flight ring: each dispatched chunk queues a non-blocking copy of its
+  tiny ``(tokens_out, counts, active)`` result into pinned host memory
+  and an event; :meth:`_consume_ready` waits on that event, the ONLY
+  host sync of the serving loop, and applies the results (deliver,
+  advance mirrors, retire).  The ring depth adapts between ``ring_min``
+  and ``ring_max`` (:meth:`_ring_policy`).
+
+Greedy decode through this path matches per-request ``prefill`` +
+``generate_tokens`` output whatever the admission order.
+
+Left out of this slice (they raise ``NotImplementedError``): meshes,
+LoRA adapters, speculative decoding and grammars, chunked prefill, the
+compilation cache, the watchdog and the legacy full-mirror upload; the
+observability hooks; the actor wrapper ``ContinuousReplica``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import llama
+from ..obs.metrics import CounterDict
+from ..ops.paged_attention import contiguous_block_size
+
+__all__ = ["ContinuousBatchingServer", "DecodeRequest"]
+
+#: Distinct ``instance=`` metric label per server in this process.
+_SERVER_INSTANCE_IDS = itertools.count()
+
+
+@dataclasses.dataclass
+class DecodeRequest:
+    request_id: str
+    prompt: "np.ndarray"           # (prompt_len,) int32
+    max_new_tokens: int
+    response_topic: Optional[str] = None
+    #: 0 = greedy (exact, default); > 0 samples with optional nucleus.
+    temperature: float = 0.0
+    top_p: float = 1.0
+    #: Deliver partial tokens as chunks complete (used by the replica).
+    stream: bool = False
+    #: Named LoRA adapter / grammar: not ported, so any name is rejected.
+    adapter: Optional[str] = None
+    automaton: Optional[str] = None
+    #: Absolute host-monotonic deadline; expired requests are rejected at
+    #: admission and evicted from their slot (``deadline_exceeded``).
+    deadline_ts: Optional[float] = None
+    # Filled by the server:
+    tokens: Optional[List[int]] = None
+    error: Optional[str] = None
+    #: Back-off hint attached to an ``error="overloaded"`` shed.
+    retry_after_ms: Optional[int] = None
+    #: Host-monotonic stamps: TTFT is measured at the host sync that
+    #: DELIVERS the first token.
+    submitted_ts: Optional[float] = None
+    activated_ts: Optional[float] = None
+    first_token_ts: Optional[float] = None
+    finished_ts: Optional[float] = None
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    size = minimum
+    while size < n:
+        size *= 2
+    return size
+
+
+class ContinuousBatchingServer:
+    """Slot-based continuous batching around a Llama-family model."""
+
+    def __init__(self, config_name: str = "tiny", slots: int = 4,
+                 max_seq: Optional[int] = None, chunk_steps: int = 8,
+                 quantize: bool = False, eos_id: Optional[int] = None,
+                 seed: int = 0, quantize_kv: bool = False, mesh=None,
+                 lookahead: int = 1, adapters: Optional[Dict] = None,
+                 lora_config=None, chunk_prefill_tokens: int = 0,
+                 draft_config_name: Optional[str] = None,
+                 draft_params=None, spec_k: int = 4,
+                 draft_quantize: bool = False, draft_mode: str = "auto",
+                 spec_ladder=None, spec_adaptive: bool = False,
+                 automata=None, params=None,
+                 max_queue: Optional[int] = None, watchdog_s: float = 0.0,
+                 replica_mesh=None,
+                 compilation_cache_dir: Optional[str] = None,
+                 compact_upload: bool = True,
+                 ring_max: Optional[int] = None, device=None):
+        unsupported = {
+            "mesh": mesh is not None,
+            "replica_mesh": replica_mesh is not None,
+            "adapters/lora_config": bool(adapters)
+            or lora_config is not None,
+            "draft_*/speculation": draft_config_name is not None
+            or draft_params is not None or draft_quantize
+            or draft_mode != "auto" or spec_ladder is not None
+            or spec_adaptive,
+            "automata": bool(automata),
+            "chunk_prefill_tokens": int(chunk_prefill_tokens) > 0,
+            "compilation_cache_dir": compilation_cache_dir is not None,
+            "watchdog_s": float(watchdog_s) > 0,
+            "compact_upload=False": not compact_upload,
+        }
+        named = [name for name, given in unsupported.items() if given]
+        if named:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(named)}")
+        self.device = resolve_device(device)
+        self.config = llama.CONFIGS[config_name]
+        if params is not None:
+            # Caller-built weights (bridged, random_quantized_params):
+            # ``quantize=`` only declares the tree's layout.
+            self.params = params
+        else:
+            self.params = llama.init_params(self.config, seed=seed,
+                                            device=self.device)
+            if quantize:
+                self.params = llama.quantize_params(self.params)
+        self.slots = slots
+        # Row max_seq-1 is the inactive-slot scratch row; a live request
+        # may use at most max_seq-2 positions.
+        self.max_seq = max_seq or self.config.max_seq_len
+        self.chunk_steps = chunk_steps
+        self.lookahead = max(1, int(lookahead))
+        self.eos_id = eos_id
+        self.quantize_kv = quantize_kv
+        self._bucket_minimum = 16
+        self.cache = llama.init_cache(self.config, slots, self.max_seq,
+                                      quantize_kv=quantize_kv,
+                                      device=self.device)
+        # Decode-attention path tag, decided once: the kernel on the card
+        # when the contiguous cache has a block view, else the plain path.
+        self._attn_block_size = (contiguous_block_size(self.max_seq)
+                                 or self.max_seq)
+        self._attn_total_blocks = -(-self.max_seq // self._attn_block_size)
+        self.decode_attention_path = (
+            "kernel" if self.device.type == "cuda"
+            and contiguous_block_size(self.max_seq) else "reference")
+        # Host mirrors of the per-slot decode state (numpy): admissions
+        # and retirements mutate them for free; they reach the device
+        # only through _sync_dirty.
+        self.positions = np.zeros((slots,), np.int32)
+        self.active = np.zeros((slots,), bool)
+        self.tokens = np.zeros((slots, 1), np.int32)
+        self._temperatures = np.zeros(slots, np.float32)
+        self._top_ps = np.ones(slots, np.float32)
+        self._remaining = np.zeros(slots, np.int32)
+        self._generator = torch.Generator(device=self.device) \
+            .manual_seed(seed)
+        self._any_sampled = False
+        self._requests: List[Optional[DecodeRequest]] = [None] * slots
+        self._emitted = np.zeros(slots, np.int64)
+        self._queue: List[DecodeRequest] = []
+        self.completed: List[DecodeRequest] = []
+        self._state = self._init_device_state()
+        # In-flight ring of dispatched-but-unconsumed chunks; depth adapts
+        # between ring_min (double buffering) and ring_max.
+        self._ring = collections.deque()
+        self.ring_min = max(2, self.lookahead)
+        self.ring_max = (int(ring_max) if ring_max is not None
+                         else max(4, 2 * self.ring_min))
+        if self.ring_max < self.ring_min:
+            raise ValueError(
+                f"ring_max {self.ring_max} below the double-buffer floor "
+                f"max(2, lookahead) = {self.ring_min}")
+        self._ring_depth = self.ring_min
+        self._ema_wait_ms: Optional[float] = None
+        self._ema_dispatch_ms: Optional[float] = None
+        self._starved_streak = 0
+        #: per-slot admission generation: an in-flight entry applies only
+        #: to a slot whose serial still matches its snapshot.
+        self._slot_serial = np.zeros(slots, np.int64)
+        #: decode steps dispatched but not yet consumed, per slot.
+        self._inflight_sched = np.zeros(slots, np.int64)
+        #: STRUCTURAL dirty rows (admission, retirement, budget rebase):
+        #: every leaf uploads.  SAMPLING dirty rows (live edits): only the
+        #: sampling leaves, since chunks may be in flight for the slot.
+        self._dirty = np.zeros(slots, bool)
+        self._dirty_sampling = np.zeros(slots, bool)
+        self.max_queue = max_queue
+        self._instance_id = next(_SERVER_INSTANCE_IDS)
+        self.counters: Dict = CounterDict(dict(
+            dispatches=0, decode_steps=0, tokens_committed=0,
+            host_syncs=0, sync_wait_ms=0.0, sync_elements=0,
+            state_uploads=0, dirty_rows_uploaded=0, max_in_flight=0,
+            ring_starved_steps=0,
+            decode_blocks_read=0, prefill_tokens=0, prefill_dispatches=0,
+            deadline_exceeded=0, shed=0),
+            prefix="server",
+            labels={"instance": f"srv{self._instance_id}"})
+        self._serve_started: Optional[float] = None
+
+    # ---- device state -------------------------------------------------- #
+
+    def _init_device_state(self) -> Dict[str, torch.Tensor]:
+        slots, device = self.slots, self.device
+        return {
+            "token": torch.zeros((slots, 1), dtype=torch.int32,
+                                 device=device),
+            "positions": torch.zeros((slots,), dtype=torch.int32,
+                                     device=device),
+            "active": torch.zeros((slots,), dtype=torch.bool,
+                                  device=device),
+            "remaining": torch.zeros((slots,), dtype=torch.int32,
+                                     device=device),
+            "temps": torch.zeros((slots,), dtype=torch.float32,
+                                 device=device),
+            "tops": torch.ones((slots,), dtype=torch.float32,
+                               device=device),
+        }
+
+    def _host_state(self) -> Dict[str, np.ndarray]:
+        """Host mirror of :meth:`_init_device_state` (same keys)."""
+        return {"token": self.tokens, "positions": self.positions,
+                "active": self.active, "remaining": self._remaining,
+                "temps": self._temperatures, "tops": self._top_ps}
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without a stream sync: through
+        pinned memory, non-blocking (a pageable copy would wait for every
+        chunk in flight)."""
+        tensor = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cpu":
+            return tensor
+        return tensor.pin_memory().to(self.device, non_blocking=True)
+
+    def _sync_dirty(self) -> None:
+        """Merge dirty host-mirror rows into the resident device state:
+        the ONLY host->device path for decode state, and none at all when
+        no admission, retirement or edit happened since the last
+        dispatch.  The dirty rows are gathered into a small packet
+        (fancy indexing copies, so later mirror edits cannot race the
+        upload), padded to a pow2 bucket by repeating the last row, and
+        row-scattered by :func:`~..models.llama.scatter_state_rows`."""
+        structural = self._dirty
+        sampling = self._dirty_sampling & ~structural
+        if not (structural.any() or sampling.any()):
+            return
+        rows = np.nonzero(structural)[0].astype(np.int32)
+        sampling_rows = np.nonzero(sampling)[0].astype(np.int32)
+        if len(rows):
+            padded = self._pow2_rows(rows)
+            packet = {key: self._upload(value[padded])
+                      for key, value in self._host_state().items()}
+            self._state = llama.scatter_state_rows(
+                self._state, self._upload(padded.astype(np.int64)), packet)
+        if len(sampling_rows):
+            padded = self._pow2_rows(sampling_rows)
+            packet = {"temps": self._upload(self._temperatures[padded]),
+                      "tops": self._upload(self._top_ps[padded])}
+            self._state = llama.scatter_state_rows(
+                self._state, self._upload(padded.astype(np.int64)), packet)
+        self._dirty[:] = False
+        self._dirty_sampling[:] = False
+        self.counters["state_uploads"] += 1
+        self.counters["dirty_rows_uploaded"] += len(rows) \
+            + len(sampling_rows)
+
+    def _pow2_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Pad a dirty-row index vector to its pow2 bucket (clamped to
+        the fleet size) by repeating the LAST row."""
+        bucket = 1
+        while bucket < len(rows):
+            bucket *= 2
+        bucket = min(bucket, self.slots)
+        padded = np.empty(bucket, np.int32)
+        padded[:len(rows)] = rows
+        padded[len(rows):] = rows[-1]
+        return padded
+
+    def _note_decode_blocks(self, live, sched) -> None:
+        """Estimate the KV blocks each dispatched decode step reads: the
+        kernel reads only a row's live blocks (window-clamped), the plain
+        path the whole cache every step."""
+        sched_live = sched[live]
+        if self.decode_attention_path == "kernel":
+            block_size = self._attn_block_size
+            blocks = (self.positions[live] + block_size) // block_size
+            window = self.config.sliding_window
+            if window:
+                blocks = np.minimum(blocks, window // block_size + 1)
+        else:
+            blocks = np.full(sched_live.shape, self._attn_total_blocks,
+                             np.int64)
+        self.counters["decode_blocks_read"] += int(
+            (blocks * sched_live).sum())
+
+    # ---- submission and admission --------------------------------------- #
+
+    def submit(self, request: DecodeRequest) -> None:
+        request.tokens = []
+        request.submitted_ts = time.monotonic()
+        if request.deadline_ts is not None \
+                and request.submitted_ts >= request.deadline_ts:
+            self._finish_rejected(request, "deadline_exceeded")
+            return
+        if self.max_queue is not None \
+                and len(self._queue) >= self.max_queue:
+            request.retry_after_ms = self._retry_after_ms()
+            self._finish_rejected(request, "overloaded")
+            return
+        prompt_len = int(np.asarray(request.prompt).shape[0])
+        reason = self._admission_reject(prompt_len, request)
+        if reason:
+            request.error = reason
+            self.completed.append(request)
+            return
+        self._queue.append(request)
+
+    def _finish_rejected(self, request: DecodeRequest, reason: str) -> None:
+        request.error = reason
+        request.finished_ts = time.monotonic()
+        if reason == "deadline_exceeded":
+            self.counters["deadline_exceeded"] += 1
+        elif reason == "overloaded":
+            self.counters["shed"] += 1
+        self.completed.append(request)
+
+    def _retry_after_ms(self) -> int:
+        """Shed hint, scaled with how far over capacity the queue is."""
+        per_request_ms = 50
+        return int(min(5_000, per_request_ms * max(1, len(self._queue))))
+
+    def _admission_reject(self, prompt_len: int,
+                          request: DecodeRequest) -> Optional[str]:
+        """A non-None reason fails the request at submit time (never
+        queue what can never run)."""
+        if prompt_len == 0:
+            return "empty_prompt"
+        if prompt_len + request.max_new_tokens > self.max_seq - 1:
+            return "prompt_too_long"
+        if request.adapter is not None:
+            return "unknown_adapter"
+        if request.automaton is not None:
+            return "unknown_automaton"
+        return None
+
+    def live_requests(self) -> List[DecodeRequest]:
+        return [r for r in self._requests if r is not None]
+
+    @property
+    def slots_active(self) -> int:
+        return len(self.live_requests())
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    @property
+    def busy(self) -> bool:
+        return bool(self._queue) or self.slots_active > 0 \
+            or bool(self._ring)
+
+    def _admit(self) -> None:
+        admissions = []
+        for slot in range(self.slots):
+            if self._requests[slot] is not None or not self._queue:
+                continue
+            request = self._queue.pop(0)
+            request.activated_ts = time.monotonic()
+            prompt = np.asarray(request.prompt, np.int32)
+            prompt_len = prompt.shape[0]
+            # Clamp the bucket to the cache.
+            padded = min(_bucket(prompt_len, self._bucket_minimum),
+                         self.max_seq)
+            prompt_padded = np.zeros((1, padded), np.int32)
+            prompt_padded[0, :prompt_len] = prompt
+            admissions.append((slot, request, prompt_padded, prompt_len))
+        if not admissions:
+            return
+        self._prefill_and_insert(admissions)
+        for slot, request, prompt_padded, prompt_len in admissions:
+            self._activate_slot(slot, request, prompt_padded, prompt_len)
+
+    def _activate_slot(self, slot: int, request, prompt_padded,
+                       prompt_len: int) -> None:
+        """Seed a prefilled slot with the LAST prompt token at its own
+        position."""
+        self.tokens[slot, 0] = prompt_padded[0, prompt_len - 1]
+        self.positions[slot] = prompt_len - 1
+        self.active[slot] = True
+        self._temperatures[slot] = max(0.0, float(request.temperature))
+        self._top_ps[slot] = float(request.top_p)
+        self._requests[slot] = request
+        self._emitted[slot] = 0
+        self._remaining[slot] = request.max_new_tokens
+        self._inflight_sched[slot] = 0
+        self._slot_serial[slot] += 1
+        self._dirty[slot] = True
+        self._any_sampled = bool((self._temperatures > 0).any())
+
+    def _prefill_and_insert(self, admissions) -> None:
+        """Group admissions by bucket size and prefill each group in
+        power-of-2 sub-batches, landing each sub-batch's KV rows in its
+        slots with one batched copy."""
+        groups: Dict[int, List] = {}
+        for slot, _, prompt_padded, _ in admissions:
+            groups.setdefault(prompt_padded.shape[1], []).append(
+                (slot, prompt_padded))
+        for padded, group in groups.items():
+            start = 0
+            while start < len(group):
+                size = 1 << ((len(group) - start).bit_length() - 1)
+                sub = group[start:start + size]
+                start += size
+                slots = [slot for slot, _ in sub]
+                prompts = np.concatenate([p for _, p in sub], axis=0)
+                bucket_cache = llama.init_cache(
+                    self.config, len(sub), padded,
+                    quantize_kv=self.quantize_kv, device=self.device)
+                _, bucket_cache = llama.prefill(
+                    self.params, self._upload(prompts), bucket_cache,
+                    self.config)
+                self._insert_slots(bucket_cache, slots, padded)
+                self._note_prefill(len(sub) * padded)
+
+    def _insert_slots(self, bucket_cache, slots: List[int],
+                      padded: int) -> None:
+        """Land a (k, padded, ...) prefilled bucket batch in the k slot
+        rows (in place; rows past each prompt hold pad garbage that the
+        decode step making them attendable rewrites)."""
+        slot_rows = self._upload(np.asarray(slots, np.int64))
+        for cache_layer, filled in zip(self.cache, bucket_cache):
+            for key, dst in cache_layer.items():
+                dst[slot_rows, :padded] = filled[key].to(dst.dtype)
+
+    def _note_prefill(self, tokens: int) -> None:
+        if self._serve_started is None:
+            self._serve_started = time.monotonic()
+        self.counters["prefill_tokens"] += int(tokens)
+        self.counters["prefill_dispatches"] += 1
+
+    # ---- retirement and control ----------------------------------------- #
+
+    def _retire(self, slot: int) -> None:
+        request = self._requests[slot]
+        if request is not None:
+            request.finished_ts = time.monotonic()
+            self.completed.append(request)
+        self._requests[slot] = None
+        self.active[slot] = False
+        self._remaining[slot] = 0
+        self._inflight_sched[slot] = 0
+        # Any still-in-flight entry's data for this slot is now stale.
+        self._slot_serial[slot] += 1
+        self._dirty[slot] = True
+        self._temperatures[slot] = 0.0
+        self._top_ps[slot] = 1.0
+        self._any_sampled = bool((self._temperatures > 0).any())
+
+    def update_sampling(self, request_id: str,
+                        temperature: Optional[float] = None,
+                        top_p: Optional[float] = None,
+                        max_new_tokens: Optional[int] = None) -> bool:
+        """Edit a live (or queued) request's sampling params / budget in
+        place.  A sampling edit rides the next dispatch as a sampling-leaf
+        packet (chunks may be in flight for the slot); a budget edit
+        drains the ring first so the device's ``remaining`` is rebased
+        against a settled count (a new budget at or below the tokens
+        already emitted retires the request).  False for an unknown
+        id."""
+        for request in self._queue:
+            if request.request_id == request_id:
+                if temperature is not None:
+                    request.temperature = float(temperature)
+                if top_p is not None:
+                    request.top_p = float(top_p)
+                if max_new_tokens is not None:
+                    request.max_new_tokens = int(max_new_tokens)
+                return True
+        for slot in range(self.slots):
+            request = self._requests[slot]
+            if request is None or request.request_id != request_id:
+                continue
+            if max_new_tokens is not None:
+                self._drain_ring()
+                if self._requests[slot] is not request:
+                    return True    # finished naturally while draining
+                request.max_new_tokens = int(max_new_tokens)
+                if request.max_new_tokens <= self._emitted[slot]:
+                    self._retire(slot)
+                    return True
+                self._remaining[slot] = (request.max_new_tokens
+                                         - self._emitted[slot])
+                self._dirty[slot] = True
+            if temperature is not None:
+                request.temperature = float(temperature)
+                self._temperatures[slot] = max(0.0, float(temperature))
+            if top_p is not None:
+                request.top_p = float(top_p)
+                self._top_ps[slot] = float(top_p)
+            if max_new_tokens is None:
+                self._dirty_sampling[slot] = True
+            self._any_sampled = bool((self._temperatures > 0).any())
+            return True
+        return False
+
+    def cancel(self, request_id: str) -> bool:
+        """Cancel by id wherever the request lives: queued (dropped) or
+        decoding (the ring is drained first so dispatched chunks deliver
+        their partial tokens, then the slot retires).  The request
+        completes with ``error="cancelled"``."""
+        for i, request in enumerate(self._queue):
+            if request.request_id == request_id:
+                self._queue.pop(i)
+                request.error = "cancelled"
+                request.finished_ts = time.monotonic()
+                self.completed.append(request)
+                return True
+        for slot in range(self.slots):
+            request = self._requests[slot]
+            if request is None or request.request_id != request_id:
+                continue
+            self._drain_ring()
+            if self._requests[slot] is not request:
+                return True      # finished naturally while draining
+            request.error = "cancelled"
+            self._retire(slot)
+            return True
+        return False
+
+    def _evict_expired(self) -> None:
+        """Deadline enforcement between chunks: drop expired queued
+        requests and evict live slots past deadline (after draining the
+        ring, as :meth:`cancel` does)."""
+        now = time.monotonic()
+        for index in reversed(range(len(self._queue))):
+            request = self._queue[index]
+            if request.deadline_ts is not None \
+                    and now >= request.deadline_ts:
+                self._queue.pop(index)
+                request.error = "deadline_exceeded"
+                request.finished_ts = now
+                self.counters["deadline_exceeded"] += 1
+                self.completed.append(request)
+        expired = [slot for slot in range(self.slots)
+                   if self._requests[slot] is not None
+                   and self._requests[slot].deadline_ts is not None
+                   and now >= self._requests[slot].deadline_ts]
+        if not expired:
+            return
+        self._drain_ring()
+        for slot in expired:
+            request = self._requests[slot]
+            if request is None or request.deadline_ts is None \
+                    or time.monotonic() < request.deadline_ts:
+                continue       # finished naturally while draining
+            request.error = "deadline_exceeded"
+            self.counters["deadline_exceeded"] += 1
+            self._retire(slot)
+
+    # ---- the step loop -------------------------------------------------- #
+
+    def step(self) -> List[DecodeRequest]:
+        """Admit pending requests, keep the in-flight ring full, apply one
+        (or, at the drain tail, every) completed chunk's results, retire
+        finished slots.  Returns (and clears) the completed list."""
+        self._evict_expired()
+        self._admit()
+        if self.slots_active and not self._ring:
+            self.counters["ring_starved_steps"] += 1
+            self._starved_streak += 1
+        else:
+            self._starved_streak = 0
+        depth = self._ring_depth
+        dispatched = False
+        while len(self._ring) < depth and self._dispatch_chunk():
+            dispatched = True
+        target = depth - 1 if dispatched else 0
+        if len(self._ring) > target:
+            self._consume_ready(len(self._ring) - target)
+        self._ring_depth = self._ring_policy(
+            depth, self.ring_min, self.ring_max, self._ema_wait_ms,
+            self._ema_dispatch_ms, self._starved_streak)
+        done, self.completed = self.completed, []
+        return done
+
+    def _plan_remaining(self) -> np.ndarray:
+        """Per-slot decode budget still UNSCHEDULED: max_new - emitted -
+        in-flight."""
+        plan = np.zeros(self.slots, np.int64)
+        for slot in range(self.slots):
+            request = self._requests[slot]
+            if request is None or not self.active[slot]:
+                continue
+            plan[slot] = (request.max_new_tokens - self._emitted[slot]
+                          - self._inflight_sched[slot])
+        return plan
+
+    @staticmethod
+    def _ring_policy(depth: int, ring_min: int, ring_max: int,
+                     wait_ema, dispatch_ema, starved_streak: int) -> int:
+        """Adaptive ring depth: widen while the DEVICE is starved (syncs
+        return near-instantly and the ring keeps running dry), shrink
+        while syncs dwarf dispatch cost, clamp to [ring_min, ring_max]."""
+        if wait_ema is not None and dispatch_ema is not None \
+                and dispatch_ema > 0.0:
+            if starved_streak >= 2 and wait_ema < 0.25 * dispatch_ema:
+                depth += 1
+            elif wait_ema > 2.0 * dispatch_ema:
+                depth -= 1
+        return max(ring_min, min(ring_max, depth))
+
+    def _dispatch_chunk(self) -> bool:
+        """Launch one decode chunk against the resident device state
+        WITHOUT waiting for it; False when no slot needs scheduling."""
+        plan = self._plan_remaining()
+        live = plan > 0
+        if not live.any():
+            return False
+        began = time.monotonic()
+        steps = int(min(self.chunk_steps, int(plan[live].max())))
+        self._sync_dirty()
+        serial = self._slot_serial.copy()
+        tokens_d, counts_d, self._state = self._serve_chunk(
+            self._state, steps,
+            -1 if self.eos_id is None else int(self.eos_id),
+            self._any_sampled)
+        result = torch.cat([tokens_d, counts_d[:, None],
+                            self._state["active"][:, None].to(torch.int32)],
+                           dim=1)
+        event = None
+        if result.is_cuda:
+            # Pinned destination: the copy runs behind the chunk on the
+            # stream; _consume_ready waits on the event, not the stream.
+            host = torch.empty(result.shape, dtype=result.dtype,
+                               pin_memory=True)
+            host.copy_(result, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            result = host
+        sched = np.where(live, np.minimum(steps, plan), 0)
+        self._inflight_sched += sched
+        self._note_decode_blocks(live, sched)
+        self._ring.append(dict(result=result, event=event, steps=steps,
+                               sched=sched, serial=serial))
+        self._note_dispatch()
+        elapsed_ms = (time.monotonic() - began) * 1e3
+        self._ema_dispatch_ms = (
+            elapsed_ms if self._ema_dispatch_ms is None
+            else 0.25 * elapsed_ms + 0.75 * self._ema_dispatch_ms)
+        return True
+
+    def _serve_chunk(self, state, steps: int, eos_id: int, sampled: bool):
+        tokens_d, counts_d, new_state, self.cache = \
+            llama.serve_chunk_ragged(
+                self.params, state, self.cache, steps, self.config,
+                eos_id=eos_id, sampled=sampled,
+                generator=self._generator if sampled else None)
+        return tokens_d, counts_d, new_state
+
+    def _note_dispatch(self) -> None:
+        if self._serve_started is None:
+            self._serve_started = time.monotonic()
+        self.counters["dispatches"] += 1
+        self.counters["max_in_flight"] = max(
+            self.counters["max_in_flight"], len(self._ring))
+
+    def _consume_ready(self, max_entries: int) -> None:
+        """Apply the oldest ``max_entries`` in-flight entries' results to
+        host bookkeeping in ONE pass: deliver tokens, advance mirrors,
+        retire lanes the device deactivated.  Waiting on each entry's
+        event is the only device->host sync of the serving path: per
+        entry, (slots x steps) token ids plus two slots-sized vectors,
+        never logits."""
+        count = min(int(max_entries), len(self._ring))
+        if count <= 0:
+            return
+        entries = [self._ring.popleft() for _ in range(count)]
+        wait_start = time.monotonic()
+        elements = 0
+        for entry in entries:
+            if entry["event"] is not None:
+                entry["event"].synchronize()
+            packed = entry["result"].numpy()
+            steps = entry["steps"]
+            entry["tokens"] = packed[:, :steps]
+            entry["counts"] = packed[:, steps]
+            entry["active_after"] = packed[:, steps + 1].astype(bool)
+            elements += packed.size
+        now = time.monotonic()
+        wait_ms = (now - wait_start) * 1e3
+        self._ema_wait_ms = (wait_ms if self._ema_wait_ms is None
+                             else 0.25 * wait_ms + 0.75 * self._ema_wait_ms)
+        self.counters["host_syncs"] += 1
+        self.counters["sync_wait_ms"] += wait_ms
+        self.counters["sync_elements"] += elements
+        self.counters["decode_steps"] += sum(int(e["steps"])
+                                             for e in entries)
+        # An entry's lane is live iff its dispatch-time serial still
+        # matches and the slot is active and occupied; rows retired while
+        # walking entry i are cleared from the younger entries' masks.
+        serials = np.stack([entry["serial"] for entry in entries])
+        occupied = np.fromiter((r is not None for r in self._requests),
+                               bool, self.slots)
+        batch_live = (serials == self._slot_serial) & self.active \
+            & occupied
+        delivered = 0
+        for index, entry in enumerate(entries):
+            live = batch_live[index]
+            sched = entry["sched"]
+            self._inflight_sched[live] -= sched[live]
+            token_rows = entry["tokens"].tolist()
+            count_list = entry["counts"].tolist()
+            active_list = entry["active_after"].tolist()
+            for slot in np.nonzero(live)[0]:
+                slot = int(slot)
+                request = self._requests[slot]
+                emitted = count_list[slot]
+                if emitted:
+                    if request.first_token_ts is None:
+                        request.first_token_ts = now
+                    request.tokens.extend(token_rows[slot][:emitted])
+                    self._emitted[slot] += emitted
+                    self._remaining[slot] = (request.max_new_tokens
+                                             - self._emitted[slot])
+                    self.positions[slot] += emitted
+                    self.tokens[slot, 0] = token_rows[slot][emitted - 1]
+                    delivered += emitted
+                if not active_list[slot]:
+                    self._retire(slot)
+                    batch_live[index + 1:, slot] = False
+        self.counters["tokens_committed"] += delivered
+
+    def _drain_ring(self) -> None:
+        while self._ring:
+            self._consume_ready(len(self._ring))
+
+    # ---- reporting ------------------------------------------------------- #
+
+    def stats(self) -> Dict:
+        """Serving counters and derived rates."""
+        steps = self.counters["decode_steps"]
+        elapsed = (time.monotonic() - self._serve_started
+                   if self._serve_started is not None else 0.0)
+        return dict(
+            self.counters,
+            in_flight=len(self._ring),
+            ring_depth=self._ring_depth,
+            queue_depth=self.queue_depth,
+            slots_active=self.slots_active,
+            free_slots=self.slots - self.slots_active,
+            device=str(self.device),
+            decode_attention_path=self.decode_attention_path,
+            blocks_read_per_step=(
+                round(self.counters["decode_blocks_read"] / steps, 2)
+                if steps else 0.0),
+            decode_steps_per_sec=(
+                round(steps / elapsed, 1) if elapsed > 0 else 0.0),
+            prefill_tokens_per_sec=(
+                round(self.counters["prefill_tokens"] / elapsed, 1)
+                if elapsed > 0 else 0.0),
+            sync_stalls_per_100_steps=(
+                round(100.0 * self.counters["host_syncs"] / steps, 2)
+                if steps else 0.0))
+
+    def run_until_drained(self, max_chunks: int = 10_000):
+        """Synchronous helper (tests / batch jobs): pump until every
+        queued request completes."""
+        finished, self.completed = self.completed, []
+        chunks = 0
+        while self.busy:
+            finished.extend(self.step())
+            chunks += 1
+            if chunks > max_chunks:
+                raise RuntimeError("continuous batching did not drain")
+        return finished

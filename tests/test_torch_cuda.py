@@ -1,0 +1,208 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card, at small shapes and their edge cases.
+
+Needs an NVIDIA card with the CUDA toolkit (the kernels are built from
+``aiko_services_tpu_torch/csrc`` at first use); every test skips without
+one.  These tests import no JAX, so on the card they run without the
+JAX-side conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: the plain version is computed in f32 on the same inputs.
+bf16 outputs are held per element to 2^-7 * |want| + 2^-7 * max |want|
+over the element's row (last axis): the kernels round their f32 result to
+bf16 once, and flash_attention rounds its softmax weights to bf16 for the
+P.V product, an error of about 2^-9 times the spread of the row's
+outputs.  f32 outputs to 1e-4 (summation order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from aiko_services_tpu_torch.models import llama
+from aiko_services_tpu_torch.ops import attention, paged_attention, quant
+from aiko_services_tpu_torch.orchestration.continuous import (
+    ContinuousBatchingServer, DecodeRequest)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    """``got`` from a kernel of output type ``dtype`` against the f32
+    plain ``want``."""
+    got = got.float()
+    assert want.dtype == torch.float32
+    err = (got - want).abs()
+    if dtype == torch.bfloat16:
+        magnitude = want.abs()
+        tol = 2 ** -7 * (magnitude + magnitude.amax(-1, keepdim=True))
+        worst = float((err / tol.clamp_min(1e-30)).max())
+        assert worst <= 1.0, (float(err.max()), worst)
+    else:
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float(err.max()) <= tol, (float(err.max()), tol)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 13, 16, 33, 64])
+@pytest.mark.parametrize("k,n", [(64, 128), (352, 256), (4096, 1024),
+                                 (14336, 128), (4096, 2048)])
+def test_int8_matmul_kernel(cuda, m, k, n):
+    """bf16 activations (the kernel's type), with and without split K."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(m * k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    qw = quant.quantize_int8(torch.randn((k, n), generator=gen,
+                                         device=cuda))
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, qw["q"], qw["s"])
+    assert quant.int8_matmul.launches == before + 1
+    want = quant.int8_matmul_reference(x.float(), qw["q"], qw["s"])
+    assert got.dtype == dtype and got.shape == (m, n)
+    _close(got, want, dtype)
+
+
+def test_int8_matmul_is_batch_invariant(cuda):
+    """Row r's result does not depend on the other rows of x."""
+    x = torch.randn((64, 4096), device=cuda, dtype=torch.bfloat16)
+    qw = quant.quantize_int8(torch.randn((4096, 1024), device=cuda))
+    full = quant.int8_matmul(x, qw["q"], qw["s"])
+    for m in (1, 8, 13):
+        part = quant.int8_matmul(x[:m], qw["q"], qw["s"])
+        assert torch.equal(part, full[:m])
+
+
+def test_int8_matmul_large_m_takes_the_matrix_product(cuda):
+    x = torch.randn((65, 64), device=cuda, dtype=torch.bfloat16)
+    qw = quant.quantize_int8(torch.randn((64, 128), device=cuda))
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, qw["q"], qw["s"])
+    assert quant.int8_matmul.launches == before
+    _close(got, quant.int8_matmul_reference(x.float(), qw["q"], qw["s"]),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 1])
+@pytest.mark.parametrize("window", [None, 16, 40])
+@pytest.mark.parametrize("q_len,k_len,hd", [(64, 64, 32), (32, 96, 64),
+                                            (100, 100, 128), (1, 70, 16),
+                                            (256, 256, 128), (200, 330, 64)])
+def test_flash_attention_kernel(cuda, kv_heads, window, q_len, k_len, hd):
+    """bf16 (the kernel's type): GQA, window, q_len < k_len, ragged
+    tiles on both axes."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(q_len + k_len)
+    q = torch.randn((2, 4, q_len, hd), generator=gen, device=cuda)
+    k = torch.randn((2, kv_heads, k_len, hd), generator=gen, device=cuda)
+    v = torch.randn((2, kv_heads, k_len, hd), generator=gen, device=cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = attention.flash_attention.launches
+    got = attention.flash_attention(q, k, v, window=window)
+    assert attention.flash_attention.launches == before + 1
+    group = 4 // kv_heads
+    want = attention.attention_reference(
+        q.float(), k.float().repeat_interleave(group, 1),
+        v.float().repeat_interleave(group, 1), window=window)
+    _close(got, want, dtype)
+
+
+def test_flash_attention_strided_inputs(cuda):
+    """The llama path hands (batch, seq, heads, hd) tensors transposed."""
+    x = torch.randn((2, 48, 4, 32), device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn((2, 48, 2, 32), device=cuda, dtype=torch.bfloat16)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    got = attention.flash_attention(q, k, k)
+    k32 = k.float().repeat_interleave(2, 1)
+    want = attention.attention_reference(q.float(), k32, k32)
+    _close(got, want, torch.bfloat16)
+
+
+def _pool(cuda, gen, batch, kv, group, hd, bs, max_blocks, dtype, quant_kv):
+    n_blocks = batch * max_blocks + 1
+    q = torch.randn((batch, kv, group, hd), generator=gen, device=cuda)
+    k = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=cuda) + 1
+    tables = ids[:batch * max_blocks].reshape(batch, max_blocks) \
+        .to(torch.int32)
+    scales = {}
+    if quant_kv:
+        k, ks = llama._kv_quantize(k)
+        v, vs = llama._kv_quantize(v)
+        scales = dict(ks=ks, vs=vs)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    return q.to(dtype), k, v, tables, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("kv,group", [(1, 1), (1, 4), (1, 8), (2, 4)])
+@pytest.mark.parametrize("window", [None, 3, 40])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_paged_decode_kernel(cuda, dtype, quant_kv, kv, group, window, bs):
+    gen = torch.Generator(device=cuda).manual_seed(kv * 10 + group + bs)
+    max_blocks = 4
+    q, k, v, tables, scales = _pool(cuda, gen, 4, kv, group, 32, bs,
+                                    max_blocks, dtype, quant_kv)
+    last = bs * max_blocks - 1
+    positions = torch.tensor([0, bs - 1, bs, last], dtype=torch.int32,
+                             device=cuda)
+    before = paged_attention.paged_decode_attention.launches
+    got = paged_attention.paged_decode_attention(
+        q, k, v, tables, positions, window=window, **scales)
+    assert paged_attention.paged_decode_attention.launches == before + 1
+    again = paged_attention.paged_decode_attention(
+        q, k, v, tables, positions, window=window, **scales)
+    assert torch.equal(got, again)      # the block merge is ordered
+    pools = (k, v) if quant_kv else (k.float(), v.float())
+    want = paged_attention.paged_decode_reference(
+        q.float(), *pools, tables, positions, window=window, **scales)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_server_on_the_card_matches_batch1_oracle(cuda, quantize_kv):
+    """tiny with int8 weights on the card: the served greedy tokens equal
+    the batch-1 prefill + generate_tokens oracle on the same kernels."""
+    config = llama.CONFIGS["tiny"]
+    server = ContinuousBatchingServer(config_name="tiny", slots=3,
+                                      max_seq=128, chunk_steps=4,
+                                      quantize=True,
+                                      quantize_kv=quantize_kv, seed=1)
+    assert server.device.type == "cuda"
+    assert server.decode_attention_path == "kernel"
+    rng = np.random.default_rng(2)
+    requests = [DecodeRequest(f"r{i}", rng.integers(1, 1024, plen)
+                              .astype(np.int32), new)
+                for i, (plen, new) in enumerate(
+                    [(5, 6), (30, 9), (17, 4), (40, 7)])]
+    counts = (quant.int8_matmul.launches,
+              attention.flash_attention.launches,
+              paged_attention.paged_decode_attention.launches)
+    for request in requests:
+        server.submit(request)
+    server.run_until_drained()
+    assert quant.int8_matmul.launches > counts[0]
+    assert attention.flash_attention.launches > counts[1]
+    assert paged_attention.paged_decode_attention.launches > counts[2]
+    for request in requests:
+        prompt = torch.as_tensor(request.prompt, device=cuda)[None]
+        cache = llama.init_cache(config, 1, server.max_seq,
+                                 quantize_kv=quantize_kv)
+        logits, cache = llama.prefill(server.params, prompt, cache, config)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        rest, _ = llama.generate_tokens(server.params, first, cache,
+                                        prompt.shape[1],
+                                        request.max_new_tokens - 1, config)
+        want = [int(first[0, 0])] + rest[0].tolist()
+        assert request.tokens == want, request.request_id
