@@ -11,10 +11,12 @@ grouped-query attention, SwiGLU MLP, untied LM head, bfloat16 params with
 f32 norm/softmax accumulation.  The casts sit where the JAX code puts
 them: bf16 agreement depends on them.
 
-Three hand-written CUDA kernels carry the main path: ``int8_matmul`` in
-every projection at decode shapes, ``flash_attention`` in prefill and
-``paged_decode_attention`` in every decode step.  Each falls back to its
-plain version only on CPU tensors.
+Five hand-written CUDA kernels carry the serving paths: ``int8_matmul`` in
+every projection at decode shapes, ``flash_attention`` in contiguous
+prefill, ``paged_decode_attention`` in every decode step (contiguous caches
+feed it as a degenerate pool), and ``append_kv`` + ``chunk_attention`` in
+paged admission (:func:`prefill_append_paged`, :func:`serve_chunk_mixed`).
+Each takes its plain version only on CPU tensors.
 
 JAX donates caches to its jitted programs; here caches are updated IN
 PLACE (each write function mutates and returns the same per-layer dict),
@@ -38,13 +40,18 @@ from ..ops.attention import flash_attention
 from ..ops.paged_attention import (cached_gqa_attention,
                                    contiguous_block_size,
                                    paged_decode_attention)
+from ..ops.paged_prefill import (_gathered_view, _kv_quantize_rows,
+                                 _pool_sources, _write_rows_reference,
+                                 paged_prefill_attention)
 from ..ops.quant import int8_matmul, is_quantized, quantize_int8
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
            "random_quantized_params", "forward", "init_cache", "prefill",
            "decode_step", "generate_tokens", "serve_chunk_ragged",
            "scatter_state_rows", "sample_logits", "rms_norm",
-           "apply_rope"]
+           "apply_rope", "init_paged_cache", "decode_chunk_paged",
+           "serve_chunk_paged", "prefill_append_paged",
+           "serve_chunk_mixed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,31 +428,17 @@ def _kv_layer_buffers(config: LlamaConfig, shape, quantize_kv: bool,
             for _ in range(config.n_layers)]
 
 
-def _kv_quantize(rows):
-    """(..., hd) -> (int8 rows, f32 scales (...,)): symmetric absmax per
-    vector (one scale per cached token per kv head)."""
-    r32 = rows.to(torch.float32)
-    amax = r32.abs().amax(dim=-1)
-    scale = torch.where(amax == 0, 1.0, amax / 127.0)
-    q = torch.clamp(torch.round(r32 / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale
-
-
-def _quantize_pairs(cache_layer, k, v):
-    """(key -> source) map for a write: k/v plus int8 scales when the
-    layer is quantized (K and V quantized in one pass: the quantizer is
-    per vector, so stacking them changes no value)."""
-    if "ks" in cache_layer:
-        q, scale = _kv_quantize(torch.stack([k, v]))
-        return {"k": q[0], "v": q[1], "ks": scale[0], "vs": scale[1]}
-    return {"k": k, "v": v}
+#: (..., hd) -> (int8 rows, f32 scales (...,)): symmetric absmax per vector
+#: (one scale per cached token per kv head).  The ONE quantizer of the
+#: port's int8 KV: the paged append kernel reproduces it bit for bit.
+_kv_quantize = _kv_quantize_rows
 
 
 def _cache_write_slab(cache_layer, k, v, start_index: int):
     """Write a contiguous (batch, K, kv, hd) slab at ``start_index``, in
     place."""
     seq = k.shape[1]
-    for key, src in _quantize_pairs(cache_layer, k, v).items():
+    for key, src in _pool_sources(cache_layer, k, v).items():
         buf = cache_layer[key]
         buf[:, start_index:start_index + seq] = src.to(buf.dtype)
     return cache_layer
@@ -456,7 +449,7 @@ def _cache_write_rows(cache_layer, k, v, positions):
     ``positions``, in place."""
     rows = _iota(k.shape[0], k.device)
     positions = positions.to(torch.int64)
-    for key, src in _quantize_pairs(cache_layer, k, v).items():
+    for key, src in _pool_sources(cache_layer, k, v).items():
         buf = cache_layer[key]
         buf[rows, positions] = src[:, 0].to(buf.dtype)
     return cache_layer
@@ -706,3 +699,198 @@ def serve_chunk_ragged(params, state, cache, num_steps: int,
 
     return _serve_scan(step_core, state, cache, num_steps, eos_id,
                        sampled, generator)
+
+
+# --------------------------------------------------------------------------- #
+# Paged KV cache (vLLM-style block pool)
+#
+# Layout per layer: pool (n_blocks, block_size, kv, hd), plus f32 (n_blocks,
+# block_size, kv) scales when int8; each slot owns a block table
+# (max_blocks,) of pool indices.  Block 0 is reserved scratch: unallocated
+# table entries and inactive slots point there, and it is never attendable
+# (masking is by absolute position, and live positions always map to
+# allocated blocks).  Pools are updated IN PLACE, like the contiguous cache.
+
+def init_paged_cache(config: LlamaConfig, n_blocks: int,
+                     block_size: int = 16, quantize_kv: bool = False,
+                     device=None) -> List[Dict]:
+    """Block pool, one dict per layer.  ``n_blocks`` INCLUDES the reserved
+    scratch block 0."""
+    return _kv_layer_buffers(
+        config, (n_blocks, block_size, config.n_kv_heads, config.head_dim),
+        quantize_kv, resolve_device(device))
+
+
+#: Scatter a (batch, K, kv, hd) chunk slab into the pool at per-row
+#: absolute positions (batch, K), in place: the append path's plain write.
+_paged_write_slab = _write_rows_reference
+
+#: Per-slot cache view ``pool[tables]`` -> (slots, max_blocks*bs, ...): the
+#: layout :func:`cached_gqa_attention` reads, so paged and contiguous
+#: attention share one plain implementation.  A transient copy.
+_paged_gather = _gathered_view
+
+
+def _paged_write_rows(pool_layer, k, v, tables, positions):
+    """Scatter one (batch, 1, kv, hd) row per slot into the pool at
+    ``(tables[s, pos // bs], pos % bs)``, in place."""
+    return _paged_write_slab(pool_layer, k, v, tables, positions[:, None])
+
+
+def _attention_decode_paged(layer, config, x, rope, pool_layer, tables,
+                            positions):
+    """Single-token decode against the block pool (per-row positions).  On
+    a CUDA tensor the paged decode kernel walks the REAL block tables; on
+    the CPU the gathered view goes through the plain attention."""
+    batch, seq, _ = x.shape
+    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    q, k, v = _qkv(layer, config, x, rope)
+    _paged_write_rows(pool_layer, k, v, tables, positions)
+    q_g = q.reshape(batch, seq, kv, h // kv, hd)
+    if q_g.device.type == "cuda":
+        out = paged_decode_attention(
+            q_g[:, 0].contiguous(), pool_layer["k"], pool_layer["v"],
+            tables, positions.to(torch.int32), ks=pool_layer.get("ks"),
+            vs=pool_layer.get("vs"), window=config.sliding_window)[:, None]
+    else:
+        out = cached_gqa_attention(q_g, _paged_gather(pool_layer, tables),
+                                   positions[:, None], hd,
+                                   window=config.sliding_window)
+    out = out.reshape(batch, seq, h * hd)
+    return x + _matmul(out, layer["wo"]).to(x.dtype)
+
+
+def _decode_core_paged(params, token, pool, tables, positions,
+                       config: LlamaConfig):
+    """One paged decode step: token (batch, 1) at per-row ``positions``
+    -> (logits (batch, 1, vocab) f32, pool updated in place)."""
+    rope = _rope_tables(config, positions[:, None])
+    x = _embed_lookup(params, token, config.dtype)
+    for layer, pool_layer in zip(params["layers"], pool):
+        x = _attention_decode_paged(layer, config, x, rope, pool_layer,
+                                    tables, positions)
+        x = _mlp_block(layer, config, x)
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    return _matmul(x, params["lm_head"]).to(torch.float32), pool
+
+
+@torch.no_grad()
+def serve_chunk_paged(params, state, pool, num_steps: int,
+                      config: LlamaConfig, eos_id: int = -1,
+                      sampled: bool = False, generator=None):
+    """Paged twin of :func:`serve_chunk_ragged`: the block tables ride the
+    resident ``state`` (``state["tables"]``), so table updates merge in
+    with the other dirty rows.  Inactive lanes write scratch block 0 at
+    their slot offset."""
+    tables = state["tables"]
+    block_size = pool[0]["k"].shape[1]
+    scratch_tables = torch.zeros_like(tables)
+    scratch_positions = _iota(tables.shape[0], tables.device,
+                              torch.int32) % block_size
+
+    def step_core(token, pool, positions, active):
+        write_tables = torch.where(active[:, None], tables, scratch_tables)
+        write_pos = torch.where(active, positions, scratch_positions)
+        return _decode_core_paged(params, token, pool, write_tables,
+                                  write_pos, config)
+
+    return _serve_scan(step_core, state, pool, num_steps, eos_id, sampled,
+                       generator)
+
+
+@torch.no_grad()
+def decode_chunk_paged(params, tokens, pool, tables, positions, active,
+                       num_steps: int, config: LlamaConfig,
+                       temperatures=None, top_ps=None, generator=None):
+    """``num_steps`` paged decode steps for every slot, no EOS and no
+    budget (the JAX package's paged oracle): :func:`serve_chunk_paged`
+    with a budget of ``num_steps``.  Inactive slots write scratch block 0
+    and do not advance.  Returns (tokens_out (slots, num_steps), last
+    token (slots, 1), positions, pool)."""
+    slots, device = tokens.shape[0], tokens.device
+    sampled = temperatures is not None
+    state = dict(
+        token=tokens.to(torch.int32), positions=positions.to(torch.int32),
+        active=active, tables=tables,
+        remaining=torch.full((slots,), num_steps, dtype=torch.int32,
+                             device=device),
+        temps=(temperatures if sampled else
+               torch.zeros((slots,), dtype=torch.float32, device=device)),
+        tops=(top_ps if top_ps is not None else
+              torch.ones((slots,), dtype=torch.float32, device=device)))
+    tokens_out, _, state, pool = serve_chunk_paged(
+        params, state, pool, num_steps, config, sampled=sampled,
+        generator=generator)
+    return tokens_out, state["token"], state["positions"], pool
+
+
+def _prefill_append_core(params, tokens, pool, tables, start_index: int,
+                         config: LlamaConfig, kv_limit: Optional[int] = None,
+                         compute_logits: bool = True):
+    """Append-attention prefill straight against the block pool: the
+    chunk's K/V land in their pool blocks and its queries attend over the
+    cached prefix blocks plus the causally visible chunk, with no bucket,
+    gather or scatter-back.  All rows share one ``start_index`` (block-
+    aligned); ``tables`` is the request's (1, max_blocks) row.
+    ``compute_logits=False`` skips the final norm and LM head: the serving
+    paths seed decode with the last prompt token and never read prefill
+    logits."""
+    batch, K = tokens.shape
+    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    start = int(start_index)
+    device = tokens.device
+    positions_b = (start + _iota(K, device))[None, :].expand(batch, K)
+    cached_lens = torch.full((batch,), start, dtype=torch.int32,
+                             device=device)
+    chunk_lens = torch.full((batch,), K, dtype=torch.int32, device=device)
+    tables = tables.to(torch.int32).contiguous()
+    rope = _rope_tables(config, positions_b)
+    x = _embed_lookup(params, tokens, config.dtype)
+    for layer, pool_layer in zip(params["layers"], pool):
+        q, k, v = _qkv(layer, config, x, rope)
+        out, _ = paged_prefill_attention(
+            q.reshape(batch, K, kv, h // kv, hd).contiguous(),
+            k.contiguous(), v.contiguous(), pool_layer, tables, cached_lens,
+            chunk_lens, window=config.sliding_window, kv_limit=kv_limit)
+        x = x + _matmul(out.reshape(batch, K, h * hd),
+                        layer["wo"]).to(x.dtype)
+        x = _mlp_block(layer, config, x)
+    if not compute_logits:
+        return None, pool
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    return _matmul(x, params["lm_head"]).to(torch.float32), pool
+
+
+@torch.no_grad()
+def prefill_append_paged(params, tokens, pool, tables, start_index: int,
+                         config: LlamaConfig, kv_limit: Optional[int] = None,
+                         compute_logits: bool = True):
+    """Admit a (batch, K) prompt chunk into the block pool by append
+    attention; a prefix-cache hit passes ``start_index = n_shared *
+    block_size`` and the shared blocks are only read.  ``kv_limit`` bounds
+    the kernel's block sweep to the request's own allocation.  Returns
+    (logits (batch, K, vocab) f32 or None, pool)."""
+    _dense_only(config)
+    return _prefill_append_core(params, tokens, pool, tables, start_index,
+                                config, kv_limit=kv_limit,
+                                compute_logits=compute_logits)
+
+
+@torch.no_grad()
+def serve_chunk_mixed(params, state, pool, prefill_tokens, prefill_row: int,
+                      prefill_start: int, num_steps: int,
+                      config: LlamaConfig, eos_id: int = -1,
+                      sampled: bool = False, generator=None,
+                      prefill_kv_limit: Optional[int] = None):
+    """Sarathi-style mixed step: a chunked-prefill slice for the admitting
+    slot ``prefill_row`` (its table row read from the resident state),
+    then ``num_steps`` decode steps for the live slots, in one call.  The
+    prefilling slot stays inactive in ``state`` until its last slice
+    lands, so the decode steps treat it as a scratch lane."""
+    tables_row = state["tables"][int(prefill_row):int(prefill_row) + 1]
+    _prefill_append_core(params, prefill_tokens, pool, tables_row,
+                         prefill_start, config, kv_limit=prefill_kv_limit,
+                         compute_logits=False)
+    return serve_chunk_paged(params, state, pool, num_steps, config,
+                             eos_id=eos_id, sampled=sampled,
+                             generator=generator)

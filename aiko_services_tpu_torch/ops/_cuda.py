@@ -32,6 +32,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: Never -use_fast_math: csrc/paged_append.cu's int8 KV quantizer must keep
+#: IEEE division to stay bit-identical to the plain quantizer.
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
 
@@ -48,6 +50,11 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "aiko_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                              _I, _I, _F, _P],
+    "aiko_append_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                             _P],
 }
 
 _LOCK = threading.Lock()

@@ -1,0 +1,344 @@
+"""Ragged paged append attention: chunked prefill straight against the
+block pool, with its two hand-written CUDA kernels and their plain
+versions.
+
+Port of ``aiko_services_tpu/ops/paged_prefill.py`` (the prefill half;
+the speculative verify writer ``_append_kv_ragged`` waits for the
+speculation slice).  Admission appends a prompt chunk into the slot's
+block chain and attends its queries over the cached prefix blocks plus
+the causally visible part of the chunk, reading K/V in place: no bucket
+cache, no gather, no scatter-back.
+
+* :func:`append_kv` writes the chunk's ``(batch, T, kv, hd)`` K/V into
+  pool blocks ``tables[row, cached // bs + cb]`` in place
+  (``csrc/paged_append.cu`` on CUDA tensors); int8 pools quantize each
+  (token, kv head) vector exactly as :func:`_kv_quantize_rows`.  Blocks
+  past a row's ``chunk_len`` are not written by the kernel; the plain
+  version flushes them into scratch block 0 (never attended), as the JAX
+  kernel does, so the two agree everywhere but block 0.
+* :func:`chunk_attention` runs the chunk's queries over the appended
+  pool (``csrc/paged_prefill.cu`` on CUDA tensors).
+* :func:`paged_prefill_attention` is the two in order.  On CPU tensors
+  it keeps the JAX package's dispatch rule: shapes outside the kernels'
+  envelope (``head_dim > 128`` or ``T % block_size``) take
+  :func:`paged_prefill_reference`.  On CUDA tensors such shapes raise.
+
+Every function here updates the pool IN PLACE and returns it, which is
+what the JAX kernels' input/output aliasing buys on the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import _cuda
+from .paged_attention import cached_gqa_attention
+
+__all__ = ["paged_prefill_attention", "paged_prefill_reference",
+           "append_kv", "append_kv_reference", "chunk_attention",
+           "chunk_attention_reference"]
+
+
+def _kv_quantize_rows(rows):
+    """(..., hd) -> (int8 rows, f32 scales (...,)): symmetric absmax per
+    vector (one scale per cached token per kv head).  THE int8 KV
+    quantizer of the port: the model's cache writers use it too, and
+    ``csrc/paged_append.cu`` reproduces it bit for bit (a true division
+    by the scale, round half to even).  The 127 is a tensor: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    is one ulp off a true division in places."""
+    r32 = rows.to(torch.float32)
+    amax = r32.abs().amax(dim=-1)
+    scale = torch.where(amax == 0, 1.0,
+                        amax / torch.full_like(amax, 127.0))
+    q = torch.clamp(torch.round(r32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _pool_sources(layer: Dict, k, v) -> Dict:
+    """(key -> source) map of a KV write: k/v, or on an int8 layer their
+    codes and scales (K and V quantized in one pass: the quantizer is per
+    vector, so stacking them changes no value)."""
+    if "ks" in layer:
+        q, scale = _kv_quantize_rows(torch.stack([k, v]))
+        return {"k": q[0], "v": q[1], "ks": scale[0], "vs": scale[1]}
+    return {"k": k, "v": v}
+
+
+def _write_rows_reference(pool: Dict, k_new, v_new, tables, positions):
+    """Scatter every chunk row (padding rows too) into the pool at its
+    absolute position ``positions`` (batch, T), in place; int8 layouts
+    quantize like the cache writer."""
+    block_size = pool["k"].shape[1]
+    positions = positions.to(torch.int64)
+    block_ids = tables.to(torch.int64).gather(1, positions // block_size)
+    offsets = positions % block_size
+    for key, src in _pool_sources(pool, k_new, v_new).items():
+        pool[key][block_ids, offsets] = src.to(pool[key].dtype)
+    return pool
+
+
+def _gathered_view(pool: Dict, tables) -> Dict:
+    """``pool[tables]`` as per-row contiguous caches (batch, blocks*bs,
+    ...)."""
+    tables = tables.to(torch.int64)
+
+    def view(buf):
+        gathered = buf[tables]
+        batch, n_blocks, block_size = gathered.shape[:3]
+        return gathered.reshape((batch, n_blocks * block_size)
+                                + tuple(gathered.shape[3:]))
+    return {key: view(buf) for key, buf in pool.items()}
+
+
+def _query_positions(cached_lens, T: int):
+    return (cached_lens.to(torch.int64)[:, None]
+            + torch.arange(T, device=cached_lens.device)[None, :])
+
+
+def paged_prefill_reference(q, k_new, v_new, pool, tables, cached_lens,
+                            chunk_lens, window: Optional[int] = None):
+    """Write-then-gather-then-attend oracle: scatter the chunk's K/V into
+    the pool, view ``pool[tables]`` as per-row contiguous caches and run
+    :func:`cached_gqa_attention` with query positions ``cached + [0,
+    T)``.  ``q`` (batch, T, kv, group, hd); returns ``(out (batch, T, kv,
+    group, hd), pool)``.  Output rows at or past ``chunk_lens[row]`` are
+    padding, attended against garbage and discarded by callers."""
+    T = k_new.shape[1]
+    positions = _query_positions(cached_lens, T)
+    _write_rows_reference(pool, k_new, v_new, tables, positions)
+    out = cached_gqa_attention(q, _gathered_view(pool, tables), positions,
+                               q.shape[-1], window=window)
+    return out, pool
+
+
+# --------------------------------------------------------------------------- #
+# append_kv: TPU kernel 5 (``_append_kv``)
+
+def _chunk_blocks(k_new, pool, tables, cached_lens, chunk_lens):
+    """(pool block id, live) of each ``block_size`` block of the chunk:
+    ``tables[row, cached // bs + cb]`` (entry clamped to the table, as
+    the JAX index map does) and whether the block starts before the
+    row's ``chunk_len``."""
+    T = k_new.shape[1]
+    block_size = pool["k"].shape[1]
+    cb = torch.arange(T // block_size, device=k_new.device)
+    entries = (cached_lens.to(torch.int64)[:, None] // block_size
+               + cb[None, :]).clamp(max=tables.shape[1] - 1)
+    block_ids = tables.to(torch.int64).gather(1, entries)
+    live = cb[None, :] * block_size < chunk_lens.to(torch.int64)[:, None]
+    return block_ids, live
+
+
+def append_kv_reference(k_new, v_new, pool, tables, cached_lens,
+                        chunk_lens):
+    """Plain version of :func:`append_kv`: whole blocks of the chunk land
+    in their table-resolved pool blocks, in place; blocks past
+    ``chunk_len`` flush into scratch block 0 (one scatter, no host
+    sync)."""
+    batch, T = k_new.shape[:2]
+    block_size = pool["k"].shape[1]
+    block_ids, live = _chunk_blocks(k_new, pool, tables, cached_lens,
+                                    chunk_lens)
+    targets = torch.where(live, block_ids, 0)
+    for key, src in _pool_sources(pool, k_new, v_new).items():
+        blocks = src.reshape((batch, T // block_size, block_size)
+                             + tuple(src.shape[2:]))
+        pool[key][targets] = blocks.to(pool[key].dtype)
+    return pool
+
+
+def append_kv(k_new, v_new, pool, tables, cached_lens, chunk_lens):
+    """Write a chunk's K/V into its pool blocks, in place.
+
+    Args:
+      k_new / v_new: ``(batch, T, kv_heads, head_dim)``, ``T`` a multiple
+        of the pool's block size.
+      pool: per-layer dict ``{"k", "v"[, "ks", "vs"]}`` of ``(n_blocks,
+        block_size, kv_heads, head_dim)`` pools (int8 with f32 ``(n_blocks,
+        block_size, kv_heads)`` scales).
+      tables: ``(batch, max_blocks)`` int32 block tables.
+      cached_lens: ``(batch,)`` int32 tokens already in the pool per row,
+        multiples of ``block_size``.
+      chunk_lens: ``(batch,)`` int32 real tokens of the chunk per row.
+
+    CPU tensors take :func:`append_kv_reference`; CUDA tensors launch
+    ``csrc/paged_append.cu``.  Returns ``pool``."""
+    if k_new.device.type == "cpu":
+        return append_kv_reference(k_new, v_new, pool, tables, cached_lens,
+                                   chunk_lens)
+    batch, T, kv_heads, head_dim = k_new.shape
+    n_blocks, block_size = pool["k"].shape[:2]
+    quantized = "ks" in pool
+    if T % block_size:
+        raise ValueError(f"append_kv: chunk width {T} is not a multiple of "
+                         f"block_size {block_size}")
+    if v_new.shape != k_new.shape or pool["k"].shape[2:] \
+            != (kv_heads, head_dim) or pool["v"].shape != pool["k"].shape:
+        raise ValueError(f"append_kv: k/v {tuple(k_new.shape)}, pool "
+                         f"{tuple(pool['k'].shape)}")
+    if k_new.dtype not in (torch.bfloat16, torch.float32) \
+            or v_new.dtype != k_new.dtype:
+        raise TypeError(f"append_kv: k/v dtype {k_new.dtype}")
+    if quantized != (pool["k"].dtype == torch.int8):
+        raise TypeError("append_kv: int8 pools need ks/vs and float pools "
+                        "take none")
+    if pool["k"].dtype not in _cuda.DTYPE_CODES:
+        raise TypeError(f"append_kv: pool dtype {pool['k'].dtype}")
+    _check_meta("append_kv", tables, cached_lens, chunk_lens, batch)
+    operands = [k_new, v_new, pool["k"], pool["v"], tables, cached_lens,
+                chunk_lens]
+    if quantized:
+        _check_scales("append_kv", pool)
+        operands += [pool["ks"], pool["vs"]]
+    device = _cuda.check_cuda("append_kv", *operands)
+    _cuda.launch("aiko_append_kv", device, k_new.data_ptr(),
+                 v_new.data_ptr(), pool["k"].data_ptr(),
+                 pool["v"].data_ptr(), _cuda.ptr(pool.get("ks")),
+                 _cuda.ptr(pool.get("vs")), tables.data_ptr(),
+                 cached_lens.data_ptr(), chunk_lens.data_ptr(), batch, T,
+                 kv_heads, head_dim, block_size, tables.shape[1],
+                 _cuda.DTYPE_CODES[k_new.dtype],
+                 _cuda.DTYPE_CODES[pool["k"].dtype])
+    append_kv.launches += 1
+    return pool
+
+
+#: Kernel launches on the CUDA path (never counts the plain version).
+append_kv.launches = 0
+
+
+def _check_meta(name, tables, cached_lens, chunk_lens, batch):
+    if tables.dtype != torch.int32 or cached_lens.dtype != torch.int32 \
+            or chunk_lens.dtype != torch.int32:
+        raise TypeError(f"{name}: tables, cached_lens and chunk_lens must "
+                        "be int32")
+    if tables.shape[0] != batch or tuple(cached_lens.shape) != (batch,) \
+            or tuple(chunk_lens.shape) != (batch,):
+        raise ValueError(f"{name}: tables/cached_lens/chunk_lens do not "
+                         "match the batch")
+
+
+def _check_scales(name, pool):
+    if pool["ks"].shape != pool["k"].shape[:3] \
+            or pool["vs"].shape != pool["ks"].shape \
+            or pool["ks"].dtype != torch.float32 \
+            or pool["vs"].dtype != torch.float32:
+        raise ValueError(f"{name}: scales must be f32 (n_blocks, "
+                         "block_size, kv_heads)")
+
+
+# --------------------------------------------------------------------------- #
+# chunk_attention: TPU kernel 6 (``_chunk_attention``)
+
+def chunk_attention_reference(q, pool, tables, cached_lens,
+                              window: Optional[int] = None):
+    """Plain version of :func:`chunk_attention` over an already appended
+    pool: the gathered per-row view and :func:`cached_gqa_attention` with
+    query positions ``cached + [0, T)`` (the JAX package's reference
+    dispatch)."""
+    positions = _query_positions(cached_lens, q.shape[1])
+    return cached_gqa_attention(q, _gathered_view(pool, tables), positions,
+                                q.shape[-1], window=window)
+
+
+def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
+                    window: Optional[int] = None,
+                    kv_limit: Optional[int] = None):
+    """Attend a chunk's queries over the row's cached prefix blocks plus
+    the causally visible part of the chunk, K/V read straight from the
+    pool through the block table.
+
+    ``q`` ``(batch, T, kv_heads, group, head_dim)`` (rope applied); the
+    pool must already hold the chunk (:func:`append_kv`).  Query ``t`` of
+    row ``b`` sits at position ``cached_lens[b] + t`` and sees keys at
+    positions ``<=`` its own (and inside ``window``).  ``kv_limit`` bounds
+    the kernel's sweep to the first ``kv_limit`` table entries.  Rows at
+    or past ``chunk_lens[b]`` are padding: the kernel reads no key past
+    the chunk for them and the caller discards them.  Returns the same
+    shape as ``q`` in ``q.dtype``.  CPU tensors take
+    :func:`chunk_attention_reference`; CUDA tensors launch
+    ``csrc/paged_prefill.cu``."""
+    if q.device.type == "cpu":
+        return chunk_attention_reference(q, pool, tables, cached_lens,
+                                         window=window)
+    batch, T, kv_heads, group, head_dim = q.shape
+    n_blocks, block_size = pool["k"].shape[:2]
+    max_blocks = tables.shape[1]
+    kv_blocks = max_blocks if kv_limit is None else min(int(kv_limit),
+                                                        max_blocks)
+    if head_dim not in (16, 32, 64, 128):
+        raise ValueError(f"chunk_attention: head_dim {head_dim} outside the "
+                         "kernel's envelope (16, 32, 64 or 128)")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"chunk_attention: the kernel takes bf16 queries, "
+                        f"got {q.dtype}")
+    quantized = "ks" in pool
+    if pool["k"].dtype not in (torch.bfloat16, torch.int8) \
+            or quantized != (pool["k"].dtype == torch.int8) \
+            or pool["v"].dtype != pool["k"].dtype:
+        raise TypeError(f"chunk_attention: pool dtype {pool['k'].dtype} "
+                        "(bf16, or int8 with ks/vs)")
+    if pool["k"].shape[2:] != (kv_heads, head_dim) \
+            or pool["v"].shape != pool["k"].shape:
+        raise ValueError(f"chunk_attention: q {tuple(q.shape)}, pool "
+                         f"{tuple(pool['k'].shape)}")
+    _check_meta("chunk_attention", tables, cached_lens, chunk_lens, batch)
+    out = torch.empty_like(q)
+    operands = [q, pool["k"], pool["v"], tables, cached_lens, chunk_lens,
+                out]
+    if quantized:
+        _check_scales("chunk_attention", pool)
+        operands += [pool["ks"], pool["vs"]]
+    device = _cuda.check_cuda("chunk_attention", *operands)
+    _cuda.launch("aiko_chunk_attention", device, q.data_ptr(),
+                 pool["k"].data_ptr(), pool["v"].data_ptr(),
+                 _cuda.ptr(pool.get("ks")), _cuda.ptr(pool.get("vs")),
+                 tables.data_ptr(), cached_lens.data_ptr(),
+                 chunk_lens.data_ptr(), out.data_ptr(), batch, T, kv_heads,
+                 group, head_dim, block_size, max_blocks, kv_blocks,
+                 int(window or 0), float(head_dim ** -0.5),
+                 _cuda.DTYPE_CODES[pool["k"].dtype])
+    chunk_attention.launches += 1
+    return out
+
+
+#: Kernel launches on the CUDA path (never counts the plain version).
+chunk_attention.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# The append-attention entry point
+
+def paged_prefill_attention(q, k_new, v_new, pool, tables, cached_lens,
+                            chunk_lens, window: Optional[int] = None,
+                            kv_limit: Optional[int] = None):
+    """Ragged paged append attention: :func:`append_kv` then
+    :func:`chunk_attention`.
+
+    ``q`` ``(batch, T, kv_heads, group, head_dim)``; ``k_new``/``v_new``
+    ``(batch, T, kv_heads, head_dim)`` written at positions
+    ``cached_lens[row] + [0, T)``; ``cached_lens`` block-aligned (shared
+    prefixes are whole blocks and slice widths powers of two, so every
+    caller satisfies this by construction); ``kv_limit`` trims the
+    attention sweep.  Returns ``(out, pool)`` with the pool updated in
+    place.  Shapes outside the kernels' envelope (``head_dim > 128``,
+    ``T`` not block-aligned) take :func:`paged_prefill_reference` on CPU
+    tensors, as the JAX package does, and raise on CUDA tensors."""
+    T, head_dim = q.shape[1], q.shape[-1]
+    block_size = pool["k"].shape[1]
+    if head_dim > 128 or T % block_size != 0:
+        if q.device.type != "cpu":
+            raise ValueError(
+                f"paged_prefill_attention: head_dim {head_dim}, chunk width "
+                f"{T} and block_size {block_size} are outside the kernels' "
+                "envelope (head_dim <= 128, block-aligned chunks)")
+        return paged_prefill_reference(q, k_new, v_new, pool, tables,
+                                       cached_lens, chunk_lens,
+                                       window=window)
+    append_kv(k_new, v_new, pool, tables, cached_lens, chunk_lens)
+    out = chunk_attention(q, pool, tables, cached_lens, chunk_lens,
+                          window=window, kv_limit=kv_limit)
+    return out, pool

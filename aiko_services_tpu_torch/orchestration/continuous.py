@@ -28,10 +28,17 @@ its lifetime.
 Greedy decode through this path matches per-request ``prefill`` +
 ``generate_tokens`` output whatever the admission order.
 
+Layout hooks (``_init_layout``, ``_attention_blocks``, ``_reserve_slot``,
+``_release_slot``, ``_prefill_and_insert``, ``_begin_chunked_prefill``,
+``_advance_prefills``, ``_finish_prefill``, ``_serve_chunk``) are where the
+paged server (:mod:`.paged`) plugs in its block pool, as in the JAX
+package.
+
 Left out of this slice (they raise ``NotImplementedError``): meshes,
-LoRA adapters, speculative decoding and grammars, chunked prefill, the
-compilation cache, the watchdog and the legacy full-mirror upload; the
-observability hooks; the actor wrapper ``ContinuousReplica``.
+LoRA adapters, speculative decoding and grammars, chunked prefill on the
+contiguous layout (it needs ``llama.prefill_chunk``; the paged server has
+its own), the compilation cache, the watchdog and the legacy full-mirror
+upload; the observability hooks; the actor wrapper ``ContinuousReplica``.
 """
 
 from __future__ import annotations
@@ -122,7 +129,6 @@ class ContinuousBatchingServer:
             or draft_mode != "auto" or spec_ladder is not None
             or spec_adaptive,
             "automata": bool(automata),
-            "chunk_prefill_tokens": int(chunk_prefill_tokens) > 0,
             "compilation_cache_dir": compilation_cache_dir is not None,
             "watchdog_s": float(watchdog_s) > 0,
             "compact_upload=False": not compact_upload,
@@ -151,17 +157,20 @@ class ContinuousBatchingServer:
         self.eos_id = eos_id
         self.quantize_kv = quantize_kv
         self._bucket_minimum = 16
-        self.cache = llama.init_cache(self.config, slots, self.max_seq,
-                                      quantize_kv=quantize_kv,
-                                      device=self.device)
-        # Decode-attention path tag, decided once: the kernel on the card
-        # when the contiguous cache has a block view, else the plain path.
-        self._attn_block_size = (contiguous_block_size(self.max_seq)
-                                 or self.max_seq)
-        self._attn_total_blocks = -(-self.max_seq // self._attn_block_size)
-        self.decode_attention_path = (
-            "kernel" if self.device.type == "cuda"
-            and contiguous_block_size(self.max_seq) else "reference")
+        self.chunk_prefill_tokens = int(chunk_prefill_tokens)
+        if self.chunk_prefill_tokens and (
+                self.chunk_prefill_tokens < 16
+                or self.chunk_prefill_tokens
+                & (self.chunk_prefill_tokens - 1)):
+            raise ValueError("chunk_prefill_tokens must be a power of two "
+                             f">= 16, got {self.chunk_prefill_tokens}")
+        #: slot -> in-progress chunked admission state.
+        self._prefilling: Dict[int, Dict] = {}
+        self._init_layout()
+        # Decode-attention path tag and view geometry, decided once.
+        self._attn_block_size, self._attn_total_blocks = \
+            self._attention_blocks()
+        self.decode_attention_path = self._decode_attention_path()
         # Host mirrors of the per-slot decode state (numpy): admissions
         # and retirements mutate them for free; they reach the device
         # only through _sync_dirty.
@@ -209,12 +218,60 @@ class ContinuousBatchingServer:
             dispatches=0, decode_steps=0, tokens_committed=0,
             host_syncs=0, sync_wait_ms=0.0, sync_elements=0,
             state_uploads=0, dirty_rows_uploaded=0, max_in_flight=0,
-            ring_starved_steps=0,
+            ring_starved_steps=0, admission_deferred=0,
             decode_blocks_read=0, prefill_tokens=0, prefill_dispatches=0,
             deadline_exceeded=0, shed=0),
             prefix="server",
             labels={"instance": f"srv{self._instance_id}"})
         self._serve_started: Optional[float] = None
+
+    # ---- layout hooks (the paged server overrides these) ---------------- #
+
+    def _init_layout(self) -> None:
+        """The contiguous layout reserves ``slots x max_seq`` rows."""
+        if self.chunk_prefill_tokens:
+            raise NotImplementedError(
+                "not ported yet: chunk_prefill_tokens on the contiguous "
+                "layout (llama.prefill_chunk); the paged server supports it")
+        self.cache = llama.init_cache(self.config, self.slots, self.max_seq,
+                                      quantize_kv=self.quantize_kv,
+                                      device=self.device)
+
+    def _attention_blocks(self):
+        """``(block_size, blocks_per_row)`` of the decode-attention view:
+        the contiguous cache is the kernel's degenerate block pool."""
+        block_size = contiguous_block_size(self.max_seq) or self.max_seq
+        return block_size, -(-self.max_seq // block_size)
+
+    def _decode_attention_path(self) -> str:
+        """The kernel on the card when the cache has a block view, else
+        the plain path."""
+        return ("kernel" if self.device.type == "cuda"
+                and contiguous_block_size(self.max_seq) else "reference")
+
+    def _reserve_slot(self, slot: int, padded: int, request) -> bool:
+        """Capacity hook: the contiguous layout always has room (the slot
+        IS the room)."""
+        return True
+
+    def _release_slot(self, slot: int) -> None:
+        """Layout hook: return a retiring slot's resources."""
+
+    def _begin_chunked_prefill(self, slot: int, request, prompt_padded,
+                               prompt_len: int) -> None:
+        """Open a chunked admission for ``slot`` (paged layout only)."""
+        raise NotImplementedError("chunked prefill on the contiguous layout")
+
+    def _advance_prefills(self) -> None:
+        """Run the next slice of every chunked admission (paged layout;
+        the contiguous layout never has one in flight)."""
+
+    def _finish_prefill(self, slot: int, state: Dict) -> None:
+        """A chunked admission's prompt is in: the slot turns decode-
+        active."""
+        del self._prefilling[slot]
+        self._activate_slot(slot, state["request"], state["prompt_padded"],
+                            state["prompt_len"])
 
     # ---- device state -------------------------------------------------- #
 
@@ -382,15 +439,27 @@ class ContinuousBatchingServer:
         for slot in range(self.slots):
             if self._requests[slot] is not None or not self._queue:
                 continue
-            request = self._queue.pop(0)
-            request.activated_ts = time.monotonic()
+            request = self._queue[0]
             prompt = np.asarray(request.prompt, np.int32)
             prompt_len = prompt.shape[0]
             # Clamp the bucket to the cache.
             padded = min(_bucket(prompt_len, self._bucket_minimum),
                          self.max_seq)
+            if not self._reserve_slot(slot, padded, request):
+                self.counters["admission_deferred"] += 1
+                break          # capacity (paged pool) exhausted; retry later
+            self._queue.pop(0)
+            request.activated_ts = time.monotonic()
             prompt_padded = np.zeros((1, padded), np.int32)
             prompt_padded[0, :prompt_len] = prompt
+            if self.chunk_prefill_tokens \
+                    and prompt_len > self.chunk_prefill_tokens:
+                # Chunked admission: the slot is OCCUPIED but not yet
+                # active; its slices ride later dispatches.
+                self._requests[slot] = request
+                self._begin_chunked_prefill(slot, request, prompt_padded,
+                                            prompt_len)
+                continue
             admissions.append((slot, request, prompt_padded, prompt_len))
         if not admissions:
             return
@@ -463,6 +532,7 @@ class ContinuousBatchingServer:
         if request is not None:
             request.finished_ts = time.monotonic()
             self.completed.append(request)
+        self._release_slot(slot)
         self._requests[slot] = None
         self.active[slot] = False
         self._remaining[slot] = 0
@@ -504,6 +574,7 @@ class ContinuousBatchingServer:
                     return True    # finished naturally while draining
                 request.max_new_tokens = int(max_new_tokens)
                 if request.max_new_tokens <= self._emitted[slot]:
+                    self._prefilling.pop(slot, None)
                     self._retire(slot)
                     return True
                 self._remaining[slot] = (request.max_new_tokens
@@ -537,10 +608,16 @@ class ContinuousBatchingServer:
             request = self._requests[slot]
             if request is None or request.request_id != request_id:
                 continue
-            self._drain_ring()
-            if self._requests[slot] is not request:
-                return True      # finished naturally while draining
+            if slot not in self._prefilling:
+                # Decoding: drain the ring first so dispatched chunks
+                # deliver their partial tokens.  A chunk-prefilling slot
+                # has none; its blocks may be reused at once, because every
+                # kernel runs on one stream in dispatch order.
+                self._drain_ring()
+                if self._requests[slot] is not request:
+                    return True      # finished naturally while draining
             request.error = "cancelled"
+            self._prefilling.pop(slot, None)
             self._retire(slot)
             return True
         return False
@@ -573,6 +650,7 @@ class ContinuousBatchingServer:
                 continue       # finished naturally while draining
             request.error = "deadline_exceeded"
             self.counters["deadline_exceeded"] += 1
+            self._prefilling.pop(slot, None)
             self._retire(slot)
 
     # ---- the step loop -------------------------------------------------- #
@@ -583,6 +661,7 @@ class ContinuousBatchingServer:
         finished slots.  Returns (and clears) the completed list."""
         self._evict_expired()
         self._admit()
+        self._advance_prefills()
         if self.slots_active and not self._ring:
             self.counters["ring_starved_steps"] += 1
             self._starved_streak += 1
@@ -764,6 +843,7 @@ class ContinuousBatchingServer:
             in_flight=len(self._ring),
             ring_depth=self._ring_depth,
             queue_depth=self.queue_depth,
+            prefill_queue_depth=len(self._prefilling),
             slots_active=self.slots_active,
             free_slots=self.slots - self.slots_active,
             device=str(self.device),

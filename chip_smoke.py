@@ -28,6 +28,17 @@ Phases (any failure exits non-zero):
    (device time by kernel; int8_matmul's time per step in the kernel
    line is read from it).
 
+4. Paged serving: the same weights through PagedContinuousServer (8
+   slots, 4096-row tables of 16-row blocks, the default 1,024-block pool,
+   prefix cache on, 256-token chunked admission), bf16 KV then int8 KV:
+   12 requests in three waves (a shared 1,024-token prefix, distinct
+   prompts of 64-1,800 tokens, re-submissions), every served token held
+   to a batch-1 oracle (bf16: contiguous prefill + decode; int8: a
+   batch-1 paged run with the prefix cache off), launches of every kernel
+   held to the decode steps and prefill slices, prefix hits > 0, the pool
+   balanced after the drain, then phase 3's steady decode window at
+   positions ~1,025-1,090.
+
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
 card, or without the repository beside it, the script exits non-zero
@@ -128,10 +139,15 @@ def int8_launches(quant, config, rows: int, seq: int) -> int:
     sequences of ``seq`` positions: the projections that take the kernel
     at m = rows * seq in every layer, and the LM head at each row's last
     position (m = rows)."""
-    per_layer = sum(quant.kernel_shape(rows * seq, k, n)
-                    for k, n in projections(config))
-    return (config.n_layers * per_layer
+    return (int8_layer_launches(quant, config, rows * seq)
             + quant.kernel_shape(rows, config.d_model, config.vocab_size))
+
+
+def int8_layer_launches(quant, config, m: int) -> int:
+    """int8_matmul kernel launches of every layer's projections at m
+    rows (a prefill slice: the paged path computes no logits there)."""
+    return config.n_layers * sum(quant.kernel_shape(m, k, n)
+                                 for k, n in projections(config))
 
 
 # --------------------------------------------------------------------------- #
@@ -381,6 +397,245 @@ def check_decode(torch, paged_attention, llama, device):
     return rows, worst, main
 
 
+def check_decode_paged(torch, paged_attention, llama, device):
+    """The paged server's decode step: 8 rows at positions 1,100-1,200
+    over 16-row blocks of a shuffled 256-entry table (block size 16: ~75
+    live blocks a row), bf16 and int8 KV, against the f32 plain
+    version.  Library: SDPA with a boolean mask over each row's gathered
+    live blocks (the gather not timed), bf16 only."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(6)
+    kv, group, hd = 8, 4, 128
+    positions = torch.tensor([1100, 1115, 1116, 1131, 1150, 1163, 1180,
+                              1199], dtype=torch.int32, device=device)
+    rows, worst = [], 0.0
+    for quant_kv in (False, True):
+        pool, table = paged_pool(torch, llama, device, gen, quant_kv)
+        # Distinct shuffled blocks for each row's 80 first entries (the
+        # live ones), scratch block 0 past them, as the server's tables.
+        live = 80
+        ids = torch.randperm(pool["k"].shape[0] - 1, generator=gen,
+                             device=device)[:SLOTS * live] + 1
+        tables = torch.zeros_like(table).repeat(SLOTS, 1)
+        tables[:, :live] = ids.to(torch.int32).reshape(SLOTS, live)
+        q = torch.randn((SLOTS, kv, group, hd), generator=gen,
+                        device=device).to(torch.bfloat16)
+        scales = {key: pool[key] for key in ("ks", "vs") if key in pool}
+        got = paged_attention.paged_decode_attention(
+            q, pool["k"], pool["v"], tables, positions, **scales)
+        pools = (pool["k"], pool["v"]) if quant_kv else (
+            pool["k"].float(), pool["v"].float())
+        want = paged_attention.paged_decode_reference(
+            q.float(), *pools, tables, positions, **scales)
+        torch.cuda.synchronize()
+        err, ratio = compare(got, want)
+        if not ratio <= 1.0:
+            fail(f"paged_decode_attention bs=16 int8={quant_kv}: max abs "
+                 f"err {err}, err/tol {ratio}")
+        worst = max(worst, ratio)
+        ms = device_ms(torch, lambda: paged_attention.paged_decode_attention(
+            q, pool["k"], pool["v"], tables, positions, **scales), 50)
+        plain_ms = device_ms(torch, lambda: paged_attention
+                             .paged_decode_reference(
+                                 q, pool["k"], pool["v"], tables, positions,
+                                 **scales), 5)
+        library_ms = None
+        if not quant_kv:
+            ids = tables[:, :live].long()
+            k_view = pool["k"][ids].reshape(SLOTS, live * BLOCK, kv, hd) \
+                .transpose(1, 2)
+            v_view = pool["v"][ids].reshape(SLOTS, live * BLOCK, kv, hd) \
+                .transpose(1, 2)
+            key = torch.arange(live * BLOCK, device=device)
+            mask = (key[None, :] <= positions.to(torch.int64)[:, None]) \
+                [:, None, None, :]
+            q_s = q.reshape(SLOTS, kv * group, 1, hd)
+            library_ms = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q_s, k_view, v_view, attn_mask=mask, enable_gqa=True), 20)
+        keys = sum(int(p) + 1 for p in positions.tolist())
+        elem = 1 if quant_kv else 2
+        moved = keys * kv * hd * elem * 2 + (keys * kv * 8 if quant_kv
+                                             else 0) \
+            + 2 * SLOTS * kv * group * hd * 2 + keys // BLOCK * 4
+        b_ms, b_by = bound(moved, 4 * hd * group * kv * keys)
+        rows.append(dict(shape=f"B=8 kv=8 group=4 hd=128 bs=16 positions "
+                               f"1100-1199 int8={quant_kv}", err=err,
+                         ratio=ratio, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms))
+        del pool
+    return rows, worst
+
+
+# The paged path's shapes: llama3_8b heads, 16-row blocks, a 4096-row table.
+PAGED_MAX_SEQ, BLOCK, CHUNK = 4096, 16, 256
+#: (cached prefix tokens, slice width) of the phase-2 paged rows: slices of
+#: 16, 64 and 256 tokens over no prefix, a 1,024-token prefix hit and a
+#: 1,792-token prefix.  The main row is the first slice of a prefix hit.
+PAGED_CASES = [(c, t) for c in (0, 1024, 1792) for t in (16, 64, 256)]
+PAGED_MAIN = (1024, 256)
+
+
+def paged_pool(torch, llama, device, gen, quant_kv, kv=8, hd=128):
+    """A 1,025-block pool of random K/V (bf16, or int8 from the plain
+    quantizer) and one shuffled 256-entry block table."""
+    n_blocks = PAGED_MAX_SEQ // BLOCK * 4 + 1
+    k = torch.randn((n_blocks, BLOCK, kv, hd), generator=gen, device=device)
+    v = torch.randn((n_blocks, BLOCK, kv, hd), generator=gen, device=device)
+    if quant_kv:
+        (k, ks), (v, vs) = llama._kv_quantize(k), llama._kv_quantize(v)
+        pool = dict(k=k, v=v, ks=ks, vs=vs)
+    else:
+        pool = dict(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16))
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=device) + 1
+    tables = ids[:PAGED_MAX_SEQ // BLOCK].to(torch.int32)[None]
+    return pool, tables
+
+
+def check_append(torch, pp, llama, device):
+    """Every admission slice: the chunk's K/V (1, T, 8 kv heads, 128) into
+    shuffled 16-row blocks after a cached prefix, bf16 and int8 pools.
+    The kernel's pool must equal the plain version's byte for byte (the
+    slices are whole, so both write the same blocks and nothing else).
+    Library: two ``index_put_`` calls (K, V) with precomputed rows, bf16
+    only (no single call quantizes)."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    kv, hd = 8, 128
+    rows, main = [], None
+    for quant_kv in (False, True):
+        pool, tables = paged_pool(torch, llama, device, gen, quant_kv)
+        for cached, T in PAGED_CASES:
+            k_new = torch.randn((1, T, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            v_new = torch.randn((1, T, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            meta = (torch.tensor([cached], dtype=torch.int32, device=device),
+                    torch.tensor([T], dtype=torch.int32, device=device))
+            got = {key: buf.clone() for key, buf in pool.items()}
+            want = {key: buf.clone() for key, buf in pool.items()}
+            pp.append_kv(k_new, v_new, got, tables, *meta)
+            pp.append_kv_reference(k_new, v_new, want, tables, *meta)
+            torch.cuda.synchronize()
+            err = max(float((got[key].float() - want[key].float())
+                            .abs().max()) for key in got)
+            if not all(torch.equal(got[key], want[key]) for key in got):
+                fail(f"append_kv int8={quant_kv} cached={cached} T={T}: "
+                     f"pool differs from the plain version (max abs {err})")
+            ms = device_ms(torch, lambda: pp.append_kv(
+                k_new, v_new, got, tables, *meta), 50)
+            plain_ms = device_ms(torch, lambda: pp.append_kv_reference(
+                k_new, v_new, want, tables, *meta), 5)
+            library_ms = None
+            if not quant_kv:
+                positions = torch.arange(cached, cached + T, device=device)
+                flat_rows = (tables[0].long()[positions // BLOCK] * BLOCK
+                             + positions % BLOCK)
+                flat = {key: got[key].view(-1, kv, hd) for key in got}
+
+                def library():
+                    flat["k"].index_put_((flat_rows,), k_new[0])
+                    flat["v"].index_put_((flat_rows,), v_new[0])
+                library_ms = device_ms(torch, library, 20)
+            elem = 1 if quant_kv else 2
+            moved = 2 * T * kv * hd * 2 + 2 * T * kv * hd * elem \
+                + (2 * T * kv * 4 if quant_kv else 0)
+            b_ms, b_by = bound(moved, 0)
+            row = dict(shape=f"T={T} cached={cached} kv=8 hd=128 bs=16 "
+                             f"int8={quant_kv}", err=err, ratio=0.0, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms)
+            rows.append(row)
+            if (cached, T) == PAGED_MAIN and not quant_kv:
+                main = row
+            del got, want
+    return rows, main
+
+
+def _chunk_pairs(cached, T, window):
+    """(visible (query token, key) pairs, live keys) of one chunk."""
+    pairs, first = 0, None
+    for t in range(T):
+        pos = cached + t
+        lo = 0 if window is None else max(0, pos - window + 1)
+        first = lo if first is None else first
+        pairs += pos + 1 - lo
+    return pairs, cached + T - first
+
+
+def check_chunk(torch, pp, llama, device):
+    """Every admission slice's attention: 32 query heads over 8 kv heads
+    (hd 128) for slices of 16-256 tokens over 0-1,792 cached tokens in
+    shuffled 16-row blocks, bf16 and int8 pools, window off and 256,
+    against the f32 plain version.  Library: SDPA with a boolean mask over
+    a pre-gathered bf16 view (the gather not timed); none for int8."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(5)
+    kv, group, hd = 8, 4, 128
+    rows, worst, main = [], 0.0, None
+    for quant_kv in (False, True):
+        pool, tables = paged_pool(torch, llama, device, gen, quant_kv)
+        plain_pool = pool if quant_kv else {key: buf.float()
+                                            for key, buf in pool.items()}
+        for cached, T in PAGED_CASES:
+            q = torch.randn((1, T, kv, group, hd), generator=gen,
+                            device=device).to(torch.bfloat16)
+            meta = (torch.tensor([cached], dtype=torch.int32, device=device),
+                    torch.tensor([T], dtype=torch.int32, device=device))
+            kv_limit = -(-(cached + T) // BLOCK)
+            for window in (None, 256):
+                got = pp.chunk_attention(q, pool, tables, *meta,
+                                         window=window, kv_limit=kv_limit)
+                want = pp.chunk_attention_reference(
+                    q.float(), plain_pool, tables, meta[0], window=window)
+                torch.cuda.synchronize()
+                err, ratio = compare(got, want)
+                if not ratio <= 1.0:
+                    fail(f"chunk_attention int8={quant_kv} cached={cached} "
+                         f"T={T} window={window}: max abs err {err}, "
+                         f"err/tol {ratio}")
+                worst = max(worst, ratio)
+                ms = device_ms(torch, lambda: pp.chunk_attention(
+                    q, pool, tables, *meta, window=window,
+                    kv_limit=kv_limit), 20)
+                plain_ms = device_ms(torch, lambda: pp.chunk_attention_reference(
+                    q, pool, tables, meta[0], window=window), 3)
+                library_ms = None
+                if not quant_kv:
+                    ids = tables[0, :kv_limit].long()
+                    k_view = pool["k"][ids].reshape(1, -1, kv, hd) \
+                        .transpose(1, 2)
+                    v_view = pool["v"][ids].reshape(1, -1, kv, hd) \
+                        .transpose(1, 2)
+                    q_s = q.reshape(1, T, kv * group, hd).transpose(1, 2)
+                    key = torch.arange(kv_limit * BLOCK, device=device)
+                    pos = cached + torch.arange(T, device=device)[:, None]
+                    mask = key[None, :] <= pos
+                    if window is not None:
+                        mask &= key[None, :] > pos - window
+                    library_ms = device_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            q_s, k_view, v_view, attn_mask=mask,
+                            enable_gqa=True), 10)
+                pairs, live = _chunk_pairs(cached, T, window)
+                elem = 1 if quant_kv else 2
+                moved = live * kv * hd * elem * 2 \
+                    + (live * kv * 4 * 2 if quant_kv else 0) \
+                    + 2 * T * kv * group * hd * 2
+                b_ms, b_by = bound(moved, 4 * hd * kv * group * pairs)
+                row = dict(shape=f"T={T} cached={cached} h=32 kv=8 hd=128 "
+                                 f"bs=16 int8={quant_kv} window={window}",
+                           err=err, ratio=ratio, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           library_ms=library_ms)
+                rows.append(row)
+                if (cached, T) == PAGED_MAIN and not quant_kv \
+                        and window is None:
+                    main = row
+        del pool, plain_pool
+    return rows, worst, main
+
+
 def print_rows(title, rows):
     log(f"--- {title}")
     for row in rows:
@@ -395,54 +650,60 @@ def print_rows(title, rows):
 # --------------------------------------------------------------------------- #
 # Phase 3: serving
 
-def oracle_tokens(torch, llama, params, config, prompt, new, quantize_kv,
-                  device):
+def contiguous_oracle(torch, llama, params, config, prompt, quantize_kv,
+                      device, rows=MAX_SEQ):
+    """Batch-1 ``prefill`` + ``decode_step`` on a contiguous cache of
+    ``rows`` rows: (logits of the first served token, step(token,
+    position) -> logits of the next)."""
     tokens = torch.as_tensor(prompt, device=device)[None]
-    cache = llama.init_cache(config, 1, MAX_SEQ, quantize_kv=quantize_kv,
+    cache = llama.init_cache(config, 1, rows, quantize_kv=quantize_kv,
                              device=device)
     logits, cache = llama.prefill(params, tokens, cache, config)
-    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    rest, _ = llama.generate_tokens(params, first, cache, tokens.shape[1],
-                                    new - 1, config)
-    return [int(first[0, 0])] + rest[0].tolist()
+
+    def step(token, position):
+        nonlocal cache
+        token = torch.tensor([[token]], dtype=torch.int32, device=device)
+        out, cache = llama.decode_step(params, token, cache, position,
+                                       config)
+        return out[0, -1]
+    return logits[0, -1], step
 
 
-def check_request(torch, llama, params, config, request, quantize_kv,
-                  device):
-    """Hold every served token of ``request`` to the batch-1 oracle;
-    returns (tokens equal to the oracle's argmax, [(index, gap)] of the
-    accepted near-ties).  A request that differs from the oracle's own
-    greedy run is walked again teacher-forced: the oracle reads the
-    served tokens, so each later token is still compared with what the
-    oracle would pick after the same prefix."""
-    oracle = oracle_tokens(torch, llama, params, config, request.prompt,
-                           len(request.tokens), quantize_kv, device)
-    if request.tokens == oracle:
-        return len(oracle), []
-    prompt = torch.as_tensor(request.prompt, device=device)[None]
-    cache = llama.init_cache(config, 1, MAX_SEQ, quantize_kv=quantize_kv,
-                             device=device)
-    logits, cache = llama.prefill(params, prompt, cache, config)
-    equal, ties = 0, []
+def check_request(torch, request, first_logits, step):
+    """Hold every served token of ``request`` to a batch-1 oracle, walked
+    teacher-forced: the oracle reads the served tokens, so each token is
+    compared with what the oracle picks after the same prefix.  Returns
+    (tokens equal to the oracle's argmax, [(index, gap)] of the accepted
+    near-ties); a token off by more than TIE_GAP fails the run."""
+    prompt_len = len(request.prompt)
+    logits, equal, ties = first_logits, 0, []
     for index, served in enumerate(request.tokens):
-        row = logits[0, -1]
-        best = int(row.argmax())
+        best = int(logits.argmax())
         if served == best:
             equal += 1
         else:
-            gap = float(row[best] - row[served])
+            gap = float(logits[best] - logits[served])
             if gap > TIE_GAP:
-                fail(f"request {request.request_id} (prompt "
-                     f"{prompt.shape[1]}): token {index} is {served}, "
-                     f"oracle {best}, logit gap {gap:.4f} > {TIE_GAP}")
+                fail(f"request {request.request_id} (prompt {prompt_len}): "
+                     f"token {index} is {served}, oracle {best}, logit gap "
+                     f"{gap:.4f} > {TIE_GAP}")
             ties.append((index, round(gap, 4)))
         if index + 1 < len(request.tokens):
-            token = torch.tensor([[served]], dtype=torch.int32,
-                                 device=device)
-            logits, cache = llama.decode_step(params, token, cache,
-                                              prompt.shape[1] + index,
-                                              config)
+            logits = step(served, prompt_len + index)
     return equal, ties
+
+
+def check_requests(torch, requests, oracle):
+    """``oracle(request)`` -> (first logits, step) for every request:
+    (requests exactly equal, tokens equal, tokens checked, near-ties)."""
+    exact, equal, checked, ties = 0, 0, 0, []
+    for request in requests:
+        same, near = check_request(torch, request, *oracle(request))
+        exact += not near and same == len(request.tokens)
+        equal += same
+        checked += len(request.tokens)
+        ties += [(request.request_id, index, gap) for index, gap in near]
+    return exact, equal, checked, ties
 
 
 def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
@@ -516,20 +777,20 @@ def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
     if not kernel_prefills:
         fail(f"no prefill dispatch took the int8 kernel: {dispatches}")
 
-    exact, equal, checked, ties = 0, 0, 0, []
-    for request in requests:
-        same, near = check_request(torch, llama, params, config, request,
-                                   quantize_kv, device)
-        exact += not near and same == len(request.tokens)
-        equal += same
-        checked += len(request.tokens)
-        ties += [(request.request_id, index, gap) for index, gap in near]
+    exact, equal, checked, ties = check_requests(
+        torch, requests, lambda request: contiguous_oracle(
+            torch, llama, params, config, request.prompt, quantize_kv,
+            device))
 
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
     generated = sum(len(r.tokens) for r in requests)
-    steady = steady_decode(torch, np, quant, server_cls, request_cls,
-                           params, quantize_kv, device, config)
+    steady = steady_decode(
+        torch, np, quant, lambda: server_cls(
+            config_name="llama3_8b", slots=SLOTS, max_seq=MAX_SEQ,
+            chunk_steps=CHUNK_STEPS, params=params, quantize=True,
+            quantize_kv=quantize_kv, device=device),
+        request_cls, quantize_kv, config)
     return dict(kv="int8" if quantize_kv else "bf16",
                 requests=len(requests), requests_exact=exact,
                 tokens_checked=checked, tokens_equal=equal,
@@ -541,10 +802,11 @@ def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
                 peak_gb=peak_gb, **steady)
 
 
-def steady_decode(torch, np, quant, server_cls, request_cls, params,
-                  quantize_kv, device, config):
-    """Decode at a full batch: 8 requests of 128 prompt tokens admitted
-    together; after every request has its first token, 32 decode steps
+def steady_decode(torch, np, quant, make_server, request_cls, quantize_kv,
+                  config, prompt_len=128):
+    """Decode at a full batch: 8 requests of ``prompt_len`` prompt tokens
+    admitted together into ``make_server()``; after every request has its
+    first token, 32 decode steps
     are timed with nothing attached, 16 more under cProfile (the host's
     top functions by own time are printed) and 16 more under
     torch.profiler (the card's kernel time per step, by kernel; busy
@@ -564,14 +826,11 @@ def steady_decode(torch, np, quant, server_cls, request_cls, params,
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
-    server = server_cls(config_name="llama3_8b", slots=SLOTS,
-                        max_seq=MAX_SEQ, chunk_steps=CHUNK_STEPS,
-                        params=params, quantize=True,
-                        quantize_kv=quantize_kv, device=device)
+    server = make_server()
     rng = np.random.default_rng(11)
-    requests = [request_cls(f"s{i}", rng.integers(1, config.vocab_size,
-                                                  128).astype(np.int32), 96)
-                for i in range(SLOTS)]
+    requests = [request_cls(f"s{i}", rng.integers(
+        1, config.vocab_size, prompt_len).astype(np.int32), 96)
+        for i in range(SLOTS)]
     for request in requests:
         server.submit(request)
     while any(r.first_token_ts is None for r in requests):
@@ -638,6 +897,173 @@ def steady_decode(torch, np, quant, server_cls, request_cls, params,
 
 
 # --------------------------------------------------------------------------- #
+# Phase 4: the paged server
+
+def paged_traffic(np, vocab):
+    """Three waves, 12 requests: six share a 1,024-token prefix with tails
+    of 16-500 tokens (two arrive with their producer, four after it has
+    prefilled), four distinct prompts of 64-1,800 tokens, then two
+    re-submissions of finished prompts."""
+    rng = np.random.default_rng(17)
+
+    def ints(n):
+        return rng.integers(1, vocab, n).astype(np.int32)
+    prefix = ints(1024)
+    shared = [np.concatenate([prefix, ints(tail)])
+              for tail in (16, 300, 40, 500, 100, 200)]
+    distinct = [ints(n) for n in (64, 1800, 700, 130)]
+    return [shared[:2] + distinct[:2], shared[2:] + distinct[2:],
+            [distinct[0].copy(), shared[0].copy()]]
+
+
+def paged_oracle(torch, llama, server_cls, request_cls, params, config,
+                 prompt, device):
+    """Batch-1 paged run of one request, int8 KV: a 1-slot
+    PagedContinuousServer with the prefix cache off admits the prompt on
+    its own schedule (one whole-bucket piece, or standalone slices of up
+    to 256 tokens), then decode steps read and extend its pool through
+    its table row: (logits of the first served token, step(token,
+    position) -> logits of the next)."""
+    server = server_cls(config_name="llama3_8b", slots=1,
+                        max_seq=PAGED_MAX_SEQ, params=params, quantize=True,
+                        quantize_kv=True, block_size=BLOCK,
+                        chunk_prefill_tokens=CHUNK, device=device)
+    server.submit(request_cls("oracle", prompt, NEW_TOKENS))
+    server._admit()
+    while server._prefilling:
+        server._advance_prefills()
+    tables = torch.as_tensor(server.tables[:1], device=device)
+
+    def step(token, position):
+        with torch.no_grad():
+            logits, _ = llama._decode_core_paged(
+                params, torch.tensor([[token]], dtype=torch.int32,
+                                     device=device), server.pool, tables,
+                torch.tensor([position], dtype=torch.int32, device=device),
+                config)
+        return logits[0, -1]
+    return step(int(prompt[-1]), len(prompt) - 1), step
+
+
+def serve_paged(torch, np, llama, quant, kernels, server_cls, request_cls,
+                params, quantize_kv, device):
+    """PagedContinuousServer, llama3_8b int8, 8 slots, 4096-row tables of
+    16-row blocks, the default pool (1,024 usable blocks), prefix cache on,
+    256-token chunked admission; the traffic of :func:`paged_traffic`,
+    every served token held to its oracle (bf16 KV: the contiguous batch-1
+    prefill + decode; int8 KV: :func:`paged_oracle`)."""
+    config = llama.CONFIGS["llama3_8b"]
+
+    def make_server():
+        return server_cls(config_name="llama3_8b", slots=SLOTS,
+                          max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                          params=params, quantize=True,
+                          quantize_kv=quantize_kv, block_size=BLOCK,
+                          enable_prefix_cache=True,
+                          chunk_prefill_tokens=CHUNK, device=device)
+    warm = make_server()
+    rng = np.random.default_rng(9)
+    for n in (100, 600):
+        warm.submit(request_cls(f"warm{n}", rng.integers(
+            1, config.vocab_size, n).astype(np.int32), 4))
+    warm.run_until_drained()
+    del warm
+    server = make_server()
+    waves = paged_traffic(np, config.vocab_size)
+    requests = []
+    # The width of every prefill slice of the run, recorded around the
+    # model's append-prefill core, for the expected launch counts.
+    widths, core = [], llama._prefill_append_core
+
+    def recorded_core(params, tokens, *args, **kwargs):
+        widths.append(int(tokens.shape[1]))
+        return core(params, tokens, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    llama._prefill_append_core = recorded_core
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        for index, wave in enumerate(waves):
+            batch = [request_cls(f"p{len(requests) + i}", prompt, NEW_TOKENS)
+                     for i, prompt in enumerate(wave)]
+            requests += batch
+            for request in batch:
+                server.submit(request)
+            if index == 0:      # the next wave once the producer prefilled
+                while batch[0].first_token_ts is None:
+                    server.step()
+            elif index == 1:    # the last once wave 1's requests finished
+                while any(r.finished_ts is None for r in requests[:4]):
+                    server.step()
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama._prefill_append_core = core
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = server.stats()
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS:
+            fail(f"paged request {request.request_id}: error "
+                 f"{request.error}, {len(request.tokens)} tokens")
+    slices = stats["prefill_dispatches"]
+    if len(widths) != slices:
+        fail(f"{len(widths)} prefill slices recorded, the server counted "
+             f"{slices}")
+    layers, steps = config.n_layers, stats["decode_steps"]
+    want = {"append_kv": layers * slices, "chunk_attention": layers * slices,
+            "paged_decode_attention": layers * steps,
+            "int8_matmul": int8_launches(quant, config, SLOTS, 1) * steps
+            + sum(int8_layer_launches(quant, config, w) for w in widths)}
+    for name, expected in want.items():
+        if launches[name] != expected or expected == 0:
+            fail(f"paged {name}: {launches[name]} launches, expected "
+                 f"{expected} (decode_steps {steps}, slices {widths})")
+    if launches["flash_attention"]:
+        fail(f"the paged path launched flash_attention "
+             f"{launches['flash_attention']} times")
+    if stats["prefix_hits"] <= 0:
+        fail(f"no prefix hit: {stats['prefix_misses']} misses")
+    balance = server.pool_balance()
+    if balance["free"] + balance["evictable"] + balance["producing"] \
+            != balance["total"] or balance["producing"]:
+        fail(f"pool out of balance after the drain: {balance}")
+
+    if quantize_kv:
+        def oracle(request):
+            return paged_oracle(torch, llama, server_cls, request_cls,
+                                params, config, request.prompt, device)
+    else:
+        def oracle(request):
+            return contiguous_oracle(torch, llama, params, config,
+                                     request.prompt, False, device,
+                                     rows=PAGED_MAX_SEQ)
+    exact, equal, checked, ties = check_requests(torch, requests, oracle)
+    ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
+                   for r in requests)
+    mixed = stats["prefill_slices_mixed"]
+    steady = steady_decode(torch, np, quant, make_server, request_cls,
+                           quantize_kv, config, prompt_len=1023)
+    return dict(kv="int8" if quantize_kv else "bf16", server="paged",
+                requests=len(requests), requests_exact=exact,
+                tokens_checked=checked, tokens_equal=equal,
+                accepted_near_ties=ties, launches=launches,
+                decode_steps=steps, prefill_slices=slices,
+                slices_mixed=mixed, slices_standalone=slices - mixed,
+                slice_widths=widths, prefix_hits=stats["prefix_hits"],
+                prefix_misses=stats["prefix_misses"],
+                prefix_blocks_reused=stats["prefix_blocks_reused"],
+                pool_balance=balance, wall_s=wall,
+                served_tok_s=len(requests) * NEW_TOKENS / wall,
+                ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
+                peak_gb=peak_gb, **steady)
+
+
+# --------------------------------------------------------------------------- #
 
 def main() -> None:
     try:
@@ -656,8 +1082,11 @@ def main() -> None:
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.ops import (_cuda, attention,
                                              paged_attention, quant)
+    from aiko_services_tpu_torch.ops import paged_prefill as pp
     from aiko_services_tpu_torch.orchestration.continuous import (
         ContinuousBatchingServer, DecodeRequest)
+    from aiko_services_tpu_torch.orchestration.paged import (
+        PagedContinuousServer)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -702,7 +1131,16 @@ def main() -> None:
     print_rows("flash_attention", flash_rows)
     decode_rows, decode_worst, decode_main = check_decode(
         torch, paged_attention, llama, device)
-    print_rows("paged_decode_attention", decode_rows)
+    paged_decode_rows, paged_decode_worst = check_decode_paged(
+        torch, paged_attention, llama, device)
+    print_rows("paged_decode_attention, the paged server's block size 16",
+               paged_decode_rows)
+    append_rows, append_main = check_append(torch, pp, llama, device)
+    print_rows("append_kv (pool bytes equal to the plain version's)",
+               append_rows)
+    chunk_rows, chunk_worst, chunk_main = check_chunk(torch, pp, llama,
+                                                      device)
+    print_rows("chunk_attention", chunk_rows)
 
     # ---- phase 3: serving ----
     t0 = time.monotonic()
@@ -720,6 +1158,18 @@ def main() -> None:
         log(f"--- serving llama3_8b int8, {run['kv']} KV: "
             + json.dumps(run))
         runs.append(run)
+
+    # ---- phase 4: the paged server ----
+    paged_kernels = kernels + (pp.append_kv, pp.chunk_attention)
+    paged_runs = []
+    for quantize_kv in (False, True):
+        run = serve_paged(torch, np, llama, quant, paged_kernels,
+                          PagedContinuousServer, DecodeRequest, params,
+                          quantize_kv, device)
+        log(f"--- serving llama3_8b int8 through the paged server, "
+            f"{run['kv']} KV: " + json.dumps(run))
+        paged_runs.append(run)
+    paged_main = paged_runs[0]["launches"]
 
     main_run = runs[0]["launches"]
     # int8_matmul's time is the path's: device time of its launches per
@@ -758,9 +1208,29 @@ def main() -> None:
              bound_ms=decode_main["bound_ms"],
              bound_by=decode_main["bound_by"],
              library_ms=decode_main["library_ms"]),
+        dict(name="append_kv", route="cuda",
+             source="aiko_services_tpu_torch/csrc/paged_append.cu",
+             replaces="aiko_services_tpu/ops/paged_prefill.py:264",
+             launches=paged_main["append_kv"],
+             max_abs_err=max(r["err"] for r in append_rows),
+             ms=append_main["ms"], plain_ms=append_main["plain_ms"],
+             bound_ms=append_main["bound_ms"],
+             bound_by=append_main["bound_by"],
+             library_ms=append_main["library_ms"]),
+        dict(name="chunk_attention", route="cuda",
+             source="aiko_services_tpu_torch/csrc/paged_prefill.cu",
+             replaces="aiko_services_tpu/ops/paged_prefill.py:424",
+             launches=paged_main["chunk_attention"],
+             max_abs_err=max(r["err"] for r in chunk_rows),
+             ms=chunk_main["ms"], plain_ms=chunk_main["plain_ms"],
+             bound_ms=chunk_main["bound_ms"],
+             bound_by=chunk_main["bound_by"],
+             library_ms=chunk_main["library_ms"]),
     ]}
     log(f"kernel worst err/tol: int8 {int8_worst:.3f}, flash "
-        f"{flash_worst:.3f}, decode {decode_worst:.3f}; total "
+        f"{flash_worst:.3f}, decode {decode_worst:.3f} (bs 16: "
+        f"{paged_decode_worst:.3f}), chunk_attention {chunk_worst:.3f}; "
+        f"append_kv pools byte-equal; total "
         f"{time.monotonic() - began:.1f} s")
     log(smi)
     print(json.dumps(report), flush=True)

@@ -5,7 +5,8 @@ Each mutant is a copy of ``aiko_services_tpu_torch`` with one deliberate
 bug in a CUDA kernel: the flash kernel drops the last key tile of rows
 that have more than one, or gives that tile 0.9 of its weight; the decode
 kernel's log-sum-exp merge drops a row's last live block, or gives it 0.9
-of its weight.  Each copy is built and held to the same checks the
+of its weight; the paged chunk-attention kernel stops zeroing masked
+probabilities, or drops the last live 16-row block of a tile's sweep.  Each copy is built and held to the same checks the
 working tree passes: ``chip_smoke.py``'s phase 2 for that kernel (at the
 llama3_8b shapes) and the kernel's tests in ``tests/test_torch_cuda.py``.
 A mutant that passes either means a tolerance too loose to see the bug.
@@ -27,6 +28,7 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FLASH = "aiko_services_tpu_torch/csrc/flash_attention.cu"
 DECODE = "aiko_services_tpu_torch/csrc/paged_decode.cu"
+CHUNK = "aiko_services_tpu_torch/csrc/paged_prefill.cu"
 #: name -> (source, text replaced, replacement)
 MUTANTS = {
     "flash_drop_tile": (
@@ -44,7 +46,18 @@ MUTANTS = {
         "const float w = __expf(__ldcg(part_m + sp * group + g) - big);",
         "const float w = __expf(__ldcg(part_m + sp * group + g) - big) * "
         "(sp == n_live - 1 && n_live > 1 ? 0.9f : 1.f);"),
+    "chunk_no_zero": (
+        CHUNK, "const float p = (visible >> (nt * 4 + e)) & 1u",
+        "const float p = true"),
+    "chunk_drop_block": (
+        CHUNK, "const int t_begin = key_lo / kBK;",
+        "if (key_hi / block_size > key_lo / block_size)\n"
+        "    key_hi = key_hi / block_size * block_size - 1;\n"
+        "  const int t_begin = key_lo / kBK;"),
 }
+#: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
+SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
+             "chunk": "chunk_attention"}
 
 
 def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
@@ -72,17 +85,22 @@ def phase2(name: str) -> bool:
 
     import chip_smoke
     from aiko_services_tpu_torch.models import llama
-    from aiko_services_tpu_torch.ops import _cuda, attention, paged_attention
+    from aiko_services_tpu_torch.ops import (_cuda, attention,
+                                             paged_attention, paged_prefill)
     failures = []
     chip_smoke.fail = failures.append       # record and go on to every case
     _cuda.build()
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    if name.startswith("flash"):
+    kind = name.split("_")[0]
+    if kind == "flash":
         rows, worst, _ = chip_smoke.check_flash(torch, attention, device)
-    else:
+    elif kind == "decode":
         rows, worst, _ = chip_smoke.check_decode(torch, paged_attention,
                                                  llama, device)
+    else:
+        rows, worst, _ = chip_smoke.check_chunk(torch, paged_prefill, llama,
+                                                device)
     print(f"{name}: smoke phase 2 failed {len(failures)} of {len(rows)} "
           f"cases, worst err/tol {worst:.3f}")
     for row in rows:
@@ -110,8 +128,7 @@ def main() -> None:
         caught = subprocess.run([sys.executable, str(pathlib.Path(__file__)
                                                      .resolve()),
                                  "--phase2", name], cwd=copy).returncode == 0
-        selected = "flash_attention" if name.startswith("flash") \
-            else "paged_decode"
+        selected = SELECTION[name.split("_")[0]]
         tests = subprocess.run(
             [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
              "-q", "-p", "no:cacheprovider", "tests/test_torch_cuda.py",

@@ -21,9 +21,12 @@ import pytest
 import torch
 
 from aiko_services_tpu_torch.models import llama
-from aiko_services_tpu_torch.ops import attention, paged_attention, quant
+from aiko_services_tpu_torch.ops import (attention, paged_attention,
+                                         paged_prefill, quant)
 from aiko_services_tpu_torch.orchestration.continuous import (
     ContinuousBatchingServer, DecodeRequest)
+from aiko_services_tpu_torch.orchestration.paged import (
+    PagedContinuousServer)
 
 pytestmark = pytest.mark.cuda
 
@@ -206,3 +209,155 @@ def test_server_on_the_card_matches_batch1_oracle(cuda, quantize_kv):
                                         request.max_new_tokens - 1, config)
         want = [int(first[0, 0])] + rest[0].tolist()
         assert request.tokens == want, request.request_id
+
+
+def _chunk_case(cuda, seed, batch, kv, group, hd, cached_blocks, chunk_lens,
+                T, quant_kv, bs=16, max_blocks=None):
+    """A shuffled-table pool holding ``cached_blocks`` resident blocks per
+    row and a ragged ``T``-wide chunk (``chunk_lens`` real tokens)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    max_blocks = max_blocks or max(cached_blocks) + T // bs + 1
+    n_blocks = batch * max_blocks + 1
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=cuda) + 1
+    tables = ids.reshape(batch, max_blocks).to(torch.int32)
+    k = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    if quant_kv:
+        k, ks = llama._kv_quantize(k)
+        v, vs = llama._kv_quantize(v)
+        pool = dict(k=k, v=v, ks=ks, vs=vs)
+    else:
+        pool = dict(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16))
+    q = torch.randn((batch, T, kv, group, hd), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    k_new = torch.randn((batch, T, kv, hd), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    v_new = torch.randn((batch, T, kv, hd), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    cached = torch.tensor([c * bs for c in cached_blocks], dtype=torch.int32,
+                          device=cuda)
+    chunk = torch.tensor(chunk_lens, dtype=torch.int32, device=cuda)
+    return q, k_new, v_new, pool, tables, cached, chunk
+
+
+CHUNK_SHAPES = {
+    # (batch, kv, group, hd, cached_blocks, chunk_lens, T)
+    "tiny": (3, 2, 2, 32, (0, 1, 2), (32, 17, 5), 32),
+    "tiny_gqa8": (2, 1, 8, 32, (2, 0), (16, 9), 16),
+    "llama3_8b": (2, 8, 4, 128, (4, 0), (64, 40), 64),
+    "llama3_8b_long": (1, 8, 4, 128, (64,), (256,), 256),
+}
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("shape", sorted(CHUNK_SHAPES))
+def test_append_kv_kernel(cuda, shape, quant_kv):
+    """The pool after the kernel is bitwise the pool after the plain
+    version (int8: the same codes and scales) everywhere but scratch block
+    0, where the plain version flushes the dead blocks of short rows."""
+    q, k_new, v_new, pool, tables, cached, chunk = _chunk_case(
+        cuda, len(shape), *CHUNK_SHAPES[shape], quant_kv)
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    before = paged_prefill.append_kv.launches
+    paged_prefill.append_kv(k_new, v_new, pool, tables, cached, chunk)
+    assert paged_prefill.append_kv.launches == before + 1
+    paged_prefill.append_kv_reference(k_new, v_new, plain, tables, cached,
+                                      chunk)
+    for key in pool:
+        assert torch.equal(pool[key][1:], plain[key][1:]), key
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("window", [None, 3, 40])
+@pytest.mark.parametrize("shape", sorted(CHUNK_SHAPES))
+def test_chunk_attention_kernel(cuda, shape, window, quant_kv):
+    """bf16 queries over bf16 or int8 pools, shuffled tables, ragged
+    chunks, windows: the real rows against the f32 plain version."""
+    q, k_new, v_new, pool, tables, cached, chunk = _chunk_case(
+        cuda, 7 + len(shape), *CHUNK_SHAPES[shape], quant_kv)
+    paged_prefill.append_kv(k_new, v_new, pool, tables, cached, chunk)
+    before = paged_prefill.chunk_attention.launches
+    got = paged_prefill.chunk_attention(q, pool, tables, cached, chunk,
+                                        window=window)
+    assert paged_prefill.chunk_attention.launches == before + 1
+    plain = pool if quant_kv else {key: buf.float()
+                                   for key, buf in pool.items()}
+    want = paged_prefill.chunk_attention_reference(q.float(), plain, tables,
+                                                   cached, window=window)
+    for row, length in enumerate(chunk.tolist()):
+        _close(got[row, :length], want[row, :length], torch.bfloat16)
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+def test_chunk_attention_rows_without_a_visible_key(cuda, quant_kv):
+    """Window 8 over 64 cached tokens: the first live key tile (keys
+    0..63) holds the window of the tile's first queries only; later rows
+    of the same tile see none of its keys, and must carry no mass from
+    it."""
+    q, k_new, v_new, pool, tables, cached, chunk = _chunk_case(
+        cuda, 3, 1, 2, 4, 64, (4,), (64,), 64, quant_kv)
+    paged_prefill.append_kv(k_new, v_new, pool, tables, cached, chunk)
+    got = paged_prefill.chunk_attention(q, pool, tables, cached, chunk,
+                                        window=8)
+    plain = pool if quant_kv else {key: buf.float()
+                                   for key, buf in pool.items()}
+    want = paged_prefill.chunk_attention_reference(q.float(), plain, tables,
+                                                   cached, window=8)
+    _close(got[0], want[0], torch.bfloat16)
+
+
+def test_paged_prefill_outside_the_envelope_raises_on_the_card(cuda):
+    """A chunk that is not block-aligned has no kernel: on CUDA tensors
+    the entry point raises and leaves the pool as it was (the plain
+    reference is the CPU path only)."""
+    q, k_new, v_new, pool, tables, cached, chunk = _chunk_case(
+        cuda, 5, 1, 2, 2, 32, (1,), (24,), 24, False, max_blocks=4)
+    before = {key: buf.clone() for key, buf in pool.items()}
+    with pytest.raises(ValueError, match="envelope"):
+        paged_prefill.paged_prefill_attention(q, k_new, v_new, pool, tables,
+                                              cached, chunk)
+    for key in pool:
+        assert torch.equal(pool[key], before[key]), key
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_paged_server_on_the_card_matches_batch1_oracle(cuda, quantize_kv):
+    """tiny with int8 weights through the paged server on the card, prefix
+    cache on, 16-token chunked admission (mixed and standalone slices):
+    every request's tokens equal a batch-1 paged run of the same request
+    with the prefix cache off (the same kernels, the same slices)."""
+    rng = np.random.default_rng(3)
+    system = rng.integers(1, 1024, 48).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(1, 1024, tail)
+                               .astype(np.int32)]) for tail in (5, 20, 9)]
+    prompts += [rng.integers(1, 1024, n).astype(np.int32) for n in (7, 70)]
+    kwargs = dict(config_name="tiny", max_seq=256, chunk_steps=4,
+                  quantize=True, quantize_kv=quantize_kv, seed=1,
+                  block_size=16, chunk_prefill_tokens=16)
+    server = PagedContinuousServer(slots=3, enable_prefix_cache=True,
+                                   **kwargs)
+    assert server.decode_attention_path == "kernel"
+    counts = (paged_prefill.append_kv.launches,
+              paged_prefill.chunk_attention.launches)
+    requests = [DecodeRequest(f"r{i}", p, 6) for i, p in enumerate(prompts)]
+    for request in requests[:2]:
+        server.submit(request)
+    server.run_until_drained()
+    for request in requests[2:]:
+        server.submit(request)
+    server.run_until_drained()
+    slices = server.counters["prefill_dispatches"]
+    layers = server.config.n_layers
+    assert paged_prefill.append_kv.launches - counts[0] == layers * slices
+    assert paged_prefill.chunk_attention.launches - counts[1] \
+        == layers * slices
+    assert server.prefix_hits > 0
+    balance = server.pool_balance()
+    assert balance["free"] + balance["evictable"] + balance["producing"] \
+        == balance["total"]
+    oracle = PagedContinuousServer(slots=1, params=server.params, **kwargs)
+    for request in requests:
+        alone = DecodeRequest("o", request.prompt, 6)
+        oracle.submit(alone)
+        oracle.run_until_drained()
+        assert request.tokens == alone.tokens, request.request_id
