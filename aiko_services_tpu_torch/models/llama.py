@@ -11,12 +11,14 @@ grouped-query attention, SwiGLU MLP, untied LM head, bfloat16 params with
 f32 norm/softmax accumulation.  The casts sit where the JAX code puts
 them: bf16 agreement depends on them.
 
-Five hand-written CUDA kernels carry the serving paths: ``int8_matmul`` in
+Six hand-written CUDA kernels carry the serving paths: ``int8_matmul`` in
 every projection at decode shapes, ``flash_attention`` in contiguous
 prefill, ``paged_decode_attention`` in every decode step (contiguous caches
-feed it as a degenerate pool), and ``append_kv`` + ``chunk_attention`` in
-paged admission (:func:`prefill_append_paged`, :func:`serve_chunk_mixed`).
-Each takes its plain version only on CPU tensors.
+feed it as a degenerate pool), ``append_kv`` + ``chunk_attention`` in
+paged admission (:func:`prefill_append_paged`, :func:`serve_chunk_mixed`),
+and ``append_kv_ragged`` + ``chunk_attention`` in the speculative verify
+(:func:`verify_chunk_paged`).  Each takes its plain version only on CPU
+tensors.
 
 JAX donates caches to its jitted programs; here caches are updated IN
 PLACE (each write function mutates and returns the same per-layer dict),
@@ -42,7 +44,8 @@ from ..ops.paged_attention import (cached_gqa_attention,
                                    paged_decode_attention)
 from ..ops.paged_prefill import (_gathered_view, _kv_quantize_rows,
                                  _pool_sources, _write_rows_reference,
-                                 paged_prefill_attention)
+                                 paged_prefill_attention,
+                                 paged_verify_attention)
 from ..ops.quant import int8_matmul, is_quantized, quantize_int8
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
@@ -51,7 +54,8 @@ __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
            "scatter_state_rows", "sample_logits", "rms_norm",
            "apply_rope", "init_paged_cache", "decode_chunk_paged",
            "serve_chunk_paged", "prefill_append_paged",
-           "serve_chunk_mixed"]
+           "serve_chunk_mixed", "paged_insert_prefix", "verify_chunk_paged",
+           "sampling_probs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -597,6 +601,14 @@ def _sample_logits_per_row(logits, generator, temperatures, top_ps):
                          top_p=top_ps[:, None])
 
 
+def sampling_probs(logits, temperature=1.0, top_p=None):
+    """The distribution :func:`sample_logits` draws from at these controls
+    (batch-shaped temperature/top_p broadcast as in the per-row sampler):
+    softmax of the same masked, scaled logits."""
+    return torch.softmax(_mask_logits(logits, temperature, top_k=0,
+                                      top_p=top_p), dim=-1)
+
+
 @torch.no_grad()
 def generate_tokens(params, first_token, cache, start_index: int,
                     num_steps: int, config: LlamaConfig,
@@ -628,7 +640,7 @@ def generate_tokens(params, first_token, cache, start_index: int,
 # Serving loop
 
 def _serve_scan(step_core, state, cache, num_steps: int, eos_id: int,
-                sampled: bool, generator):
+                sampled: bool, generator, step_logits: Optional[List] = None):
     """Device-resident serving loop: the per-slot state (token,
     positions, active, remaining) lives in the device ``state`` dict and
     EOS/budget retirement happens on the device, so the host never
@@ -637,7 +649,8 @@ def _serve_scan(step_core, state, cache, num_steps: int, eos_id: int,
     goes inactive for the rest of the chunk (inactive lanes write the
     scratch row and freeze).  Returns ``(tokens_out (slots, steps),
     counts (slots,), new_state, cache)``; ``counts[s]`` leading entries
-    of ``tokens_out[s]`` were emitted."""
+    of ``tokens_out[s]`` were emitted.  ``step_logits``, when given, gets
+    each step's next-token logits (slots, vocab) appended."""
     temps, tops = state["temps"], state["tops"]
     token, positions = state["token"], state["positions"]
     active, remaining = state["active"], state["remaining"]
@@ -645,6 +658,8 @@ def _serve_scan(step_core, state, cache, num_steps: int, eos_id: int,
     for _ in range(num_steps):
         logits, cache = step_core(token, cache, positions, active)
         logits = logits[:, -1]
+        if step_logits is not None:
+            step_logits.append(logits)
         next_token = logits.argmax(dim=-1).to(torch.int32)
         if sampled:
             drawn = _sample_logits_per_row(logits, generator, temps, tops)
@@ -774,15 +789,9 @@ def _decode_core_paged(params, token, pool, tables, positions,
     return _matmul(x, params["lm_head"]).to(torch.float32), pool
 
 
-@torch.no_grad()
-def serve_chunk_paged(params, state, pool, num_steps: int,
-                      config: LlamaConfig, eos_id: int = -1,
-                      sampled: bool = False, generator=None):
-    """Paged twin of :func:`serve_chunk_ragged`: the block tables ride the
-    resident ``state`` (``state["tables"]``), so table updates merge in
-    with the other dirty rows.  Inactive lanes write scratch block 0 at
-    their slot offset."""
-    tables = state["tables"]
+def _paged_step_core(params, tables, pool, config: LlamaConfig):
+    """One paged decode step over the slots' ``tables``: inactive lanes
+    write scratch block 0 at their slot offset and are never read."""
     block_size = pool[0]["k"].shape[1]
     scratch_tables = torch.zeros_like(tables)
     scratch_positions = _iota(tables.shape[0], tables.device,
@@ -793,35 +802,69 @@ def serve_chunk_paged(params, state, pool, num_steps: int,
         write_pos = torch.where(active, positions, scratch_positions)
         return _decode_core_paged(params, token, pool, write_tables,
                                   write_pos, config)
+    return step_core
 
-    return _serve_scan(step_core, state, pool, num_steps, eos_id, sampled,
-                       generator)
+
+@torch.no_grad()
+def serve_chunk_paged(params, state, pool, num_steps: int,
+                      config: LlamaConfig, eos_id: int = -1,
+                      sampled: bool = False, generator=None):
+    """Paged twin of :func:`serve_chunk_ragged`: the block tables ride the
+    resident ``state`` (``state["tables"]``), so table updates merge in
+    with the other dirty rows."""
+    return _serve_scan(_paged_step_core(params, state["tables"], pool,
+                                        config),
+                       state, pool, num_steps, eos_id, sampled, generator)
 
 
 @torch.no_grad()
 def decode_chunk_paged(params, tokens, pool, tables, positions, active,
                        num_steps: int, config: LlamaConfig,
-                       temperatures=None, top_ps=None, generator=None):
+                       temperatures=None, top_ps=None, generator=None,
+                       return_logits: bool = False):
     """``num_steps`` paged decode steps for every slot, no EOS and no
-    budget (the JAX package's paged oracle): :func:`serve_chunk_paged`
-    with a budget of ``num_steps``.  Inactive slots write scratch block 0
-    and do not advance.  Returns (tokens_out (slots, num_steps), last
-    token (slots, 1), positions, pool)."""
+    budget (the JAX package's paged oracle, and the speculative draft's
+    proposer).  Inactive slots write scratch block 0 and do not advance.
+    Returns (tokens_out (slots, num_steps), last token (slots, 1),
+    positions, pool); ``return_logits=True`` inserts each step's
+    next-token logits (slots, num_steps, vocab) after ``tokens_out``, for
+    the sampled acceptance of a draft's proposals."""
     slots, device = tokens.shape[0], tokens.device
     sampled = temperatures is not None
     state = dict(
         token=tokens.to(torch.int32), positions=positions.to(torch.int32),
-        active=active, tables=tables,
+        active=active,
         remaining=torch.full((slots,), num_steps, dtype=torch.int32,
                              device=device),
         temps=(temperatures if sampled else
                torch.zeros((slots,), dtype=torch.float32, device=device)),
         tops=(top_ps if top_ps is not None else
               torch.ones((slots,), dtype=torch.float32, device=device)))
-    tokens_out, _, state, pool = serve_chunk_paged(
-        params, state, pool, num_steps, config, sampled=sampled,
-        generator=generator)
+    step_logits = [] if return_logits else None
+    tokens_out, _, state, pool = _serve_scan(
+        _paged_step_core(params, tables, pool, config), state, pool,
+        num_steps, -1, sampled, generator, step_logits=step_logits)
+    if return_logits:
+        return (tokens_out, torch.stack(step_logits, dim=1), state["token"],
+                state["positions"], pool)
     return tokens_out, state["token"], state["positions"], pool
+
+
+@torch.no_grad()
+def paged_insert_prefix(pool, tables, prefix_cache, slot: int):
+    """Copy a contiguous prefilled cache (per layer ``(1, padded, kv,
+    hd)``, the pool's KV layout) into ``slot``'s first ``padded //
+    block_size`` table blocks, in place.  ``tables`` (slots, max_blocks);
+    ``padded`` must be a multiple of the pool's block size."""
+    block_size = pool[0]["k"].shape[1]
+    padded = prefix_cache[0]["k"].shape[1]
+    block_ids = tables[int(slot), :padded // block_size].to(torch.int64)
+    for pool_layer, prefix_layer in zip(pool, prefix_cache):
+        for key, buf in pool_layer.items():
+            src = prefix_layer[key][0]
+            buf[block_ids] = src.reshape((padded // block_size, block_size)
+                                         + tuple(src.shape[1:])).to(buf.dtype)
+    return pool
 
 
 def _prefill_append_core(params, tokens, pool, tables, start_index: int,
@@ -894,3 +937,60 @@ def serve_chunk_mixed(params, state, pool, prefill_tokens, prefill_row: int,
     return serve_chunk_paged(params, state, pool, num_steps, config,
                              eos_id=eos_id, sampled=sampled,
                              generator=generator)
+
+
+def _verify_append_core(params, tokens, pool, tables, positions, active,
+                        config: LlamaConfig, kv_limit: Optional[int] = None):
+    """Teacher-forced scoring of a (batch, K) speculative window straight
+    against the block pool: every row at its OWN absolute start position
+    (mid-block starts included), the window's K/V appended into the
+    row's table-resolved blocks by :func:`~..ops.paged_prefill.
+    paged_verify_attention` (the ``append_kv_ragged`` and
+    ``chunk_attention`` kernels on the card, their plain versions on the
+    CPU).  Inactive rows get ``chunk_len`` 0 and write tables of scratch
+    block 0, so they write nothing; their logits are garbage the
+    acceptance mask discards."""
+    batch, K = tokens.shape
+    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    device = tokens.device
+    starts = torch.where(active, positions.to(torch.int32),
+                         torch.zeros_like(positions, dtype=torch.int32))
+    positions_b = starts.to(torch.int64)[:, None] + _iota(K, device)[None, :]
+    chunk_lens = torch.where(active, K, 0).to(torch.int32)
+    write_tables = torch.where(active[:, None], tables,
+                               torch.zeros_like(tables)).to(torch.int32)
+    rope = _rope_tables(config, positions_b)
+    x = _embed_lookup(params, tokens, config.dtype)
+    for layer, pool_layer in zip(params["layers"], pool):
+        q, k, v = _qkv(layer, config, x, rope)
+        out, _ = paged_verify_attention(
+            q.reshape(batch, K, kv, h // kv, hd).contiguous(),
+            k.contiguous(), v.contiguous(), pool_layer, write_tables,
+            starts, chunk_lens, window=config.sliding_window,
+            kv_limit=kv_limit)
+        x = x + _matmul(out.reshape(batch, K, h * hd),
+                        layer["wo"]).to(x.dtype)
+        x = _mlp_block(layer, config, x)
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    return _matmul(x, params["lm_head"]).to(torch.float32), pool
+
+
+@torch.no_grad()
+def verify_chunk_paged(params, tokens, pool, tables, positions, active,
+                       config: LlamaConfig, kv_limit: Optional[int] = None):
+    """Speculative verify on the paged layout: score K tokens per slot
+    against the block pool, each row at its own absolute position.
+    ``tokens`` (batch, K) int32 windows (seed token + proposals),
+    ``tables`` the resident (slots, max_blocks) block tables,
+    ``positions`` (batch,) the absolute position of ``tokens[:, 0]``.
+
+    Returns ``(logits (batch, K, vocab) f32, pool)``: ``logits[:, j]``
+    predicts position ``positions + j + 1``.  The window's K/V rows land
+    in each slot's own blocks at ``[positions, positions + K)``;
+    rejected-tail rows are left stale (unattendable by the
+    absolute-position mask until a later round rewrites them).  Callers
+    reserve ``K`` rows of block headroom past the last committed position
+    (the paged server's worst-case reservation includes ``spec_k + 1``)."""
+    _dense_only(config)
+    return _verify_append_core(params, tokens, pool, tables, positions,
+                               active, config, kv_limit=kv_limit)

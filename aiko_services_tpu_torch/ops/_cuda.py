@@ -32,8 +32,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-#: Never -use_fast_math: csrc/paged_append.cu's int8 KV quantizer must keep
-#: IEEE division to stay bit-identical to the plain quantizer.
+#: Never -use_fast_math: the append kernels' int8 KV quantizer
+#: (csrc/kv_write.cuh) must keep IEEE division to stay bit-identical to the
+#: plain quantizer.
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
 
@@ -52,6 +53,8 @@ SIGNATURES = {
                              _I, _I, _F, _P],
     "aiko_append_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_append_kv_ragged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                              _P],

@@ -1,13 +1,13 @@
-"""Ragged paged append attention: chunked prefill straight against the
-block pool, with its two hand-written CUDA kernels and their plain
-versions.
+"""Ragged paged append attention: chunked prefill and speculative verify
+straight against the block pool, with their three hand-written CUDA
+kernels and their plain versions.
 
-Port of ``aiko_services_tpu/ops/paged_prefill.py`` (the prefill half;
-the speculative verify writer ``_append_kv_ragged`` waits for the
-speculation slice).  Admission appends a prompt chunk into the slot's
-block chain and attends its queries over the cached prefix blocks plus
-the causally visible part of the chunk, reading K/V in place: no bucket
-cache, no gather, no scatter-back.
+Port of ``aiko_services_tpu/ops/paged_prefill.py``.  Admission appends a
+prompt chunk into the slot's block chain and attends its queries over the
+cached prefix blocks plus the causally visible part of the chunk, reading
+K/V in place: no bucket cache, no gather, no scatter-back.  A speculative
+verify does the same for each slot's short window at its own, unaligned
+decode position.
 
 * :func:`append_kv` writes the chunk's ``(batch, T, kv, hd)`` K/V into
   pool blocks ``tables[row, cached // bs + cb]`` in place
@@ -16,12 +16,18 @@ cache, no gather, no scatter-back.
   past a row's ``chunk_len`` are not written by the kernel; the plain
   version flushes them into scratch block 0 (never attended), as the JAX
   kernel does, so the two agree everywhere but block 0.
+* :func:`append_kv_ragged` writes a verify window's rows at any per-row
+  start: row ``t < chunk_lens[b]`` lands at position ``cached_lens[b] +
+  t`` (``csrc/paged_append_ragged.cu`` on CUDA tensors).  Neither it nor
+  its plain version writes anything for rows past ``chunk_len``.
 * :func:`chunk_attention` runs the chunk's queries over the appended
   pool (``csrc/paged_prefill.cu`` on CUDA tensors).
-* :func:`paged_prefill_attention` is the two in order.  On CPU tensors
-  it keeps the JAX package's dispatch rule: shapes outside the kernels'
-  envelope (``head_dim > 128`` or ``T % block_size``) take
-  :func:`paged_prefill_reference`.  On CUDA tensors such shapes raise.
+* :func:`paged_prefill_attention` is :func:`append_kv` then
+  :func:`chunk_attention`; :func:`paged_verify_attention` is
+  :func:`append_kv_ragged` then :func:`chunk_attention`.  On CPU tensors
+  both keep the JAX package's dispatch rule: shapes outside the kernels'
+  envelope take :func:`paged_prefill_reference`.  On CUDA tensors such
+  shapes raise.
 
 Every function here updates the pool IN PLACE and returns it, which is
 what the JAX kernels' input/output aliasing buys on the TPU.
@@ -37,8 +43,15 @@ from . import _cuda
 from .paged_attention import cached_gqa_attention
 
 __all__ = ["paged_prefill_attention", "paged_prefill_reference",
-           "append_kv", "append_kv_reference", "chunk_attention",
-           "chunk_attention_reference"]
+           "paged_verify_attention", "append_kv", "append_kv_reference",
+           "append_kv_ragged", "append_kv_ragged_reference",
+           "chunk_attention", "chunk_attention_reference"]
+
+#: Head dims the chunk-attention kernel is built for.
+CHUNK_HEAD_DIMS = (16, 32, 64, 128)
+#: Widest verify window the dispatch sends through the kernels (the JAX
+#: package's ``Q_TILE_CAP``).
+VERIFY_T_MAX = 128
 
 
 def _kv_quantize_rows(rows):
@@ -169,45 +182,53 @@ def append_kv(k_new, v_new, pool, tables, cached_lens, chunk_lens):
     if k_new.device.type == "cpu":
         return append_kv_reference(k_new, v_new, pool, tables, cached_lens,
                                    chunk_lens)
-    batch, T, kv_heads, head_dim = k_new.shape
-    n_blocks, block_size = pool["k"].shape[:2]
-    quantized = "ks" in pool
+    T, block_size = k_new.shape[1], pool["k"].shape[1]
     if T % block_size:
         raise ValueError(f"append_kv: chunk width {T} is not a multiple of "
                          f"block_size {block_size}")
-    if v_new.shape != k_new.shape or pool["k"].shape[2:] \
-            != (kv_heads, head_dim) or pool["v"].shape != pool["k"].shape:
-        raise ValueError(f"append_kv: k/v {tuple(k_new.shape)}, pool "
-                         f"{tuple(pool['k'].shape)}")
-    if k_new.dtype not in (torch.bfloat16, torch.float32) \
-            or v_new.dtype != k_new.dtype:
-        raise TypeError(f"append_kv: k/v dtype {k_new.dtype}")
-    if quantized != (pool["k"].dtype == torch.int8):
-        raise TypeError("append_kv: int8 pools need ks/vs and float pools "
-                        "take none")
-    if pool["k"].dtype not in _cuda.DTYPE_CODES:
-        raise TypeError(f"append_kv: pool dtype {pool['k'].dtype}")
-    _check_meta("append_kv", tables, cached_lens, chunk_lens, batch)
-    operands = [k_new, v_new, pool["k"], pool["v"], tables, cached_lens,
-                chunk_lens]
-    if quantized:
-        _check_scales("append_kv", pool)
-        operands += [pool["ks"], pool["vs"]]
-    device = _cuda.check_cuda("append_kv", *operands)
-    _cuda.launch("aiko_append_kv", device, k_new.data_ptr(),
-                 v_new.data_ptr(), pool["k"].data_ptr(),
-                 pool["v"].data_ptr(), _cuda.ptr(pool.get("ks")),
-                 _cuda.ptr(pool.get("vs")), tables.data_ptr(),
-                 cached_lens.data_ptr(), chunk_lens.data_ptr(), batch, T,
-                 kv_heads, head_dim, block_size, tables.shape[1],
-                 _cuda.DTYPE_CODES[k_new.dtype],
-                 _cuda.DTYPE_CODES[pool["k"].dtype])
+    _launch_append("aiko_append_kv", "append_kv", k_new, v_new, pool, tables,
+                   cached_lens, chunk_lens)
     append_kv.launches += 1
     return pool
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
 append_kv.launches = 0
+
+
+def _launch_append(entry: str, name: str, k_new, v_new, pool, tables,
+                   cached_lens, chunk_lens) -> None:
+    """Check a K/V append's CUDA operands and launch C entry ``entry`` (the
+    aligned and the ragged writer take the same arguments)."""
+    batch, T, kv_heads, head_dim = k_new.shape
+    block_size = pool["k"].shape[1]
+    quantized = "ks" in pool
+    if v_new.shape != k_new.shape or pool["k"].shape[2:] \
+            != (kv_heads, head_dim) or pool["v"].shape != pool["k"].shape:
+        raise ValueError(f"{name}: k/v {tuple(k_new.shape)}, pool "
+                         f"{tuple(pool['k'].shape)}")
+    if k_new.dtype not in (torch.bfloat16, torch.float32) \
+            or v_new.dtype != k_new.dtype:
+        raise TypeError(f"{name}: k/v dtype {k_new.dtype}")
+    if quantized != (pool["k"].dtype == torch.int8):
+        raise TypeError(f"{name}: int8 pools need ks/vs and float pools "
+                        "take none")
+    if pool["k"].dtype not in _cuda.DTYPE_CODES:
+        raise TypeError(f"{name}: pool dtype {pool['k'].dtype}")
+    _check_meta(name, tables, cached_lens, chunk_lens, batch)
+    operands = [k_new, v_new, pool["k"], pool["v"], tables, cached_lens,
+                chunk_lens]
+    if quantized:
+        _check_scales(name, pool)
+        operands += [pool["ks"], pool["vs"]]
+    device = _cuda.check_cuda(name, *operands)
+    _cuda.launch(entry, device, k_new.data_ptr(), v_new.data_ptr(),
+                 pool["k"].data_ptr(), pool["v"].data_ptr(),
+                 _cuda.ptr(pool.get("ks")), _cuda.ptr(pool.get("vs")),
+                 tables.data_ptr(), cached_lens.data_ptr(),
+                 chunk_lens.data_ptr(), batch, T, kv_heads, head_dim,
+                 block_size, tables.shape[1], _cuda.DTYPE_CODES[k_new.dtype],
+                 _cuda.DTYPE_CODES[pool["k"].dtype])
 
 
 def _check_meta(name, tables, cached_lens, chunk_lens, batch):
@@ -228,6 +249,53 @@ def _check_scales(name, pool):
             or pool["vs"].dtype != torch.float32:
         raise ValueError(f"{name}: scales must be f32 (n_blocks, "
                          "block_size, kv_heads)")
+
+
+# --------------------------------------------------------------------------- #
+# append_kv_ragged: TPU kernel 7 (``_append_kv_ragged``)
+
+def append_kv_ragged_reference(k_new, v_new, pool, tables, cached_lens,
+                               chunk_lens):
+    """Plain version of :func:`append_kv_ragged`: every live window row
+    lands at its table-resolved (block, offset), in place (table entry
+    clamped to the table, as the JAX index map does); rows past
+    ``chunk_len`` write nowhere."""
+    T = k_new.shape[1]
+    block_size = pool["k"].shape[1]
+    positions = _query_positions(cached_lens, T)
+    live = torch.arange(T, device=k_new.device)[None, :] \
+        < chunk_lens.to(torch.int64)[:, None]
+    entries = (positions // block_size).clamp(max=tables.shape[1] - 1)
+    block_ids = tables.to(torch.int64).gather(1, entries)[live]
+    offsets = (positions % block_size)[live]
+    for key, src in _pool_sources(pool, k_new, v_new).items():
+        pool[key][block_ids, offsets] = src[live].to(pool[key].dtype)
+    return pool
+
+
+def append_kv_ragged(k_new, v_new, pool, tables, cached_lens, chunk_lens):
+    """Write a verify window's K/V into its pool blocks, in place, each row
+    from its own (unaligned) start.
+
+    Args as :func:`append_kv`, except that ``T`` is any width,
+    ``cached_lens`` need not be block-aligned, and a row with
+    ``chunk_lens[row] == 0`` writes nothing.  Row ``t < chunk_lens[b]``
+    lands at pool block ``tables[b, (cached_lens[b] + t) // bs]``, offset
+    ``(cached_lens[b] + t) % bs``.
+
+    CPU tensors take :func:`append_kv_ragged_reference`; CUDA tensors
+    launch ``csrc/paged_append_ragged.cu``.  Returns ``pool``."""
+    if k_new.device.type == "cpu":
+        return append_kv_ragged_reference(k_new, v_new, pool, tables,
+                                          cached_lens, chunk_lens)
+    _launch_append("aiko_append_kv_ragged", "append_kv_ragged", k_new, v_new,
+                   pool, tables, cached_lens, chunk_lens)
+    append_kv_ragged.launches += 1
+    return pool
+
+
+#: Kernel launches on the CUDA path (never counts the plain version).
+append_kv_ragged.launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -269,12 +337,7 @@ def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
     max_blocks = tables.shape[1]
     kv_blocks = max_blocks if kv_limit is None else min(int(kv_limit),
                                                         max_blocks)
-    if head_dim not in (16, 32, 64, 128):
-        raise ValueError(f"chunk_attention: head_dim {head_dim} outside the "
-                         "kernel's envelope (16, 32, 64 or 128)")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"chunk_attention: the kernel takes bf16 queries, "
-                        f"got {q.dtype}")
+    _check_query("chunk_attention", q)
     quantized = "ks" in pool
     if pool["k"].dtype not in (torch.bfloat16, torch.int8) \
             or quantized != (pool["k"].dtype == torch.int8) \
@@ -309,6 +372,16 @@ def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
 chunk_attention.launches = 0
 
 
+def _check_query(name, q):
+    """The chunk-attention kernel's query envelope."""
+    if q.shape[-1] not in CHUNK_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} outside the "
+                         f"kernel's envelope {CHUNK_HEAD_DIMS}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bf16 queries, got "
+                        f"{q.dtype}")
+
+
 # --------------------------------------------------------------------------- #
 # The append-attention entry point
 
@@ -339,6 +412,44 @@ def paged_prefill_attention(q, k_new, v_new, pool, tables, cached_lens,
                                        cached_lens, chunk_lens,
                                        window=window)
     append_kv(k_new, v_new, pool, tables, cached_lens, chunk_lens)
+    out = chunk_attention(q, pool, tables, cached_lens, chunk_lens,
+                          window=window, kv_limit=kv_limit)
+    return out, pool
+
+
+def paged_verify_attention(q, k_new, v_new, pool, tables, cached_lens,
+                           chunk_lens, window: Optional[int] = None,
+                           kv_limit: Optional[int] = None):
+    """Ragged paged VERIFY attention, the speculative twin of
+    :func:`paged_prefill_attention`: :func:`append_kv_ragged` then
+    :func:`chunk_attention`.
+
+    Two contract differences from the prefill entry: ``cached_lens`` need
+    not be block-aligned (each slot verifies at its own decode position),
+    and ``chunk_lens`` may differ per row; a row with ``chunk_lens == 0``
+    (an inactive slot) writes nothing.  The attention is the prefill
+    kernel's, whose absolute-position masking already handles unaligned
+    starts, so a verify pass reads each row's history in place.
+
+    Returns ``(out (batch, T, kv_heads, group, head_dim), pool)``, output
+    rows past a row's ``chunk_len`` being padding.  Outside the kernels'
+    envelope (``head_dim > 128`` or ``T > VERIFY_T_MAX``) CPU tensors take
+    :func:`paged_prefill_reference`, as the JAX package does, and CUDA
+    tensors raise before anything is written."""
+    T, head_dim = q.shape[1], q.shape[-1]
+    on_cpu = q.device.type == "cpu"
+    if head_dim > 128 or T > VERIFY_T_MAX:
+        if not on_cpu:
+            raise ValueError(
+                f"paged_verify_attention: head_dim {head_dim} and window "
+                f"width {T} are outside the kernels' envelope (head_dim <= "
+                f"128, T <= {VERIFY_T_MAX})")
+        return paged_prefill_reference(q, k_new, v_new, pool, tables,
+                                       cached_lens, chunk_lens,
+                                       window=window)
+    if not on_cpu:
+        _check_query("paged_verify_attention", q)
+    append_kv_ragged(k_new, v_new, pool, tables, cached_lens, chunk_lens)
     out = chunk_attention(q, pool, tables, cached_lens, chunk_lens,
                           window=window, kv_limit=kv_limit)
     return out, pool

@@ -24,9 +24,21 @@ its lifetime.
   host sync of the serving loop, and applies the results (deliver,
   advance mirrors, retire).  The ring depth adapts between ``ring_min``
   and ``ring_max`` (:meth:`_ring_policy`).
+* Speculative decoding (:meth:`_dispatch_spec_round`): a proposer fills
+  each live slot's ``k``-token window (a draft model, or n-gram lookup in
+  the slot's own history), one target verify pass scores it, the
+  acceptance kernel (greedy, or modified rejection sampling for sampled
+  slots; per-slot caps from the adaptive
+  :class:`~.spec_control.SpecController`) picks each slot's committed
+  prefix, and :func:`~..models.speculative.spec_commit` advances the
+  resident state.  Rounds ride the same ring as chunks.  The verify,
+  the draft's cache and the rollback accounting are layout hooks that
+  only the paged server supplies (``_spec_verify``, ``_draft_propose``,
+  ``_draft_resync``, ``_prefill_draft_rows``, ``_note_spec_rollback``).
 
 Greedy decode through this path matches per-request ``prefill`` +
-``generate_tokens`` output whatever the admission order.
+``generate_tokens`` output whatever the admission order, with or without
+speculation.
 
 Layout hooks (``_init_layout``, ``_attention_blocks``, ``_reserve_slot``,
 ``_release_slot``, ``_prefill_and_insert``, ``_begin_chunked_prefill``,
@@ -34,11 +46,12 @@ Layout hooks (``_init_layout``, ``_attention_blocks``, ``_reserve_slot``,
 paged server (:mod:`.paged`) plugs in its block pool, as in the JAX
 package.
 
-Left out of this slice (they raise ``NotImplementedError``): meshes,
-LoRA adapters, speculative decoding and grammars, chunked prefill on the
-contiguous layout (it needs ``llama.prefill_chunk``; the paged server has
-its own), the compilation cache, the watchdog and the legacy full-mirror
-upload; the observability hooks; the actor wrapper ``ContinuousReplica``.
+Left out so far (they raise ``NotImplementedError``): meshes, LoRA
+adapters, grammars, speculation and chunked prefill on the contiguous
+layout (they need ``llama.verify_chunk_ragged`` and ``llama.prefill_chunk``;
+the paged server has its own), the compilation cache, the watchdog and the
+legacy full-mirror upload; the observability hooks; the actor wrapper
+``ContinuousReplica``.
 """
 
 from __future__ import annotations
@@ -54,8 +67,12 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama
+from ..models.speculative import (SpecStats, delta_draft_logits,
+                                  greedy_accept_batch, mrs_accept_batch,
+                                  ngram_propose, spec_commit)
 from ..obs.metrics import CounterDict
 from ..ops.paged_attention import contiguous_block_size
+from .spec_control import SpecController, default_ladder, validate_ladder
 
 __all__ = ["ContinuousBatchingServer", "DecodeRequest"]
 
@@ -91,6 +108,9 @@ class DecodeRequest:
     activated_ts: Optional[float] = None
     first_token_ts: Optional[float] = None
     finished_ts: Optional[float] = None
+    #: Speculative serving: proposals accepted in each of the request's
+    #: rounds (each in [0, k]).
+    spec_accepted_rounds: Optional[List[int]] = None
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -102,6 +122,10 @@ def _bucket(n: int, minimum: int = 16) -> int:
 
 class ContinuousBatchingServer:
     """Slot-based continuous batching around a Llama-family model."""
+
+    #: Whether this layout supplies the speculation hooks (the paged
+    #: server does).
+    SPECULATION = False
 
     def __init__(self, config_name: str = "tiny", slots: int = 4,
                  max_seq: Optional[int] = None, chunk_steps: int = 8,
@@ -119,16 +143,22 @@ class ContinuousBatchingServer:
                  compilation_cache_dir: Optional[str] = None,
                  compact_upload: bool = True,
                  ring_max: Optional[int] = None, device=None):
+        speculation = (draft_config_name is not None
+                       or draft_params is not None or draft_quantize
+                       or draft_mode != "auto" or spec_ladder is not None
+                       or spec_adaptive)
+        if speculation and not self.SPECULATION:
+            raise NotImplementedError(
+                "speculative decoding runs on the paged server "
+                "(PagedContinuousServer); the contiguous layout's verify "
+                "(llama.verify_chunk_ragged) is not ported yet")
         unsupported = {
             "mesh": mesh is not None,
             "replica_mesh": replica_mesh is not None,
             "adapters/lora_config": bool(adapters)
             or lora_config is not None,
-            "draft_*/speculation": draft_config_name is not None
-            or draft_params is not None or draft_quantize
-            or draft_mode != "auto" or spec_ladder is not None
-            or spec_adaptive,
-            "automata": bool(automata),
+            "automata (grammar-constrained decoding, "
+            "models/constrained.py)": bool(automata),
             "compilation_cache_dir": compilation_cache_dir is not None,
             "watchdog_s": float(watchdog_s) > 0,
             "compact_upload=False": not compact_upload,
@@ -166,7 +196,24 @@ class ContinuousBatchingServer:
                              f">= 16, got {self.chunk_prefill_tokens}")
         #: slot -> in-progress chunked admission state.
         self._prefilling: Dict[int, Dict] = {}
+        # The paired draft of model-mode speculation: its KV lives in the
+        # layout's draft pool (_init_layout), prefilled at admission.
+        self._draft = None
+        if draft_config_name is not None:
+            draft_config = llama.CONFIGS[draft_config_name]
+            if draft_config.vocab_size != self.config.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if draft_params is None:
+                draft_params = llama.init_params(draft_config, seed=seed + 1,
+                                                 device=self.device)
+            if draft_quantize:
+                draft_params = llama.quantize_params(draft_params)
+            self._draft = dict(config=draft_config, params=draft_params)
+        #: Speculation policy, set after _init_layout (the ladder validates
+        #: against the final prompt-bucket floor); None = plain decode.
+        self._spec = None
         self._init_layout()
+        self._init_spec(draft_mode, spec_k, spec_ladder, spec_adaptive)
         # Decode-attention path tag and view geometry, decided once.
         self._attn_block_size, self._attn_total_blocks = \
             self._attention_blocks()
@@ -268,10 +315,53 @@ class ContinuousBatchingServer:
 
     def _finish_prefill(self, slot: int, state: Dict) -> None:
         """A chunked admission's prompt is in: the slot turns decode-
-        active."""
+        active, the draft (if any) prefilled with the whole prompt first."""
         del self._prefilling[slot]
+        if self._draft is not None:
+            self._prefill_draft_rows([slot], state["prompt_padded"])
         self._activate_slot(slot, state["request"], state["prompt_padded"],
                             state["prompt_len"])
+
+    def _init_spec(self, draft_mode: str, spec_k: int, spec_ladder,
+                   spec_adaptive: bool) -> None:
+        """Speculation wiring.  Two proposers share one verify, accept and
+        commit path: ``model`` (the draft of ``draft_config_name``) and
+        ``ngram`` (suffix-match proposals from each slot's own committed
+        history, assembled on the host).  ``draft_mode="auto"`` resolves to
+        ``model`` when a draft is configured; speculation is off when
+        there is no draft and no explicit ``ngram``."""
+        if self._draft is None and draft_mode not in ("ngram", "model"):
+            if draft_mode != "auto":
+                raise ValueError(
+                    f"draft_mode must be 'model', 'ngram' or 'auto', got "
+                    f"{draft_mode!r}")
+            return
+        mode = draft_mode
+        if mode == "auto":
+            mode = "model" if self._draft is not None else "ngram"
+        if mode not in ("model", "ngram"):
+            raise ValueError(
+                f"draft_mode must be 'model', 'ngram' or 'auto', got "
+                f"{draft_mode!r}")
+        if mode == "model" and self._draft is None:
+            raise ValueError("draft_mode='model' requires draft_config_name=")
+        if mode == "ngram" and self._draft is not None:
+            raise ValueError(
+                "draft_mode='ngram' does not take draft_config_name= (the "
+                "slot's own committed history is the draft)")
+        ladder = (tuple(int(k) for k in spec_ladder)
+                  if spec_ladder is not None
+                  else default_ladder(int(spec_k)))
+        ladder = validate_ladder(ladder, self._bucket_minimum)
+        if ladder[-1] < 1:
+            raise ValueError(
+                f"spec ladder {ladder} has no usable rung: the top rung must "
+                "be >= 1 (k=0 alone is just plain decode)")
+        controller = (SpecController(self.slots, ladder)
+                      if spec_adaptive else None)
+        self._spec = dict(mode=mode, k=int(ladder[-1]), ladder=ladder,
+                          controller=controller)
+        self.spec_stats = SpecStats()
 
     # ---- device state -------------------------------------------------- #
 
@@ -416,6 +506,11 @@ class ContinuousBatchingServer:
             return "unknown_adapter"
         if request.automaton is not None:
             return "unknown_automaton"
+        if self._spec is not None and prompt_len + request.max_new_tokens \
+                + self._spec["k"] + 1 > self.max_seq:
+            # A verify window writes k + 1 rows from the live position,
+            # bounded by the ladder top (adaptivity only narrows it).
+            return "prompt_too_long"
         return None
 
     def live_requests(self) -> List[DecodeRequest]:
@@ -483,6 +578,10 @@ class ContinuousBatchingServer:
         self._slot_serial[slot] += 1
         self._dirty[slot] = True
         self._any_sampled = bool((self._temperatures > 0).any())
+        if self._spec is not None and self._spec["controller"] is not None:
+            # New occupant: forget the previous request's acceptance
+            # history (optimistic start at the ladder top).
+            self._spec["controller"].reset(slot)
 
     def _prefill_and_insert(self, admissions) -> None:
         """Group admissions by bucket size and prefill each group in
@@ -669,7 +768,7 @@ class ContinuousBatchingServer:
             self._starved_streak = 0
         depth = self._ring_depth
         dispatched = False
-        while len(self._ring) < depth and self._dispatch_chunk():
+        while len(self._ring) < depth and self._dispatch_round():
             dispatched = True
         target = depth - 1 if dispatched else 0
         if len(self._ring) > target:
@@ -706,14 +805,27 @@ class ContinuousBatchingServer:
                 depth -= 1
         return max(ring_min, min(ring_max, depth))
 
+    def _dispatch_round(self) -> bool:
+        """Launch one decode chunk, or one speculative round, against the
+        resident device state WITHOUT waiting for it; False when no slot
+        needs scheduling.  The call's duration feeds the dispatch EMA the
+        ring policy weighs sync waits against."""
+        began = time.monotonic()
+        dispatched = (self._dispatch_spec_round() if self._spec is not None
+                      else self._dispatch_chunk())
+        if dispatched:
+            elapsed_ms = (time.monotonic() - began) * 1e3
+            self._ema_dispatch_ms = (
+                elapsed_ms if self._ema_dispatch_ms is None
+                else 0.25 * elapsed_ms + 0.75 * self._ema_dispatch_ms)
+        return dispatched
+
     def _dispatch_chunk(self) -> bool:
-        """Launch one decode chunk against the resident device state
-        WITHOUT waiting for it; False when no slot needs scheduling."""
+        """Launch one decode chunk; False when no slot needs scheduling."""
         plan = self._plan_remaining()
         live = plan > 0
         if not live.any():
             return False
-        began = time.monotonic()
         steps = int(min(self.chunk_steps, int(plan[live].max())))
         self._sync_dirty()
         serial = self._slot_serial.copy()
@@ -724,27 +836,30 @@ class ContinuousBatchingServer:
         result = torch.cat([tokens_d, counts_d[:, None],
                             self._state["active"][:, None].to(torch.int32)],
                            dim=1)
+        sched = np.where(live, np.minimum(steps, plan), 0)
+        self._inflight_sched += sched
+        self._note_decode_blocks(live, sched)
+        self._enqueue(result, kind="chunk", cols=steps, steps=steps,
+                      sched=sched, serial=serial)
+        return True
+
+    def _enqueue(self, result, **entry) -> None:
+        """Put a dispatched round on the in-flight ring: its packed int32
+        ``result`` holds ``entry["cols"]`` token columns, then per-slot
+        emit counts and the active flags (and, for a spec round, the full
+        committed windows).  On the card the result is copied into pinned
+        host memory behind the round on the stream; _consume_ready waits
+        on the event, not the stream."""
         event = None
         if result.is_cuda:
-            # Pinned destination: the copy runs behind the chunk on the
-            # stream; _consume_ready waits on the event, not the stream.
             host = torch.empty(result.shape, dtype=result.dtype,
                                pin_memory=True)
             host.copy_(result, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
             result = host
-        sched = np.where(live, np.minimum(steps, plan), 0)
-        self._inflight_sched += sched
-        self._note_decode_blocks(live, sched)
-        self._ring.append(dict(result=result, event=event, steps=steps,
-                               sched=sched, serial=serial))
+        self._ring.append(dict(entry, result=result, event=event))
         self._note_dispatch()
-        elapsed_ms = (time.monotonic() - began) * 1e3
-        self._ema_dispatch_ms = (
-            elapsed_ms if self._ema_dispatch_ms is None
-            else 0.25 * elapsed_ms + 0.75 * self._ema_dispatch_ms)
-        return True
 
     def _serve_chunk(self, state, steps: int, eos_id: int, sampled: bool):
         tokens_d, counts_d, new_state, self.cache = \
@@ -753,6 +868,98 @@ class ContinuousBatchingServer:
                 eos_id=eos_id, sampled=sampled,
                 generator=self._generator if sampled else None)
         return tokens_d, counts_d, new_state
+
+    def _dispatch_spec_round(self) -> bool:
+        """ONE speculative round for every live slot, dispatched without a
+        host sync: the proposer fills each slot's ``k``-token window, one
+        target verify pass scores it, the acceptance kernel picks each
+        slot's committed window, and :func:`spec_commit` applies EOS and
+        budget caps and advances the resident state.  Greedy outputs are
+        exactly the plain server's under every proposer and cap; sampled
+        slots commit tokens distributed exactly as target-only sampling
+        (MRS, or its delta-draft form for n-gram proposals).
+
+        Adaptive rounds run at the controller's ``round_k`` (the max rung
+        over live slots, always a ladder member); ``round_k == 0`` (every
+        live slot parked at k = 0) runs the plain chunk instead."""
+        plan = self._plan_remaining()
+        live = plan > 0
+        if not live.any():
+            return False
+        spec = self._spec
+        mode, controller = spec["mode"], spec["controller"]
+        if mode == "ngram" and self._ring:
+            # n-gram proposals read the host's committed history: consume
+            # what is in flight first, dispatch on the next pass.
+            return False
+        k, caps_host = spec["k"], None
+        if controller is not None:
+            k = controller.round_k(live)
+            caps_host = controller.caps(live)
+            controller.note_dispatch(live)
+            if k == 0:
+                controller.tick_cold_round(live)
+                return self._dispatch_chunk()
+        self._sync_dirty()
+        st = self._state
+        sampled = self._any_sampled
+        draft_logits = None
+        if mode == "model":
+            proposals, draft_logits = self._draft_propose(st, k, sampled)
+        else:
+            props = np.zeros((self.slots, k), np.int32)
+            for slot in np.nonzero(live)[0]:
+                request = self._requests[int(slot)]
+                props[slot], hit = ngram_propose(
+                    list(request.prompt) + list(request.tokens), k)
+                self.spec_stats.ngram_hits += int(hit)
+            proposals = self._upload(props)
+            if sampled:
+                draft_logits = delta_draft_logits(proposals,
+                                                  self.config.vocab_size)
+        logits = self._spec_verify(st, torch.cat([st["token"], proposals],
+                                                 dim=1))
+        caps = self._upload(caps_host) if caps_host is not None else None
+        if sampled:
+            window, counts_raw = mrs_accept_batch(
+                logits, draft_logits, proposals, st["temps"], st["tops"],
+                self._generator, caps=caps)
+        else:
+            window, counts_raw = greedy_accept_batch(logits, proposals,
+                                                     caps=caps)
+        emit_tokens, emit_counts, resync, self._state = spec_commit(
+            st, window, counts_raw,
+            eos_id=-1 if self.eos_id is None else int(self.eos_id))
+        if mode == "model":
+            self._draft_resync(st, resync, st["positions"], st["active"])
+        counts_full = torch.where(st["active"], counts_raw,
+                                  torch.zeros_like(counts_raw))
+        result = torch.cat([emit_tokens, emit_counts[:, None],
+                            self._state["active"][:, None].to(torch.int32),
+                            counts_full[:, None]], dim=1)
+        # A round commits at least one token per live lane, so 1 is the
+        # safe in-flight schedule increment (lanes that run out go
+        # inactive on the device and emit nothing).
+        sched = np.where(live, 1, 0)
+        self._inflight_sched += sched
+        self._enqueue(result, kind="spec", cols=k + 1, steps=1, sched=sched,
+                      serial=self._slot_serial.copy(), caps=caps_host,
+                      drafted_host=(int(caps_host[live].sum())
+                                    if caps_host is not None else None))
+        return True
+
+    def _note_spec_round(self, entry) -> None:
+        """SpecStats of one consumed round: drafted proposals (the caps the
+        round ran under, or k per lane live at dispatch) and accepted
+        ones (the full committed windows minus their final tokens)."""
+        counts_full = entry["counts_full"]
+        stats = self.spec_stats
+        stats.target_passes += 1
+        stats.drafted += (entry["drafted_host"]
+                          if entry["drafted_host"] is not None
+                          else int((counts_full > 0).sum())
+                          * (entry["cols"] - 1))
+        stats.accepted += int(np.maximum(counts_full - 1, 0).sum())
 
     def _note_dispatch(self) -> None:
         if self._serve_started is None:
@@ -778,10 +985,12 @@ class ContinuousBatchingServer:
             if entry["event"] is not None:
                 entry["event"].synchronize()
             packed = entry["result"].numpy()
-            steps = entry["steps"]
-            entry["tokens"] = packed[:, :steps]
-            entry["counts"] = packed[:, steps]
-            entry["active_after"] = packed[:, steps + 1].astype(bool)
+            cols = entry["cols"]
+            entry["tokens"] = packed[:, :cols]
+            entry["counts"] = packed[:, cols]
+            entry["active_after"] = packed[:, cols + 1].astype(bool)
+            if entry["kind"] == "spec":
+                entry["counts_full"] = packed[:, cols + 2]
             elements += packed.size
         now = time.monotonic()
         wait_ms = (now - wait_start) * 1e3
@@ -802,12 +1011,20 @@ class ContinuousBatchingServer:
             & occupied
         delivered = 0
         for index, entry in enumerate(entries):
+            spec = entry["kind"] == "spec"
+            if spec:
+                self._note_spec_round(entry)
             live = batch_live[index]
             sched = entry["sched"]
             self._inflight_sched[live] -= sched[live]
             token_rows = entry["tokens"].tolist()
             count_list = entry["counts"].tolist()
+            # Mirrors advance by what the device WROTE: the full committed
+            # window of a spec round (cache rows exist past the emit caps),
+            # the emitted prefix of a chunk.
+            full_list = entry["counts_full"].tolist() if spec else count_list
             active_list = entry["active_after"].tolist()
+            caps = entry["caps"] if spec else None
             for slot in np.nonzero(live)[0]:
                 slot = int(slot)
                 request = self._requests[slot]
@@ -819,9 +1036,22 @@ class ContinuousBatchingServer:
                     self._emitted[slot] += emitted
                     self._remaining[slot] = (request.max_new_tokens
                                              - self._emitted[slot])
-                    self.positions[slot] += emitted
-                    self.tokens[slot, 0] = token_rows[slot][emitted - 1]
+                    advance = full_list[slot]
+                    if spec:
+                        self._note_spec_rollback(slot, advance,
+                                                 entry["cols"])
+                        if request.spec_accepted_rounds is None:
+                            request.spec_accepted_rounds = []
+                        request.spec_accepted_rounds.append(advance - 1)
+                    self.positions[slot] += advance
+                    self.tokens[slot, 0] = token_rows[slot][advance - 1]
                     delivered += emitted
+                if caps is not None:
+                    # Acceptance feedback at the cap this slot ran under
+                    # (k = 0 ticks the re-probe counter instead).
+                    self._spec["controller"].observe(
+                        slot, int(caps[slot]),
+                        full_list[slot] - 1 if emitted else 0)
                 if not active_list[slot]:
                     self._retire(slot)
                     batch_live[index + 1:, slot] = False
@@ -838,7 +1068,7 @@ class ContinuousBatchingServer:
         steps = self.counters["decode_steps"]
         elapsed = (time.monotonic() - self._serve_started
                    if self._serve_started is not None else 0.0)
-        return dict(
+        out = dict(
             self.counters,
             in_flight=len(self._ring),
             ring_depth=self._ring_depth,
@@ -859,6 +1089,69 @@ class ContinuousBatchingServer:
             sync_stalls_per_100_steps=(
                 round(100.0 * self.counters["host_syncs"] / steps, 2)
                 if steps else 0.0))
+        if self._spec is not None:
+            controller = self._spec["controller"]
+            stats = self.spec_stats
+            out.update(
+                spec_k=self._spec["k"],
+                spec_rounds=stats.target_passes,
+                spec_proposed=stats.drafted,
+                spec_accepted=stats.accepted,
+                spec_acceptance_rate=round(stats.acceptance_rate, 4),
+                spec_tokens_per_target_pass=round(
+                    stats.tokens_per_target_pass, 4),
+                spec_rollback_blocks=stats.rollback_blocks,
+                spec_draft_mode=self._spec["mode"],
+                spec_k_effective=(controller.hist_string()
+                                  if controller is not None else "-"),
+                spec_jump_forward_tokens=stats.jump_forward_tokens,
+                spec_ngram_hits=stats.ngram_hits)
+        return out
+
+    def warm_spec_ladder(self, sampled: bool = False) -> int:
+        """Run every non-zero rung of the speculation ladder once on an
+        IDLE engine (no live slot, empty ring), so the first adaptive round
+        of each width finds the card's libraries and allocator warm.  Each
+        rung's proposer, verify, acceptance and commit run against the
+        all-inactive resident state: inactive rows write nothing in the
+        verify (the draft's decode writes scratch block 0) and the commit
+        is a masked no-op.  ``sampled=True`` runs the sampled variants.
+        Returns the rungs run."""
+        if self._spec is None:
+            return 0
+        if self.slots_active or self._ring:
+            raise RuntimeError("warm_spec_ladder must run on an idle engine")
+        self._sync_dirty()
+        rungs = 0
+        for k in self._spec["ladder"]:
+            if k == 0:
+                continue        # the plain chunk
+            st = self._state
+            if self._spec["mode"] == "model":
+                proposals, draft_logits = self._draft_propose(st, k, sampled)
+            else:
+                proposals = self._upload(np.zeros((self.slots, k), np.int32))
+                draft_logits = (delta_draft_logits(
+                    proposals, self.config.vocab_size) if sampled else None)
+            logits = self._spec_verify(st, torch.cat([st["token"], proposals],
+                                                     dim=1))
+            caps = (self._upload(np.zeros(self.slots, np.int32))
+                    if self._spec["controller"] is not None else None)
+            if sampled:
+                window, counts_raw = mrs_accept_batch(
+                    logits, draft_logits, proposals, st["temps"], st["tops"],
+                    self._generator, caps=caps)
+            else:
+                window, counts_raw = greedy_accept_batch(logits, proposals,
+                                                         caps=caps)
+            _, _, resync, self._state = spec_commit(
+                st, window, counts_raw,
+                eos_id=-1 if self.eos_id is None else int(self.eos_id))
+            if self._spec["mode"] == "model":
+                self._draft_resync(st, resync, st["positions"],
+                                   st["active"])
+            rungs += 1
+        return rungs
 
     def run_until_drained(self, max_chunks: int = 10_000):
         """Synchronous helper (tests / batch jobs): pump until every

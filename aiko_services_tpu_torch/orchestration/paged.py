@@ -26,16 +26,26 @@ case needs.
   dispatch (:func:`~..models.llama.serve_chunk_mixed`).
 * The block tables ride the resident device state and reach the device
   only through the dirty-row packet.
+* Speculative decoding (``draft_config_name=`` or ``draft_mode="ngram"``,
+  ``spec_k``, ``spec_adaptive``): the verify window appends straight into
+  each slot's blocks at its own unaligned position
+  (:func:`~..models.llama.verify_chunk_paged`, the ``append_kv_ragged``
+  and ``chunk_attention`` kernels on the card).  The draft's KV lives in a
+  pool of its own with the target's geometry, navigated by the TARGET's
+  block tables; the worst-case reservation holds ``spec_k + 1`` rows of
+  headroom, and rejected rows are a logical rollback
+  (``spec_rollback_blocks``).  With speculation on, chunked-prefill slices
+  always advance standalone, between rounds.
 
 The pool is updated in place, and every kernel runs on PyTorch's current
 stream in dispatch order, so blocks freed by a retirement can be reused by
 the next admission while older chunks are still in flight.
 
-Left out of this slice (they raise ``NotImplementedError``): the host and
-disk KV tiers, the KV transfer export/import and prefix digests, adapters,
-speculation and grammars, replica meshes and the compilation cache; the
-pool auditor (the pool balance ``free + evictable + producing ==
-total_blocks`` at idle is kept by plain counters).
+Left out so far (they raise ``NotImplementedError``): the host and disk
+KV tiers, the KV transfer export/import and prefix digests, adapters,
+grammar-constrained decoding (``automata``), replica meshes and the
+compilation cache; the pool auditor (the pool balance ``free + evictable +
+producing == total_blocks`` at idle is kept by plain counters).
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
     #: the paged backend's default mode.  ``chunk_prefill_tokens=0``
     #: restores whole-bucket admission.
     DEFAULT_CHUNK_PREFILL_TOKENS = 256
+    SPECULATION = True
 
     def __init__(self, config_name: str = "tiny", slots: int = 4,
                  max_seq: Optional[int] = None, chunk_steps: int = 8,
@@ -148,6 +159,16 @@ class PagedContinuousServer(ContinuousBatchingServer):
         self.pool = llama.init_paged_cache(
             self.config, usable + 1, block_size,        # +1: scratch
             quantize_kv=self.quantize_kv, device=self.device)
+        if self._draft is not None:
+            # The draft's KV: a pool of its own with the target's geometry,
+            # navigated by the TARGET's block tables (no allocator of its
+            # own).  Sharing tables is safe because draft KV only moves
+            # proposal quality, never committed output: prefix-shared
+            # blocks get identical draft content (same tokens, same
+            # prefill), and a stale row costs at most a rejected proposal.
+            self._draft["pool"] = llama.init_paged_cache(
+                self._draft["config"], usable + 1, block_size,
+                device=self.device)
         self.tables = np.zeros((self.slots, max_blocks), np.int32)
         self.total_blocks = usable
         self._free: List[int] = list(range(1, usable + 1))
@@ -225,10 +246,17 @@ class PagedContinuousServer(ContinuousBatchingServer):
     def _blocks_for(self, rows: int) -> int:
         return math.ceil(rows / self.block_size)
 
+    def _spec_headroom(self) -> int:
+        """Rows past the live position a verify may write: the (k+1)-token
+        window lands at ``[pos, pos + k + 1)``, sized by the ladder top
+        (adaptive rounds only narrow it)."""
+        return self._spec["k"] + 1 if self._spec is not None else 0
+
     def _worst_case_blocks(self, prompt_len: int, max_new: int) -> int:
         padded = min(_bucket(prompt_len, self._bucket_minimum),
                      self.max_seq)
-        return self._blocks_for(min(padded + max_new, self.max_seq))
+        return self._blocks_for(min(padded + max_new
+                                    + self._spec_headroom(), self.max_seq))
 
     def _admission_reject(self, prompt_len: int, request):
         reason = super()._admission_reject(prompt_len, request)
@@ -315,8 +343,10 @@ class PagedContinuousServer(ContinuousBatchingServer):
 
     def _reserve_slot(self, slot: int, padded: int, request) -> bool:
         # Worst case rows: the padded prompt bucket (prefill writes all of
-        # it) or prompt + every generated token, never more than max_seq.
-        rows = min(padded + request.max_new_tokens, self.max_seq)
+        # it) or prompt + every generated token, plus the verify window's
+        # k + 1 rows under speculation, never more than max_seq.
+        rows = min(padded + request.max_new_tokens + self._spec_headroom(),
+                   self.max_seq)
         needed = self._blocks_for(rows)
         prompt = np.asarray(request.prompt)
         shared: List[int] = []
@@ -458,6 +488,10 @@ class PagedContinuousServer(ContinuousBatchingServer):
             self._note_prefill(width)
             start += width
             remaining -= size
+        if self._draft is not None:
+            # The draft has no prefix cache: it always prefills the whole
+            # padded prompt, whatever the target reused.
+            self._prefill_draft_rows([slot], prompt_padded)
 
     def _begin_chunked_prefill(self, slot: int, request, prompt_padded,
                                prompt_len: int) -> None:
@@ -490,8 +524,13 @@ class PagedContinuousServer(ContinuousBatchingServer):
     def _advance_prefills(self) -> None:
         """With live decode work the slices ride the mixed dispatch
         (:meth:`_serve_chunk`); only when no decode can be scheduled does
-        each prefilling slot run one standalone slice per step."""
-        if not self._prefilling or (self._plan_remaining() > 0).any():
+        each prefilling slot run one standalone slice per step.  A
+        speculative round never runs the mixed step (the verify is its own
+        call), so with speculation on the slices always advance
+        standalone, one per prefilling slot per step."""
+        if not self._prefilling:
+            return
+        if self._spec is None and (self._plan_remaining() > 0).any():
             return
         for slot in list(self._prefilling):
             state = self._prefilling[slot]
@@ -569,6 +608,81 @@ class PagedContinuousServer(ContinuousBatchingServer):
         if prefill["start"] >= prefill["prompt_len"]:
             self._finish_prefill(slot, prefill)
         return tokens_d, counts_d, new_state
+
+    # ------------------------------------------------------------- #
+    # Speculative decoding on the paged layout
+
+    def _spec_verify(self, st, chunk):
+        """Pool-direct verify: the (slots, k+1) window's K/V append straight
+        into each slot's table-resolved blocks at its own position, and the
+        logits come back for the acceptance kernel.  Inactive rows (chunked
+        prefills in flight, free slots) write nothing."""
+        logits, self.pool = llama.verify_chunk_paged(
+            self.params, chunk, self.pool, st["tables"], st["positions"],
+            st["active"], self.config)
+        return logits
+
+    def _note_spec_rollback(self, slot: int, advance: int,
+                            width: int) -> None:
+        """Count the blocks a verify window touched BEYOND the committed
+        frontier: rows ``[pos + advance, pos + width)`` hold rejected
+        speculation.  The rollback is logical, not a free: the worst-case
+        reservation owns these blocks for the request's own later tokens,
+        the stale rows are unattendable and rewritten before they become
+        reachable, and none is ever indexed by the prefix cache (only full
+        blocks strictly before ``prompt_len - 1`` are)."""
+        pos = int(self.positions[slot])       # pre-advance mirror
+        last_written = (pos + width - 1) // self.block_size
+        last_committed = (pos + advance - 1) // self.block_size
+        self.spec_stats.rollback_blocks += max(0,
+                                               last_written - last_committed)
+
+    def _prefill_draft_rows(self, slots_list, prompts) -> None:
+        """Draft admission: prefill the whole padded prompt into a
+        batch-sized contiguous cache (``flash_attention`` on the card),
+        then copy each row into its slot's target-table-resolved draft-pool
+        blocks.  Prompt buckets are block multiples, so the copy is
+        exact."""
+        draft = self._draft
+        bucket = llama.init_cache(draft["config"], len(slots_list),
+                                  prompts.shape[1], device=self.device)
+        _, bucket = llama.prefill(draft["params"], self._upload(prompts),
+                                  bucket, draft["config"])
+        tables = self._upload(self.tables)
+        for index, slot in enumerate(slots_list):
+            row = [{key: buf[index:index + 1] for key, buf in layer.items()}
+                   for layer in bucket]
+            llama.paged_insert_prefix(draft["pool"], tables, row, slot)
+
+    def _draft_propose(self, st, k: int, sampled: bool):
+        """The draft proposes ``k`` tokens per slot: ``decode_chunk_paged``
+        over its pool through the target's resident block tables.  Returns
+        ``(proposals (slots, k), draft logits (slots, k, vocab) or None)``;
+        the logits only for sampled acceptance."""
+        draft = self._draft
+        if sampled:
+            proposals, draft_logits, _, _, draft["pool"] = \
+                llama.decode_chunk_paged(
+                    draft["params"], st["token"], draft["pool"],
+                    st["tables"], st["positions"], st["active"], k,
+                    draft["config"], temperatures=st["temps"],
+                    top_ps=st["tops"], generator=self._generator,
+                    return_logits=True)
+            return proposals, draft_logits
+        proposals, _, _, draft["pool"] = llama.decode_chunk_paged(
+            draft["params"], st["token"], draft["pool"], st["tables"],
+            st["positions"], st["active"], k, draft["config"])
+        return proposals, None
+
+    def _draft_resync(self, st, resync, prev_positions, prev_active) -> None:
+        """Replay the committed window minus its last token through the
+        draft, so its KV matches the target's history before the next
+        round (zero-padded rows land past the frontier, stale until
+        rewritten)."""
+        draft = self._draft
+        _, draft["pool"] = llama.verify_chunk_paged(
+            draft["params"], resync, draft["pool"], st["tables"],
+            prev_positions + 1, prev_active, draft["config"])
 
     # ------------------------------------------------------------- #
     # The KV transfer wire and prefix digests wait for their slice.

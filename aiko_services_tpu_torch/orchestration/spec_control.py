@@ -1,0 +1,227 @@
+"""Adaptive speculation control, host-side only.
+
+Port of ``aiko_services_tpu/orchestration/spec_control.py`` (a copy: the
+port imports nothing of the JAX package, and this module is numpy only).
+
+The controller owns the per-slot speculation width ``k``: it tracks an
+acceptance EMA per slot and picks each slot's next ``k`` from a fixed
+power-of-two LADDER (e.g. ``(0, 2, 4, 8)``).  Cold requests descend toward
+``k = 0`` (plain decode: no rejected-draft compute at all),
+high-acceptance requests climb toward the ladder top.  Ladder membership
+is fixed at server construction, so the verify-window widths a varying
+``k`` can reach are bounded by the ladder (``warm_spec_ladder`` runs every
+rung once).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = ["SpecController", "default_ladder", "validate_ladder"]
+
+
+def default_ladder(k_max: int) -> Tuple[int, ...]:
+    """The pow2-bucketed ladder for a ``spec_k`` ceiling: ``0`` (plain
+    decode) plus every power of two up to ``k_max``.  ``k_max`` itself
+    joins even when not a power of two, so the configured ceiling is
+    always reachable."""
+    rungs = {0}
+    rung = 2
+    while rung <= k_max:
+        rungs.add(rung)
+        rung *= 2
+    if k_max >= 1:
+        rungs.add(int(k_max))
+    return tuple(sorted(rungs))
+
+
+def validate_ladder(ladder: Sequence[int], bucket_floor: int
+                    ) -> Tuple[int, ...]:
+    """Construction-time ladder validation: strictly increasing,
+    non-negative, and every rung's verify window (``k + 1``) must fit
+    the prompt-bucket floor — admission prefill rewrites the
+    inactive-slot verify rows, so a window wider than the smallest
+    prefill would leave stale rows attendable.  The error names the
+    LADDER (the thing actually bounding the window widths), not just a
+    scalar knob; mid-serve the controller can then never raise — every
+    rung it may pick was proven to fit here."""
+    rungs = tuple(int(r) for r in ladder)
+    if not rungs:
+        raise ValueError("spec ladder must not be empty")
+    if sorted(set(rungs)) != list(rungs):
+        raise ValueError(
+            f"spec ladder must be strictly increasing, got {rungs}")
+    if rungs[0] < 0:
+        raise ValueError(f"spec ladder rungs must be >= 0, got {rungs}")
+    if rungs[-1] + 1 > bucket_floor:
+        raise ValueError(
+            f"spec ladder {rungs} too wide: max rung k={rungs[-1]} "
+            f"needs a k+1={rungs[-1] + 1} verify window, which must "
+            f"be <= the prompt bucket floor ({bucket_floor}) so "
+            "admission prefill rewrites inactive-slot verify rows — "
+            "drop the top rung(s) or lower spec_k")
+    return rungs
+
+
+class SpecController:
+    """Per-slot adaptive-k policy: acceptance EMA -> ladder rung.
+
+    Pure host bookkeeping (numpy scalars/vectors), unit-testable
+    without a server.  The dispatch loop asks :meth:`round_k` for the
+    round's window width (the max rung over live slots — ONE window
+    shape per round, always a ladder member) and :meth:`caps` for the
+    per-slot commit caps; consumption feeds observations back through
+    :meth:`observe`.
+
+    Policy knobs:
+
+    * ``ema_alpha`` — weight of the newest observation.
+    * ``promote_at`` / ``demote_at`` — EMA thresholds for moving up /
+      down one rung.  The gap between them is the flap-damping band.
+    * ``hysteresis`` — consecutive observations past a threshold
+      required before the rung actually moves (a single lucky or
+      unlucky round never flips the window-width choice).
+    * ``probe_every`` — a slot parked at ``k = 0`` re-probes the first
+      non-zero rung after this many cold rounds, so a request whose
+      acceptance behavior changes mid-stream can climb back.
+    """
+
+    def __init__(self, slots: int, ladder: Sequence[int],
+                 ema_alpha: float = 0.3, promote_at: float = 0.65,
+                 demote_at: float = 0.25, hysteresis: int = 2,
+                 probe_every: int = 8):
+        if not ladder:
+            raise ValueError("SpecController needs a non-empty ladder")
+        self.slots = int(slots)
+        self.ladder = tuple(int(r) for r in ladder)
+        self.ema_alpha = float(ema_alpha)
+        self.promote_at = float(promote_at)
+        self.demote_at = float(demote_at)
+        self.hysteresis = max(1, int(hysteresis))
+        self.probe_every = max(1, int(probe_every))
+        top = len(self.ladder) - 1
+        #: current ladder rung per slot (index into ``ladder``).  New
+        #: requests start at the TOP rung: optimistic-start means a
+        #: high-acceptance request never waits to earn its width, and
+        #: a cold one pays at most ``hysteresis`` wide rounds before
+        #: descending.
+        self.rung = np.full(self.slots, top, np.int32)
+        #: per-slot acceptance EMA (NaN = no observation yet).
+        self.ema = np.full(self.slots, np.nan, np.float64)
+        self._hot_streak = np.zeros(self.slots, np.int32)
+        self._cold_streak = np.zeros(self.slots, np.int32)
+        self._cold_rounds = np.zeros(self.slots, np.int32)
+        #: effective-k histogram: ladder k -> slot-rounds dispatched at
+        #: that per-slot width (telemetry: ``spec_k_effective``).
+        self.k_hist: Dict[int, int] = {k: 0 for k in self.ladder}
+
+    # ------------------------------------------------------------- #
+    # dispatch-side queries
+
+    def k_for(self, slot: int) -> int:
+        return self.ladder[int(self.rung[slot])]
+
+    def caps(self, live: np.ndarray) -> np.ndarray:
+        """Per-slot commit caps for one round (int32, full slot
+        width; dead lanes report 0 — harmless, the kernels mask by
+        ``active`` anyway)."""
+        caps = np.asarray(
+            [self.ladder[r] for r in self.rung], np.int32)
+        return np.where(live, caps, 0).astype(np.int32)
+
+    def round_k(self, live: np.ndarray) -> int:
+        """The round's verify-window width: max rung over live slots
+        (always a ladder member, so always a pre-warmable shape).
+        0 means every live slot degraded to plain decode."""
+        live_rungs = self.rung[live]
+        if live_rungs.size == 0:
+            return 0
+        return self.ladder[int(live_rungs.max())]
+
+    def note_dispatch(self, live: np.ndarray) -> None:
+        """Account one round's per-slot effective k into the
+        histogram (called per spec dispatch AND per degraded plain
+        chunk, where every live slot counts at k=0)."""
+        for slot in np.nonzero(live)[0]:
+            self.k_hist[self.k_for(int(slot))] += 1
+
+    # ------------------------------------------------------------- #
+    # consume-side feedback
+
+    def observe(self, slot: int, k: int, accepted: int) -> None:
+        """Feed one consumed round's outcome for ``slot``: ``k`` is
+        the cap the round ran under for this slot, ``accepted`` the
+        proposals verify kept.  ``k = 0`` rounds carry no acceptance
+        evidence — they tick the cold-probe counter instead."""
+        slot = int(slot)
+        if k <= 0:
+            self._tick_cold(slot)
+            return
+        rate = min(1.0, max(0.0, accepted / k))
+        prev = self.ema[slot]
+        self.ema[slot] = rate if np.isnan(prev) else (
+            self.ema_alpha * rate + (1.0 - self.ema_alpha) * prev)
+        ema = self.ema[slot]
+        if ema >= self.promote_at:
+            self._hot_streak[slot] += 1
+            self._cold_streak[slot] = 0
+        elif ema <= self.demote_at:
+            self._cold_streak[slot] += 1
+            self._hot_streak[slot] = 0
+        else:
+            self._hot_streak[slot] = 0
+            self._cold_streak[slot] = 0
+        if self._hot_streak[slot] >= self.hysteresis \
+                and self.rung[slot] < len(self.ladder) - 1:
+            self.rung[slot] += 1
+            self._hot_streak[slot] = 0
+        elif self._cold_streak[slot] >= self.hysteresis \
+                and self.rung[slot] > 0:
+            self.rung[slot] -= 1
+            self._cold_streak[slot] = 0
+            if self.ladder[self.rung[slot]] == 0:
+                self._cold_rounds[slot] = 0
+
+    def _tick_cold(self, slot: int) -> None:
+        """A round passed with ``slot`` parked at k=0: after
+        ``probe_every`` such rounds, climb one rung as a PROBE — the
+        EMA then decides whether the slot stays."""
+        self._cold_rounds[slot] += 1
+        if self._cold_rounds[slot] >= self.probe_every \
+                and self.rung[slot] < len(self.ladder) - 1:
+            self.rung[slot] += 1
+            self._cold_rounds[slot] = 0
+            # A probe starts from a clean slate: the stale cold EMA
+            # would otherwise demote it before evidence arrives.
+            self.ema[slot] = np.nan
+            self._hot_streak[slot] = 0
+            self._cold_streak[slot] = 0
+
+    def tick_cold_round(self, live: np.ndarray) -> None:
+        """A degraded PLAIN-decode round ran (all live slots at k=0):
+        tick every live slot's probe counter."""
+        for slot in np.nonzero(live)[0]:
+            self._tick_cold(int(slot))
+
+    def reset(self, slot: int) -> None:
+        """New request in ``slot``: forget the previous occupant."""
+        slot = int(slot)
+        self.rung[slot] = len(self.ladder) - 1
+        self.ema[slot] = np.nan
+        self._hot_streak[slot] = 0
+        self._cold_streak[slot] = 0
+        self._cold_rounds[slot] = 0
+
+    # ------------------------------------------------------------- #
+    # telemetry
+
+    def hist_string(self) -> str:
+        """Compact ``spec_k_effective`` encoding: ``"0:12|4:80"``
+        (ladder k -> slot-rounds), zero rungs omitted; ``"-"`` before
+        any dispatch.  A string survives the serving_telemetry
+        projection (EC shares / dashboard / bench) unmangled."""
+        parts = [f"{k}:{count}" for k, count in sorted(
+            self.k_hist.items()) if count]
+        return "|".join(parts) if parts else "-"

@@ -636,6 +636,189 @@ def check_chunk(torch, pp, llama, device):
     return rows, worst, main
 
 
+#: Verify windows of the ragged rows: per-row starts (some spans inside one
+#: block, some across a block edge; 1,023 and 1,030 deep in a long row),
+#: chunk lengths as a function of the window width T (the last row idle).
+RAGGED_STARTS = (0, 15, 16, 17, 1023, 1030, 40, 5)
+RAGGED_WIDTHS = (2, 5, 9, 17)
+#: The main path's window: spec_k = 4, so k + 1 = 5 tokens.
+SPEC_K = 4
+
+
+def ragged_chunk_lens(T):
+    return (T, T, max(T - 1, 1), T, T, 1, T, 0)
+
+
+def ragged_tables(torch, pool, gen, rows, entries):
+    """Distinct shuffled pool blocks for ``rows`` tables of ``entries``."""
+    ids = torch.randperm(pool["k"].shape[0] - 1, generator=gen,
+                         device=pool["k"].device)[:rows * entries] + 1
+    return ids.to(torch.int32).reshape(rows, entries).contiguous()
+
+
+def check_append_ragged(torch, pp, llama, device):
+    """Every verify window's append: 8 rows of (T, 8 kv heads, 128) at the
+    RAGGED_STARTS into shuffled 16-row blocks, bf16 and int8 pools.  The
+    kernel's pool must equal the plain version's byte for byte, and every
+    pool row outside the live windows must be as it was.  Library: two
+    ``index_put_`` calls (K, V) with precomputed rows, bf16 only."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    kv, hd, rows_n = 8, 128, len(RAGGED_STARTS)
+    rows, main = [], None
+    for quant_kv in (False, True):
+        pool, _ = paged_pool(torch, llama, device, gen, quant_kv)
+        for T in RAGGED_WIDTHS:
+            lens = ragged_chunk_lens(T)
+            tables = ragged_tables(torch, pool, gen, rows_n,
+                                   (max(RAGGED_STARTS) + T) // BLOCK + 2)
+            k_new = torch.randn((rows_n, T, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            v_new = torch.randn((rows_n, T, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            meta = (torch.tensor(RAGGED_STARTS, dtype=torch.int32,
+                                 device=device),
+                    torch.tensor(lens, dtype=torch.int32, device=device))
+            got = {key: buf.clone() for key, buf in pool.items()}
+            want = {key: buf.clone() for key, buf in pool.items()}
+            pp.append_kv_ragged(k_new, v_new, got, tables, *meta)
+            pp.append_kv_ragged_reference(k_new, v_new, want, tables, *meta)
+            torch.cuda.synchronize()
+            err = max(float((got[key].float() - want[key].float())
+                            .abs().max()) for key in got)
+            if not all(torch.equal(got[key], want[key]) for key in got):
+                fail(f"append_kv_ragged int8={quant_kv} T={T}: pool differs "
+                     f"from the plain version (max abs {err})")
+            live_rows = [int(tables[r, (s + t) // BLOCK]) * BLOCK
+                         + (s + t) % BLOCK
+                         for r, (s, n) in enumerate(zip(RAGGED_STARTS, lens))
+                         for t in range(n)]
+            dead = torch.ones(pool["k"].shape[0] * BLOCK, dtype=torch.bool,
+                              device=device)
+            dead[live_rows] = False
+            for key in got:
+                flat_got = got[key].reshape((-1,) + got[key].shape[2:])
+                flat_old = pool[key].reshape(flat_got.shape)
+                if not torch.equal(flat_got[dead], flat_old[dead]):
+                    fail(f"append_kv_ragged int8={quant_kv} T={T}: a pool "
+                         f"row outside the live windows changed ({key})")
+            ms = device_ms(torch, lambda: pp.append_kv_ragged(
+                k_new, v_new, got, tables, *meta), 50)
+            plain_ms = device_ms(torch, lambda: pp.append_kv_ragged_reference(
+                k_new, v_new, want, tables, *meta), 5)
+            library_ms = None
+            live = sum(lens)
+            if not quant_kv:
+                flat_rows = torch.tensor(live_rows, device=device)
+                sel = torch.cat([torch.arange(n, device=device) + r * T
+                                 for r, n in enumerate(lens)])
+                k_live = k_new.reshape(-1, kv, hd)[sel]
+                v_live = v_new.reshape(-1, kv, hd)[sel]
+                flat = {key: got[key].view(-1, kv, hd) for key in got}
+
+                def library():
+                    flat["k"].index_put_((flat_rows,), k_live)
+                    flat["v"].index_put_((flat_rows,), v_live)
+                library_ms = device_ms(torch, library, 20)
+            elem = 1 if quant_kv else 2
+            moved = 2 * live * kv * hd * 2 + 2 * live * kv * hd * elem \
+                + (2 * live * kv * 4 if quant_kv else 0)
+            b_ms, b_by = bound(moved, 0)
+            row = dict(shape=f"8 rows T={T} live={live} kv=8 hd=128 bs=16 "
+                             f"int8={quant_kv}", err=err, ratio=0.0, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms)
+            rows.append(row)
+            if T == SPEC_K + 1 and not quant_kv:
+                main = row
+            del got, want
+        del pool
+    return rows, main
+
+
+def check_chunk_verify(torch, pp, llama, device):
+    """The verify's attention: T = 5 windows of 32 query heads over 8 kv
+    heads (hd 128) for 8 rows at unaligned positions 1,030-1,199 plus an
+    idle row (chunk_len 0), after the ragged append, bf16 and int8 pools,
+    window off and 256, against the f32 plain version; the idle row's
+    output must be finite.  Library: SDPA with a boolean mask over each
+    live row's pre-gathered bf16 view (the gather not timed)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(9)
+    kv, group, hd, T = 8, 4, 128, SPEC_K + 1
+    starts = (1030, 1047, 1064, 1100, 1121, 1150, 1183, 1199, 0)
+    lens = (T,) * 8 + (0,)
+    rows_n = len(starts)
+    rows, worst, main = [], 0.0, None
+    for quant_kv in (False, True):
+        pool, _ = paged_pool(torch, llama, device, gen, quant_kv)
+        entries = (max(starts) + T) // BLOCK + 1
+        tables = ragged_tables(torch, pool, gen, rows_n, entries)
+        meta = (torch.tensor(starts, dtype=torch.int32, device=device),
+                torch.tensor(lens, dtype=torch.int32, device=device))
+        k_new = torch.randn((rows_n, T, kv, hd), generator=gen,
+                            device=device).to(torch.bfloat16)
+        v_new = torch.randn((rows_n, T, kv, hd), generator=gen,
+                            device=device).to(torch.bfloat16)
+        pp.append_kv_ragged(k_new, v_new, pool, tables, *meta)
+        plain_pool = pool if quant_kv else {key: buf.float()
+                                            for key, buf in pool.items()}
+        q = torch.randn((rows_n, T, kv, group, hd), generator=gen,
+                        device=device).to(torch.bfloat16)
+        for window in (None, 256):
+            got = pp.chunk_attention(q, pool, tables, *meta, window=window)
+            want = pp.chunk_attention_reference(q.float(), plain_pool, tables,
+                                                meta[0], window=window)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got[-1]).all()):
+                fail(f"chunk_attention verify int8={quant_kv} window="
+                     f"{window}: the idle row's output is not finite")
+            err, ratio = compare(got[:-1], want[:-1])
+            if not ratio <= 1.0:
+                fail(f"chunk_attention verify int8={quant_kv} window="
+                     f"{window}: max abs err {err}, err/tol {ratio}")
+            worst = max(worst, ratio)
+            ms = device_ms(torch, lambda: pp.chunk_attention(
+                q, pool, tables, *meta, window=window), 20)
+            plain_ms = device_ms(torch, lambda: pp.chunk_attention_reference(
+                q, pool, tables, meta[0], window=window), 3)
+            library_ms = None
+            if not quant_kv:
+                ids = tables[:-1].long()
+                k_view = pool["k"][ids].reshape(8, -1, kv, hd).transpose(1, 2)
+                v_view = pool["v"][ids].reshape(8, -1, kv, hd).transpose(1, 2)
+                q_s = q[:-1].reshape(8, T, kv * group, hd).transpose(1, 2)
+                key = torch.arange(entries * BLOCK, device=device)
+                pos = (meta[0][:-1].long()[:, None]
+                       + torch.arange(T, device=device)[None, :])[..., None]
+                mask = key[None, None, :] <= pos
+                if window is not None:
+                    mask &= key[None, None, :] > pos - window
+                mask = mask[:, None]
+                library_ms = device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q_s, k_view, v_view, attn_mask=mask,
+                        enable_gqa=True), 20)
+            pairs = live_keys = 0
+            for start in starts[:-1]:
+                p, n = _chunk_pairs(start, T, window)
+                pairs, live_keys = pairs + p, live_keys + n
+            elem = 1 if quant_kv else 2
+            moved = live_keys * kv * hd * elem * 2 \
+                + (live_keys * kv * 4 * 2 if quant_kv else 0) \
+                + 2 * rows_n * T * kv * group * hd * 2
+            b_ms, b_by = bound(moved, 4 * hd * kv * group * pairs)
+            row = dict(shape=f"verify T={T} 8 rows at 1030-1199 + 1 idle "
+                             f"h=32 kv=8 hd=128 bs=16 int8={quant_kv} "
+                             f"window={window}", err=err, ratio=ratio, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms)
+            rows.append(row)
+            if not quant_kv and window is None:
+                main = row
+        del pool, plain_pool
+    return rows, worst, main
+
+
 def print_rows(title, rows):
     log(f"--- {title}")
     for row in rows:
@@ -1064,6 +1247,246 @@ def serve_paged(torch, np, llama, quant, kernels, server_cls, request_cls,
 
 
 # --------------------------------------------------------------------------- #
+# Phase 5: speculative decoding on the paged server
+
+def spec_traffic(np, vocab, kind):
+    """(prompt, temperature) waves.  ``model``: 10 prompts of 64-1,100
+    tokens, two sharing a 512-token prefix (the second arrives after the
+    first prefilled: a prefix hit); ``adaptive``: six of them; ``ngram``:
+    five prompts of a 16-token phrase repeated (with a distinct tail), one
+    of them sampled at temperature 0.8, top_p 0.95."""
+    rng = np.random.default_rng(23)
+
+    def ints(n):
+        return rng.integers(1, vocab, n).astype(np.int32)
+    if kind == "ngram":
+        prompts = []
+        for reps, tail in ((20, 8), (8, 30), (40, 0), (12, 16), (30, 3)):
+            prompts.append(np.concatenate([np.tile(ints(16), reps),
+                                           ints(tail)]))
+        temps = [0.0, 0.8, 0.0, 0.0, 0.0]
+        return [list(zip(prompts[:3], temps[:3])),
+                list(zip(prompts[3:], temps[3:]))]
+    prefix = ints(512)
+    shared = [np.concatenate([prefix, ints(tail)]) for tail in (64, 200)]
+    distinct = [ints(n) for n in (64, 1100, 300, 700, 128, 97, 850, 400)]
+    if kind == "adaptive":
+        return [[(shared[0], 0.0)] + [(p, 0.0) for p in distinct[:3]],
+                [(shared[1], 0.0), (distinct[4], 0.0)]]
+    return [[(shared[0], 0.0)] + [(p, 0.0) for p in distinct[:5]],
+            [(shared[1], 0.0)] + [(p, 0.0) for p in distinct[5:]]]
+
+
+def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
+               request_cls, params, quantize_kv, device, mode, draft_params,
+               steady_plain=None):
+    """PagedContinuousServer as phase 4 (8 slots, 16-row blocks, prefix
+    cache, 256-token chunked admission) with spec_k = 4: ``mode`` is
+    "paired" (the target as its own draft), "adaptive" (an independent
+    int8 1b draft, spec_adaptive) or "ngram" (self-drafting).  Every
+    greedy token is held to phase 4's batch-1 oracle, every request must
+    finish with 32 tokens in the vocabulary, the pool must balance, and
+    the launches of the verify's kernels are held exactly to the spec
+    rounds and prefill slices of the run."""
+    config = llama.CONFIGS["llama3_8b"]
+    draft_name = {"paired": "llama3_8b", "adaptive": "1b"}.get(mode)
+    kwargs = dict(config_name="llama3_8b", slots=SLOTS,
+                  max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                  params=params, quantize=True, quantize_kv=quantize_kv,
+                  block_size=BLOCK, enable_prefix_cache=True,
+                  chunk_prefill_tokens=CHUNK, spec_k=SPEC_K, device=device)
+    if mode == "ngram":
+        kwargs["draft_mode"] = "ngram"
+    else:
+        kwargs.update(draft_config_name=draft_name, draft_params=draft_params,
+                      spec_adaptive=mode == "adaptive")
+
+    def make_server():
+        return server_cls(**kwargs)
+    server = make_server()
+    server.warm_spec_ladder()          # each rung once on the idle engine
+    waves = spec_traffic(np, config.vocab_size,
+                         "ngram" if mode == "ngram" else
+                         "adaptive" if mode == "adaptive" else "model")
+    widths, core = [], llama._prefill_append_core
+
+    def recorded_core(params, tokens, *args, **kwargs):
+        widths.append(int(tokens.shape[1]))
+        return core(params, tokens, *args, **kwargs)
+    requests = []
+    torch.cuda.synchronize()
+    llama._prefill_append_core = recorded_core
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        for index, wave in enumerate(waves):
+            batch = [request_cls(f"s{len(requests) + i}", prompt, NEW_TOKENS,
+                                 temperature=temp, top_p=0.95 if temp else 1.0)
+                     for i, (prompt, temp) in enumerate(wave)]
+            requests += batch
+            for request in batch:
+                server.submit(request)
+            if index == 0:        # the next wave once the producer prefilled
+                while batch[0].first_token_ts is None:
+                    server.step()
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama._prefill_append_core = core
+    stats = server.stats()
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS \
+                or not all(0 <= t < config.vocab_size
+                           for t in request.tokens):
+            fail(f"spec {mode} request {request.request_id}: error "
+                 f"{request.error}, {len(request.tokens)} tokens")
+    rounds, slices = stats["spec_rounds"], stats["prefill_dispatches"]
+    if len(widths) != slices or rounds <= 0:
+        fail(f"spec {mode}: {len(widths)} slices recorded, {slices} counted, "
+             f"{rounds} rounds")
+    layers = config.n_layers
+    draft_layers = llama.CONFIGS[draft_name].n_layers if draft_name else 0
+    want = {"append_kv_ragged": (layers + draft_layers) * rounds,
+            "chunk_attention": layers * slices
+            + (layers + draft_layers) * rounds,
+            "append_kv": layers * slices,
+            "flash_attention": draft_layers * len(requests)}
+    if mode != "adaptive":
+        # Fixed k: every decode step is a draft proposal step (none at all
+        # when the slot's own history drafts).
+        want["paged_decode_attention"] = draft_layers * SPEC_K * rounds
+    for name, expected in want.items():
+        if launches[name] != expected:
+            fail(f"spec {mode} {name}: {launches[name]} launches, expected "
+                 f"{expected} (rounds {rounds}, slices {slices}, requests "
+                 f"{len(requests)})")
+    used = ("int8_matmul", "append_kv", "append_kv_ragged",
+            "chunk_attention") + (() if mode == "ngram" else (
+                "paged_decode_attention", "flash_attention"))
+    for name in used:
+        if not launches[name]:
+            fail(f"spec {mode}: {name} was never launched")
+    if mode == "paired" and not stats["spec_tokens_per_target_pass"] > 1.0:
+        fail(f"spec paired: {stats['spec_tokens_per_target_pass']} tokens "
+             "per target pass")
+    balance = server.pool_balance()
+    if balance["free"] + balance["evictable"] + balance["producing"] \
+            != balance["total"] or balance["producing"]:
+        fail(f"spec {mode}: pool out of balance after the drain: {balance}")
+    greedy = [r for r in requests if r.temperature == 0.0]
+    if quantize_kv:
+        def oracle(request):
+            return paged_oracle(torch, llama, server_cls, request_cls,
+                                params, config, request.prompt, device)
+    else:
+        def oracle(request):
+            return contiguous_oracle(torch, llama, params, config,
+                                     request.prompt, False, device,
+                                     rows=PAGED_MAX_SEQ)
+    exact, equal, checked, ties = check_requests(torch, greedy, oracle)
+    run = dict(kv="int8" if quantize_kv else "bf16", mode=mode,
+               draft=draft_name or "ngram", requests=len(requests),
+               greedy_requests=len(greedy), requests_exact=exact,
+               tokens_checked=checked, tokens_equal=equal,
+               accepted_near_ties=ties, launches=launches,
+               prefill_slices=slices, pool_balance=balance, wall_s=wall,
+               served_tok_s=len(requests) * NEW_TOKENS / wall,
+               **{key: stats[key] for key in (
+                   "spec_rounds", "spec_proposed", "spec_accepted",
+                   "spec_acceptance_rate", "spec_tokens_per_target_pass",
+                   "spec_rollback_blocks", "spec_k_effective",
+                   "spec_ngram_hits", "prefix_hits", "decode_steps")})
+    if mode == "paired":
+        run.update(steady_spec(torch, np, make_server, request_cls, config,
+                               quantize_kv))
+        run["phase4_plain_steady_step_ms"] = steady_plain
+    return run
+
+
+def steady_spec(torch, np, make_server, request_cls, config, quantize_kv):
+    """Speculative decode at a full batch: 8 requests of 1,023 prompt
+    tokens (positions ~1,025-1,090 in the window) with the paired draft;
+    after every request has its first token, 6 rounds timed bare (ms a
+    round, tokens per target pass, tok/s) and 4 more under torch.profiler
+    (the card's kernel time per round by kernel; busy share = kernel time
+    per round over the bare round).  Rounds the tracer saw are its
+    append_kv_ragged records over the 64 launches of one round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aiko_services_tpu_torch.ops import paged_prefill as pp
+    server = make_server()
+    rng = np.random.default_rng(12)
+    requests = [request_cls(f"w{i}", rng.integers(
+        1, config.vocab_size, 1023).astype(np.int32), 256)
+        for i in range(SLOTS)]
+    for request in requests:
+        server.submit(request)
+    while any(r.first_token_ts is None for r in requests):
+        server.step()
+    stats = server.spec_stats
+
+    def window(rounds):
+        passes, accepted = stats.target_passes, stats.accepted
+        tokens = server.counters["tokens_committed"]
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        while stats.target_passes - passes < rounds:
+            server.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - began, stats.target_passes - passes,
+                stats.accepted - accepted,
+                server.counters["tokens_committed"] - tokens)
+
+    wall, rounds, accepted, tokens = window(6)
+    round_ms = wall * 1e3 / rounds
+    per_round = 2 * config.n_layers
+    made = pp.append_kv_ragged.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window(4)
+    made = pp.append_kv_ragged.launches - made
+    positions = [int(p) for p in server.positions]
+    server.run_until_drained()
+    averages = prof.key_averages()
+    result = dict(steady_round_ms=round_ms, steady_rounds=rounds,
+                  steady_tokens_per_target_pass=(accepted + rounds) / rounds,
+                  steady_tokens_per_slot_round=tokens / rounds / SLOTS,
+                  steady_tok_s=tokens / wall, steady_positions=positions,
+                  steady_device_ms_per_round=None, steady_device_busy=None,
+                  steady_kernel_ms_per_round=None)
+    recorded = sum(e.count for e in averages
+                   if "append_kv_ragged_kernel" in e.key)
+    device_us = sum(e.self_device_time_total for e in averages)
+    if not recorded or not device_us:
+        log("--- spec steady: the profiler recorded no append_kv_ragged "
+            "launch (not measured)")
+        return result
+    seen = recorded / per_round
+    by_kernel = {}
+    for name in ("int8_matmul_kernel", "paged_decode", "chunk_attention",
+                 "append_kv_ragged_kernel", "append_kv_kernel",
+                 "flash_attention"):
+        us = sum(e.self_device_time_total for e in averages if name in e.key)
+        by_kernel[name] = us / 1e3 / seen
+    device_ms = device_us / 1e3 / seen
+    by_kernel["other (PyTorch glue)"] = device_ms - sum(by_kernel.values())
+    log(f"--- spec steady, {'int8' if quantize_kv else 'bf16'} KV "
+        f"({device_ms:.3f} ms of kernels a round over {seen:g} rounds; "
+        f"append_kv_ragged: {recorded} launches recorded of {made} made "
+        "under the profiler):")
+    for line in averages.table(sort_by="self_device_time_total",
+                               row_limit=10,
+                               max_name_column_width=50).splitlines():
+        log("  " + line)
+    result.update(steady_device_ms_per_round=device_ms,
+                  steady_device_busy=device_ms / round_ms,
+                  steady_kernel_ms_per_round=by_kernel)
+    return result
+
+
+# --------------------------------------------------------------------------- #
 
 def main() -> None:
     try:
@@ -1141,6 +1564,12 @@ def main() -> None:
     chunk_rows, chunk_worst, chunk_main = check_chunk(torch, pp, llama,
                                                       device)
     print_rows("chunk_attention", chunk_rows)
+    ragged_rows, ragged_main = check_append_ragged(torch, pp, llama, device)
+    print_rows("append_kv_ragged (pool bytes equal to the plain version's, "
+               "rows outside the windows untouched)", ragged_rows)
+    verify_rows, verify_worst, verify_main = check_chunk_verify(
+        torch, pp, llama, device)
+    print_rows("chunk_attention at the verify shape", verify_rows)
 
     # ---- phase 3: serving ----
     t0 = time.monotonic()
@@ -1170,6 +1599,25 @@ def main() -> None:
             f"{run['kv']} KV: " + json.dumps(run))
         paged_runs.append(run)
     paged_main = paged_runs[0]["launches"]
+
+    # ---- phase 5: speculative decoding on the paged server ----
+    spec_kernels = paged_kernels + (pp.append_kv_ragged,)
+    t0 = time.monotonic()
+    draft_1b = llama.random_quantized_params(llama.CONFIGS["1b"], seed=1,
+                                             device=device)
+    log(f"1b int8 draft params on the card in {time.monotonic() - t0:.1f} s")
+    spec_runs = []
+    for index, quantize_kv in enumerate((False, True)):
+        for mode, draft in (("paired", params), ("adaptive", draft_1b),
+                            ("ngram", None)):
+            run = serve_spec(torch, np, llama, quant, pp, spec_kernels,
+                             PagedContinuousServer, DecodeRequest, params,
+                             quantize_kv, device, mode, draft,
+                             paged_runs[index]["steady_step_ms"])
+            log(f"--- speculative serving ({mode}), llama3_8b int8, "
+                f"{run['kv']} KV: " + json.dumps(run))
+            spec_runs.append(run)
+    spec_main = spec_runs[0]["launches"]
 
     main_run = runs[0]["launches"]
     # int8_matmul's time is the path's: device time of its launches per
@@ -1226,12 +1674,24 @@ def main() -> None:
              bound_ms=chunk_main["bound_ms"],
              bound_by=chunk_main["bound_by"],
              library_ms=chunk_main["library_ms"]),
+        dict(name="append_kv_ragged", route="cuda",
+             source="aiko_services_tpu_torch/csrc/paged_append_ragged.cu",
+             replaces="aiko_services_tpu/ops/paged_prefill.py:619",
+             launches=spec_main["append_kv_ragged"],
+             max_abs_err=max(r["err"] for r in ragged_rows),
+             ms=ragged_main["ms"], plain_ms=ragged_main["plain_ms"],
+             bound_ms=ragged_main["bound_ms"],
+             bound_by=ragged_main["bound_by"],
+             library_ms=ragged_main["library_ms"]),
     ]}
+    log(f"chunk_attention at the verify shape (T=5, bf16, no window): "
+        f"{verify_main['ms']:.4f} ms, SDPA {verify_main['library_ms']:.4f} "
+        f"ms, bound {verify_main['bound_ms']:.4f} ms")
     log(f"kernel worst err/tol: int8 {int8_worst:.3f}, flash "
         f"{flash_worst:.3f}, decode {decode_worst:.3f} (bs 16: "
-        f"{paged_decode_worst:.3f}), chunk_attention {chunk_worst:.3f}; "
-        f"append_kv pools byte-equal; total "
-        f"{time.monotonic() - began:.1f} s")
+        f"{paged_decode_worst:.3f}), chunk_attention {chunk_worst:.3f} "
+        f"(verify shape {verify_worst:.3f}); append_kv and append_kv_ragged "
+        f"pools byte-equal; total {time.monotonic() - began:.1f} s")
     log(smi)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

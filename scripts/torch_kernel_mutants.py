@@ -6,9 +6,12 @@ bug in a CUDA kernel: the flash kernel drops the last key tile of rows
 that have more than one, or gives that tile 0.9 of its weight; the decode
 kernel's log-sum-exp merge drops a row's last live block, or gives it 0.9
 of its weight; the paged chunk-attention kernel stops zeroing masked
-probabilities, or drops the last live 16-row block of a tile's sweep.  Each copy is built and held to the same checks the
-working tree passes: ``chip_smoke.py``'s phase 2 for that kernel (at the
-llama3_8b shapes) and the kernel's tests in ``tests/test_torch_cuda.py``.
+probabilities, or drops the last live 16-row block of a tile's sweep; the
+ragged verify-window append writes at the block-aligned start (dropping
+``cached % block_size``), or skips each row's last live token.  Each copy
+is built and held to the same checks the working tree passes:
+``chip_smoke.py``'s phase 2 for that kernel (at the llama3_8b shapes) and
+the kernel's tests in ``tests/test_torch_cuda.py``.
 A mutant that passes either means a tolerance too loose to see the bug.
 
     python3 scripts/torch_kernel_mutants.py [--workdir DIR]
@@ -29,6 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FLASH = "aiko_services_tpu_torch/csrc/flash_attention.cu"
 DECODE = "aiko_services_tpu_torch/csrc/paged_decode.cu"
 CHUNK = "aiko_services_tpu_torch/csrc/paged_prefill.cu"
+RAGGED = "aiko_services_tpu_torch/csrc/paged_append_ragged.cu"
 #: name -> (source, text replaced, replacement)
 MUTANTS = {
     "flash_drop_tile": (
@@ -54,10 +58,16 @@ MUTANTS = {
         "if (key_hi / block_size > key_lo / block_size)\n"
         "    key_hi = key_hi / block_size * block_size - 1;\n"
         "  const int t_begin = key_lo / kBK;"),
+    "ragged_aligned_start": (
+        RAGGED, "const int pos = cached_lens[row] + token;",
+        "const int pos = cached_lens[row] / block_size * block_size + token;"),
+    "ragged_skip_last": (
+        RAGGED, "if (token >= chunk_lens[row]) return;",
+        "if (token >= chunk_lens[row] - 1) return;"),
 }
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
-             "chunk": "chunk_attention"}
+             "chunk": "chunk_attention", "ragged": "ragged"}
 
 
 def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
@@ -98,11 +108,17 @@ def phase2(name: str) -> bool:
     elif kind == "decode":
         rows, worst, _ = chip_smoke.check_decode(torch, paged_attention,
                                                  llama, device)
+    elif kind == "ragged":
+        # A byte-equality check: the rows' max abs error is the measure.
+        rows, _ = chip_smoke.check_append_ragged(torch, paged_prefill, llama,
+                                                 device)
+        worst = max(row["err"] for row in rows)
     else:
         rows, worst, _ = chip_smoke.check_chunk(torch, paged_prefill, llama,
                                                 device)
-    print(f"{name}: smoke phase 2 failed {len(failures)} of {len(rows)} "
-          f"cases, worst err/tol {worst:.3f}")
+    measure = "max abs err" if kind == "ragged" else "err/tol"
+    print(f"{name}: smoke phase 2 reported {len(failures)} failures over "
+          f"{len(rows)} cases, worst {measure} {worst:.3f}")
     for row in rows:
         print(f"  {row['shape']}: max_abs_err {row['err']:.4g} err/tol "
               f"{row['ratio']:.3f}")

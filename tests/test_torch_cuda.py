@@ -361,3 +361,160 @@ def test_paged_server_on_the_card_matches_batch1_oracle(cuda, quantize_kv):
         oracle.submit(alone)
         oracle.run_until_drained()
         assert request.tokens == alone.tokens, request.request_id
+
+
+#: chip_smoke.py phase 2's ragged grid: per-row verify starts (some spans
+#: inside one block, some across a block edge) and chunk lengths (the last
+#: row idle).
+RAGGED_STARTS = (0, 15, 16, 17, 1023, 1030, 40, 5)
+
+
+def _ragged_case(cuda, seed, T, kv, hd, quant_kv, in_dtype=torch.bfloat16,
+                 starts=RAGGED_STARTS, chunk_lens=None, bs=16):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rows = len(starts)
+    chunk_lens = chunk_lens or (T, T, max(T - 1, 1), T, T, 1, T, 0)
+    max_blocks = (max(starts) + T) // bs + 2
+    n_blocks = rows * max_blocks + 1
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=cuda) + 1
+    tables = ids.reshape(rows, max_blocks).to(torch.int32)
+    k = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    if quant_kv:
+        k, ks = llama._kv_quantize(k)
+        v, vs = llama._kv_quantize(v)
+        pool = dict(k=k, v=v, ks=ks, vs=vs)
+    else:
+        pool = dict(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16))
+    k_new = torch.randn((rows, T, kv, hd), generator=gen, device=cuda)
+    v_new = torch.randn((rows, T, kv, hd), generator=gen, device=cuda)
+    k_new[0, 0, 0] = 0.0                  # an all-zero vector: scale 1
+    cached = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    chunk = torch.tensor(chunk_lens, dtype=torch.int32, device=cuda)
+    return k_new.to(in_dtype), v_new.to(in_dtype), pool, tables, cached, chunk
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("T", [2, 5, 9, 17])
+@pytest.mark.parametrize("kv,hd", [(2, 32), (8, 128), (8, 64)])
+def test_append_kv_ragged_kernel(cuda, kv, hd, T, quant_kv, in_dtype):
+    """Every pool byte after the kernel equals the plain version's (block 0
+    included: neither writes anything past a row's chunk_len), so rows
+    outside the live windows stay as they were."""
+    k_new, v_new, pool, tables, cached, chunk = _ragged_case(
+        cuda, T * kv + hd, T, kv, hd, quant_kv, in_dtype)
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    before = paged_prefill.append_kv_ragged.launches
+    paged_prefill.append_kv_ragged(k_new, v_new, pool, tables, cached, chunk)
+    assert paged_prefill.append_kv_ragged.launches == before + 1
+    paged_prefill.append_kv_ragged_reference(k_new, v_new, plain, tables,
+                                             cached, chunk)
+    for key in pool:
+        assert torch.equal(pool[key], plain[key]), key
+
+
+def test_append_kv_ragged_rejects_non_int32_tables(cuda):
+    k_new, v_new, pool, tables, cached, chunk = _ragged_case(
+        cuda, 1, 5, 2, 32, False)
+    before = {key: buf.clone() for key, buf in pool.items()}
+    with pytest.raises(TypeError, match="int32"):
+        paged_prefill.append_kv_ragged(k_new, v_new, pool,
+                                       tables.to(torch.int64), cached, chunk)
+    for key in pool:
+        assert torch.equal(pool[key], before[key]), key
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("window", [None, 256])
+def test_chunk_attention_verify_shape(cuda, quant_kv, window):
+    """The verify's attention: T = 5 windows of 32 query heads over 8 kv
+    heads at unaligned positions ~1,030-1,200, one row idle (chunk_len
+    0, its output finite: zero), after the ragged append."""
+    starts = (1030, 1047, 1064, 1100, 1121, 1150, 1183, 1199, 0)
+    chunk_lens = (5, 5, 5, 5, 5, 5, 5, 5, 0)
+    k_new, v_new, pool, tables, cached, chunk = _ragged_case(
+        cuda, 13, 5, 8, 128, quant_kv, starts=starts, chunk_lens=chunk_lens)
+    q = torch.randn((len(starts), 5, 8, 4, 128), device=cuda) \
+        .to(torch.bfloat16)
+    before = paged_prefill.chunk_attention.launches
+    got, _ = paged_prefill.paged_verify_attention(q, k_new, v_new, pool,
+                                                  tables, cached, chunk,
+                                                  window=window)
+    assert paged_prefill.chunk_attention.launches == before + 1
+    plain = pool if quant_kv else {key: buf.float()
+                                   for key, buf in pool.items()}
+    want = paged_prefill.chunk_attention_reference(q.float(), plain, tables,
+                                                   cached, window=window)
+    _close(got[:-1], want[:-1], torch.bfloat16)
+    assert bool(torch.isfinite(got[-1]).all())
+
+
+@pytest.mark.parametrize("hd,T", [(256, 5), (128, 129)])
+def test_paged_verify_outside_the_envelope_raises_on_the_card(cuda, hd, T):
+    k_new, v_new, pool, tables, cached, chunk = _ragged_case(
+        cuda, 2, T, 1, hd, False, starts=(3, 20), chunk_lens=(T, 2))
+    q = torch.randn((2, T, 1, 2, hd), device=cuda).to(torch.bfloat16)
+    before = {key: buf.clone() for key, buf in pool.items()}
+    with pytest.raises(ValueError, match="envelope"):
+        paged_prefill.paged_verify_attention(q, k_new, v_new, pool, tables,
+                                             cached, chunk)
+    for key in pool:
+        assert torch.equal(pool[key], before[key]), key
+
+
+def _worst_oracle_gap(server, request):
+    """The served tokens against a batch-1 contiguous prefill + decode_step
+    oracle on the card, teacher-forced: the largest gap between the
+    oracle's top logit and its logit of a served token."""
+    config, device = server.config, server.device
+    prompt = torch.as_tensor(request.prompt, device=device)[None]
+    cache = llama.init_cache(config, 1, server.max_seq,
+                             quantize_kv=server.quantize_kv, device=device)
+    logits, cache = llama.prefill(server.params, prompt, cache, config)
+    logits, worst = logits[0, -1], 0.0
+    for index, token in enumerate(request.tokens):
+        worst = max(worst, float(logits.max() - logits[token]))
+        step = torch.tensor([[token]], dtype=torch.int32, device=device)
+        logits, cache = llama.decode_step(server.params, step, cache,
+                                          prompt.shape[1] + index, config)
+        logits = logits[0, -1]
+    return worst
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_spec_server_on_the_card_holds_the_oracle(cuda, quantize_kv):
+    """tiny with int8 weights, a paired draft, 16-token chunked admission
+    and the prefix cache on the card: every served token is the batch-1
+    oracle's argmax or within 0.1 of its top logit (the verify's attention
+    kernel rounds otherwise than the decode kernel, so a near-tie may go
+    either way), each round launches the ragged append once per target
+    layer and once per draft layer (the resync), and a paired draft
+    commits more than one token a round."""
+    rng = np.random.default_rng(4)
+    system = rng.integers(1, 1024, 40).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(1, 1024, tail)
+                               .astype(np.int32)]) for tail in (5, 12)]
+    prompts += [rng.integers(1, 1024, n).astype(np.int32) for n in (9, 70)]
+    kwargs = dict(config_name="tiny", slots=3, max_seq=256, chunk_steps=4,
+                  quantize=True, quantize_kv=quantize_kv, seed=1,
+                  block_size=16, chunk_prefill_tokens=16,
+                  enable_prefix_cache=True)
+    server = PagedContinuousServer(spec_k=4, draft_config_name="tiny",
+                                   **kwargs)
+    server._draft["params"] = server.params
+    requests = [DecodeRequest(f"r{i}", p, 10) for i, p in enumerate(prompts)]
+    before = paged_prefill.append_kv_ragged.launches
+    for request in requests:
+        server.submit(request)
+    server.run_until_drained()
+    launches = paged_prefill.append_kv_ragged.launches - before
+    stats = server.stats()
+    assert launches == 2 * server.config.n_layers * stats["spec_rounds"]
+    assert stats["spec_tokens_per_target_pass"] > 1.0
+    for request in requests:
+        assert len(request.tokens) == 10, request.request_id
+        assert _worst_oracle_gap(server, request) <= 0.1, request.request_id
+    balance = server.pool_balance()
+    assert balance["free"] + balance["evictable"] + balance["producing"] \
+        == balance["total"]

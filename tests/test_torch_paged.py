@@ -235,11 +235,15 @@ def test_dispatch_outside_the_kernel_envelope_takes_the_reference():
 
 
 def test_every_new_wrapper_counts_its_launches():
-    for wrapper in (pp.append_kv, pp.chunk_attention):
+    wrappers = (pp.append_kv, pp.chunk_attention, pp.append_kv_ragged)
+    for wrapper in wrappers:
         assert isinstance(wrapper.launches, int)
-    before = (pp.append_kv.launches, pp.chunk_attention.launches)
+    before = [wrapper.launches for wrapper in wrappers]
     _port_run(_case(1), "kernel")
-    assert (pp.append_kv.launches, pp.chunk_attention.launches) == before
+    q, k_new, v_new, pool, tables, cached, chunk = _port_args(_case(2))
+    pp.paged_verify_attention(q[:, :5], k_new[:, :5], v_new[:, :5], pool,
+                              tables, cached + 3, chunk.clamp(max=5))
+    assert [wrapper.launches for wrapper in wrappers] == before
 
 
 # --------------------------------------------------------------------------- #
@@ -606,7 +610,7 @@ def test_warm_prefill_ladder_matches_jax():
 
 @pytest.mark.parametrize("option", [
     dict(host_tier_blocks=4), dict(spill_dir="spill"),
-    dict(adapters={"a": {}}), dict(draft_config_name="tiny"),
+    dict(adapters={"a": {}}), dict(watchdog_s=1.0),
     dict(replica_mesh=object()), dict(automata={"g": object()}),
     dict(compilation_cache_dir="cache")])
 def test_paged_features_outside_the_slice_raise(option):
