@@ -11,8 +11,9 @@ grouped-query attention, SwiGLU MLP, untied LM head, bfloat16 params with
 f32 norm/softmax accumulation.  The casts sit where the JAX code puts
 them: bf16 agreement depends on them.
 
-Six hand-written CUDA kernels carry the serving paths: ``int8_matmul`` in
-every projection at decode shapes, ``flash_attention`` in contiguous
+Seven hand-written CUDA kernels carry the serving paths: ``int8_matmul``
+or ``int4_matmul`` (by the weights' layout) in every projection at decode
+shapes, ``flash_attention`` in contiguous
 prefill, ``paged_decode_attention`` in every decode step (contiguous caches
 feed it as a degenerate pool), ``append_kv`` + ``chunk_attention`` in
 paged admission (:func:`prefill_append_paged`, :func:`serve_chunk_mixed`),
@@ -46,7 +47,8 @@ from ..ops.paged_prefill import (_gathered_view, _kv_quantize_rows,
                                  _pool_sources, _write_rows_reference,
                                  paged_prefill_attention,
                                  paged_verify_attention)
-from ..ops.quant import int8_matmul, is_quantized, quantize_int8
+from ..ops.quant import (_unpack_int4, int4_matmul, int8_matmul,
+                         is_quantized, is_quantized_int4, quantize_tree)
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
            "random_quantized_params", "forward", "init_cache", "prefill",
@@ -185,46 +187,53 @@ def init_params(config: LlamaConfig, seed: int = 0,
 
 
 def quantize_params(params, bits: int = 8) -> Dict:
-    """Weight-only int8 quantization of every 2-D float leaf (norm
-    vectors stay in the model dtype)."""
-    if bits != 8:
-        raise NotImplementedError("only int8 weights are ported (int4 is "
-                                  "a later slice)")
-
-    def visit(leaf):
-        if isinstance(leaf, dict):
-            return {key: visit(value) for key, value in leaf.items()}
-        if isinstance(leaf, list):
-            return [visit(value) for value in leaf]
-        if torch.is_tensor(leaf) and leaf.ndim == 2 \
-                and leaf.is_floating_point():
-            return quantize_int8(leaf)
-        return leaf
-    return visit(params)
+    """Weight-only quantization of every 2-D float leaf (norm vectors stay
+    in the model dtype).  ``bits=8``: per-output-channel int8.  ``bits=4``:
+    nibble-packed int4 with per-128-row-group scales; the embedding stays
+    int8, because its read path is a row gather."""
+    if bits == 4:
+        quantized = quantize_tree(params, bits=4)
+        quantized["embed"] = quantize_tree(params["embed"])
+        return quantized
+    return quantize_tree(params)
 
 
 def random_quantized_params(config: LlamaConfig, seed: int = 0,
                             bits: int = 8, device=None) -> Dict:
-    """Random int8 params built DIRECTLY in quantized form on ``device``
-    from a ``torch.Generator``: the bf16 tree, twice the int8 bytes, is
-    never made.  Same structure as ``quantize_params(init_params(...))``; scales
-    make the dequantized weights look like fan-in-scaled gaussians, so
-    activations stay finite through all layers."""
+    """Random quantized params built DIRECTLY in quantized form on
+    ``device`` from a ``torch.Generator``: the bf16 tree, two (int8) or
+    four (int4) times the bytes, is never made.  Same structure as
+    ``quantize_params(init_params(...), bits)``: int8 leaves ``{"q": int8
+    (in, out), "s": f32 (1, out)}``; int4 leaves ``{"q4": int8 (in/2, out)
+    packed bytes drawn uniformly from [-128, 128), "s": f32 (max(1,
+    in/128), out)}`` with the embedding int8.  Scales make the dequantized
+    weights look like fan-in-scaled gaussians, so activations stay finite
+    through all layers."""
     _dense_only(config)
-    if bits != 8:
-        raise NotImplementedError("only int8 weights are ported")
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     c = config
     d, h, kv, hd, f = (c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
                        c.d_ff)
 
-    def qweight(shape):
+    def q8weight(shape):
         q = torch.randint(-127, 128, shape, generator=generator,
                           device=device, dtype=torch.int8)
         s = torch.full((1, shape[1]), shape[0] ** -0.5 / 127.0,
                        dtype=torch.float32, device=device)
         return {"q": q, "s": s}
+
+    def q4weight(shape):
+        kin, n = shape
+        packed = torch.randint(-128, 128, (kin // 2, n), generator=generator,
+                               device=device, dtype=torch.int8)
+        s = torch.full((max(1, kin // 128), n), kin ** -0.5 / 7.0,
+                       dtype=torch.float32, device=device)
+        return {"q4": packed, "s": s}
+
+    qweight = q4weight if bits == 4 else q8weight
 
     def norm():
         return torch.ones((d,), dtype=c.dtype, device=device)
@@ -242,15 +251,15 @@ def random_quantized_params(config: LlamaConfig, seed: int = 0,
             "w_up": qweight((d, f)),
             "w_down": qweight((f, d)),
         })
-    return {"embed": qweight((c.vocab_size, d)), "layers": layers,
+    return {"embed": q8weight((c.vocab_size, d)), "layers": layers,
             "final_norm": norm(), "lm_head": qweight((d, c.vocab_size))}
 
 
 def _matmul(x, w):
-    """Dense or int8-quantized matmul, transparently."""
+    """Dense or int8/int4-quantized matmul, transparently."""
+    if is_quantized_int4(w):
+        return int4_matmul(x, w["q4"], w["s"])
     if is_quantized(w):
-        if "q4" in w:
-            raise NotImplementedError("int4 weights are not ported yet")
         return int8_matmul(x, w["q"], w["s"])
     return x @ w
 
@@ -258,6 +267,14 @@ def _matmul(x, w):
 def _embed_lookup(params, tokens, dtype):
     embed = params["embed"]
     tokens = tokens.to(torch.int64)
+    if is_quantized_int4(embed):
+        # Packed rows hold vocab rows (2k, 2k+1) in (low, high) nibbles:
+        # gather the byte row, then take the token's nibble.
+        low, high = _unpack_int4(embed["q4"][tokens // 2])
+        q = torch.where((tokens % 2 == 0)[..., None], low, high)
+        group = 2 * embed["q4"].shape[0] // embed["s"].shape[0]
+        scale = embed["s"][tokens // group]
+        return (q.to(torch.float32) * scale).to(dtype)
     if is_quantized(embed):
         # Gather int8 rows, dequantize with the per-feature scales.
         return (embed["q"][tokens].to(torch.float32)

@@ -47,6 +47,8 @@ _F = ctypes.c_float
 #: C entry points and their argument types (see each .cu's extern "C").
 SIGNATURES = {
     "aiko_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "aiko_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     "aiko_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "aiko_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

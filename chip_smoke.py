@@ -26,8 +26,8 @@ Phases (any failure exits non-zero):
    prefill dispatches of the run, then a full-batch steady decode window
    timed bare, under cProfile (host functions) and under torch.profiler
    (device time by kernel; int8_matmul's time per step in the kernel
-   line is read from it).
-
+   line is read from it); then phase 6's 64-slot run on these int8
+   weights, for the comparison with int4.
 4. Paged serving: the same weights through PagedContinuousServer (8
    slots, 4096-row tables of 16-row blocks, the default 1,024-block pool,
    prefix cache on, 256-token chunked admission), bf16 KV then int8 KV:
@@ -38,6 +38,22 @@ Phases (any failure exits non-zero):
    held to the decode steps and prefill slices, prefix hits > 0, the pool
    balanced after the drain, then phase 3's steady decode window at
    positions ~1,025-1,090.
+5. Speculative serving: phase 4's server with spec_k = 4, bf16 then int8
+   KV, a paired draft (the target as its own draft), an int8 1b draft
+   under the adaptive controller and n-gram self-drafting, every greedy
+   token held to phase 4's oracle and the verify's launches held to the
+   spec rounds; then the paired steady window.
+6. int4 weights: llama3_8b with random int4 weights built on the card
+   (int8 embedding), through the contiguous server (phase 3's traffic
+   and steady window, then 64 slots at the JAX bench's int4 shape:
+   prompt 128, 128 new tokens), the paged server (phase 4's traffic,
+   bf16 and int8 KV) and a short paired-draft speculative run (the
+   verify at m = 40 and the resync at m = 32 through the int4 kernel),
+   each held as phases 3-5 are, int4_matmul's launches exact.
+
+Phase 2 also holds int4_matmul (both numerics: scale after each group,
+the path's; and scale first) at every projection width and m = 1, 8, 40,
+64 against its plain version.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -134,20 +150,70 @@ def projections(config):
             (d, config.d_ff), (config.d_ff, d)]
 
 
-def int8_launches(quant, config, rows: int, seq: int) -> int:
-    """int8_matmul kernel launches of one forward pass over ``rows``
-    sequences of ``seq`` positions: the projections that take the kernel
-    at m = rows * seq in every layer, and the LM head at each row's last
-    position (m = rows)."""
-    return (int8_layer_launches(quant, config, rows * seq)
-            + quant.kernel_shape(rows, config.d_model, config.vocab_size))
+class Weights:
+    """The weight layout a serving run uses: ``matmul`` is the wrapper
+    every projection goes through (``int8_matmul`` or ``int4_matmul``),
+    ``rule(m, K, N)`` says whether it launches its kernel at that shape,
+    and ``trace_key`` names the kernel in a profiler trace."""
+
+    def __init__(self, quant, bits: int):
+        self.bits = bits
+        if bits == 8:
+            self.matmul, self.rule = quant.int8_matmul, quant.kernel_shape
+        else:
+            self.matmul = quant.int4_matmul
+            # llama3_8b's and 1b's K are multiples of 128: K // 128 groups.
+            self.rule = lambda m, k, n: quant.int4_kernel_shape(
+                m, k, n, max(1, k // 128))
+        self.name = self.matmul.__name__
+        self.trace_key = f"{self.name}_kernel"
+        self.label = f"int{bits}"
 
 
-def int8_layer_launches(quant, config, m: int) -> int:
-    """int8_matmul kernel launches of every layer's projections at m
-    rows (a prefill slice: the paged path computes no logits there)."""
-    return config.n_layers * sum(quant.kernel_shape(m, k, n)
+def matmul_launches(weights, config, rows: int, seq: int) -> int:
+    """Kernel launches of ``weights.matmul`` in one forward pass over
+    ``rows`` sequences of ``seq`` positions: the projections that take the
+    kernel at m = rows * seq in every layer, and the LM head at each row's
+    last position (m = rows)."""
+    return (layer_launches(weights, config, rows * seq)
+            + weights.rule(rows, config.d_model, config.vocab_size))
+
+
+def layer_launches(weights, config, m: int) -> int:
+    """Kernel launches of every layer's projections at m rows (a prefill
+    slice: the paged path computes no logits there)."""
+    return config.n_layers * sum(weights.rule(m, k, n)
                                  for k, n in projections(config))
+
+
+class MatmulShapes:
+    """Records (m, K, N, groups) of every int4 projection the model runs
+    (``llama._matmul`` wrapped) while it is entered: the launches the
+    shape rule predicts for a run whose forwards are not a closed formula
+    of the server's counters (speculation)."""
+
+    def __init__(self, llama, quant):
+        self.llama, self.quant = llama, quant
+        self.shapes = []
+
+    def __enter__(self):
+        inner = self._inner = self.llama._matmul
+
+        def recorded(x, w):
+            if self.quant.is_quantized_int4(w):
+                khalf, n = w["q4"].shape
+                self.shapes.append((x.numel() // (2 * khalf), 2 * khalf, n,
+                                    w["s"].shape[0]))
+            return inner(x, w)
+        self.llama._matmul = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._matmul = self._inner
+
+    def predicted(self) -> int:
+        return sum(self.quant.int4_kernel_shape(*shape)
+                   for shape in self.shapes)
 
 
 # --------------------------------------------------------------------------- #
@@ -240,6 +306,144 @@ def check_int8_matmul(torch, quant, device, config):
         step["library_ms"] = None
     step["library_error"] = library_error
     return rows, worst, step
+
+
+#: Rows of x in the int4 checks: batch-1 decode, the 8-slot decode batch,
+#: the verify of k = 4 on 8 slots, and 64 (the 64-slot decode batch, the
+#: kernel's largest m).
+INT4_ROWS = (1, 8, 40, 64)
+
+
+def int4_library(torch, quant, w):
+    """``torch._weight_int4pack_mm``'s weight for the int4 leaf ``w``: its
+    own packing of the nibbles plus 8 as uint8 (N, K/2) (even k in the
+    high nibble), converted to its tiled layout, and bf16 (scale, zero 0)
+    pairs.  It dequantizes (q + 8 - 8) * bf16(s): another function than
+    ``int4_matmul`` to the bit (bf16 scales, its own summation)."""
+    codes = quant._unpacked_rows(w["q4"]).t() + 8                 # (N, K)
+    packed = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    tiled = torch._convert_weight_to_int4pack(packed.contiguous(), 8)
+    scales = w["s"].to(torch.bfloat16)
+    pairs = torch.stack([scales, torch.zeros_like(scales)], dim=-1)
+    return tiled, pairs.contiguous()
+
+
+def check_int4_matmul(torch, quant, device, config):
+    """int4_matmul (scale after each group, the path's numerics) and its
+    scale-first instance, each against its own f32 plain version, at every
+    llama3_8b projection width and the LM head, m in INT4_ROWS.  The
+    packed bytes are drawn uniformly from all 256 values (nibbles -8..7)
+    with 128-row groups, and rotate through enough copies to exceed the
+    50 MB L2, as a decode step finds them: cold.  Library calls, timed
+    beside the kernel (the port never makes them):
+    ``torch._weight_int4pack_mm`` on its own packing (its error instead
+    of a time where the card's PyTorch has no CUDA kernel for it) and the
+    large-m route, dequantize to bf16 + ``torch.mm``."""
+    d, vocab, layers = config.d_model, config.vocab_size, config.n_layers
+    counts = {}
+    for k, n in projections(config):
+        counts[(k, n)] = counts.get((k, n), 0) + layers
+    counts[(d, vocab)] = 1
+    names = {(d, d): "wq/wo", (d, config.n_kv_heads * config.head_dim):
+             "wk/wv", (d, config.d_ff): "w_gate/w_up",
+             (config.d_ff, d): "w_down", (d, vocab): "lm_head"}
+    variants = {"after": (quant.int4_matmul, quant.int4_matmul_reference),
+                "first": (quant.int4_matmul_scale_first,
+                          quant.int4_matmul_scale_first_reference)}
+    gen = torch.Generator(device=device).manual_seed(10)
+    rows, worst, library_error = [], 0.0, None
+    steps = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                       dequant_mm_ms=0.0, launches=sum(counts.values()))
+             for key in variants}
+    for (k, n), per_step in counts.items():
+        name, groups = names[(k, n)], k // 128
+        copies = max(1, math.ceil(256e6 / (k * n // 2)))
+        weights = [{"q4": torch.randint(-128, 128, (k // 2, n), generator=gen,
+                                        device=device, dtype=torch.int8),
+                    "s": torch.rand((groups, n), generator=gen, device=device)
+                    * (k ** -0.5 / 4)} for _ in range(copies)]
+        if not all(int(torch.unique(w["q4"]).numel()) == 256
+                   for w in weights):
+            fail(f"int4 {name}: the packed bytes miss some of the 256 values")
+        if library_error is None:
+            try:
+                for w in weights:
+                    w["lib"] = int4_library(torch, quant, w)
+            except Exception as error:   # no CUDA kernel for the op
+                library_error = f"{type(error).__name__}: {error}"
+        if library_error is not None:
+            for w in weights:
+                w.pop("lib", None)
+        for m in INT4_ROWS:
+            x = torch.randn((m, k), generator=gen, device=device) \
+                .to(torch.bfloat16)
+            turn = iter(range(10 ** 9))
+
+            def library():
+                w = weights[next(turn) % copies]
+                return torch._weight_int4pack_mm(x, w["lib"][0], 128,
+                                                 w["lib"][1])
+
+            def dequant_mm():
+                w = weights[next(turn) % copies]
+                return torch.mm(x, quant.dequantize_int4(w, torch.bfloat16))
+
+            library_ms = library_err = None
+            if library_error is None:
+                try:
+                    want = quant.int4_matmul_reference(
+                        x.float(), weights[0]["q4"], weights[0]["s"])
+                    library_err = float((library().float() - want)
+                                        .abs().max())
+                    library_ms = device_ms(torch, library, 20)
+                except Exception as error:
+                    library_error = f"{type(error).__name__}: {error}"
+                    for w in weights:
+                        w.pop("lib", None)
+            dequant_mm_ms = device_ms(torch, dequant_mm, 4)
+            b_ms, b_by = bound(k * n // 2 + 4 * groups * n + 2 * m * k
+                               + 2 * m * n, 2 * m * k * n)
+            for key, (kernel_fn, plain_fn) in variants.items():
+                w = weights[0]
+                got = kernel_fn(x, w["q4"], w["s"])
+                want = plain_fn(x.float(), w["q4"], w["s"])
+                torch.cuda.synchronize()
+                err, ratio = compare(got, want)
+                if not ratio <= 1.0:
+                    fail(f"int4_matmul ({key}) {name} m={m}: max abs err "
+                         f"{err}, err/tol {ratio}")
+                worst = max(worst, ratio)
+
+                def kernel():
+                    w = weights[next(turn) % copies]
+                    kernel_fn(x, w["q4"], w["s"])
+
+                def plain():
+                    w = weights[next(turn) % copies]
+                    plain_fn(x, w["q4"], w["s"])
+
+                ms = device_ms(torch, kernel, 20)
+                plain_ms = device_ms(torch, plain, 2)
+                rows.append(dict(
+                    shape=f"{key} {name} m={m} K={k} N={n} G={groups}",
+                    numerics=key, m=m, err=err, ratio=ratio, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=library_ms, library_err=library_err,
+                    dequant_mm_ms=dequant_mm_ms))
+                if m == SLOTS:
+                    step = steps[key]
+                    step["ms"] += per_step * ms
+                    step["plain_ms"] += per_step * plain_ms
+                    step["bound_ms"] += per_step * b_ms
+                    step["dequant_mm_ms"] += per_step * dequant_mm_ms
+                    if library_ms is not None:
+                        step["library_ms"] += per_step * library_ms
+        del weights
+    for step in steps.values():
+        if library_error is not None:
+            step["library_ms"] = None
+        step["library_error"] = library_error
+    return rows, worst, steps
 
 
 def _visible_pairs(q_len, k_len, window):
@@ -819,6 +1023,14 @@ def check_chunk_verify(torch, pp, llama, device):
     return rows, worst, main
 
 
+def step_bound_by(rows, numerics):
+    """What bounds an 8-slot decode step's int4 launches (their rows at
+    m = SLOTS): "operations" if any of them is, else "bytes"."""
+    kinds = {r["bound_by"] for r in rows
+             if r["numerics"] == numerics and r["m"] == SLOTS}
+    return "operations" if "operations" in kinds else "bytes"
+
+
 def print_rows(title, rows):
     log(f"--- {title}")
     for row in rows:
@@ -889,8 +1101,13 @@ def check_requests(torch, requests, oracle):
     return exact, equal, checked, ties
 
 
-def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
+def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
           params, quantize_kv, device):
+    """ContinuousBatchingServer, llama3_8b, 8 slots, 1024-row cache: the
+    PROMPTS traffic in three waves, every served token held to the batch-1
+    oracle, every kernel's launches held to the decode steps and prefill
+    dispatches of the run (a kernel in ``kernels`` with no expected count
+    must not launch at all), then the steady decode window."""
     config = llama.CONFIGS["llama3_8b"]
     server = server_cls(config_name="llama3_8b", slots=SLOTS,
                         max_seq=MAX_SEQ, chunk_steps=CHUNK_STEPS,
@@ -945,11 +1162,11 @@ def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
         fail(f"{len(dispatches)} prefill calls recorded, the server "
              f"counted {stats['prefill_dispatches']}")
     layers, steps = config.n_layers, stats["decode_steps"]
-    kernel_prefills = sum(quant.kernel_shape(rows * seq, config.d_model,
-                                             config.d_model)
+    kernel_prefills = sum(weights.rule(rows * seq, config.d_model,
+                                       config.d_model)
                           for rows, seq in dispatches)
-    want = {"int8_matmul": int8_launches(quant, config, SLOTS, 1) * steps
-            + sum(int8_launches(quant, config, rows, seq)
+    want = {weights.name: matmul_launches(weights, config, SLOTS, 1) * steps
+            + sum(matmul_launches(weights, config, rows, seq)
                   for rows, seq in dispatches),
             "paged_decode_attention": layers * steps,
             "flash_attention": layers * len(dispatches)}
@@ -957,8 +1174,14 @@ def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
         if launches[name] != expected or expected == 0:
             fail(f"{name}: {launches[name]} launches, expected {expected} "
                  f"(decode_steps {steps}, prefill dispatches {dispatches})")
+    for name, count in launches.items():
+        if name not in want and count:
+            fail(f"{name} launched {count} times on {weights.label} weights")
     if not kernel_prefills:
-        fail(f"no prefill dispatch took the int8 kernel: {dispatches}")
+        fail(f"no prefill dispatch took the {weights.label} kernel: "
+             f"{dispatches}")
+    if not peak_gb < 80:
+        fail(f"peak device memory {peak_gb:.2f} GB")
 
     exact, equal, checked, ties = check_requests(
         torch, requests, lambda request: contiguous_oracle(
@@ -969,41 +1192,41 @@ def serve(torch, np, llama, quant, kernels, server_cls, request_cls,
                    for r in requests)
     generated = sum(len(r.tokens) for r in requests)
     steady = steady_decode(
-        torch, np, quant, lambda: server_cls(
+        torch, np, weights, lambda: server_cls(
             config_name="llama3_8b", slots=SLOTS, max_seq=MAX_SEQ,
             chunk_steps=CHUNK_STEPS, params=params, quantize=True,
             quantize_kv=quantize_kv, device=device),
         request_cls, quantize_kv, config)
-    return dict(kv="int8" if quantize_kv else "bf16",
+    return dict(weights=weights.label, kv="int8" if quantize_kv else "bf16",
                 requests=len(requests), requests_exact=exact,
                 tokens_checked=checked, tokens_equal=equal,
                 accepted_near_ties=ties, launches=launches,
                 decode_steps=steps, prefill_dispatches=dispatches,
-                int8_kernel_prefills=kernel_prefills,
+                kernel_prefills=kernel_prefills,
                 wall_s=wall, served_tok_s=generated / wall,
                 ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
                 peak_gb=peak_gb, **steady)
 
 
-def steady_decode(torch, np, quant, make_server, request_cls, quantize_kv,
-                  config, prompt_len=128):
-    """Decode at a full batch: 8 requests of ``prompt_len`` prompt tokens
-    admitted together into ``make_server()``; after every request has its
-    first token, 32 decode steps
+def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
+                  config, prompt_len=128, slots=SLOTS, new_tokens=96):
+    """Decode at a full batch: ``slots`` requests of ``prompt_len`` prompt
+    tokens admitted together into ``make_server()``; after every request
+    has its first token, 32 decode steps
     are timed with nothing attached, 16 more under cProfile (the host's
     top functions by own time are printed) and 16 more under
     torch.profiler (the card's kernel time per step, by kernel; busy
     share = kernel time per step over the unprofiled step;
-    ``int8_matmul``'s device time per step).
+    the weight matmul's device time per step).
 
     The tracer may miss the kernels launched while it comes up, and a
     window of consumed steps need not hold whole dispatched steps (the
     ring keeps chunks in flight across its edges), so a step's device
     time is not the window's total over its step count: the steps the
-    tracer saw are its ``int8_matmul_kernel`` records over the exact
+    tracer saw are its records of the matmul kernel over the exact
     launches of one decode step (the kernel-shape rule, which the
-    serving run's launch counts hold), and ``int8_matmul``'s time per
-    step is its mean recorded launch times those launches."""
+    serving run's launch counts hold), and the matmul's time per step is
+    its mean recorded launch times those launches."""
     import cProfile
     import io
     import pstats
@@ -1012,8 +1235,8 @@ def steady_decode(torch, np, quant, make_server, request_cls, quantize_kv,
     server = make_server()
     rng = np.random.default_rng(11)
     requests = [request_cls(f"s{i}", rng.integers(
-        1, config.vocab_size, prompt_len).astype(np.int32), 96)
-        for i in range(SLOTS)]
+        1, config.vocab_size, prompt_len).astype(np.int32), new_tokens)
+        for i in range(slots)]
     for request in requests:
         server.submit(request)
     while any(r.first_token_ts is None for r in requests):
@@ -1037,35 +1260,37 @@ def steady_decode(torch, np, quant, make_server, request_cls, quantize_kv,
     host.disable()
     text = io.StringIO()
     pstats.Stats(host, stream=text).sort_stats("tottime").print_stats(12)
-    log(f"--- host, {'int8' if quantize_kv else 'bf16'} KV steady decode "
+    log(f"--- host, {weights.label} weights, {slots} slots, "
+        f"{'int8' if quantize_kv else 'bf16'} KV steady decode "
         f"(cProfile, {host_wall * 1e3 / host_steps:.3f} ms a step with it "
         "on):")
     for line in text.getvalue().splitlines():
         if line.strip() and not line.lstrip().startswith(("Ordered", "List")):
             log("  " + line.rstrip())
-    per_step = int8_launches(quant, config, SLOTS, 1)
-    launched = quant.int8_matmul.launches
+    per_step = matmul_launches(weights, config, slots, 1)
+    launched = weights.matmul.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         window(16)
-    launched = quant.int8_matmul.launches - launched
+    launched = weights.matmul.launches - launched
     server.run_until_drained()
     averages = prof.key_averages()
     device_us = sum(event.self_device_time_total for event in averages)
-    int8 = [event for event in averages if "int8_matmul_kernel" in event.key]
-    recorded = sum(event.count for event in int8)
-    result = dict(steady_decode_tok_s=SLOTS * 1e3 / step_ms,
+    matmul = [event for event in averages if weights.trace_key in event.key]
+    recorded = sum(event.count for event in matmul)
+    result = dict(steady_slots=slots,
+                  steady_decode_tok_s=slots * 1e3 / step_ms,
                   steady_step_ms=step_ms, steady_device_ms_per_step=None,
-                  steady_device_busy=None, int8_device_ms_per_step=None,
-                  int8_launches_traced=recorded,
-                  int8_launches_in_trace=launched)
+                  steady_device_busy=None, matmul_device_ms_per_step=None,
+                  matmul_launches_traced=recorded,
+                  matmul_launches_in_trace=launched)
     if not device_us or not recorded:
-        log("--- device: the profiler recorded no int8_matmul launch "
+        log(f"--- device: the profiler recorded no {weights.name} launch "
             "(not measured)")
         return result
     steps = recorded / per_step
     device_ms = device_us / 1e3 / steps
     log(f"--- device ({device_ms:.3f} ms of kernels a step over {steps:g} "
-        f"steps; int8_matmul: {recorded} launches recorded of {launched} "
+        f"steps; {weights.name}: {recorded} launches recorded of {launched} "
         "made under the profiler):")
     for line in averages.table(sort_by="self_device_time_total",
                                row_limit=10,
@@ -1074,9 +1299,109 @@ def steady_decode(torch, np, quant, make_server, request_cls, quantize_kv,
     result.update(
         steady_device_ms_per_step=device_ms,
         steady_device_busy=device_ms / step_ms,
-        int8_device_ms_per_step=sum(e.self_device_time_total for e in int8)
-        / 1e3 / steps)
+        matmul_device_ms_per_step=sum(e.self_device_time_total
+                                      for e in matmul) / 1e3 / steps)
     return result
+
+
+#: The JAX bench's int4 shape (bench.py llama3_8b_int4): 64 slots, 128
+#: prompt tokens, 128 new tokens, here in a 512-row cache.
+WIDE_SLOTS, WIDE_MAX_SEQ, WIDE_PROMPT, WIDE_NEW = 64, 512, 128, 128
+#: Requests of the 64-slot run held token by token to the batch-1 oracle
+#: (every 8th; the rest must finish with WIDE_NEW tokens).
+WIDE_CHECKED = 8
+
+
+def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
+               params, device):
+    """ContinuousBatchingServer at 64 slots, bf16 KV: 64 requests of
+    WIDE_PROMPT tokens and WIDE_NEW new tokens submitted together.  Every
+    request must finish; WIDE_CHECKED of them are held to the batch-1
+    oracle; every kernel's launches are held to the decode steps and
+    prefill dispatches of the run; peak memory < 80 GB; then the steady
+    decode window at 64 slots."""
+    config = llama.CONFIGS["llama3_8b"]
+
+    def make_server():
+        return server_cls(config_name="llama3_8b", slots=WIDE_SLOTS,
+                          max_seq=WIDE_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                          params=params, quantize=True, quantize_kv=False,
+                          device=device)
+    rng = np.random.default_rng(13)
+    warm = make_server()
+    warm.submit(request_cls("warm", rng.integers(
+        1, config.vocab_size, 100).astype(np.int32), 4))
+    warm.run_until_drained()
+    del warm
+    server = make_server()
+    requests = [request_cls(f"w{i}", rng.integers(
+        1, config.vocab_size, WIDE_PROMPT).astype(np.int32), WIDE_NEW)
+        for i in range(WIDE_SLOTS)]
+    dispatches, prefill = [], llama.prefill
+
+    def recorded_prefill(params, tokens, cache, config):
+        dispatches.append(tuple(tokens.shape))
+        return prefill(params, tokens, cache, config)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    llama.prefill = recorded_prefill
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        for request in requests:
+            server.submit(request)
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama.prefill = prefill
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = server.stats()
+    for request in requests:
+        if request.error is not None or len(request.tokens) != WIDE_NEW:
+            fail(f"64-slot request {request.request_id}: error "
+                 f"{request.error}, {len(request.tokens)} tokens")
+    if len(dispatches) != stats["prefill_dispatches"]:
+        fail(f"64 slots: {len(dispatches)} prefill calls recorded, the "
+             f"server counted {stats['prefill_dispatches']}")
+    layers, steps = config.n_layers, stats["decode_steps"]
+    want = {weights.name: matmul_launches(weights, config, WIDE_SLOTS, 1)
+            * steps + sum(matmul_launches(weights, config, rows, seq)
+                          for rows, seq in dispatches),
+            "paged_decode_attention": layers * steps,
+            "flash_attention": layers * len(dispatches)}
+    for name, expected in want.items():
+        if launches[name] != expected or expected == 0:
+            fail(f"64 slots {name}: {launches[name]} launches, expected "
+                 f"{expected} (decode_steps {steps}, prefill dispatches "
+                 f"{dispatches})")
+    for name, count in launches.items():
+        if name not in want and count:
+            fail(f"64 slots: {name} launched {count} times")
+    if not peak_gb < 80:
+        fail(f"64 slots: peak device memory {peak_gb:.2f} GB")
+    checked_requests = requests[::WIDE_SLOTS // WIDE_CHECKED]
+    exact, equal, checked, ties = check_requests(
+        torch, checked_requests, lambda request: contiguous_oracle(
+            torch, llama, params, config, request.prompt, False, device,
+            rows=WIDE_MAX_SEQ))
+    ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
+                   for r in requests)
+    steady = steady_decode(torch, np, weights, make_server, request_cls,
+                           False, config, prompt_len=WIDE_PROMPT,
+                           slots=WIDE_SLOTS, new_tokens=WIDE_NEW)
+    return dict(weights=weights.label, kv="bf16", slots=WIDE_SLOTS,
+                requests=len(requests), requests_checked=len(checked_requests),
+                requests_exact=exact, tokens_checked=checked,
+                tokens_equal=equal, accepted_near_ties=ties,
+                launches=launches, decode_steps=steps,
+                prefill_dispatches=dispatches, wall_s=wall,
+                served_tok_s=WIDE_SLOTS * WIDE_NEW / wall,
+                ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
+                peak_gb=peak_gb, **steady)
 
 
 # --------------------------------------------------------------------------- #
@@ -1128,9 +1453,9 @@ def paged_oracle(torch, llama, server_cls, request_cls, params, config,
     return step(int(prompt[-1]), len(prompt) - 1), step
 
 
-def serve_paged(torch, np, llama, quant, kernels, server_cls, request_cls,
+def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
                 params, quantize_kv, device):
-    """PagedContinuousServer, llama3_8b int8, 8 slots, 4096-row tables of
+    """PagedContinuousServer, llama3_8b, 8 slots, 4096-row tables of
     16-row blocks, the default pool (1,024 usable blocks), prefix cache on,
     256-token chunked admission; the traffic of :func:`paged_traffic`,
     every served token held to its oracle (bf16 KV: the contiguous batch-1
@@ -1200,15 +1525,18 @@ def serve_paged(torch, np, llama, quant, kernels, server_cls, request_cls,
     layers, steps = config.n_layers, stats["decode_steps"]
     want = {"append_kv": layers * slices, "chunk_attention": layers * slices,
             "paged_decode_attention": layers * steps,
-            "int8_matmul": int8_launches(quant, config, SLOTS, 1) * steps
-            + sum(int8_layer_launches(quant, config, w) for w in widths)}
+            weights.name: matmul_launches(weights, config, SLOTS, 1) * steps
+            + sum(layer_launches(weights, config, w) for w in widths)}
     for name, expected in want.items():
         if launches[name] != expected or expected == 0:
             fail(f"paged {name}: {launches[name]} launches, expected "
                  f"{expected} (decode_steps {steps}, slices {widths})")
-    if launches["flash_attention"]:
-        fail(f"the paged path launched flash_attention "
-             f"{launches['flash_attention']} times")
+    for name, count in launches.items():
+        if name not in want and count:
+            fail(f"the paged path launched {name} {count} times "
+                 f"({weights.label} weights)")
+    if not peak_gb < 80:
+        fail(f"paged: peak device memory {peak_gb:.2f} GB")
     if stats["prefix_hits"] <= 0:
         fail(f"no prefix hit: {stats['prefix_misses']} misses")
     balance = server.pool_balance()
@@ -1229,9 +1557,10 @@ def serve_paged(torch, np, llama, quant, kernels, server_cls, request_cls,
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
     mixed = stats["prefill_slices_mixed"]
-    steady = steady_decode(torch, np, quant, make_server, request_cls,
+    steady = steady_decode(torch, np, weights, make_server, request_cls,
                            quantize_kv, config, prompt_len=1023)
-    return dict(kv="int8" if quantize_kv else "bf16", server="paged",
+    return dict(weights=weights.label, kv="int8" if quantize_kv else "bf16",
+                server="paged",
                 requests=len(requests), requests_exact=exact,
                 tokens_checked=checked, tokens_equal=equal,
                 accepted_near_ties=ties, launches=launches,
@@ -1252,7 +1581,8 @@ def serve_paged(torch, np, llama, quant, kernels, server_cls, request_cls,
 def spec_traffic(np, vocab, kind):
     """(prompt, temperature) waves.  ``model``: 10 prompts of 64-1,100
     tokens, two sharing a 512-token prefix (the second arrives after the
-    first prefilled: a prefix hit); ``adaptive``: six of them; ``ngram``:
+    first prefilled: a prefix hit); ``adaptive``: six of them; ``short``:
+    five of them (the two sharing the prefix, 64, 1,100 and 300); ``ngram``:
     five prompts of a 16-token phrase repeated (with a distinct tail), one
     of them sampled at temperature 0.8, top_p 0.95."""
     rng = np.random.default_rng(23)
@@ -1273,13 +1603,16 @@ def spec_traffic(np, vocab, kind):
     if kind == "adaptive":
         return [[(shared[0], 0.0)] + [(p, 0.0) for p in distinct[:3]],
                 [(shared[1], 0.0), (distinct[4], 0.0)]]
+    if kind == "short":
+        return [[(shared[0], 0.0)] + [(p, 0.0) for p in distinct[:3]],
+                [(shared[1], 0.0)]]
     return [[(shared[0], 0.0)] + [(p, 0.0) for p in distinct[:5]],
             [(shared[1], 0.0)] + [(p, 0.0) for p in distinct[5:]]]
 
 
-def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
+def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
                request_cls, params, quantize_kv, device, mode, draft_params,
-               steady_plain=None):
+               steady_plain=None, short=False):
     """PagedContinuousServer as phase 4 (8 slots, 16-row blocks, prefix
     cache, 256-token chunked admission) with spec_k = 4: ``mode`` is
     "paired" (the target as its own draft), "adaptive" (an independent
@@ -1287,7 +1620,10 @@ def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
     greedy token is held to phase 4's batch-1 oracle, every request must
     finish with 32 tokens in the vocabulary, the pool must balance, and
     the launches of the verify's kernels are held exactly to the spec
-    rounds and prefill slices of the run."""
+    rounds and prefill slices of the run; on int4 weights, int4_matmul's
+    launches to what the shape rule predicts for every projection the run
+    made (MatmulShapes).  ``short``: the five-request traffic and no
+    steady window."""
     config = llama.CONFIGS["llama3_8b"]
     draft_name = {"paired": "llama3_8b", "adaptive": "1b"}.get(mode)
     kwargs = dict(config_name="llama3_8b", slots=SLOTS,
@@ -1307,35 +1643,42 @@ def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
     server.warm_spec_ladder()          # each rung once on the idle engine
     waves = spec_traffic(np, config.vocab_size,
                          "ngram" if mode == "ngram" else
-                         "adaptive" if mode == "adaptive" else "model")
+                         "adaptive" if mode == "adaptive" else
+                         "short" if short else "model")
     widths, core = [], llama._prefill_append_core
 
     def recorded_core(params, tokens, *args, **kwargs):
         widths.append(int(tokens.shape[1]))
         return core(params, tokens, *args, **kwargs)
     requests = []
+    shapes = MatmulShapes(llama, quant)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     llama._prefill_append_core = recorded_core
     try:
-        for kernel in kernels:
-            kernel.launches = 0
-        began = time.monotonic()
-        for index, wave in enumerate(waves):
-            batch = [request_cls(f"s{len(requests) + i}", prompt, NEW_TOKENS,
-                                 temperature=temp, top_p=0.95 if temp else 1.0)
-                     for i, (prompt, temp) in enumerate(wave)]
-            requests += batch
-            for request in batch:
-                server.submit(request)
-            if index == 0:        # the next wave once the producer prefilled
-                while batch[0].first_token_ts is None:
-                    server.step()
-        server.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - began
-        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+        with shapes:
+            for kernel in kernels:
+                kernel.launches = 0
+            began = time.monotonic()
+            for index, wave in enumerate(waves):
+                batch = [request_cls(f"s{len(requests) + i}", prompt,
+                                     NEW_TOKENS, temperature=temp,
+                                     top_p=0.95 if temp else 1.0)
+                         for i, (prompt, temp) in enumerate(wave)]
+                requests += batch
+                for request in batch:
+                    server.submit(request)
+                if index == 0:    # the next wave once the producer prefilled
+                    while batch[0].first_token_ts is None:
+                        server.step()
+            server.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - began
+            launches = {kernel.__name__: kernel.launches
+                        for kernel in kernels}
     finally:
         llama._prefill_append_core = core
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = server.stats()
     for request in requests:
         if request.error is not None or len(request.tokens) != NEW_TOKENS \
@@ -1358,12 +1701,17 @@ def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
         # Fixed k: every decode step is a draft proposal step (none at all
         # when the slot's own history drafts).
         want["paged_decode_attention"] = draft_layers * SPEC_K * rounds
+    if weights.bits == 4:
+        want[weights.name] = shapes.predicted()
+        for name in ("int8_matmul", "int4_matmul_scale_first"):
+            if name in launches:
+                want[name] = 0
     for name, expected in want.items():
         if launches[name] != expected:
             fail(f"spec {mode} {name}: {launches[name]} launches, expected "
                  f"{expected} (rounds {rounds}, slices {slices}, requests "
                  f"{len(requests)})")
-    used = ("int8_matmul", "append_kv", "append_kv_ragged",
+    used = (weights.name, "append_kv", "append_kv_ragged",
             "chunk_attention") + (() if mode == "ngram" else (
                 "paged_decode_attention", "flash_attention"))
     for name in used:
@@ -1376,6 +1724,8 @@ def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
     if balance["free"] + balance["evictable"] + balance["producing"] \
             != balance["total"] or balance["producing"]:
         fail(f"spec {mode}: pool out of balance after the drain: {balance}")
+    if not peak_gb < 80:
+        fail(f"spec {mode}: peak device memory {peak_gb:.2f} GB")
     greedy = [r for r in requests if r.temperature == 0.0]
     if quantize_kv:
         def oracle(request):
@@ -1387,7 +1737,10 @@ def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
                                      request.prompt, False, device,
                                      rows=PAGED_MAX_SEQ)
     exact, equal, checked, ties = check_requests(torch, greedy, oracle)
-    run = dict(kv="int8" if quantize_kv else "bf16", mode=mode,
+    int4_rows = sorted({shape[0] for shape in shapes.shapes
+                        if quant.int4_kernel_shape(*shape)})
+    run = dict(weights=weights.label, kv="int8" if quantize_kv else "bf16",
+               mode=mode, int4_kernel_rows=int4_rows, peak_gb=peak_gb,
                draft=draft_name or "ngram", requests=len(requests),
                greedy_requests=len(greedy), requests_exact=exact,
                tokens_checked=checked, tokens_equal=equal,
@@ -1399,7 +1752,7 @@ def serve_spec(torch, np, llama, quant, pp, kernels, server_cls,
                    "spec_acceptance_rate", "spec_tokens_per_target_pass",
                    "spec_rollback_blocks", "spec_k_effective",
                    "spec_ngram_hits", "prefix_hits", "decode_steps")})
-    if mode == "paired":
+    if mode == "paired" and not short:
         run.update(steady_spec(torch, np, make_server, request_cls, config,
                                quantize_kv))
         run["phase4_plain_steady_step_ms"] = steady_plain
@@ -1537,6 +1890,8 @@ def main() -> None:
     config = llama.CONFIGS["llama3_8b"]
     int8_rows, int8_worst, int8_step = check_int8_matmul(torch, quant,
                                                          device, config)
+    int4_rows, int4_worst, int4_steps = check_int4_matmul(torch, quant,
+                                                          device, config)
     print_rows("int8_matmul", int8_rows)
     if int8_step["library_error"] is None:
         log("  torch._weight_int8pack_mm (bf16 scales) max abs err vs the "
@@ -1549,6 +1904,26 @@ def main() -> None:
         f"of the isolated times: kernel {int8_step['ms']:.4f} ms, plain "
         f"{int8_step['plain_ms']:.4f} ms, bound {int8_step['bound_ms']:.4f}"
         f" ms, library {int8_step['library_ms']}")
+    print_rows("int4_matmul (after: scale after each group, the path's; "
+               "first: bf16(q * s) operands); library_ms "
+               "torch._weight_int4pack_mm", int4_rows)
+    log("  dequantize + torch.mm (the large-m route) ms: " + ", ".join(
+        f"{r['shape']} {r['dequant_mm_ms']:.4f}" for r in int4_rows
+        if r["numerics"] == "after"))
+    if int4_steps["after"]["library_error"] is None:
+        log("  torch._weight_int4pack_mm (bf16 scales) max abs err vs the "
+            "f32 plain version: " + ", ".join(
+                f"{r['shape']} {r['library_err']:.3g}" for r in int4_rows
+                if r["numerics"] == "after"))
+    else:
+        log("  torch._weight_int4pack_mm on the card raised "
+            f"{int4_steps['after']['library_error']!r}: library_ms is null")
+    for key, step in int4_steps.items():
+        log(f"  int4 ({key}) one 8-slot decode step ({step['launches']} "
+            f"launches), sum of the isolated times: kernel {step['ms']:.4f}"
+            f" ms, plain {step['plain_ms']:.4f} ms, bound "
+            f"{step['bound_ms']:.4f} ms, library {step['library_ms']}, "
+            f"dequantize + mm {step['dequant_mm_ms']:.4f} ms")
     flash_rows, flash_worst, flash_main = check_flash(torch, attention,
                                                       device)
     print_rows("flash_attention", flash_rows)
@@ -1577,22 +1952,29 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"llama3_8b int8 params on the card in "
         f"{time.monotonic() - t0:.1f} s")
+    w8 = Weights(quant, 8)
     kernels = (quant.int8_matmul, attention.flash_attention,
                paged_attention.paged_decode_attention)
     runs = []
     for quantize_kv in (False, True):
-        run = serve(torch, np, llama, quant, kernels,
+        run = serve(torch, np, llama, w8, kernels,
                     ContinuousBatchingServer, DecodeRequest, params,
                     quantize_kv, device)
         log(f"--- serving llama3_8b int8, {run['kv']} KV: "
             + json.dumps(run))
         runs.append(run)
+    # The 64-slot run of phase 6 on int8 weights, for the comparison.
+    wide8 = serve_wide(torch, np, llama, w8, kernels,
+                       ContinuousBatchingServer, DecodeRequest, params,
+                       device)
+    log("--- serving llama3_8b int8 at 64 slots, bf16 KV: "
+        + json.dumps(wide8))
 
     # ---- phase 4: the paged server ----
     paged_kernels = kernels + (pp.append_kv, pp.chunk_attention)
     paged_runs = []
     for quantize_kv in (False, True):
-        run = serve_paged(torch, np, llama, quant, paged_kernels,
+        run = serve_paged(torch, np, llama, w8, paged_kernels,
                           PagedContinuousServer, DecodeRequest, params,
                           quantize_kv, device)
         log(f"--- serving llama3_8b int8 through the paged server, "
@@ -1610,7 +1992,7 @@ def main() -> None:
     for index, quantize_kv in enumerate((False, True)):
         for mode, draft in (("paired", params), ("adaptive", draft_1b),
                             ("ngram", None)):
-            run = serve_spec(torch, np, llama, quant, pp, spec_kernels,
+            run = serve_spec(torch, np, llama, quant, w8, spec_kernels,
                              PagedContinuousServer, DecodeRequest, params,
                              quantize_kv, device, mode, draft,
                              paged_runs[index]["steady_step_ms"])
@@ -1619,11 +2001,59 @@ def main() -> None:
             spec_runs.append(run)
     spec_main = spec_runs[0]["launches"]
 
+    # ---- phase 6: int4 weights through every server ----
+    del params, draft_1b
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params4 = llama.random_quantized_params(config, seed=0, bits=4,
+                                            device=device)
+    torch.cuda.synchronize()
+    log(f"llama3_8b int4 params on the card in "
+        f"{time.monotonic() - t0:.1f} s")
+    w4 = Weights(quant, 4)
+    kernels4 = (quant.int4_matmul, quant.int4_matmul_scale_first,
+                quant.int8_matmul, attention.flash_attention,
+                paged_attention.paged_decode_attention)
+    int4_run = serve(torch, np, llama, w4, kernels4,
+                     ContinuousBatchingServer, DecodeRequest, params4, False,
+                     device)
+    log("--- serving llama3_8b int4, bf16 KV: " + json.dumps(int4_run))
+    wide_run = serve_wide(torch, np, llama, w4, kernels4,
+                          ContinuousBatchingServer, DecodeRequest, params4,
+                          device)
+    log("--- serving llama3_8b int4 at 64 slots, bf16 KV: "
+        + json.dumps(wide_run))
+    kernels4_paged = kernels4 + (pp.append_kv, pp.chunk_attention)
+    for quantize_kv in (False, True):
+        run = serve_paged(torch, np, llama, w4, kernels4_paged,
+                          PagedContinuousServer, DecodeRequest, params4,
+                          quantize_kv, device)
+        log(f"--- serving llama3_8b int4 through the paged server, "
+            f"{run['kv']} KV: " + json.dumps(run))
+    run = serve_spec(torch, np, llama, quant, w4,
+                     kernels4_paged + (pp.append_kv_ragged,),
+                     PagedContinuousServer, DecodeRequest, params4, False,
+                     device, "paired", params4, short=True)
+    log("--- speculative serving (paired int4 draft), llama3_8b int4, bf16 "
+        "KV: " + json.dumps(run))
+    verify_m, resync_m = SLOTS * (SPEC_K + 1), SLOTS * SPEC_K
+    if not {verify_m, resync_m} <= set(run["int4_kernel_rows"]):
+        fail(f"spec int4: the verify (m={verify_m}) or the resync "
+             f"(m={resync_m}) did not take the int4 kernel: "
+             f"{run['int4_kernel_rows']}")
+    int4_ms = int4_run["matmul_device_ms_per_step"]
+    int4_after, int4_first = int4_steps["after"], int4_steps["first"]
+    log(f"int4_matmul ms per decode step: "
+        + (f"{int4_ms:.4f} (profiled steady decode)" if int4_ms is not None
+           else f"{int4_after['ms']:.4f} (isolated sum; profiler empty)"))
+    if int4_ms is None:
+        int4_ms = int4_after["ms"]
+
     main_run = runs[0]["launches"]
     # int8_matmul's time is the path's: device time of its launches per
     # steady bf16-KV decode step, from the profiler (the sum of isolated
     # per-shape times stands in only if the profiler saw no device time).
-    int8_ms = runs[0]["int8_device_ms_per_step"]
+    int8_ms = runs[0]["matmul_device_ms_per_step"]
     log(f"int8_matmul ms per decode step: "
         + (f"{int8_ms:.4f} (profiled steady decode)" if int8_ms is not None
            else f"{int8_step['ms']:.4f} (isolated sum; profiler empty)"))
@@ -1638,6 +2068,26 @@ def main() -> None:
              ms=int8_ms, plain_ms=int8_step["plain_ms"],
              bound_ms=int8_step["bound_ms"], bound_by="bytes",
              library_ms=int8_step["library_ms"]),
+        dict(name="int4_matmul", route="cuda",
+             source="aiko_services_tpu_torch/csrc/int4_matmul.cu",
+             replaces="aiko_services_tpu/ops/quant.py:330",
+             launches=int4_run["launches"]["int4_matmul"],
+             max_abs_err=max(r["err"] for r in int4_rows
+                             if r["numerics"] == "after"),
+             ms=int4_ms, plain_ms=int4_after["plain_ms"],
+             bound_ms=int4_after["bound_ms"], bound_by=step_bound_by(
+                 int4_rows, "after"),
+             library_ms=int4_after["library_ms"]),
+        dict(name="int4_matmul_scale_first", route="cuda",
+             source="aiko_services_tpu_torch/csrc/int4_matmul.cu",
+             replaces="scripts/int4_kernel_lab.py:51",
+             launches=int4_run["launches"]["int4_matmul_scale_first"],
+             max_abs_err=max(r["err"] for r in int4_rows
+                             if r["numerics"] == "first"),
+             ms=int4_first["ms"], plain_ms=int4_first["plain_ms"],
+             bound_ms=int4_first["bound_ms"], bound_by=step_bound_by(
+                 int4_rows, "first"),
+             library_ms=int4_first["library_ms"]),
         dict(name="flash_attention", route="cuda",
              source="aiko_services_tpu_torch/csrc/flash_attention.cu",
              replaces="aiko_services_tpu/ops/attention.py:231",
@@ -1687,7 +2137,8 @@ def main() -> None:
     log(f"chunk_attention at the verify shape (T=5, bf16, no window): "
         f"{verify_main['ms']:.4f} ms, SDPA {verify_main['library_ms']:.4f} "
         f"ms, bound {verify_main['bound_ms']:.4f} ms")
-    log(f"kernel worst err/tol: int8 {int8_worst:.3f}, flash "
+    log(f"kernel worst err/tol: int8 {int8_worst:.3f}, int4 (both "
+        f"numerics) {int4_worst:.3f}, flash "
         f"{flash_worst:.3f}, decode {decode_worst:.3f} (bs 16: "
         f"{paged_decode_worst:.3f}), chunk_attention {chunk_worst:.3f} "
         f"(verify shape {verify_worst:.3f}); append_kv and append_kv_ragged "

@@ -8,7 +8,9 @@ kernel's log-sum-exp merge drops a row's last live block, or gives it 0.9
 of its weight; the paged chunk-attention kernel stops zeroing masked
 probabilities, or drops the last live 16-row block of a tile's sweep; the
 ragged verify-window append writes at the block-aligned start (dropping
-``cached % block_size``), or skips each row's last live token.  Each copy
+``cached % block_size``), or skips each row's last live token; the int4
+dequant-matmul swaps the two nibbles of each byte, reads nibbles as
+unsigned (0..15), or scales each group with its neighbour's scales.  Each copy
 is built and held to the same checks the working tree passes:
 ``chip_smoke.py``'s phase 2 for that kernel (at the llama3_8b shapes) and
 the kernel's tests in ``tests/test_torch_cuda.py``.
@@ -33,6 +35,7 @@ FLASH = "aiko_services_tpu_torch/csrc/flash_attention.cu"
 DECODE = "aiko_services_tpu_torch/csrc/paged_decode.cu"
 CHUNK = "aiko_services_tpu_torch/csrc/paged_prefill.cu"
 RAGGED = "aiko_services_tpu_torch/csrc/paged_append_ragged.cu"
+INT4 = "aiko_services_tpu_torch/csrc/int4_matmul.cu"
 #: name -> (source, text replaced, replacement)
 MUTANTS = {
     "flash_drop_tile": (
@@ -64,10 +67,21 @@ MUTANTS = {
     "ragged_skip_last": (
         RAGGED, "if (token >= chunk_lens[row]) return;",
         "if (token >= chunk_lens[row] - 1) return;"),
+    "int4_nibble_swap": (
+        INT4, "static_cast<unsigned>(word) << (28 - shift)) >> 28);",
+        "static_cast<unsigned>(word) << (28 - (shift ^ 4))) >> 28);"),
+    "int4_unsigned": (
+        INT4, "static_cast<int>(static_cast<unsigned>(word) << (28 - shift)) "
+        ">> 28);",
+        "(static_cast<unsigned>(word) << (28 - shift)) >> 28);"),
+    "int4_neighbour_scale": (
+        INT4, "s + (size_t)(k0 / group) * N + n0 + chunk * 4, true);",
+        "s + (size_t)((k0 / group + 1) % (K / group)) * N + n0 + chunk * 4, "
+        "true);"),
 }
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
-             "chunk": "chunk_attention", "ragged": "ragged"}
+             "chunk": "chunk_attention", "ragged": "ragged", "int4": "int4"}
 
 
 def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
@@ -96,7 +110,8 @@ def phase2(name: str) -> bool:
     import chip_smoke
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.ops import (_cuda, attention,
-                                             paged_attention, paged_prefill)
+                                             paged_attention, paged_prefill,
+                                             quant)
     failures = []
     chip_smoke.fail = failures.append       # record and go on to every case
     _cuda.build()
@@ -108,6 +123,9 @@ def phase2(name: str) -> bool:
     elif kind == "decode":
         rows, worst, _ = chip_smoke.check_decode(torch, paged_attention,
                                                  llama, device)
+    elif kind == "int4":
+        rows, worst, _ = chip_smoke.check_int4_matmul(
+            torch, quant, device, llama.CONFIGS["llama3_8b"])
     elif kind == "ragged":
         # A byte-equality check: the rows' max abs error is the measure.
         rows, _ = chip_smoke.check_append_ragged(torch, paged_prefill, llama,

@@ -94,6 +94,132 @@ def test_int8_matmul_large_m_takes_the_matrix_product(cuda):
            torch.bfloat16)
 
 
+def _int4_weight(gen, device, k, n, group):
+    """Packed bytes over all 256 values (nibbles -8..7) and positive group
+    scales of a fan-in-scaled size."""
+    q4 = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device,
+                       dtype=torch.int8)
+    s = torch.rand((k // group, n), generator=gen, device=device) \
+        * (k ** -0.5 / 4) + 1e-4
+    return q4, s
+
+
+#: (K, N, group rows) of the int4 kernel cases: groups of 64, 128, 256 and
+#: one group of all K; K split over CTAs (4096 x 1024: 16 slices of 256,
+#: 14336 x 128: 56 slices; 4096 x 4096: slices of 832 rows, which end
+#: inside a group); the llama3_8b widths.
+INT4_SHAPES = [(512, 256, 64), (512, 256, 128), (512, 256, 512),
+               (768, 384, 256), (4096, 1024, 128), (4096, 1024, 4096),
+               (14336, 128, 128), (4096, 4096, 128), (4096, 14336, 128),
+               (14336, 4096, 128)]
+
+
+@pytest.mark.parametrize("numerics", ["after", "first"])
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 32, 40, 64])
+@pytest.mark.parametrize("k,n,group", INT4_SHAPES)
+def test_int4_matmul_kernel(cuda, k, n, group, m, numerics):
+    """Both numerics against their own f32 plain versions: scale after
+    each group (the path's, through int4_matmul's dispatch rule) and
+    scale first (bf16(q * s) operands)."""
+    gen = torch.Generator(device=cuda).manual_seed(m * k + n + group)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    q4, s = _int4_weight(gen, cuda, k, n, group)
+    if numerics == "after":
+        wrapper, plain = quant.int4_matmul, quant.int4_matmul_reference
+        assert quant.int4_kernel_shape(m, k, n, k // group)
+    else:
+        wrapper = quant.int4_matmul_scale_first
+        plain = quant.int4_matmul_scale_first_reference
+    before = wrapper.launches
+    got = wrapper(x, q4, s)
+    assert wrapper.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _close(got, plain(x.float(), q4, s), torch.bfloat16)
+
+
+def test_int4_matmul_lm_head_width(cuda):
+    """The LM head's 128,256 columns at the 8-slot decode batch."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((8, 4096), generator=gen, device=cuda).to(torch.bfloat16)
+    q4, s = _int4_weight(gen, cuda, 4096, 128256, 128)
+    got = quant.int4_matmul(x, q4, s)
+    _close(got, quant.int4_matmul_reference(x.float(), q4, s),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("numerics", ["after", "first"])
+def test_int4_matmul_is_batch_invariant(cuda, numerics):
+    """Row r's result does not depend on the other rows of x (the K split
+    and its merge order depend on K and N only)."""
+    wrapper = quant.int4_matmul if numerics == "after" \
+        else quant.int4_matmul_scale_first
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((64, 4096), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    q4, s = _int4_weight(gen, cuda, 4096, 1024, 128)
+    full = wrapper(x, q4, s)
+    for m in (1, 8, 13, 40):
+        assert torch.equal(wrapper(x[:m], q4, s), full[:m])
+
+
+def test_int4_matmul_large_m_takes_the_matrix_product(cuda):
+    """m > 64 (and a shape outside the rule) take the dequantize + mm
+    route: no launch, and within the kernels' bf16 tolerance of the f32
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for m, k, n in ((65, 512, 256), (300, 4096, 1024), (8, 512, 192)):
+        x = torch.randn((m, k), generator=gen, device=cuda) \
+            .to(torch.bfloat16)
+        q4, s = _int4_weight(gen, cuda, k, n, 128)
+        assert not quant.int4_kernel_shape(m, k, n, k // 128)
+        before = quant.int4_matmul.launches
+        got = quant.int4_matmul(x, q4, s)
+        assert quant.int4_matmul.launches == before
+        _close(got, quant.int4_matmul_reference(x.float(), q4, s),
+               torch.bfloat16)
+
+
+def test_int4_matmul_raises_on_what_the_kernel_does_not_take(cuda):
+    """At a kernel shape a wrong dtype or shape raises; it never takes
+    the plain version on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((8, 512), generator=gen, device=cuda)
+    q4, s = _int4_weight(gen, cuda, 512, 256, 128)
+    with pytest.raises(TypeError):
+        quant.int4_matmul(x, q4, s)                      # f32 activations
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        quant.int4_matmul(xb, q4, s.double())
+    with pytest.raises(TypeError):
+        quant.int4_matmul_scale_first(xb, q4.to(torch.int16), s)
+    with pytest.raises(ValueError):
+        quant.int4_matmul_scale_first(xb, q4, s[:, :128])   # wrong N
+    with pytest.raises(ValueError):                          # 96-row groups
+        quant.int4_matmul_scale_first(
+            torch.randn((8, 576), device=cuda, dtype=torch.bfloat16),
+            *_int4_weight(gen, cuda, 576, 256, 96))
+    with pytest.raises(ValueError):                          # m > 64
+        quant.int4_matmul_scale_first(xb.repeat(9, 1), q4, s)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (352, 96), (14336, 256)])
+def test_quantizers_on_the_card_equal_the_cpu(cuda, bits, k, n):
+    """quantize_int8 / quantize_int4 on a CUDA tensor: codes and scales
+    bit-equal to the same call on the CPU (which the CPU tests hold
+    bit-equal to the JAX package); a division by a Python scalar would be
+    a reciprocal multiply on the card, one ulp off in places."""
+    rng = np.random.default_rng(k + n + bits)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    w[:, 0] = 0.0
+    fn = quant.quantize_int8 if bits == 8 else quant.quantize_int4
+    want = fn(w)
+    got = fn(w.to(cuda))
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
 @pytest.mark.parametrize("kv_heads", [4, 1])
 @pytest.mark.parametrize("window", [None, 16, 40])
 @pytest.mark.parametrize("q_len,k_len,hd", [(64, 64, 32), (32, 96, 64),
