@@ -40,6 +40,16 @@
 //     to the mma, as the TPU repeat kernel does;
 //   * packed rows are padded to 96 bytes and x rows to 144, so every
 //     fragment load of a warp hits 32 distinct banks.
+//
+// The m-tiled instance (`aiko_int4_matmul_tiled`, every m > 64 slice of a
+// prefill) is the MR = 64 scale-after kernel on a third grid axis: CTA
+// (x, y, z) owns columns 64x.., K slice y and rows 64z..64z+63, and runs
+// for its rows exactly what the m <= 64 instance runs, so no weight is
+// ever rounded (the JAX package's f32 grouped einsum, quant.py:319-327).
+// Its bound is operations from m ~ 300 on (2*m*K*N against K*N/2 bytes);
+// at prefill sizes m/64 x N/64 CTAs fill the 132 SMs, so K is split only
+// where that grid is small (ops/quant.py _k_split).  Each m tile re-reads
+// the packed weight, mostly from the 50 MB L2: a simple kernel first.
 #include "common.cuh"
 
 namespace {
@@ -89,6 +99,13 @@ __global__ void __launch_bounds__(kThreads)
   const int half = warp & 1;                  // columns 32*half .. +31
   const int kstep = warp >> 1;                // k rows 16*kstep .. +15
   const int n0 = blockIdx.x * kNT;
+  // The m tile (blockIdx.z > 0 only in the tiled instance): this CTA's
+  // rows of x and out, and its split-K tile index.
+  const int row0 = blockIdx.z * MR;
+  x += (size_t)row0 * K;
+  out += (size_t)row0 * N;
+  m = min(MR, m - row0);
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
   const int k_begin = split * k_split;
@@ -228,25 +245,25 @@ __global__ void __launch_bounds__(kThreads)
   if (splits > 1) {
     // Publish this slice's partial tile; the last CTA of the tile to
     // arrive sums all slices in slice order.
-    float* mine = partials + ((size_t)blockIdx.x * splits + split) * MR * kNT;
+    float* mine = partials + ((size_t)tile * splits + split) * MR * kNT;
     for (int i = tid; i < MR * kNT; i += kThreads) mine[i] = red[i];
     __threadfence();
     __syncthreads();
     if (tid == 0) {
-      const int arrived = atomicAdd(arrivals + blockIdx.x, 1);
+      const int arrived = atomicAdd(arrivals + tile, 1);
       last_flag = arrived == splits - 1;
     }
     __syncthreads();
     if (!last_flag) return;
     __threadfence();
-    const float* tile = partials + (size_t)blockIdx.x * splits * MR * kNT;
+    const float* slices = partials + (size_t)tile * splits * MR * kNT;
     for (int i = tid; i < MR * kNT; i += kThreads) {
       float sum = 0.f;
       for (int sp = 0; sp < splits; ++sp)
-        sum += __ldcg(tile + (size_t)sp * MR * kNT + i);
+        sum += __ldcg(slices + (size_t)sp * MR * kNT + i);
       red[i] = sum;
     }
-    if (tid == 0) arrivals[blockIdx.x] = 0;  // ready for the next launch
+    if (tid == 0) arrivals[tile] = 0;  // ready for the next launch
     __syncthreads();
   }
 
@@ -260,7 +277,7 @@ template <int MR, bool kScaleFirst>
 cudaError_t launch(const void* x, const void* q4, const void* s, void* out,
                    void* partials, void* arrivals, int m, int K, int N,
                    int group, int splits, int k_split, cudaStream_t stream) {
-  dim3 grid(N / kNT, splits);
+  dim3 grid(N / kNT, splits, (m + MR - 1) / MR);
   int4_matmul_kernel<MR, kScaleFirst><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q4),
       static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
@@ -311,4 +328,22 @@ extern "C" int aiko_int4_matmul(const void* x, const void* q4, const void* s,
                              group, splits, k_split, st);
   return launch_rows<false>(x, q4, s, out, partials, arrivals, m, K, N,
                             group, splits, k_split, st);
+}
+
+// The m-tiled instance: any m >= 1, scale after each group, 64-row tiles
+// of m on the grid's z axis (see the head of this file).  With splits > 1,
+// `partials` holds (N / 64) * ceil(m / 64) * splits * 64 * 64 floats and
+// `arrivals` (N / 64) * ceil(m / 64) int32 zeros.  Otherwise as
+// aiko_int4_matmul.
+extern "C" int aiko_int4_matmul_tiled(const void* x, const void* q4,
+                                      const void* s, void* out,
+                                      void* partials, void* arrivals, int m,
+                                      int K, int N, int group, int splits,
+                                      int k_split, void* stream) {
+  if (m <= 0 || (m + 63) / 64 > 65535 || N % kNT != 0 || group <= 0 ||
+      group % kKC != 0 || K % group != 0 || splits < 1 ||
+      k_split % kKC != 0)
+    return cudaErrorInvalidValue;
+  return launch<64, false>(x, q4, s, out, partials, arrivals, m, K, N, group,
+                           splits, k_split, static_cast<cudaStream_t>(stream));
 }

@@ -49,6 +49,8 @@ SIGNATURES = {
     "aiko_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aiko_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    "aiko_int4_matmul_tiled": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _P],
     "aiko_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "aiko_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
@@ -57,6 +59,8 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_append_kv_ragged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_ring_ag_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "aiko_ring_rs_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                              _P],

@@ -10,8 +10,10 @@ materializing the dequantized matrix.
 the JAX package does on hardware (its block pickers and the ``m > 64``
 rule, kept here only as shape rules): decode shapes launch the
 hand-written CUDA kernels ``csrc/int8_matmul.cu`` / ``csrc/int4_matmul.cu``
-on a CUDA tensor; other shapes take the plain large-m product, which the
-JAX package also computes outside Pallas.  On a CPU tensor every shape
+on a CUDA tensor.  Other int8 shapes take the plain large-m product, which
+the JAX package also computes outside Pallas; other int4 shapes launch the
+m-tiled instance of the int4 kernel, or, where it does not tile, a
+group-wise product written out in PyTorch.  On a CPU tensor every shape
 takes the plain version (:func:`int8_matmul_reference`,
 :func:`int4_matmul_reference`).
 
@@ -33,8 +35,10 @@ from . import _cuda
 __all__ = ["quantize_int8", "dequantize", "is_quantized", "int8_matmul",
            "int8_matmul_reference", "kernel_shape", "quantize_int4",
            "dequantize_int4", "is_quantized_int4", "int4_kernel_shape",
-           "int4_matmul", "int4_matmul_reference", "int4_matmul_scale_first",
-           "int4_matmul_scale_first_reference", "quantize_tree"]
+           "int4_matmul", "int4_matmul_reference", "int4_matmul_tiled",
+           "int4_matmul_scale_first",
+           "int4_matmul_scale_first_reference", "int4_matmul_grouped",
+           "tiles_int4", "quantize_tree"]
 
 #: int8 symmetric range (-127..127; -128 unused to keep scales symmetric).
 QMAX = 127.0
@@ -141,27 +145,29 @@ _SMS = 132
 
 
 @functools.lru_cache(maxsize=None)
-def _k_split(k: int, n: int):
-    """(slices, rows per slice) of the K axis for an (., K, N) launch:
-    enough 64-column x K-slice CTAs for ~2 per SM, each slice at least
-    four 64-row pipeline stages."""
-    tiles = n // 64
+def _k_split(k: int, tiles: int):
+    """(slices, rows per slice) of the K axis for a launch of ``tiles``
+    output tiles: enough tile x K-slice CTAs for ~2 per SM, each slice at
+    least four 64-row pipeline stages."""
     splits = max(1, min(-(-2 * _SMS // tiles), k // 256))
     rows = -(-k // splits)
     rows = -(-rows // 64) * 64
     return -(-k // rows), rows
 
 
-def _split_k(device: torch.device, m: int, k: int, n: int):
+def _split_k(device: torch.device, m: int, k: int, n: int,
+             tiled: bool = False):
     """(slices, rows per slice, partials, arrivals) of an (m, K, N) launch
-    of either weight matmul kernel: the f32 partial tiles and arrival
+    of either weight matmul kernel (``tiled``: the int4 kernel's m-tiled
+    instance, 64-row tiles of m): the f32 partial tiles and arrival
     counters of the split-K merge (None when K is not split)."""
-    splits, k_split = _k_split(k, n)
+    tiles = n // 64 * (-(-m // 64) if tiled else 1)
+    splits, k_split = _k_split(k, tiles)
     if splits == 1:
         return splits, k_split, None, None
-    rows = next(r for r in (8, 16, 32, 64) if m <= r)
-    partials, arrivals = _cuda.scratch(device, n // 64 * splits * rows * 64,
-                                       n // 64)
+    rows = 64 if tiled else next(r for r in (8, 16, 32, 64) if m <= r)
+    partials, arrivals = _cuda.scratch(device, tiles * splits * rows * 64,
+                                       tiles)
     return splits, k_split, partials, arrivals
 
 
@@ -317,8 +323,11 @@ def int4_matmul_scale_first_reference(x: torch.Tensor, q4: torch.Tensor,
 
 
 def _int4_launch(name: str, x2: torch.Tensor, q4: torch.Tensor,
-                 s: torch.Tensor, scale_first: bool) -> torch.Tensor:
-    """Check the operands and launch ``csrc/int4_matmul.cu``."""
+                 s: torch.Tensor, scale_first: bool = False,
+                 tiled: bool = False) -> torch.Tensor:
+    """Check the operands and launch ``csrc/int4_matmul.cu``: its m <= 64
+    instance (either numerics), or with ``tiled`` its m-tiled instance
+    (scale after each group, any m)."""
     khalf, n = q4.shape
     k, groups = 2 * khalf, s.shape[0]
     m = x2.shape[0]
@@ -331,43 +340,95 @@ def _int4_launch(name: str, x2: torch.Tensor, q4: torch.Tensor,
         raise ValueError(f"{name}: scale shape {tuple(s.shape)} does not "
                          f"split K={k} x N={n} into whole groups")
     group = k // groups
-    if m > 64 or group % 64 or n % 64:
-        raise ValueError(f"{name}: the kernel takes m <= 64, groups of a "
+    if (m > 64 and not tiled) or not m or group % 64 or n % 64:
+        raise ValueError(f"{name}: the kernel takes "
+                         f"{'m >= 1' if tiled else 'm <= 64'}, groups of a "
                          f"multiple of 64 rows and N % 64; got m={m}, "
                          f"group {group}, N={n}")
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    splits, k_split, partials, arrivals = _split_k(x2.device, m, k, n)
+    splits, k_split, partials, arrivals = _split_k(x2.device, m, k, n,
+                                                   tiled)
     device = _cuda.check_cuda(name, x2, q4, s, out)
-    _cuda.launch("aiko_int4_matmul", device, x2.data_ptr(), q4.data_ptr(),
-                 s.data_ptr(), out.data_ptr(), _cuda.ptr(partials),
-                 _cuda.ptr(arrivals), m, k, n, group, splits, k_split,
-                 int(scale_first))
+    pointers = (x2.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
+                _cuda.ptr(partials), _cuda.ptr(arrivals), m, k, n, group,
+                splits, k_split)
+    if tiled:
+        _cuda.launch("aiko_int4_matmul_tiled", device, *pointers)
+    else:
+        _cuda.launch("aiko_int4_matmul", device, *pointers, int(scale_first))
     return out
+
+
+def tiles_int4(k: int, n: int, groups: int) -> bool:
+    """True where the m-tiled int4 instance takes a (., K, N) weight of
+    ``groups`` groups: groups of a multiple of 64 rows and N % 64 == 0
+    (every projection of the full-size llama configs; not the tiny
+    configs' d_ff of 352)."""
+    return groups * (k // groups) == k and (k // groups) % 64 == 0 \
+        and n % 64 == 0
+
+
+def int4_matmul_grouped(x2: torch.Tensor, q4: torch.Tensor,
+                        s: torch.Tensor) -> torch.Tensor:
+    """The JAX package's large-m product (its f32 grouped einsum
+    ``"mgk,gkn,gn->mn"``) written out for a CUDA tensor at a shape no
+    kernel instance tiles: per group of x's columns and q's rows, one
+    ``torch.mm`` with an f32 result (the nibbles are exact in bf16),
+    scaled by ``s[g]`` in f32 and summed.  No weight is rounded."""
+    khalf, n = q4.shape
+    k, groups = 2 * khalf, s.shape[0]
+    group = k // groups
+    codes = _unpacked_rows(q4).to(x2.dtype)
+    out = torch.zeros((x2.shape[0], n), dtype=torch.float32,
+                      device=x2.device)
+    for g in range(groups):
+        rows = slice(g * group, (g + 1) * group)
+        out += torch.mm(x2[:, rows], codes[rows], out_dtype=torch.float32) \
+            * s[g].to(torch.float32)
+    return out.to(x2.dtype)
 
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
                 s: torch.Tensor) -> torch.Tensor:
     """``x (..., K) @ dequant(q4 (K/2, N) packed, s (G, N)) -> (..., N)``
-    in ``x.dtype``.  CPU tensors take :func:`int4_matmul_reference`.  On
-    CUDA, shapes of :func:`int4_kernel_shape` launch ``csrc/int4_matmul.cu``
-    (scale after each group, as the plain version) or raise; the rest take
-    the large-m product the JAX package computes outside Pallas: the
-    weights dequantized to ``x.dtype`` (bf16: each ``q * s`` rounded once,
-    a relative error of at most 2^-9 a weight), then ``torch.mm`` with an
-    f32 result, cast.  Against the f32 plain version that product is held
-    to 2^-7 * (|want| + max |want| of the row), as the kernels are."""
+    in ``x.dtype``, scaled after each group at every shape (the JAX
+    package's numerics: its grouped kernel at decode shapes, its f32
+    grouped einsum at the rest).  CPU tensors take
+    :func:`int4_matmul_reference`.  On CUDA, shapes of
+    :func:`int4_kernel_shape` launch the m <= 64 instance of
+    ``csrc/int4_matmul.cu``; the rest launch its m-tiled instance
+    (:func:`int4_matmul_tiled`) where :func:`tiles_int4`, else take
+    :func:`int4_matmul_grouped`.  The kernel instances take bf16
+    activations and raise on another dtype."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, q4, s)
     khalf, n = q4.shape
     k, groups = 2 * khalf, s.shape[0]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
-    if not int4_kernel_shape(x2.shape[0], k, n, groups):
-        w = dequantize_int4({"q4": q4, "s": s}, x.dtype)
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-        return out.to(x.dtype).reshape(*lead, n)
-    out = _int4_launch("int4_matmul", x2, q4, s, scale_first=False)
-    int4_matmul.launches += 1
+    if int4_kernel_shape(x2.shape[0], k, n, groups):
+        out = _int4_launch("int4_matmul", x2, q4, s)
+        int4_matmul.launches += 1
+    elif tiles_int4(k, n, groups):
+        out = int4_matmul_tiled(x2, q4, s)
+    else:
+        out = int4_matmul_grouped(x2, q4, s)
+    return out.reshape(*lead, n)
+
+
+def int4_matmul_tiled(x: torch.Tensor, q4: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """The int4 kernel's m-tiled instance (scale after each group, any m;
+    every int4 prefill slice of m > 64): ``x (..., K) @ dequant(q4, s)``.
+    CPU tensors take :func:`int4_matmul_reference`; on CUDA it launches
+    the kernel or raises."""
+    if x.device.type == "cpu":
+        return int4_matmul_reference(x, q4, s)
+    khalf, n = q4.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, 2 * khalf).contiguous()
+    out = _int4_launch("int4_matmul_tiled", x2, q4, s, tiled=True)
+    int4_matmul_tiled.launches += 1
     return out.reshape(*lead, n)
 
 
@@ -391,4 +452,5 @@ def int4_matmul_scale_first(x: torch.Tensor, q4: torch.Tensor,
 
 #: Kernel launches on the CUDA path (never counts the plain versions).
 int4_matmul.launches = 0
+int4_matmul_tiled.launches = 0
 int4_matmul_scale_first.launches = 0

@@ -49,11 +49,21 @@ Phases (any failure exits non-zero):
    prompt 128, 128 new tokens), the paged server (phase 4's traffic,
    bf16 and int8 KV) and a short paired-draft speculative run (the
    verify at m = 40 and the resync at m = 32 through the int4 kernel),
-   each held as phases 3-5 are, int4_matmul's launches exact.
+   each held as phases 3-5 are, the launches of both int4 instances exact
+   (every prefill slice of m > 64 through the m-tiled one), and TTFT p50
+   printed beside the int8 runs'.
+7. The ring collective matmuls (parallel/rdma_collective.py): four ranks
+   on this card, each with its own compute and copy streams, at
+   llama3_8b's TP-4 MLP shapes in bf16 (the w_gate all-gather and the
+   w_down reduce-scatter, m = 2048 and 64), then the JAX tests' shapes on
+   eight ranks in f32 and bf16, each against the plain version (the same
+   schedule with torch.mm in f32); R^2 step launches and R(R - 1) copies
+   a call; a rank slowed on purpose still gives the right result.
 
 Phase 2 also holds int4_matmul (both numerics: scale after each group,
 the path's; and scale first) at every projection width and m = 1, 8, 40,
-64 against its plain version.
+64 against its plain version, and its m-tiled instance at m = 256 and
+2,048, there also to the tighter TIGHT_REL / TIGHT_ROW.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -132,12 +142,13 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(got, want):
+def compare(got, want, rel=TOL_REL, row=TOL_ROW):
     """(max abs error, worst error over tolerance) of a kernel's ``got``
-    against the f32 plain ``want``, per element (TOL_REL, TOL_ROW)."""
+    against the f32 plain ``want``, per element (``rel`` * |want| +
+    ``row`` * max |want| of the row)."""
     got, want = got.float(), want.float()
     magnitude = want.abs()
-    tol = TOL_REL * magnitude + TOL_ROW * magnitude.amax(-1, keepdim=True)
+    tol = rel * magnitude + row * magnitude.amax(-1, keepdim=True)
     err = (got - want).abs()
     return float(err.max()), float((err / tol.clamp_min(1e-30)).max())
 
@@ -154,35 +165,47 @@ class Weights:
     """The weight layout a serving run uses: ``matmul`` is the wrapper
     every projection goes through (``int8_matmul`` or ``int4_matmul``),
     ``rule(m, K, N)`` says whether it launches its kernel at that shape,
-    and ``trace_key`` names the kernel in a profiler trace."""
+    ``rules`` maps the name of every kernel wrapper a projection may reach
+    to its rule (int4: the m <= 64 instance and, where that does not take
+    the shape, the m-tiled instance ``int4_matmul_tiled``), and
+    ``trace_key`` names the kernel in a profiler trace."""
 
     def __init__(self, quant, bits: int):
         self.bits = bits
         if bits == 8:
             self.matmul, self.rule = quant.int8_matmul, quant.kernel_shape
+            self.rules = {"int8_matmul": self.rule}
         else:
             self.matmul = quant.int4_matmul
             # llama3_8b's and 1b's K are multiples of 128: K // 128 groups.
             self.rule = lambda m, k, n: quant.int4_kernel_shape(
                 m, k, n, max(1, k // 128))
+            self.rules = {"int4_matmul": self.rule,
+                          "int4_matmul_tiled": lambda m, k, n: (
+                              not self.rule(m, k, n) and quant.tiles_int4(
+                                  k, n, max(1, k // 128)))}
         self.name = self.matmul.__name__
         self.trace_key = f"{self.name}_kernel"
         self.label = f"int{bits}"
 
 
-def matmul_launches(weights, config, rows: int, seq: int) -> int:
-    """Kernel launches of ``weights.matmul`` in one forward pass over
-    ``rows`` sequences of ``seq`` positions: the projections that take the
-    kernel at m = rows * seq in every layer, and the LM head at each row's
-    last position (m = rows)."""
-    return (layer_launches(weights, config, rows * seq)
-            + weights.rule(rows, config.d_model, config.vocab_size))
+def matmul_launches(weights, config, rows: int, seq: int,
+                    name=None) -> int:
+    """Kernel launches of wrapper ``name`` (default ``weights.matmul``) in
+    one forward pass over ``rows`` sequences of ``seq`` positions: the
+    projections that take the kernel at m = rows * seq in every layer, and
+    the LM head at each row's last position (m = rows)."""
+    rule = weights.rules[name or weights.name]
+    return (layer_launches(weights, config, rows * seq, name)
+            + rule(rows, config.d_model, config.vocab_size))
 
 
-def layer_launches(weights, config, m: int) -> int:
-    """Kernel launches of every layer's projections at m rows (a prefill
-    slice: the paged path computes no logits there)."""
-    return config.n_layers * sum(weights.rule(m, k, n)
+def layer_launches(weights, config, m: int, name=None) -> int:
+    """Kernel launches of wrapper ``name`` (default ``weights.matmul``) in
+    every layer's projections at m rows (a prefill slice: the paged path
+    computes no logits there)."""
+    rule = weights.rules[name or weights.name]
+    return config.n_layers * sum(rule(m, k, n)
                                  for k, n in projections(config))
 
 
@@ -211,9 +234,13 @@ class MatmulShapes:
     def __exit__(self, *exc):
         self.llama._matmul = self._inner
 
-    def predicted(self) -> int:
-        return sum(self.quant.int4_kernel_shape(*shape)
-                   for shape in self.shapes)
+    def predicted(self):
+        """{wrapper name: launches} of both int4 kernel instances."""
+        small = [self.quant.int4_kernel_shape(*shape)
+                 for shape in self.shapes]
+        tiled = [not fits and self.quant.tiles_int4(*shape[1:])
+                 for fits, shape in zip(small, self.shapes)]
+        return {"int4_matmul": sum(small), "int4_matmul_tiled": sum(tiled)}
 
 
 # --------------------------------------------------------------------------- #
@@ -312,6 +339,15 @@ def check_int8_matmul(torch, quant, device, config):
 #: the verify of k = 4 on 8 slots, and 64 (the 64-slot decode batch, the
 #: kernel's largest m).
 INT4_ROWS = (1, 8, 40, 64)
+#: Rows of x in the checks of the m-tiled int4 instance: a 256-token prefill
+#: slice (the paged server's chunk) and a 2,048-row prefill.
+TILED_ROWS = (256, 2048)
+#: The scale-after numerics, held tighter than TOL_REL / TOL_ROW: the
+#: kernel's f32 result differs from the f32 plain version by summation
+#: order only, so its bf16 output is within its own rounding (2^-8 of
+#: |want|) plus 2^-14 of the row's largest output.  bf16(q * s) weights
+#: (scale first, 2^-8 a weight) miss that several times over near zero.
+TIGHT_REL, TIGHT_ROW = 2 ** -8, 2 ** -14
 
 
 def int4_library(torch, quant, w):
@@ -331,7 +367,9 @@ def int4_library(torch, quant, w):
 def check_int4_matmul(torch, quant, device, config):
     """int4_matmul (scale after each group, the path's numerics) and its
     scale-first instance, each against its own f32 plain version, at every
-    llama3_8b projection width and the LM head, m in INT4_ROWS.  The
+    llama3_8b projection width and the LM head, m in INT4_ROWS; and
+    int4_matmul at m in TILED_ROWS, which must launch the m-tiled instance
+    and hold the plain version to TIGHT_REL / TIGHT_ROW as well.  The
     packed bytes are drawn uniformly from all 256 values (nibbles -8..7)
     with 128-row groups, and rotate through enough copies to exceed the
     50 MB L2, as a decode step finds them: cold.  Library calls, timed
@@ -350,11 +388,17 @@ def check_int4_matmul(torch, quant, device, config):
     variants = {"after": (quant.int4_matmul, quant.int4_matmul_reference),
                 "first": (quant.int4_matmul_scale_first,
                           quant.int4_matmul_scale_first_reference)}
+    tiled_variant = {"tiled": (quant.int4_matmul, quant.int4_matmul_reference)}
     gen = torch.Generator(device=device).manual_seed(10)
     rows, worst, library_error = [], 0.0, None
     steps = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                        dequant_mm_ms=0.0, launches=sum(counts.values()))
              for key in variants}
+    # One layer's seven projections at m = TILED_ROWS[-1] through the
+    # m-tiled instance (a prefill's per-layer matmul time).
+    steps["tiled"] = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                          dequant_mm_ms=0.0,
+                          launches=sum(counts.values()) // layers)
     for (k, n), per_step in counts.items():
         name, groups = names[(k, n)], k // 128
         copies = max(1, math.ceil(256e6 / (k * n // 2)))
@@ -374,7 +418,10 @@ def check_int4_matmul(torch, quant, device, config):
         if library_error is not None:
             for w in weights:
                 w.pop("lib", None)
-        for m in INT4_ROWS:
+        for m in INT4_ROWS + TILED_ROWS:
+            tiled = m > 64
+            if tiled and n == vocab:    # no prefill computes its logits so
+                continue
             x = torch.randn((m, k), generator=gen, device=device) \
                 .to(torch.bfloat16)
             turn = iter(range(10 ** 9))
@@ -397,18 +444,29 @@ def check_int4_matmul(torch, quant, device, config):
                                         .abs().max())
                     library_ms = device_ms(torch, library, 20)
                 except Exception as error:
-                    library_error = f"{type(error).__name__}: {error}"
-                    for w in weights:
-                        w.pop("lib", None)
+                    if tiled:       # the library call's own limit at large m
+                        library_err = f"{type(error).__name__}: {error}"
+                    else:
+                        library_error = f"{type(error).__name__}: {error}"
+                        for w in weights:
+                            w.pop("lib", None)
             dequant_mm_ms = device_ms(torch, dequant_mm, 4)
             b_ms, b_by = bound(k * n // 2 + 4 * groups * n + 2 * m * k
                                + 2 * m * n, 2 * m * k * n)
-            for key, (kernel_fn, plain_fn) in variants.items():
+            for key, (kernel_fn, plain_fn) in (
+                    tiled_variant if tiled else variants).items():
                 w = weights[0]
+                before = quant.int4_matmul_tiled.launches
                 got = kernel_fn(x, w["q4"], w["s"])
                 want = plain_fn(x.float(), w["q4"], w["s"])
                 torch.cuda.synchronize()
                 err, ratio = compare(got, want)
+                if tiled:
+                    if quant.int4_matmul_tiled.launches != before + 1:
+                        fail(f"int4_matmul {name} m={m} did not launch the "
+                             "m-tiled instance")
+                    ratio = max(ratio, compare(got, want, TIGHT_REL,
+                                               TIGHT_ROW)[1])
                 if not ratio <= 1.0:
                     fail(f"int4_matmul ({key}) {name} m={m}: max abs err "
                          f"{err}, err/tol {ratio}")
@@ -422,7 +480,7 @@ def check_int4_matmul(torch, quant, device, config):
                     w = weights[next(turn) % copies]
                     plain_fn(x, w["q4"], w["s"])
 
-                ms = device_ms(torch, kernel, 20)
+                ms = device_ms(torch, kernel, 5 if tiled else 20)
                 plain_ms = device_ms(torch, plain, 2)
                 rows.append(dict(
                     shape=f"{key} {name} m={m} K={k} N={n} G={groups}",
@@ -430,17 +488,20 @@ def check_int4_matmul(torch, quant, device, config):
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=library_ms, library_err=library_err,
                     dequant_mm_ms=dequant_mm_ms))
-                if m == SLOTS:
+                if m == SLOTS or m == TILED_ROWS[-1]:
                     step = steps[key]
-                    step["ms"] += per_step * ms
-                    step["plain_ms"] += per_step * plain_ms
-                    step["bound_ms"] += per_step * b_ms
-                    step["dequant_mm_ms"] += per_step * dequant_mm_ms
-                    if library_ms is not None:
-                        step["library_ms"] += per_step * library_ms
+                    times = counts[(k, n)] // layers if tiled else per_step
+                    step["ms"] += times * ms
+                    step["plain_ms"] += times * plain_ms
+                    step["bound_ms"] += times * b_ms
+                    step["dequant_mm_ms"] += times * dequant_mm_ms
+                    if library_ms is None:
+                        step["library_missing"] = True
+                    else:
+                        step["library_ms"] += times * library_ms
         del weights
     for step in steps.values():
-        if library_error is not None:
+        if library_error is not None or step.pop("library_missing", False):
             step["library_ms"] = None
         step["library_error"] = library_error
     return rows, worst, steps
@@ -1023,11 +1084,11 @@ def check_chunk_verify(torch, pp, llama, device):
     return rows, worst, main
 
 
-def step_bound_by(rows, numerics):
-    """What bounds an 8-slot decode step's int4 launches (their rows at
-    m = SLOTS): "operations" if any of them is, else "bytes"."""
+def step_bound_by(rows, numerics, m=SLOTS):
+    """What bounds the int4 launches summed at m rows (an 8-slot decode
+    step by default): "operations" if any of them is, else "bytes"."""
     kinds = {r["bound_by"] for r in rows
-             if r["numerics"] == numerics and r["m"] == SLOTS}
+             if r["numerics"] == numerics and r["m"] == m}
     return "operations" if "operations" in kinds else "bytes"
 
 
@@ -1165,11 +1226,11 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
     kernel_prefills = sum(weights.rule(rows * seq, config.d_model,
                                        config.d_model)
                           for rows, seq in dispatches)
-    want = {weights.name: matmul_launches(weights, config, SLOTS, 1) * steps
-            + sum(matmul_launches(weights, config, rows, seq)
-                  for rows, seq in dispatches),
-            "paged_decode_attention": layers * steps,
-            "flash_attention": layers * len(dispatches)}
+    want = {name: matmul_launches(weights, config, SLOTS, 1, name) * steps
+            + sum(matmul_launches(weights, config, rows, seq, name)
+                  for rows, seq in dispatches) for name in weights.rules}
+    want.update(paged_decode_attention=layers * steps,
+                flash_attention=layers * len(dispatches))
     for name, expected in want.items():
         if launches[name] != expected or expected == 0:
             fail(f"{name}: {launches[name]} launches, expected {expected} "
@@ -1368,11 +1429,12 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
         fail(f"64 slots: {len(dispatches)} prefill calls recorded, the "
              f"server counted {stats['prefill_dispatches']}")
     layers, steps = config.n_layers, stats["decode_steps"]
-    want = {weights.name: matmul_launches(weights, config, WIDE_SLOTS, 1)
-            * steps + sum(matmul_launches(weights, config, rows, seq)
-                          for rows, seq in dispatches),
-            "paged_decode_attention": layers * steps,
-            "flash_attention": layers * len(dispatches)}
+    want = {name: matmul_launches(weights, config, WIDE_SLOTS, 1, name)
+            * steps + sum(matmul_launches(weights, config, rows, seq, name)
+                          for rows, seq in dispatches)
+            for name in weights.rules}
+    want.update(paged_decode_attention=layers * steps,
+                flash_attention=layers * len(dispatches))
     for name, expected in want.items():
         if launches[name] != expected or expected == 0:
             fail(f"64 slots {name}: {launches[name]} launches, expected "
@@ -1524,9 +1586,11 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
              f"{slices}")
     layers, steps = config.n_layers, stats["decode_steps"]
     want = {"append_kv": layers * slices, "chunk_attention": layers * slices,
-            "paged_decode_attention": layers * steps,
-            weights.name: matmul_launches(weights, config, SLOTS, 1) * steps
-            + sum(layer_launches(weights, config, w) for w in widths)}
+            "paged_decode_attention": layers * steps}
+    for name in weights.rules:
+        want[name] = matmul_launches(weights, config, SLOTS, 1, name) \
+            * steps + sum(layer_launches(weights, config, w, name)
+                          for w in widths)
     for name, expected in want.items():
         if launches[name] != expected or expected == 0:
             fail(f"paged {name}: {launches[name]} launches, expected "
@@ -1702,7 +1766,7 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
         # when the slot's own history drafts).
         want["paged_decode_attention"] = draft_layers * SPEC_K * rounds
     if weights.bits == 4:
-        want[weights.name] = shapes.predicted()
+        want.update(shapes.predicted())
         for name in ("int8_matmul", "int4_matmul_scale_first"):
             if name in launches:
                 want[name] = 0
@@ -1841,6 +1905,148 @@ def steady_spec(torch, np, make_server, request_cls, config, quantize_kv):
 
 # --------------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------------- #
+# Phase 7: the ring collective matmuls
+
+#: Ranks of the ring on the one card, and llama3_8b's TP-4 MLP shapes:
+#: (kind, label, ranks, m, K, N, dtype name).  The first two are the main
+#: path; the rest the JAX tests' shapes (tests/test_rdma_collective.py) on
+#: eight ranks, f32 and bf16, with ragged n_local of 3, 5 and 2.
+RING_RANKS = 4
+RING_CASES = [
+    ("ag", "w_gate", RING_RANKS, 2048, 4096, 14336, "bfloat16"),
+    ("rs", "w_down", RING_RANKS, 2048, 14336, 4096, "bfloat16"),
+    ("ag", "w_gate", RING_RANKS, 64, 4096, 14336, "bfloat16"),
+    ("rs", "w_down", RING_RANKS, 64, 14336, 4096, "bfloat16"),
+    ("ag", "jax f32", 8, 16, 32, 24, "float32"),
+    ("rs", "jax f32", 8, 8, 64, 40, "float32"),
+    ("ag", "jax bf16", 8, 16, 32, 16, "bfloat16"),
+    ("rs", "jax bf16", 8, 8, 64, 40, "bfloat16"),
+]
+#: f32 ring outputs against the f32 plain version: summation order only.
+RING_F32_TOL = 1e-4
+
+
+def ring_operands(torch, device, m, k, n, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=device) * k ** -0.5) \
+        .to(dtype)
+    return x, w
+
+
+def ring_compare(torch, got, want):
+    """(max abs error, err/tol) of a ring output against the f32 plain
+    version: TOL_REL / TOL_ROW for bf16, RING_F32_TOL x max(1, max |want|)
+    for f32."""
+    if got.dtype == torch.bfloat16:
+        return compare(got, want)
+    err = float((got.float() - want).abs().max())
+    return err, err / (RING_F32_TOL * max(1.0, float(want.abs().max())))
+
+
+def check_ring(torch, parallel, device):
+    """The main path first, with the kernels' counts set to 0 just before
+    and read just after: ``rdma_allgather_matmul_sharded`` and
+    ``rdma_matmul_reducescatter_sharded`` once each at m = 2048 on
+    ``[device] * 4``.  Then every case of RING_CASES: the ring against its
+    plain version (the same schedule with ``torch.mm`` in f32) on f32
+    copies of the operands, R^2 step launches and R(R - 1) copies a call,
+    a second call bit-equal to the first; a slowed rank (rank 1 sleeps on
+    its compute stream before its step-1 kernel) still right; and the
+    whole call's time (per-rank entry points on pre-cut shards, CUDA
+    events on the caller's stream, which every rank's streams join), the
+    plain version's, the bound (the work of all ranks: each global
+    operand read once, 2 m K N operations) and one ``torch.mm`` of the
+    global operands as the library yardstick."""
+    rc, cm = parallel.rdma_collective, parallel.collective_matmul
+    fns = {"ag": (rc.rdma_allgather_matmul_sharded, rc.rdma_allgather_matmul,
+                  cm.allgather_matmul_sharded, cm.allgather_matmul, 0, 1),
+           "rs": (rc.rdma_matmul_reducescatter_sharded,
+                  rc.rdma_matmul_reducescatter,
+                  cm.matmul_reducescatter_sharded, cm.matmul_reducescatter,
+                  1, 0)}
+    counted = {"ag": rc.rdma_allgather_matmul,
+               "rs": rc.rdma_matmul_reducescatter}
+    mesh = parallel.make_mesh([device] * RING_RANKS, tp=RING_RANKS)
+    main_inputs = {kind: ring_operands(torch, device, m, k, n,
+                                       getattr(torch, dtype), 100 + i)
+                   for i, (kind, _, _, m, k, n, dtype)
+                   in enumerate(RING_CASES[:2])}
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = wrapper.copies = 0
+    main_out = {kind: fns[kind][0](*main_inputs[kind], mesh)
+                for kind in ("ag", "rs")}
+    torch.cuda.synchronize()
+    launches = {kind: counted[kind].launches for kind in counted}
+    copies = {kind: counted[kind].copies for kind in counted}
+    for kind in counted:
+        if launches[kind] != RING_RANKS ** 2 \
+                or copies[kind] != RING_RANKS * (RING_RANKS - 1):
+            fail(f"ring {kind}: {launches[kind]} step launches and "
+                 f"{copies[kind]} copies in one call on {RING_RANKS} ranks")
+    rows = []
+    for index, (kind, label, ranks, m, k, n, dtype) in enumerate(RING_CASES):
+        sharded, per_rank, plain_sharded, plain, x_dim, w_dim = fns[kind]
+        wrapper = counted[kind]
+        ring_mesh = parallel.make_mesh([device] * ranks, tp=ranks)
+        if index < 2:
+            x, w = main_inputs[kind]
+        else:
+            x, w = ring_operands(torch, device, m, k, n,
+                                 getattr(torch, dtype), 100 + index)
+        before = (wrapper.launches, wrapper.copies)
+        got = sharded(x, w, ring_mesh)
+        torch.cuda.synchronize()
+        if (wrapper.launches - before[0], wrapper.copies - before[1]) \
+                != (ranks ** 2, ranks * (ranks - 1)):
+            fail(f"ring {kind} {label} m={m}: "
+                 f"{wrapper.launches - before[0]} step launches, "
+                 f"{wrapper.copies - before[1]} copies on {ranks} ranks")
+        want = plain_sharded(x.float(), w.float(), ring_mesh)
+        err, ratio = ring_compare(torch, got, want)
+        if not ratio <= 1.0:
+            fail(f"ring {kind} {label} m={m} K={k} N={n} {dtype} R={ranks}: "
+                 f"max abs err {err}, err/tol {ratio}")
+        if index < 2 and not torch.equal(got, main_out[kind]):
+            fail(f"ring {kind} {label}: the main path's call and a second "
+                 "call differ")
+        if not torch.equal(sharded(x, w, ring_mesh), got):
+            fail(f"ring {kind} {label} m={m}: two calls differ")
+        devices = ring_mesh.ring("tp")
+        xs = cm.shard(x, x_dim, devices)
+        ws = cm.shard(w, w_dim, devices)
+        ms = device_ms(torch, lambda: per_rank(xs, ws), 10)
+        plain_ms = device_ms(torch, lambda: plain(xs, ws), 3)
+        library_ms = device_ms(torch, lambda: torch.mm(x, w), 10)
+        elem = x.element_size()
+        b_ms, b_by = bound(elem * (m * k + k * n + m * n), 2 * m * k * n)
+        rows.append(dict(shape=f"{kind} {label} R={ranks} m={m} K={k} N={n} "
+                               f"{dtype}", kind=kind, err=err, ratio=ratio,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=library_ms))
+    # A slowed rank: the copies must wait for it (the capacity events).
+    for kind in ("ag", "rs"):
+        x, w = ring_operands(torch, device, 256, 512, 512, torch.bfloat16, 7)
+
+        def slow(rank, step):
+            if (rank, step) == (1, 1):
+                torch.cuda._sleep(100_000_000)
+        got = fns[kind][0](x, w, mesh, before_step=slow)
+        err, ratio = ring_compare(torch, got, fns[kind][2](
+            x.float(), w.float(), mesh))
+        if not ratio <= 1.0:
+            fail(f"ring {kind} with a slowed rank: max abs err {err}, "
+                 f"err/tol {ratio}")
+        rows.append(dict(shape=f"{kind} slowed rank 1, R={RING_RANKS} m=256 "
+                               "K=512 N=512 bfloat16", kind=kind, err=err,
+                         ratio=ratio, ms=float("nan"), plain_ms=float("nan"),
+                         bound_ms=float("nan"), bound_by="-",
+                         library_ms=None))
+    return rows, launches, copies
+
+
 def main() -> None:
     try:
         import torch
@@ -1855,6 +2061,7 @@ def main() -> None:
     sys.path.insert(0, root)
     import numpy as np
 
+    from aiko_services_tpu_torch import parallel
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.ops import (_cuda, attention,
                                              paged_attention, quant)
@@ -1919,7 +2126,9 @@ def main() -> None:
         log("  torch._weight_int4pack_mm on the card raised "
             f"{int4_steps['after']['library_error']!r}: library_ms is null")
     for key, step in int4_steps.items():
-        log(f"  int4 ({key}) one 8-slot decode step ({step['launches']} "
+        what = (f"one layer at m = {TILED_ROWS[-1]}" if key == "tiled"
+                else "one 8-slot decode step")
+        log(f"  int4 ({key}) {what} ({step['launches']} "
             f"launches), sum of the isolated times: kernel {step['ms']:.4f}"
             f" ms, plain {step['plain_ms']:.4f} ms, bound "
             f"{step['bound_ms']:.4f} ms, library {step['library_ms']}, "
@@ -2011,9 +2220,14 @@ def main() -> None:
     log(f"llama3_8b int4 params on the card in "
         f"{time.monotonic() - t0:.1f} s")
     w4 = Weights(quant, 4)
-    kernels4 = (quant.int4_matmul, quant.int4_matmul_scale_first,
-                quant.int8_matmul, attention.flash_attention,
+    kernels4 = (quant.int4_matmul, quant.int4_matmul_tiled,
+                quant.int4_matmul_scale_first, quant.int8_matmul,
+                attention.flash_attention,
                 paged_attention.paged_decode_attention)
+    for k, n in projections(config) + [(config.d_model, config.vocab_size)]:
+        if not quant.tiles_int4(k, n, max(1, k // 128)):
+            fail(f"int4 {k}x{n}: the m-tiled instance does not take it, so "
+                 "a prefill slice would leave the kernels")
     int4_run = serve(torch, np, llama, w4, kernels4,
                      ContinuousBatchingServer, DecodeRequest, params4, False,
                      device)
@@ -2024,12 +2238,24 @@ def main() -> None:
     log("--- serving llama3_8b int4 at 64 slots, bf16 KV: "
         + json.dumps(wide_run))
     kernels4_paged = kernels4 + (pp.append_kv, pp.chunk_attention)
+    paged4_runs = []
     for quantize_kv in (False, True):
         run = serve_paged(torch, np, llama, w4, kernels4_paged,
                           PagedContinuousServer, DecodeRequest, params4,
                           quantize_kv, device)
         log(f"--- serving llama3_8b int4 through the paged server, "
             f"{run['kv']} KV: " + json.dumps(run))
+        paged4_runs.append(run)
+    log("TTFT p50, int4 against int8 (same traffic, this run): contiguous "
+        f"{int4_run['ttft_ms_p50']:.1f} against {runs[0]['ttft_ms_p50']:.1f}"
+        f" ms; 64 slots {wide_run['ttft_ms_p50']:.1f} against "
+        f"{wide8['ttft_ms_p50']:.1f} ms; paged bf16 KV "
+        f"{paged4_runs[0]['ttft_ms_p50']:.1f} against "
+        f"{paged_runs[0]['ttft_ms_p50']:.1f} ms; paged int8 KV "
+        f"{paged4_runs[1]['ttft_ms_p50']:.1f} against "
+        f"{paged_runs[1]['ttft_ms_p50']:.1f} ms; int4_matmul_tiled launches "
+        f"{int4_run['launches']['int4_matmul_tiled']} (contiguous), "
+        f"{paged4_runs[0]['launches']['int4_matmul_tiled']} (paged)")
     run = serve_spec(torch, np, llama, quant, w4,
                      kernels4_paged + (pp.append_kv_ragged,),
                      PagedContinuousServer, DecodeRequest, params4, False,
@@ -2048,6 +2274,19 @@ def main() -> None:
            else f"{int4_after['ms']:.4f} (isolated sum; profiler empty)"))
     if int4_ms is None:
         int4_ms = int4_after["ms"]
+    int4_tiled = int4_steps["tiled"]
+
+    # ---- phase 7: the ring collective matmuls, 4 ranks on the card ----
+    del params4
+    torch.cuda.empty_cache()
+    ring_rows, ring_launches, ring_copies = check_ring(torch, parallel,
+                                                       device)
+    print_rows(f"ring collective matmuls ([cuda:0] * R; kernel_ms: one whole "
+               f"call, all ranks' streams joined; library_ms: torch.mm of "
+               f"the global operands); the main path's call: step launches "
+               f"{ring_launches}, copies {ring_copies}", ring_rows)
+    ring_main = {kind: next(r for r in ring_rows if r["kind"] == kind)
+                 for kind in ("ag", "rs")}
 
     main_run = runs[0]["launches"]
     # int8_matmul's time is the path's: device time of its launches per
@@ -2068,26 +2307,59 @@ def main() -> None:
              ms=int8_ms, plain_ms=int8_step["plain_ms"],
              bound_ms=int8_step["bound_ms"], bound_by="bytes",
              library_ms=int8_step["library_ms"]),
-        dict(name="int4_matmul", route="cuda",
+    ]}
+    int4_after_row = dict(
+        route="cuda", source="aiko_services_tpu_torch/csrc/int4_matmul.cu",
+        launches=int4_run["launches"]["int4_matmul"],
+        max_abs_err=max(r["err"] for r in int4_rows
+                        if r["numerics"] == "after"),
+        ms=int4_ms, plain_ms=int4_after["plain_ms"],
+        bound_ms=int4_after["bound_ms"],
+        bound_by=step_bound_by(int4_rows, "after"),
+        library_ms=int4_after["library_ms"])
+    int4_first_row = dict(
+        route="cuda", source="aiko_services_tpu_torch/csrc/int4_matmul.cu",
+        launches=int4_run["launches"]["int4_matmul_scale_first"],
+        max_abs_err=max(r["err"] for r in int4_rows
+                        if r["numerics"] == "first"),
+        ms=int4_first["ms"], plain_ms=int4_first["plain_ms"],
+        bound_ms=int4_first["bound_ms"],
+        bound_by=step_bound_by(int4_rows, "first"),
+        library_ms=int4_first["library_ms"])
+    report["kernels"] += [
+        # One kernel source, two TPU kernels and the lab's two variants: the
+        # lab rows repeat the numbers of the instance they are.
+        dict(name="int4_matmul",
+             replaces="aiko_services_tpu/ops/quant.py:244", **int4_after_row),
+        dict(name="int4_matmul_tiled", route="cuda",
              source="aiko_services_tpu_torch/csrc/int4_matmul.cu",
-             replaces="aiko_services_tpu/ops/quant.py:330",
-             launches=int4_run["launches"]["int4_matmul"],
+             replaces="aiko_services_tpu/ops/quant.py:244",
+             launches=int4_run["launches"]["int4_matmul_tiled"],
              max_abs_err=max(r["err"] for r in int4_rows
-                             if r["numerics"] == "after"),
-             ms=int4_ms, plain_ms=int4_after["plain_ms"],
-             bound_ms=int4_after["bound_ms"], bound_by=step_bound_by(
-                 int4_rows, "after"),
-             library_ms=int4_after["library_ms"]),
-        dict(name="int4_matmul_scale_first", route="cuda",
-             source="aiko_services_tpu_torch/csrc/int4_matmul.cu",
-             replaces="scripts/int4_kernel_lab.py:51",
-             launches=int4_run["launches"]["int4_matmul_scale_first"],
-             max_abs_err=max(r["err"] for r in int4_rows
-                             if r["numerics"] == "first"),
-             ms=int4_first["ms"], plain_ms=int4_first["plain_ms"],
-             bound_ms=int4_first["bound_ms"], bound_by=step_bound_by(
-                 int4_rows, "first"),
-             library_ms=int4_first["library_ms"]),
+                             if r["numerics"] == "tiled"),
+             ms=int4_tiled["ms"], plain_ms=int4_tiled["plain_ms"],
+             bound_ms=int4_tiled["bound_ms"],
+             bound_by=step_bound_by(int4_rows, "tiled", TILED_ROWS[-1]),
+             library_ms=int4_tiled["library_ms"]),
+        dict(name="int4_matmul_scale_first",
+             replaces="aiko_services_tpu/ops/quant.py:195", **int4_first_row),
+        dict(name="int4_kernel_lab.matmul_repeat",
+             replaces="scripts/int4_kernel_lab.py:51", **int4_first_row),
+        dict(name="int4_kernel_lab.matmul_batched",
+             replaces="scripts/int4_kernel_lab.py:97", **int4_after_row),
+    ]
+    for kind, name, line in (("ag", "rdma_allgather_matmul", 190),
+                             ("rs", "rdma_matmul_reducescatter", 291)):
+        row = ring_main[kind]
+        report["kernels"].append(dict(
+            name=name, route="cuda",
+            source="aiko_services_tpu_torch/csrc/ring_matmul.cu",
+            replaces=f"aiko_services_tpu/parallel/rdma_collective.py:{line}",
+            launches=ring_launches[kind],
+            max_abs_err=max(r["err"] for r in ring_rows if r["kind"] == kind),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    report["kernels"] += [
         dict(name="flash_attention", route="cuda",
              source="aiko_services_tpu_torch/csrc/flash_attention.cu",
              replaces="aiko_services_tpu/ops/attention.py:231",
@@ -2133,7 +2405,7 @@ def main() -> None:
              bound_ms=ragged_main["bound_ms"],
              bound_by=ragged_main["bound_by"],
              library_ms=ragged_main["library_ms"]),
-    ]}
+    ]
     log(f"chunk_attention at the verify shape (T=5, bf16, no window): "
         f"{verify_main['ms']:.4f} ms, SDPA {verify_main['library_ms']:.4f} "
         f"ms, bound {verify_main['bound_ms']:.4f} ms")
@@ -2141,8 +2413,10 @@ def main() -> None:
         f"numerics) {int4_worst:.3f}, flash "
         f"{flash_worst:.3f}, decode {decode_worst:.3f} (bs 16: "
         f"{paged_decode_worst:.3f}), chunk_attention {chunk_worst:.3f} "
-        f"(verify shape {verify_worst:.3f}); append_kv and append_kv_ragged "
-        f"pools byte-equal; total {time.monotonic() - began:.1f} s")
+        f"(verify shape {verify_worst:.3f}), ring "
+        f"{max(r['ratio'] for r in ring_rows):.3f}; append_kv and "
+        f"append_kv_ragged pools byte-equal; total "
+        f"{time.monotonic() - began:.1f} s")
     log(smi)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,19 @@ probabilities, or drops the last live 16-row block of a tile's sweep; the
 ragged verify-window append writes at the block-aligned start (dropping
 ``cached % block_size``), or skips each row's last live token; the int4
 dequant-matmul swaps the two nibbles of each byte, reads nibbles as
-unsigned (0..15), or scales each group with its neighbour's scales.  Each copy
-is built and held to the same checks the working tree passes:
-``chip_smoke.py``'s phase 2 for that kernel (at the llama3_8b shapes) and
-the kernel's tests in ``tests/test_torch_cuda.py``.
+unsigned (0..15), or scales each group with its neighbour's scales, and its
+m-tiled instance feeds bf16(q * s) to the product (scale first); the ring
+all-gather step writes each block one row block too low, the ring
+reduce-scatter drops the last step's partial, and the ring's copies skip
+the capacity wait.  Each copy is built and held to the same checks the
+working tree passes: ``chip_smoke.py``'s phase 2 for that kernel (at the
+llama3_8b shapes; phase 7 for the ring) and the kernel's tests in
+``tests/test_torch_cuda.py``.
 A mutant that passes either means a tolerance too loose to see the bug.
 
-    python3 scripts/torch_kernel_mutants.py [--workdir DIR]
+    python3 scripts/torch_kernel_mutants.py [--workdir DIR] [NAME ...]
+
+With names, only those mutants are built and checked.
 
 The copies go under ``--workdir`` (a new temporary directory by default),
 never into the checkout.  Needs an NVIDIA card and ``nvcc``; exits
@@ -36,6 +42,8 @@ DECODE = "aiko_services_tpu_torch/csrc/paged_decode.cu"
 CHUNK = "aiko_services_tpu_torch/csrc/paged_prefill.cu"
 RAGGED = "aiko_services_tpu_torch/csrc/paged_append_ragged.cu"
 INT4 = "aiko_services_tpu_torch/csrc/int4_matmul.cu"
+RING = "aiko_services_tpu_torch/csrc/ring_matmul.cu"
+RING_HOST = "aiko_services_tpu_torch/parallel/rdma_collective.py"
 #: name -> (source, text replaced, replacement)
 MUTANTS = {
     "flash_drop_tile": (
@@ -78,10 +86,26 @@ MUTANTS = {
         INT4, "s + (size_t)(k0 / group) * N + n0 + chunk * 4, true);",
         "s + (size_t)((k0 / group + 1) % (K / group)) * N + n0 + chunk * 4, "
         "true);"),
+    "int4_tiled_scale_first": (
+        INT4, "return launch<64, false>(x, q4, s, out, partials, arrivals, m, "
+        "K, N, group,",
+        "return launch<64, true>(x, q4, s, out, partials, arrivals, m, K, N, "
+        "group,"),
+    "ag_wrong_row_offset": (
+        RING, "const size_t out_offset = (size_t)out_row0 * n_local;",
+        "const size_t out_offset =\n"
+        "      (size_t)(out_row0 ? out_row0 - m_local : 0) * n_local;"),
+    "rs_drop_last_partial": (
+        RING_HOST, "if len(op.reads) == 2:",
+        "if len(op.reads) == 2 and op.writes[0][0] != \"out\":"),
+    "ring_no_capacity_wait": (
+        RING_HOST, "for event in op.waits + op.capacity:",
+        "for event in op.waits:"),
 }
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
-             "chunk": "chunk_attention", "ragged": "ragged", "int4": "int4"}
+             "chunk": "chunk_attention", "ragged": "ragged", "int4": "int4",
+             "ag": "ring", "rs": "ring", "ring": "ring"}
 
 
 def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
@@ -102,12 +126,14 @@ def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
 
 
 def phase2(name: str) -> bool:
-    """Run in a mutant's copy: the smoke's phase 2 for the mutated
-    kernel, every case; True if at least one case failed."""
+    """Run in a mutant's copy: the smoke's phase 2 (the ring: phase 7)
+    for the mutated kernel, every case; True if at least one case
+    failed."""
     sys.path.insert(0, str(pathlib.Path.cwd()))
     import torch
 
     import chip_smoke
+    from aiko_services_tpu_torch import parallel
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.ops import (_cuda, attention,
                                              paged_attention, paged_prefill,
@@ -126,6 +152,9 @@ def phase2(name: str) -> bool:
     elif kind == "int4":
         rows, worst, _ = chip_smoke.check_int4_matmul(
             torch, quant, device, llama.CONFIGS["llama3_8b"])
+    elif kind in ("ag", "rs", "ring"):
+        rows, _, _ = chip_smoke.check_ring(torch, parallel, device)
+        worst = max(row["ratio"] for row in rows)
     elif kind == "ragged":
         # A byte-equality check: the rows' max abs error is the measure.
         rows, _ = chip_smoke.check_append_ragged(torch, paged_prefill, llama,
@@ -135,7 +164,8 @@ def phase2(name: str) -> bool:
         rows, worst, _ = chip_smoke.check_chunk(torch, paged_prefill, llama,
                                                 device)
     measure = "max abs err" if kind == "ragged" else "err/tol"
-    print(f"{name}: smoke phase 2 reported {len(failures)} failures over "
+    phase = "7" if kind in ("ag", "rs", "ring") else "2"
+    print(f"{name}: smoke phase {phase} reported {len(failures)} failures over "
           f"{len(rows)} cases, worst {measure} {worst:.3f}")
     for row in rows:
         print(f"  {row['shape']}: max_abs_err {row['err']:.4g} err/tol "
@@ -146,6 +176,9 @@ def phase2(name: str) -> bool:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--workdir", type=pathlib.Path)
+    parser.add_argument("names", nargs="*", choices=[[], *sorted(MUTANTS)],
+                        metavar="NAME", help="mutants to check (all by "
+                        "default)")
     parser.add_argument("--phase2", choices=sorted(MUTANTS),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -157,7 +190,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     survivors = []
-    for name in MUTANTS:
+    names = args.names or list(MUTANTS)
+    for name in names:
         copy = make_copy(name, workdir)
         caught = subprocess.run([sys.executable, str(pathlib.Path(__file__)
                                                      .resolve()),
@@ -175,7 +209,7 @@ def main() -> None:
         shutil.rmtree(copy)
     if survivors:
         raise SystemExit(f"mutants not caught: {survivors}")
-    print(f"all {len(MUTANTS)} mutants caught")
+    print(f"all {len(names)} mutants caught")
 
 
 if __name__ == "__main__":

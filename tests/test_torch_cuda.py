@@ -16,6 +16,8 @@ P.V product, an error of about 2^-9 times the spread of the row's
 outputs.  f32 outputs to 1e-4 (summation order).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,8 @@ from aiko_services_tpu_torch.orchestration.continuous import (
     ContinuousBatchingServer, DecodeRequest)
 from aiko_services_tpu_torch.orchestration.paged import (
     PagedContinuousServer)
+from aiko_services_tpu_torch.parallel import (collective_matmul, make_mesh,
+                                              rdma_collective)
 
 pytestmark = pytest.mark.cuda
 
@@ -163,20 +167,73 @@ def test_int4_matmul_is_batch_invariant(cuda, numerics):
 
 
 def test_int4_matmul_large_m_takes_the_matrix_product(cuda):
-    """m > 64 (and a shape outside the rule) take the dequantize + mm
-    route: no launch, and within the kernels' bf16 tolerance of the f32
-    plain version."""
+    """Shapes outside the m <= 64 rule scale after each group too: m > 64
+    and off-rule N (a multiple of 64) launch the m-tiled instance once,
+    K split or not; groups of 96 rows and N = 96 take the group-wise
+    PyTorch product, with no launch.  Both within the kernels' bf16
+    tolerance of the f32 plain version."""
     gen = torch.Generator(device=cuda).manual_seed(13)
-    for m, k, n in ((65, 512, 256), (300, 4096, 1024), (8, 512, 192)):
+    for m, k, n, group, tiled in (
+            (65, 512, 256, 128, True), (300, 4096, 1024, 128, True),
+            (8, 512, 192, 128, True), (2048, 4096, 4096, 128, True),
+            (129, 14336, 128, 128, True), (100, 576, 256, 96, False),
+            (70, 512, 96, 128, False), (8, 576, 128, 96, False)):
         x = torch.randn((m, k), generator=gen, device=cuda) \
             .to(torch.bfloat16)
-        q4, s = _int4_weight(gen, cuda, k, n, 128)
-        assert not quant.int4_kernel_shape(m, k, n, k // 128)
-        before = quant.int4_matmul.launches
+        q4, s = _int4_weight(gen, cuda, k, n, group)
+        assert not quant.int4_kernel_shape(m, k, n, k // group)
+        assert quant.tiles_int4(k, n, k // group) == tiled
+        before = (quant.int4_matmul.launches, quant.int4_matmul_tiled.launches)
         got = quant.int4_matmul(x, q4, s)
-        assert quant.int4_matmul.launches == before
+        assert (quant.int4_matmul.launches,
+                quant.int4_matmul_tiled.launches) == (before[0],
+                                                      before[1] + tiled)
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
         _close(got, quant.int4_matmul_reference(x.float(), q4, s),
                torch.bfloat16)
+
+
+def _close_scale_after(got, want):
+    """The path's numerics, held tighter than the kernel tolerance: the
+    f32 result of a scale-after product differs from the f32 plain
+    version by summation order only, so the bf16 output is within its own
+    rounding (2^-8 * |want|) plus 2^-14 of the row's largest output.
+    bf16(q * s) weights (scale first, each rounded by up to 2^-8) miss
+    that several times over near zero."""
+    err = (got.float() - want).abs()
+    magnitude = want.abs()
+    tol = 2 ** -8 * magnitude + 2 ** -14 * magnitude.amax(-1, keepdim=True)
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    assert worst <= 1.0, (float(err.max()), worst)
+
+
+@pytest.mark.parametrize("m,k,n", [(65, 512, 256), (256, 4096, 1024),
+                                   (2048, 4096, 4096), (256, 14336, 4096)])
+def test_int4_matmul_tiled_scales_after_each_group(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    q4, s = _int4_weight(gen, cuda, k, n, 128)
+    before = quant.int4_matmul_tiled.launches
+    got = quant.int4_matmul_tiled(x, q4, s)
+    assert quant.int4_matmul_tiled.launches == before + 1
+    _close_scale_after(got, quant.int4_matmul_reference(x.float(), q4, s))
+
+
+@pytest.mark.parametrize("k,n", [(256, 1024), (4096, 17408)])
+def test_int4_matmul_tiled_tiles_equal_the_decode_instance(cuda, k, n):
+    """Where neither instance splits K (K = 256, or N wide enough to fill
+    the card with m <= 64), each 64-row tile of the tiled instance is bit
+    for bit what the m <= 64 instance gives on those rows (a row's sum
+    does not depend on the instance's row count, as the batch-invariance
+    test holds)."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((200, k), generator=gen, device=cuda).to(torch.bfloat16)
+    q4, s = _int4_weight(gen, cuda, k, n, 128)
+    assert quant._k_split(k, n // 64)[0] == 1
+    full = quant.int4_matmul_tiled(x, q4, s)
+    for row0 in range(0, 200, 64):     # three full tiles and 8 rows
+        part = quant._int4_launch("int4_matmul", x[row0:row0 + 64], q4, s)
+        assert torch.equal(part, full[row0:row0 + 64]), row0
 
 
 def test_int4_matmul_raises_on_what_the_kernel_does_not_take(cuda):
@@ -644,3 +701,113 @@ def test_spec_server_on_the_card_holds_the_oracle(cuda, quantize_kv):
     balance = server.pool_balance()
     assert balance["free"] + balance["evictable"] + balance["producing"] \
         == balance["total"]
+
+
+# --------------------------------------------------------------------------- #
+# Ring collective matmuls (csrc/ring_matmul.cu), R ranks on one card
+
+#: (kind, ranks, m, k, n, dtype): the JAX tests' shapes (ragged: n_local 3,
+#: 5, 2), llama3_8b's TP-4 MLP shapes at m = 2048 and 64 (w_gate all-gather,
+#: w_down reduce-scatter), and odd sizes that leave every tile edge ragged.
+RING_CASES = [
+    ("ag", 8, 16, 32, 24, torch.float32),
+    ("rs", 8, 8, 64, 40, torch.float32),
+    ("ag", 8, 16, 32, 16, torch.bfloat16),
+    ("rs", 8, 8, 64, 40, torch.bfloat16),
+    ("ag", 4, 2048, 4096, 14336, torch.bfloat16),
+    ("ag", 4, 64, 4096, 14336, torch.bfloat16),
+    ("rs", 4, 2048, 14336, 4096, torch.bfloat16),
+    ("rs", 4, 64, 14336, 4096, torch.bfloat16),
+    ("ag", 3, 195, 200, 390, torch.bfloat16),
+    ("rs", 3, 130, 264, 390, torch.bfloat16),
+    ("ag", 2, 130, 96, 66, torch.float32),
+    ("rs", 1, 40, 48, 24, torch.bfloat16),
+]
+
+RINGS = {"ag": (rdma_collective.rdma_allgather_matmul_sharded,
+                collective_matmul.allgather_matmul_sharded,
+                rdma_collective.rdma_allgather_matmul),
+         "rs": (rdma_collective.rdma_matmul_reducescatter_sharded,
+                collective_matmul.matmul_reducescatter_sharded,
+                rdma_collective.rdma_matmul_reducescatter)}
+
+
+def _ring_operands(cuda, kind, m, k, n, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5) \
+        .to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("kind,ranks,m,k,n,dtype", RING_CASES)
+def test_ring_kernels_against_their_plain_version(cuda, kind, ranks, m, k, n,
+                                                  dtype):
+    """The ring on ``["cuda:0"] * R`` against the plain version (the same
+    schedule with torch.mm in f32) on f32 copies of the operands; R^2 step
+    launches and R(R - 1) copies a call; a second call gives the same
+    result bit for bit."""
+    ring_fn, plain_fn, counted = RINGS[kind]
+    mesh = make_mesh([cuda] * ranks, tp=ranks)
+    x, w = _ring_operands(cuda, kind, m, k, n, dtype, m + k + n + ranks)
+    before = (counted.launches, counted.copies)
+    got = ring_fn(x, w, mesh)
+    assert (counted.launches - before[0], counted.copies - before[1]) \
+        == (ranks ** 2, ranks * (ranks - 1))
+    assert got.dtype == dtype and got.shape == (m, n)
+    _close(got, plain_fn(x.float(), w.float(), mesh), dtype)
+    assert torch.equal(ring_fn(x, w, mesh), got)
+
+
+@pytest.mark.parametrize("kind", ["ag", "rs"])
+def test_ring_holds_against_a_slowed_rank(cuda, kind, monkeypatch):
+    """Rank 1 sleeps ~50 ms on its compute stream before its step-1
+    kernel.  The ring waits for it (the capacity events): right.  A ring
+    whose copies skip the capacity wait lets rank 0 overwrite the slot
+    rank 1 has yet to read: wrong."""
+    ranks, m, k, n = 4, 256, 512, 512
+    ring_fn, plain_fn, _ = RINGS[kind]
+    mesh = make_mesh([cuda] * ranks, tp=ranks)
+    x, w = _ring_operands(cuda, kind, m, k, n, torch.bfloat16, 21)
+    want = plain_fn(x.float(), w.float(), mesh)
+
+    def slow(rank, step):
+        if (rank, step) == (1, 1):
+            torch.cuda._sleep(100_000_000)
+
+    _close(ring_fn(x, w, mesh, before_step=slow), want, torch.bfloat16)
+    ring = rdma_collective.ring
+    for name in ("allgather_schedule", "reducescatter_schedule"):
+        schedule = getattr(ring, name)
+        monkeypatch.setattr(ring, name, lambda ranks, schedule=schedule: [
+            dataclasses.replace(op, capacity=()) for op in schedule(ranks)])
+    raced = ring_fn(x, w, mesh, before_step=slow)
+    assert not torch.allclose(raced.float(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_ring_raises_on_what_the_kernels_do_not_take(cuda):
+    mesh = make_mesh([cuda] * 2, tp=2)
+    x = torch.zeros((8, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        rdma_collective.rdma_allgather_matmul_sharded(x, x.t(), mesh)
+    x = torch.zeros((8, 16), device=cuda)
+    with pytest.raises(ValueError):                 # 15 columns over 2 ranks
+        rdma_collective.rdma_matmul_reducescatter_sharded(
+            x, torch.zeros((16, 15), device=cuda), mesh)
+    with pytest.raises(ValueError):                 # mixed CPU and CUDA
+        rdma_collective.rdma_allgather_matmul([x, x.cpu()], [x.t(), x.t()])
+
+
+@pytest.mark.parametrize("kind", ["ag", "rs"])
+def test_ring_across_distinct_cards(cuda, kind):
+    """One rank a card, the copies peer to peer; needs two cards."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ring_fn, plain_fn, _ = RINGS[kind]
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    mesh = make_mesh(devices, tp=cards)
+    x, w = _ring_operands(cuda, kind, 64 * cards, 256, 128 * cards,
+                          torch.bfloat16, 5)
+    _close(ring_fn(x, w, mesh), plain_fn(x.float(), w.float(), mesh),
+           torch.bfloat16)

@@ -314,15 +314,51 @@ def test_scale_first_differs_from_scale_after_by_operand_rounding():
                                   first)
 
 
+@pytest.mark.parametrize("m,group_size", [(65, 128), (200, 64), (130, 512)])
+def test_tiled_wrapper_on_cpu_matches_jax_large_m(m, group_size):
+    """``int4_matmul_tiled`` (the m-tiled instance that every int4 prefill
+    slice of m > 64 launches on the card) on CPU tensors is the plain
+    version: against the JAX package's large-m product, its f32 grouped
+    einsum, on the same numpy inputs."""
+    x, qw = _case(m, group_size=group_size)
+    ref = jax_quant.int4_matmul(jnp.asarray(x), qw["q4"], qw["s"])
+    got = quant.int4_matmul_tiled(_t(x), _t(qw["q4"]), _t(qw["s"]))
+    assert got.shape == (m, 256) and got.dtype == torch.float32
+    _assert_f32(_np(got), ref)
+
+
+def test_every_llama_projection_tiles():
+    """Every int4 projection of the port's full-size dense configs
+    (128-row groups) is taken by the m-tiled instance, so no prefill slice
+    leaves the kernels on the card.  The tiny configs' d_ff of 352 (N % 64
+    = 32, and one 352-row group for w_down) takes the group-wise PyTorch
+    route there, as do groups of 96 rows and N % 64 != 0."""
+    for name in ("small", "1b", "llama3_8b", "llama3_70b", "mistral_7b"):
+        config = llama.CONFIGS[name]
+        d, hd = config.d_model, config.head_dim
+        for k, n in ((d, config.n_heads * hd), (d, config.n_kv_heads * hd),
+                     (config.n_heads * hd, d), (d, config.d_ff),
+                     (config.d_ff, d), (d, config.vocab_size)):
+            assert quant.tiles_int4(k, n, k // 128), (name, k, n)
+    tiny = llama.CONFIGS["tiny"]
+    assert not quant.tiles_int4(tiny.d_model, tiny.d_ff, 1)
+    assert not quant.tiles_int4(tiny.d_ff, tiny.d_model, 1)
+    assert not quant.tiles_int4(576, 256, 6)
+    assert not quant.tiles_int4(512, 96, 4)
+
+
 def test_int4_wrappers_count_launches():
     """Launch counters are plain ints, and CPU calls never count."""
     x, qw = _case(8)
     before = (quant.int4_matmul.launches,
-              quant.int4_matmul_scale_first.launches)
+              quant.int4_matmul_scale_first.launches,
+              quant.int4_matmul_tiled.launches)
     quant.int4_matmul(_t(x), _t(qw["q4"]), _t(qw["s"]))
     quant.int4_matmul_scale_first(_t(x), _t(qw["q4"]), _t(qw["s"]))
+    quant.int4_matmul_tiled(_t(x), _t(qw["q4"]), _t(qw["s"]))
     assert (quant.int4_matmul.launches,
-            quant.int4_matmul_scale_first.launches) == before
+            quant.int4_matmul_scale_first.launches,
+            quant.int4_matmul_tiled.launches) == before
     assert all(isinstance(count, int) for count in before)
 
 
