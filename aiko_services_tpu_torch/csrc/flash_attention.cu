@@ -5,236 +5,550 @@
 //
 // Bound on the H100: operations.  Causal prefill at the main path's buckets
 // (64..1024 tokens, head_dim 128) does ~4*head_dim operations per visible
-// (query, key) pair on inputs it reads once, far above the bytes line.
+// (query, key) pair on inputs it reads once, far above the bytes line; at
+// short sequences and large batches (64 rows of 128 tokens) the bytes of
+// q, k, v and out come close.
 //
 // Design against that bound:
 //   * the TPU grid (b*h, q_blocks, k_blocks) carried m/l/acc across its
-//     sequential k axis; here one CTA owns (b*h, 64-query tile) and loops
-//     over 64-key tiles itself, from the first live tile (window) to the last
-//     live one (diagonal), so tiles above the diagonal or below the window
-//     are never loaded;
-//   * query head h reads kv head h / group directly: K/V are never repeated;
-//   * both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//     accumulate): each of 4 warps owns 16 query rows, keeps its Q fragments
-//     in registers, computes S = Q K^T for the tile, and multiplies its P
-//     (the f32 softmax weights rounded to bf16) with V loaded by
-//     ldmatrix.trans;
-//   * K/V tiles are double-buffered in shared memory with 16-byte cp.async
-//     copies (rows padded by 16 bytes: conflict-free fragment loads);
-//   * the online softmax (running max, sum, rescale) stays in f32 registers,
-//     with the finite NEG_INF of the JAX kernel; keys past k_len get -inf so
-//     they carry no mass; rows with a zero sum divide by 1.  Keys are offset
-//     by k_len - q_len.
+//     sequential k axis; here one CTA owns (batch, kv head, kRows tile rows)
+//     and loops over kBK-key tiles itself, from the first live tile (window)
+//     to the last live one (diagonal), so tiles above the diagonal or below
+//     the window are never loaded;
+//   * GQA-packed rows, as the TPU kernel's `token*group + head` layout (and
+//     csrc/paged_prefill.cu): the tile rows are the (query, head) pairs of
+//     kRows / group queries and the `group` query heads of one kv head, so
+//     each K/V tile lands in shared memory once for the whole group;
+//   * a dedicated producer warp issues TMA loads (one 4-d tensor map each for
+//     Q, K and V, built from the caller's strides with 32/64/128-byte
+//     swizzle, cached host-side by pointer, shape and strides): Q once, then
+//     K and V tiles into a ring of kStages stages, each K and each V with its
+//     own `full` mbarrier, so S can start while V is still in flight; the
+//     consumers free a K slot once its S is done and a V slot once its P V
+//     is, through `empty` mbarriers;
+//   * each consumer warpgroup (64 tile rows) runs both products on `wgmma`:
+//     S = Q K^T as m64n64k16 with Q and K read from shared memory
+//     (K-major), then O += P V as m64n{head_dim}k16 with P (the f32 softmax
+//     weights rounded to bf16) from registers as A and V from shared memory
+//     through the descriptor's transpose (V is key-major).  The two are
+//     software-pipelined: P V of tile j - 1 runs on the tensor cores while
+//     the softmax of tile j runs on the CUDA cores;
+//   * the online softmax stays in f32 registers, in the log2 domain (one
+//     FFMA-able subtraction and one ex2 a weight), with the masking of the
+//     JAX kernel applied only to tiles that reach the diagonal, the window
+//     or k_len: keys past k_len get -inf (TMA fills them with zeros),
+//     invisible keys the finite NEG_INF; rows with a zero sum divide by 1.
+//     Keys are offset by k_len - q_len;
+//   * causal grids walk q tiles longest first (the tile index runs backwards
+//     along the grid's slow axis), so the last wave holds the shortest tiles.
+//     Two CTAs share an SM (about 81 KB of shared memory each at head_dim
+//     128), which overlaps one's softmax with the other's wgmma.
 #include "common.cuh"
 
+#include <cuda.h>
 #include <math.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
+constexpr int kWarpgroups = 1;    // consumer warpgroups, 64 tile rows each
+constexpr int kRows = 64 * kWarpgroups;  // tile rows: (query, head) pairs
+constexpr int kBK = 64;           // keys a K/V tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kThreads = kConsumers + 32;   // and the producer warp
 
-// Q tile plus two stages of K and V tiles, rows padded by 16 bytes.
-size_t smem_bytes(int head_dim) {
-  return (size_t)(kBQ + 4 * kBK) * (head_dim * 2 + 16);
+// A tile of ROWS rows of head_dim bf16 columns in shared memory: kChunks
+// column chunks, each ROWS rows of kSwizzle bytes laid out as TMA's swizzle
+// writes them (the canonical K-major layout of wgmma).
+template <int HD, int ROWS>
+struct Tile {
+  static constexpr int kSwizzle = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int kChunkCols = kSwizzle / 2;
+  static constexpr int kChunks = HD / kChunkCols;
+  static constexpr int kChunkBytes = ROWS * kSwizzle;
+  static constexpr int kBytes = kChunks * kChunkBytes;
+  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64, 3 = 32 swizzle.
+  static constexpr int kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+};
+
+// Q, then K and V of each stage; 1 KB to align the swizzle atoms.
+template <int HD>
+constexpr size_t smem_bytes() {
+  return (size_t)Tile<HD, kRows>::kBytes +
+         2 * kStages * (size_t)Tile<HD, kBK>::kBytes + 1024;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- TMA: a 4-d box of `map` at (c0, c1, c2, c3) into shared memory ----
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma ----
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 2^x (the online softmax runs in the log2 domain: scores are scaled by
+// sm_scale * log2(e) once, so each weight is one subtraction and one ex2).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Pin accumulators around an asynchronous wgmma: no read or write of them
+// may move across this point.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32) (+)= A (64 x 16, K-major in shared memory) * B (16 x N,
+// K-major in shared memory), N keys; scale_d 0 overwrites d.
+template <int N>
+struct WgmmaSs;
+
+template <>
+struct WgmmaSs<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// d (64 x N, f32) += A (64 x 16 bf16, registers) * B (16 x N, N-major in
+// shared memory: the descriptor's transpose), scale_d 0 overwrites d.
+template <int N>
+struct WgmmaRs;
+
+template <>
+struct WgmmaRs<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const unsigned (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRs<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const unsigned (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRs<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const unsigned (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRs<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const unsigned (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int heads, int kv_heads, int q_len, int k_len, long long qsb,
-    long long qsh, long long qss, long long ksb, long long ksh,
-    long long kss, long long vsb, long long vsh, long long vss, int causal,
-    int window, float sm_scale) {
-  constexpr int kLd = HD * 2 + 16;     // padded row, bytes
-  constexpr int kTile = kBK * kLd;
-  constexpr int kChunks = HD / 8;      // 16-byte chunks a row
-  constexpr int kDT = HD / 8;          // output n-tiles (8 features each)
-  constexpr int kKT = HD / 16;         // k-steps over the head dim
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* q_s = smem;
-  unsigned char* kv_s = smem + kBQ * kLd;
+__global__ void __launch_bounds__(kThreads, kWarpgroups == 1 ? 2 : 1)
+    flash_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    __nv_bfloat16* __restrict__ out, int heads, int kv_heads, int q_len,
+    int k_len, int causal, int window, float sm_scale) {
+  using TQ = Tile<HD, kRows>;
+  using TK = Tile<HD, kBK>;
+  constexpr int kS = kBK / 2;        // score accumulators a thread
+  constexpr int kKSteps = kBK / 16;  // 16-key slices of P V
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[kStages], v_full[kStages],
+      k_empty[kStages], v_empty[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  auto k_tile = [&](int st) { return base + TQ::kBytes + 2 * st * TK::kBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + TK::kBytes; };
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c = lane % 4;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int kvh = h / (heads / kv_heads);
-  const int q0 = blockIdx.x * kBQ;
+  const int group = heads / kv_heads;
+  const int qpt = kRows / group;          // queries a tile
+  const int rows_used = qpt * group;
+  const int pair = blockIdx.x;            // batch * kv_heads + kv head
+  const int b = pair / kv_heads, kvh = pair % kv_heads;
+  // Causal tiles grow with their index: run the longest first.
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q_first = tile * qpt;
+  const int q_last = min(q_first + qpt, q_len) - 1;
   const int offset = k_len - q_len;  // query i sits at key position i+offset
-
-  const __nv_bfloat16* q_base = q + b * qsb + h * qsh;
-  const __nv_bfloat16* k_base = k + b * ksb + kvh * ksh;
-  const __nv_bfloat16* v_base = v + b * vsb + kvh * vsh;
-
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks, ch = i % kChunks;
-    const int qi = q0 + r;
-    const bool ok = qi < q_len;
-    aiko::cp_async16(q_s + r * kLd + ch * 16,
-                     q_base + (ok ? qi : 0) * qss + ch * 8, ok);
-  }
-
-  const int n_tiles_all = (k_len + kBK - 1) / kBK;
-  int t_begin = 0, t_end = n_tiles_all - 1;
+  int t_begin = 0, t_end = (k_len + kBK - 1) / kBK - 1;
   if (causal) {
-    const int q_first = q0 + offset;
-    t_end = min(t_end, (q_first + kBQ - 1) / kBK);
-    if (window > 0) t_begin = max(q_first - window + 1, 0) / kBK;
+    t_end = min(t_end, (q_last + offset) / kBK);
+    if (window > 0) t_begin = max(q_first + offset - window + 1, 0) / kBK;
   }
   const int n_tiles = t_end - t_begin + 1;
 
-  auto issue = [&](int index) {
-    const int k0 = (t_begin + index) * kBK;
-    unsigned char* ks = kv_s + (index & 1) * 2 * kTile;
-    unsigned char* vs = ks + kTile;
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
-      const int r = i / kChunks, ch = i % kChunks;
-      const int kj = k0 + r;
-      const bool ok = kj < k_len;
-      aiko::cp_async16(ks + r * kLd + ch * 16,
-                       k_base + (ok ? kj : 0) * kss + ch * 8, ok);
-      aiko::cp_async16(vs + r * kLd + ch * 16,
-                       v_base + (ok ? kj : 0) * vss + ch * 8, ok);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kConsumers);
+      mbar_init(&v_empty[s], kConsumers);
     }
-    aiko::cp_async_commit();  // the first group also carries Q
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float o[kDT][4];
+  if (tid >= kConsumers) {
+    // ---- producer: one thread keeps the ring full ----
+    if (tid == kConsumers) {
+      mbar_expect_tx(&q_full, TQ::kChunks * rows_used * TQ::kSwizzle);
 #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
+      for (int c = 0; c < TQ::kChunks; ++c)
+        tma_load_4d(q_s + c * TQ::kChunkBytes, &q_map, &q_full,
+                    c * TQ::kChunkCols, kvh * group, q_first, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        const unsigned free_parity = ((j / kStages) & 1) ^ 1;
+        const int k0 = (t_begin + j) * kBK;
+        mbar_wait(&k_empty[st], free_parity);
+        mbar_expect_tx(&k_full[st], TK::kBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+        for (int c = 0; c < TK::kChunks; ++c)
+          tma_load_4d(k_tile(st) + c * TK::kChunkBytes, &k_map, &k_full[st],
+                      c * TK::kChunkCols, k0, kvh, b);
+        mbar_wait(&v_empty[st], free_parity);
+        mbar_expect_tx(&v_full[st], TK::kBytes);
+#pragma unroll
+        for (int c = 0; c < TK::kChunks; ++c)
+          tma_load_4d(v_tile(st) + c * TK::kChunkBytes, &v_map, &v_full[st],
+                      c * TK::kChunkCols, k0, kvh, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns tile rows 64w..64w+63, 16 a warp ----
+  const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int row0 = 64 * wg + 16 * warp + g;  // rows row0, row0 + 8
+  const uint32_t q_wg = q_s + 64 * wg * TQ::kSwizzle;  // its Q rows
+  int qpos[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    qpos[rr] = q_first + (row0 + 8 * rr) / group + offset;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m_i[2] = {AIKO_NEG_INF, AIKO_NEG_INF};
   float l_i[2] = {0.f, 0.f};
-  unsigned qf[kKT][4];
-  const int row0 = 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  mbar_wait(&q_full, 0);
 
-  if (n_tiles > 0) issue(0);
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
-      issue(i + 1);
-      aiko::cp_async_wait<1>();
-    } else {
-      aiko::cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (i == 0) {
-      const unsigned char* r0 = q_s + row0 * kLd;
-      const unsigned char* r1 = r0 + 8 * kLd;
+  // Issue S = Q K^T of tile j into `acc` (head_dim / 16 k-steps, each 32
+  // bytes into a swizzled row; the first overwrites `acc`), uncommitted.
+  auto issue_scores = [&](float (&acc)[kS], int j) {
+    const uint32_t k_s = k_tile(j % kStages);
 #pragma unroll
-      for (int kk = 0; kk < kKT; ++kk) {
-        const int col = (16 * kk + 2 * c) * 2;
-        qf[kk][0] = *reinterpret_cast<const unsigned*>(r0 + col);
-        qf[kk][1] = *reinterpret_cast<const unsigned*>(r1 + col);
-        qf[kk][2] = *reinterpret_cast<const unsigned*>(r0 + col + 16);
-        qf[kk][3] = *reinterpret_cast<const unsigned*>(r1 + col + 16);
-      }
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int chunk = kk * 16 / TK::kChunkCols;
+      const int col = (kk * 16 % TK::kChunkCols) * 2;
+      WgmmaSs<kBK>::run(
+          acc,
+          make_desc(q_wg + chunk * TQ::kChunkBytes + col, 16,
+                    8 * TQ::kSwizzle, TQ::kLayout),
+          make_desc(k_s + chunk * TK::kChunkBytes + col, 16,
+                    8 * TK::kSwizzle, TK::kLayout),
+          kk > 0);
     }
-    const unsigned char* ks = kv_s + (i & 1) * 2 * kTile;
-    const unsigned char* vs = ks + kTile;
-    const int k0 = (t_begin + i) * kBK;
+  };
+  // Issue O += P V of tile j (16-key slices of V; N = head_dim over the
+  // column chunks), uncommitted.
+  unsigned pa[kKSteps][4];
+  auto issue_values = [&](int j) {
+    const uint32_t v_s = v_tile(j % kStages);
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+      WgmmaRs<HD>::run(o, pa[kk],
+                       make_desc(v_s + kk * 16 * TK::kSwizzle,
+                                 TK::kChunkBytes, 8 * TK::kSwizzle,
+                                 TK::kLayout),
+                       1);
+  };
 
-    // S = Q K^T for 64 keys: 8 n-tiles of 8 keys.
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const unsigned char* krow = ks + (nt * 8 + g) * kLd;
-#pragma unroll
-      for (int kk = 0; kk < kKT; ++kk) {
-        const int col = (16 * kk + 2 * c) * 2;
-        aiko::mma_bf16_16816(
-            s[nt], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-            *reinterpret_cast<const unsigned*>(krow + col),
-            *reinterpret_cast<const unsigned*>(krow + col + 16));
-      }
-    }
-
-    // Scale and mask; element e of n-tile nt is (row row0 + 8*(e>>1),
-    // key k0 + 8*nt + 2c + (e&1)).
+  // Online softmax of tile j's scores, in the log2 domain: s becomes the
+  // weights, m_i and l_i move to the tile, corr is the factor that rescales
+  // the older O.  Only tiles that reach past k_len, the diagonal or the
+  // window test each key; the rest of a row's tiles are wholly visible.
+  const float scale2 = sm_scale * 1.4426950408889634f;
+  const int qpos_lo = q_first + offset;
+  const int qpos_hi = q_last + offset;
+  float corr[2];
+  auto softmax = [&](float (&s)[kS], int j) {
+    const int k0 = (t_begin + j) * kBK;
+    const bool masked =
+        k0 + kBK > k_len ||
+        (causal && (k0 + kBK - 1 > qpos_lo ||
+                    (window > 0 && k0 <= qpos_hi - window)));
     float tile_max[2] = {-INFINITY, -INFINITY};
+    if (masked) {
+      // Element e of n-tile nt is (row row0 + 8*(e>>1), key k0 + 8*nt +
+      // 2c + (e&1)).
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * nt + 2 * c + (e & 1);
-        const int qpos = q0 + row0 + 8 * (e >> 1) + offset;
-        float val = s[nt][e] * sm_scale;
-        if (key >= k_len) {
-          val = -INFINITY;
-        } else if (causal) {
-          bool visible = key <= qpos;
-          if (window > 0) visible = visible && key > qpos - window;
-          if (!visible) val = AIKO_NEG_INF;
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * nt + 2 * c + (e & 1);
+          const int qp = qpos[e >> 1];
+          float val = s[4 * nt + e] * scale2;
+          if (key >= k_len) {
+            val = -INFINITY;
+          } else if (causal) {
+            bool visible = key <= qp;
+            if (window > 0) visible = visible && key > qp - window;
+            if (!visible) val = AIKO_NEG_INF;
+          }
+          s[4 * nt + e] = val;
+          tile_max[e >> 1] = fmaxf(tile_max[e >> 1], val);
         }
-        s[nt][e] = val;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], val);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        s[i] *= scale2;
+        tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
       }
-    float corr[2];
+    }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       float mx = tile_max[rr];
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_i[rr], mx);
-      corr[rr] = __expf(m_i[rr] - m_new);
+      corr[rr] = exp2_approx(m_i[rr] - m_new);
       m_i[rr] = m_new;
     }
     float row_sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[nt][e] - m_i[e >> 1]);
-        s[nt][e] = p;
-        row_sum[e >> 1] += p;
-      }
+    for (int i = 0; i < kS; ++i) {
+      const float p = exp2_approx(s[i] - m_i[(i >> 1) & 1]);
+      s[i] = p;
+      row_sum[(i >> 1) & 1] += p;
+    }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) l_i[rr] = l_i[rr] * corr[rr] + row_sum[rr];
+  };
+  // P as the A operand: the accumulator layout of keys 16kk..16kk+15 is the
+  // register fragment of a 64x16 A.  Written only once the P V reading the
+  // previous P is done.
+  auto pack = [&](const float (&s)[kS]) {
 #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] =
+            aiko::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  };
 
-    // O += P V: 4 k-steps of 16 keys; P's C fragments become A fragments.
+  // Software pipeline, straight-line within a step so that ptxas can see
+  // which wgmma group each wait retires: step j rescales O, issues S of
+  // tile j and then P V of tile j - 1, waits for S only, and runs the
+  // softmax of tile j on the CUDA cores while that P V is on the tensor
+  // cores.  A K slot is freed once its S is done, a V slot once its P V is.
+  float s[kS];
+  mbar_wait(&k_full[0], 0);
+  fence_operands(s);
+  wgmma_fence();
+  issue_scores(s, 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(s);
+  mbar_arrive(&k_empty[0]);
+  softmax(s, 0);
+  pack(s);
+  for (int j = 1; j < n_tiles; ++j) {
+    const int st = j % kStages, pst = (j - 1) % kStages;
+    mbar_wait(&k_full[st], (j / kStages) & 1);
+    mbar_wait(&v_full[pst], ((j - 1) / kStages) & 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const unsigned a0 = aiko::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      const unsigned a1 = aiko::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      const unsigned a2 =
-          aiko::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const unsigned a3 =
-          aiko::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const unsigned char* vrow = vs + (16 * kk + (lane & 15)) * kLd +
-                                  (lane >> 4) * 16;
+    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    fence_operands(s);
+    fence_operands(o);
+    wgmma_fence();
+    issue_scores(s, j);
+    wgmma_commit();
+    issue_values(j - 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // S of tile j; P V of tile j - 1 may still fly
+    fence_operands(s);
+    mbar_arrive(&k_empty[st]);
+    softmax(s, j);
+    wgmma_wait<0>();
+    fence_operands(o);
+    mbar_arrive(&v_empty[pst]);
+    pack(s);
+  }
+  {
+    const int pst = (n_tiles - 1) % kStages;
+    mbar_wait(&v_full[pst], ((n_tiles - 1) / kStages) & 1);
 #pragma unroll
-      for (int dt2 = 0; dt2 < kDT / 2; ++dt2) {
-        unsigned bfrag[4];
-        ldmatrix_x4_trans(bfrag, vrow + dt2 * 32);
-        aiko::mma_bf16_16816(o[2 * dt2], a0, a1, a2, a3, bfrag[0],
-                             bfrag[1]);
-        aiko::mma_bf16_16816(o[2 * dt2 + 1], a0, a1, a2, a3, bfrag[2],
-                             bfrag[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles from now
+    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    fence_operands(o);
+    wgmma_fence();
+    issue_values(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
   }
 
   float denom[2];
@@ -245,19 +559,114 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     denom[rr] = l == 0.f ? 1.f : l;
   }
-  __nv_bfloat16* o_base = out + (size_t)bh * q_len * HD;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    const int qi = q0 + row0 + 8 * rr;
-    if (qi >= q_len) continue;
+    const int r = row0 + 8 * rr;
+    const int qi = q_first + r / group;
+    if (r >= rows_used || qi >= q_len) continue;
+    __nv_bfloat16* o_row =
+        out + (((size_t)b * heads + kvh * group + r % group) * q_len + qi) *
+                  HD;
 #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      const unsigned pair = aiko::pack_bf16x2(o[dt][2 * rr] / denom[rr],
-                                              o[dt][2 * rr + 1] / denom[rr]);
-      *reinterpret_cast<unsigned*>(o_base + (size_t)qi * HD + 8 * dt +
-                                   2 * c) = pair;
-    }
+    for (int dt = 0; dt < HD / 8; ++dt)
+      *reinterpret_cast<unsigned*>(o_row + 8 * dt + 2 * c) =
+          aiko::pack_bf16x2(o[4 * dt + 2 * rr] / denom[rr],
+                            o[4 * dt + 2 * rr + 1] / denom[rr]);
   }
+}
+
+// ---- host: tensor maps through the driver's entry point, cached ----
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded: the
+// library is linked without -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
+}
+
+struct MapKey {
+  const void* ptr;
+  cuuint64_t dims[4];
+  cuuint64_t strides[3];
+  cuuint32_t box[4];
+  int swizzle;
+};
+
+// The llama path hands the same layouts (and, through PyTorch's caching
+// allocator, mostly the same pointers) every call: a host-side cache keeps
+// cuTensorMapEncodeTiled off the launch path.
+constexpr int kCacheEntries = 64;
+struct MapCache {
+  MapKey keys[kCacheEntries];
+  CUtensorMap maps[kCacheEntries];
+  int used = 0, next = 0;
+  std::mutex mutex;
+};
+MapCache g_maps;
+
+// A bf16 tensor map of a 4-d view: dims innermost first, strides of dims
+// 1..3 in elements.  False if TMA cannot take the view.
+bool tensor_map(CUtensorMap* map, const void* ptr, const long long (&dims)[4],
+                const long long (&strides)[3], const int (&box)[4],
+                int swizzle_bytes) {
+  MapKey key;
+  memset(&key, 0, sizeof key);
+  key.ptr = ptr;
+  for (int i = 0; i < 4; ++i) {
+    key.dims[i] = (cuuint64_t)dims[i];
+    key.box[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    // A dim of extent 1 is never stepped: give it a stride TMA takes.
+    const long long st = dims[i + 1] == 1 && strides[i] < 8 ? 8 : strides[i];
+    key.strides[i] = (cuuint64_t)st * 2;
+  }
+  key.swizzle = swizzle_bytes;
+  std::lock_guard<std::mutex> lock(g_maps.mutex);
+  for (int i = 0; i < g_maps.used; ++i)
+    if (memcmp(&g_maps.keys[i], &key, sizeof key) == 0) {
+      *map = g_maps.maps[i];
+      return true;
+    }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             key.dims, key.strides, key.box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  const int slot = g_maps.next;
+  memcpy(&g_maps.keys[slot], &key, sizeof key);
+  g_maps.maps[slot] = *map;
+  g_maps.next = (slot + 1) % kCacheEntries;
+  if (g_maps.used < kCacheEntries) ++g_maps.used;
+  return true;
 }
 
 template <int HD>
@@ -265,18 +674,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int heads, int kv_heads, int q_len, int k_len,
                    const long long* st, int causal, int window,
                    float sm_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(HD);
+  using TK = Tile<HD, kBK>;
+  const int group = heads / kv_heads;
+  if (group > 64 || q_len < 1 || k_len < 1) return cudaErrorInvalidValue;
+  const int qpt = kRows / group;
+  // Q as (head_dim, heads, q_len, batch): a box is `group` heads of qpt
+  // queries, rows in (query, head) order; K and V as (head_dim, k_len,
+  // kv_heads, batch), a box kBK keys of one kv head.
+  CUtensorMap q_map, k_map, v_map;
+  if (!tensor_map(&q_map, q, {HD, heads, q_len, batch}, {st[1], st[2], st[0]},
+                  {TK::kChunkCols, group, qpt, 1}, TK::kSwizzle) ||
+      !tensor_map(&k_map, k, {HD, k_len, kv_heads, batch},
+                  {st[5], st[4], st[3]}, {TK::kChunkCols, kBK, 1, 1},
+                  TK::kSwizzle) ||
+      !tensor_map(&v_map, v, {HD, k_len, kv_heads, batch},
+                  {st[8], st[7], st[6]}, {TK::kChunkCols, kBK, 1, 1},
+                  TK::kSwizzle))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((q_len + kBQ - 1) / kBQ, batch * heads);
+  dim3 grid(batch * kv_heads, (q_len + qpt - 1) / qpt);
   flash_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      heads, kv_heads, q_len, k_len, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], causal, window, sm_scale);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), heads, kv_heads,
+      q_len, k_len, causal, window, sm_scale);
   return cudaGetLastError();
 }
 
@@ -285,9 +708,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // q (batch, heads, q_len, head_dim), k/v (batch, kv_heads, k_len, head_dim),
 // bf16, with element strides {q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s}
 // (the feature axis contiguous, every stride a multiple of 8, 16-byte
-// aligned bases); out contiguous (batch, heads, q_len, head_dim) bf16.
-// window <= 0 = none.  head_dim is 16, 32, 64 or 128; heads % kv_heads ==
-// 0; causal callers have q_len <= k_len.
+// aligned bases: what TMA takes); out contiguous (batch, heads, q_len,
+// head_dim) bf16.  window <= 0 = none.  head_dim is 16, 32, 64 or 128;
+// heads % kv_heads == 0 with a group of at most 64 heads; causal callers
+// have q_len <= k_len.  Returns cudaErrorInvalidValue when TMA cannot take
+// a view (its tensor map does not encode).
 extern "C" int aiko_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, int batch,
                                     int heads, int kv_heads, int q_len,
@@ -296,7 +721,7 @@ extern "C" int aiko_flash_attention(const void* q, const void* k,
                                     int window, float sm_scale,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (heads % kv_heads != 0 || (causal && q_len > k_len))
+  if (kv_heads < 1 || heads % kv_heads != 0 || (causal && q_len > k_len))
     return cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:

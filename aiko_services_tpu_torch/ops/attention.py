@@ -70,7 +70,13 @@ def flash_attention(q, k, v, causal: bool = True,
     """Causal (optionally sliding-window) attention with native GQA:
     ``k``/``v`` may carry fewer heads than ``q`` (``heads % kv_heads ==
     0``); query head ``h`` reads kv head ``h // group`` and the CUDA
-    kernel never repeats K/V in memory."""
+    kernel never repeats K/V in memory.
+
+    On CUDA tensors the kernel loads q, k and v by TMA through tensor maps
+    built from their strides (cached by pointer, shape and strides), so
+    each must be bf16 with a contiguous feature axis, strides in multiples
+    of 8 elements and a 16-byte-aligned start, with at most 64 query heads
+    a kv head; anything else raises (there is no other path)."""
     if window is not None and not causal:
         raise ValueError("window requires causal=True")
     if sm_scale is None:
@@ -92,6 +98,9 @@ def flash_attention(q, k, v, causal: bool = True,
     if head_dim not in (16, 32, 64, 128):
         raise ValueError(f"flash_attention: head_dim {head_dim} outside "
                          "the kernel's envelope (16, 32, 64 or 128)")
+    if group > 64:
+        raise ValueError(f"flash_attention: {group} query heads a kv head; "
+                         "the kernel packs at most 64 into its tile rows")
     if causal and q_len > k_len:
         raise ValueError("flash_attention: causal with q_len > k_len "
                          "leaves rows with no visible key")

@@ -21,10 +21,15 @@ from . import _cuda
 from .attention import NEG_INF
 
 __all__ = ["paged_decode_attention", "paged_decode_reference",
-           "cached_gqa_attention", "contiguous_block_size"]
+           "paged_decode_split_reference", "cached_gqa_attention",
+           "contiguous_block_size", "decode_split_keys"]
 
 #: Maximum pool block size the degenerate contiguous view uses.
 CONTIGUOUS_BLOCK_CAP = 128
+
+#: Most keys one CTA of the decode kernel covers (``kSplitKeys`` of
+#: csrc/paged_decode.cu).
+DECODE_SPLIT_KEYS = 256
 
 #: Quantized-fallback dequantization span cap (see :func:`_dequant_block`).
 DEQUANT_BLOCK_CAP = 512
@@ -40,6 +45,17 @@ def contiguous_block_size(max_seq: int) -> int:
         return 0
     bs = min(max_seq & -max_seq, CONTIGUOUS_BLOCK_CAP)
     return bs if bs >= 16 else 0
+
+
+def decode_split_keys(block_size: int) -> int:
+    """Keys of one split of the decode kernel's key sweep: whole blocks,
+    at most :data:`DECODE_SPLIT_KEYS` (16 blocks at block size 16), and one
+    block from half of it up (the contiguous path's 128-row blocks, whose
+    rows are short).  A function of the block size alone, so a row's
+    result never depends on its batch."""
+    if block_size >= DECODE_SPLIT_KEYS // 2:
+        return block_size
+    return DECODE_SPLIT_KEYS // block_size * block_size
 
 
 def _dequant_block(seq: int) -> int:
@@ -149,6 +165,61 @@ def paged_decode_reference(q, k_pool, v_pool, tables, positions,
     return out[:, 0]
 
 
+def paged_decode_split_reference(q, k_pool, v_pool, tables, positions,
+                                 ks=None, vs=None,
+                                 window: Optional[int] = None):
+    """The kernel's algorithm in plain f32 PyTorch: the key axis cut into
+    :func:`decode_split_keys` splits, each split's (max, sum, weighted
+    values) partial over its live keys, and the live splits merged by
+    log-sum-exp in split order (a split with no live key contributes
+    nothing; a row whose sum is 0 divides by 1).  Same arguments and
+    result as :func:`paged_decode_reference`; only the tests use it."""
+    batch, kv, group, hd = q.shape
+    block_size = k_pool.shape[1]
+    max_keys = tables.shape[1] * block_size
+    split = decode_split_keys(block_size)
+    n_splits = -(-max_keys // split)
+    pad = n_splits * split - max_keys
+    ids = tables.to(torch.int64)
+
+    def view(pool):
+        gathered = pool[ids].to(torch.float32)
+        flat = gathered.reshape((batch, max_keys) + tuple(gathered.shape[3:]))
+        widths = [0, 0] * (flat.dim() - 2) + [0, pad]
+        return torch.nn.functional.pad(flat, widths).reshape(
+            (batch, n_splits, split) + tuple(flat.shape[2:]))
+
+    k, v = view(k_pool), view(v_pool)                 # (b, n, s, kv, hd)
+    scores = torch.einsum("bkgd,bnskd->bkgns", q.to(torch.float32),
+                          k) * hd ** -0.5
+    weight_scale = None
+    if ks is not None:
+        scores = scores * view(ks).permute(0, 3, 1, 2)[:, :, None]
+        weight_scale = view(vs).permute(0, 3, 1, 2)[:, :, None]
+    key = torch.arange(n_splits * split, device=q.device)
+    pos = positions.to(torch.int64)[:, None]
+    visible = (key[None, :] <= pos) & (key[None, :] < max_keys)
+    if window is not None:
+        visible &= key[None, :] > pos - window
+    visible = visible.reshape(batch, 1, 1, n_splits, split)
+    live = visible.any(-1)                            # (b, 1, 1, n)
+    scores = torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(-1)                               # (b, kv, g, n)
+    p = torch.where(visible, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    total = p.sum(-1)
+    if weight_scale is not None:
+        p = p * weight_scale
+    acc = torch.einsum("bkgns,bnskd->bkgnd", p, v)
+    m = torch.where(live, m, torch.full_like(m, NEG_INF))
+    big = m.amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+    value = (w[..., None] * acc).sum(-2)
+    denom = (w * total).sum(-1, keepdim=True)
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    return (value / denom).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pool, v_pool, tables, positions,
                            ks=None, vs=None, window: Optional[int] = None,
                            sm_scale: Optional[float] = None):
@@ -169,7 +240,8 @@ def paged_decode_attention(q, k_pool, v_pool, tables, positions,
 
     Returns ``(batch, kv_heads, group, head_dim)`` in ``q.dtype``.  CPU
     tensors take :func:`paged_decode_reference`; CUDA tensors launch the
-    kernel."""
+    kernel (one CUDA kernel a call; rows spanning several splits merge in
+    the last CTA of the row to finish)."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pool, v_pool, tables, positions,
                                       ks=ks, vs=vs, window=window)
@@ -210,9 +282,10 @@ def paged_decode_attention(q, k_pool, v_pool, tables, positions,
                              "(n_blocks, block_size, kv_heads)")
         operands += [ks, vs]
     device = _cuda.check_cuda("paged_decode_attention", *operands)
-    # Rows with several live blocks merge per-block partials.
+    # Rows with several live splits merge per-split partials.
+    n_splits = -(-max_blocks * block_size // decode_split_keys(block_size))
     partials, arrivals = _cuda.scratch(
-        device, batch * kv_heads * max_blocks * group * (head_dim + 2),
+        device, batch * kv_heads * n_splits * group * (head_dim + 2),
         batch * kv_heads)
     _cuda.launch("aiko_paged_decode", device, q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), _cuda.ptr(ks),

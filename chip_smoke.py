@@ -63,7 +63,10 @@ Phases (any failure exits non-zero):
 Phase 2 also holds int4_matmul (both numerics: scale after each group,
 the path's; and scale first) at every projection width and m = 1, 8, 40,
 64 against its plain version, and its m-tiled instance at m = 256 and
-2,048, there also to the tighter TIGHT_REL / TIGHT_ROW.
+2,048, there also to the tighter TIGHT_REL / TIGHT_ROW; flash_attention
+at batch 1 (64-1,024 tokens) and at the 64-slot admission shape (64 rows
+of 128 tokens); paged_decode_attention on the contiguous server's
+128-row blocks and on the paged server's 16-row blocks at 8 and 64 rows.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -516,21 +519,27 @@ def _visible_pairs(q_len, k_len, window):
     return total
 
 
+#: (batch, sequence, windows) of the phase-2 flash rows: admission buckets
+#: 64..1024 at batch 1, then the 64-slot admission shape (64 rows of 128).
+FLASH_CASES = [(1, 64, (None, 256)), (1, 256, (None, 256)),
+               (1, 1024, (None, 256)), (64, 128, (None,))]
+
+
 def check_flash(torch, attention, device):
     """Admission prefill: llama3_8b heads (32 q, 8 kv, hd 128), batch 1,
-    buckets 64..1024, window off and 256."""
+    buckets 64..1024, window off and 256; and batch 64 at 128 tokens."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(1)
     h, kv, hd = 32, 8, 128
     rows, worst, main = [], 0.0, None
-    for seq in (64, 256, 1024):
-        q = torch.randn((1, h, seq, hd), generator=gen, device=device) \
+    for batch, seq, windows in FLASH_CASES:
+        q = torch.randn((batch, h, seq, hd), generator=gen, device=device) \
             .to(torch.bfloat16)
-        k = torch.randn((1, kv, seq, hd), generator=gen, device=device) \
+        k = torch.randn((batch, kv, seq, hd), generator=gen, device=device) \
             .to(torch.bfloat16)
-        v = torch.randn((1, kv, seq, hd), generator=gen, device=device) \
+        v = torch.randn((batch, kv, seq, hd), generator=gen, device=device) \
             .to(torch.bfloat16)
-        for window in (None, 256):
+        for window in windows:
             got = attention.flash_attention(q, k, v, window=window)
 
             def plain():
@@ -562,15 +571,16 @@ def check_flash(torch, attention, device):
                     F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask, enable_gqa=True)
             library_ms = device_ms(torch, library, 10)
-            pairs = _visible_pairs(seq, seq, window)
-            b_ms, b_by = bound(2 * (2 * h * seq * hd + 2 * kv * seq * hd),
-                               4 * hd * h * pairs)
-            row = dict(shape=f"b=1 h=32 kv=8 S={seq} hd=128 "
+            pairs = batch * _visible_pairs(seq, seq, window)
+            b_ms, b_by = bound(
+                2 * batch * (2 * h * seq * hd + 2 * kv * seq * hd),
+                4 * hd * h * pairs)
+            row = dict(shape=f"b={batch} h=32 kv=8 S={seq} hd=128 "
                              f"window={window}", err=err, ratio=ratio, ms=ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=library_ms)
             rows.append(row)
-            if seq == 1024 and window is None:
+            if batch == 1 and seq == 1024 and window is None:
                 main = row
     return rows, worst, main
 
@@ -662,74 +672,89 @@ def check_decode(torch, paged_attention, llama, device):
     return rows, worst, main
 
 
+#: Batches of the phase-2 block-size-16 decode rows: the paged server's 8
+#: slots, and 64 rows (positions spread over 1,100-1,199 alike).
+PAGED_DECODE_ROWS = (8, 64)
+
+
 def check_decode_paged(torch, paged_attention, llama, device):
-    """The paged server's decode step: 8 rows at positions 1,100-1,200
-    over 16-row blocks of a shuffled 256-entry table (block size 16: ~75
-    live blocks a row), bf16 and int8 KV, against the f32 plain
+    """The paged server's decode step: rows at positions 1,100-1,199 over
+    16-row blocks of shuffled 256-entry tables (block size 16: ~75 live
+    blocks a row), 8 and 64 rows, bf16 and int8 KV, against the f32 plain
     version.  Library: SDPA with a boolean mask over each row's gathered
     live blocks (the gather not timed), bf16 only."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(6)
     kv, group, hd = 8, 4, 128
-    positions = torch.tensor([1100, 1115, 1116, 1131, 1150, 1163, 1180,
-                              1199], dtype=torch.int32, device=device)
+    live = 80     # table entries a row holds: 1,280 keys
     rows, worst = [], 0.0
-    for quant_kv in (False, True):
-        pool, table = paged_pool(torch, llama, device, gen, quant_kv)
-        # Distinct shuffled blocks for each row's 80 first entries (the
-        # live ones), scratch block 0 past them, as the server's tables.
-        live = 80
-        ids = torch.randperm(pool["k"].shape[0] - 1, generator=gen,
-                             device=device)[:SLOTS * live] + 1
-        tables = torch.zeros_like(table).repeat(SLOTS, 1)
-        tables[:, :live] = ids.to(torch.int32).reshape(SLOTS, live)
-        q = torch.randn((SLOTS, kv, group, hd), generator=gen,
-                        device=device).to(torch.bfloat16)
-        scales = {key: pool[key] for key in ("ks", "vs") if key in pool}
-        got = paged_attention.paged_decode_attention(
-            q, pool["k"], pool["v"], tables, positions, **scales)
-        pools = (pool["k"], pool["v"]) if quant_kv else (
-            pool["k"].float(), pool["v"].float())
-        want = paged_attention.paged_decode_reference(
-            q.float(), *pools, tables, positions, **scales)
-        torch.cuda.synchronize()
-        err, ratio = compare(got, want)
-        if not ratio <= 1.0:
-            fail(f"paged_decode_attention bs=16 int8={quant_kv}: max abs "
-                 f"err {err}, err/tol {ratio}")
-        worst = max(worst, ratio)
-        ms = device_ms(torch, lambda: paged_attention.paged_decode_attention(
-            q, pool["k"], pool["v"], tables, positions, **scales), 50)
-        plain_ms = device_ms(torch, lambda: paged_attention
-                             .paged_decode_reference(
-                                 q, pool["k"], pool["v"], tables, positions,
-                                 **scales), 5)
-        library_ms = None
-        if not quant_kv:
-            ids = tables[:, :live].long()
-            k_view = pool["k"][ids].reshape(SLOTS, live * BLOCK, kv, hd) \
-                .transpose(1, 2)
-            v_view = pool["v"][ids].reshape(SLOTS, live * BLOCK, kv, hd) \
-                .transpose(1, 2)
-            key = torch.arange(live * BLOCK, device=device)
-            mask = (key[None, :] <= positions.to(torch.int64)[:, None]) \
-                [:, None, None, :]
-            q_s = q.reshape(SLOTS, kv * group, 1, hd)
-            library_ms = device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q_s, k_view, v_view, attn_mask=mask, enable_gqa=True), 20)
-        keys = sum(int(p) + 1 for p in positions.tolist())
-        elem = 1 if quant_kv else 2
-        moved = keys * kv * hd * elem * 2 + (keys * kv * 8 if quant_kv
-                                             else 0) \
-            + 2 * SLOTS * kv * group * hd * 2 + keys // BLOCK * 4
-        b_ms, b_by = bound(moved, 4 * hd * group * kv * keys)
-        rows.append(dict(shape=f"B=8 kv=8 group=4 hd=128 bs=16 positions "
-                               f"1100-1199 int8={quant_kv}", err=err,
-                         ratio=ratio, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by,
-                         library_ms=library_ms))
-        del pool
+    for n_rows in PAGED_DECODE_ROWS:
+        if n_rows == SLOTS:
+            positions = [1100, 1115, 1116, 1131, 1150, 1163, 1180, 1199]
+        else:
+            positions = [1100 + (37 * i) % 100 for i in range(n_rows)]
+        positions = torch.tensor(positions, dtype=torch.int32, device=device)
+        for quant_kv in (False, True):
+            pool, table = paged_pool(torch, llama, device, gen, quant_kv,
+                                     n_blocks=max(PAGED_MAX_SEQ // BLOCK * 4,
+                                                  n_rows * live) + 1)
+            # Distinct shuffled blocks for each row's 80 first entries (the
+            # live ones), scratch block 0 past them, as the server's tables.
+            ids = torch.randperm(pool["k"].shape[0] - 1, generator=gen,
+                                 device=device)[:n_rows * live] + 1
+            tables = torch.zeros_like(table).repeat(n_rows, 1)
+            tables[:, :live] = ids.to(torch.int32).reshape(n_rows, live)
+            q = torch.randn((n_rows, kv, group, hd), generator=gen,
+                            device=device).to(torch.bfloat16)
+            scales = {key: pool[key] for key in ("ks", "vs") if key in pool}
+            got = paged_attention.paged_decode_attention(
+                q, pool["k"], pool["v"], tables, positions, **scales)
+            pools = (pool["k"], pool["v"]) if quant_kv else (
+                pool["k"].float(), pool["v"].float())
+            want = paged_attention.paged_decode_reference(
+                q.float(), *pools, tables, positions, **scales)
+            torch.cuda.synchronize()
+            err, ratio = compare(got, want)
+            if not ratio <= 1.0:
+                fail(f"paged_decode_attention bs=16 rows={n_rows} "
+                     f"int8={quant_kv}: max abs err {err}, err/tol {ratio}")
+            worst = max(worst, ratio)
+            ms = device_ms(
+                torch, lambda: paged_attention.paged_decode_attention(
+                    q, pool["k"], pool["v"], tables, positions, **scales),
+                50)
+            plain_ms = device_ms(torch, lambda: paged_attention
+                                 .paged_decode_reference(
+                                     q, pool["k"], pool["v"], tables,
+                                     positions, **scales), 5)
+            library_ms = None
+            if not quant_kv:
+                ids = tables[:, :live].long()
+                k_view = pool["k"][ids].reshape(n_rows, live * BLOCK, kv,
+                                                hd).transpose(1, 2)
+                v_view = pool["v"][ids].reshape(n_rows, live * BLOCK, kv,
+                                                hd).transpose(1, 2)
+                key = torch.arange(live * BLOCK, device=device)
+                mask = (key[None, :] <= positions.to(torch.int64)[:, None]) \
+                    [:, None, None, :]
+                q_s = q.reshape(n_rows, kv * group, 1, hd)
+                library_ms = device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q_s, k_view, v_view, attn_mask=mask,
+                        enable_gqa=True), 20)
+                del k_view, v_view
+            keys = sum(int(p) + 1 for p in positions.tolist())
+            elem = 1 if quant_kv else 2
+            moved = keys * kv * hd * elem * 2 + (keys * kv * 8 if quant_kv
+                                                 else 0) \
+                + 2 * n_rows * kv * group * hd * 2 + keys // BLOCK * 4
+            b_ms, b_by = bound(moved, 4 * hd * group * kv * keys)
+            rows.append(dict(shape=f"B={n_rows} kv=8 group=4 hd=128 bs=16 "
+                                   f"positions 1100-1199 int8={quant_kv}",
+                             err=err, ratio=ratio, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms))
+            del pool
     return rows, worst
 
 
@@ -742,10 +767,10 @@ PAGED_CASES = [(c, t) for c in (0, 1024, 1792) for t in (16, 64, 256)]
 PAGED_MAIN = (1024, 256)
 
 
-def paged_pool(torch, llama, device, gen, quant_kv, kv=8, hd=128):
-    """A 1,025-block pool of random K/V (bf16, or int8 from the plain
-    quantizer) and one shuffled 256-entry block table."""
-    n_blocks = PAGED_MAX_SEQ // BLOCK * 4 + 1
+def paged_pool(torch, llama, device, gen, quant_kv, kv=8, hd=128,
+               n_blocks=PAGED_MAX_SEQ // BLOCK * 4 + 1):
+    """A pool of random K/V (1,025 blocks unless told; bf16, or int8 from
+    the plain quantizer) and one shuffled 256-entry block table."""
     k = torch.randn((n_blocks, BLOCK, kv, hd), generator=gen, device=device)
     v = torch.randn((n_blocks, BLOCK, kv, hd), generator=gen, device=device)
     if quant_kv:
@@ -2138,6 +2163,8 @@ def main() -> None:
     print_rows("flash_attention", flash_rows)
     decode_rows, decode_worst, decode_main = check_decode(
         torch, paged_attention, llama, device)
+    print_rows("paged_decode_attention, the contiguous server's block size "
+               "128", decode_rows)
     paged_decode_rows, paged_decode_worst = check_decode_paged(
         torch, paged_attention, llama, device)
     print_rows("paged_decode_attention, the paged server's block size 16",

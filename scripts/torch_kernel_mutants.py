@@ -3,9 +3,10 @@
 
 Each mutant is a copy of ``aiko_services_tpu_torch`` with one deliberate
 bug in a CUDA kernel: the flash kernel drops the last key tile of rows
-that have more than one, or gives that tile 0.9 of its weight; the decode
-kernel's log-sum-exp merge drops a row's last live block, or gives it 0.9
-of its weight; the paged chunk-attention kernel stops zeroing masked
+that have more than one, gives that tile 0.9 of its weight, loads every K
+tile one key late (an off-by-one TMA coordinate), or loads a group's Q
+rows from the wrong query heads; the decode kernel's log-sum-exp merge
+drops a row's last split, or gives it 0.9 of its weight; the paged chunk-attention kernel stops zeroing masked
 probabilities, or drops the last live 16-row block of a tile's sweep; the
 ragged verify-window append writes at the block-aligned start (dropping
 ``cached % block_size``), or skips each row's last live token; the int4
@@ -50,17 +51,25 @@ MUTANTS = {
         FLASH, "const int n_tiles = t_end - t_begin + 1;",
         "const int n_tiles = t_end - t_begin + (t_end > t_begin ? 0 : 1);"),
     "flash_weight_tile": (
-        FLASH, "const float p = __expf(s[nt][e] - m_i[e >> 1]);",
-        "const float p = __expf(s[nt][e] - m_i[e >> 1]) * "
-        "(i == n_tiles - 1 && n_tiles > 1 ? 0.9f : 1.f);"),
-    "decode_drop_block": (
-        DECODE, "for (int sp = 0; sp < n_live; ++sp) {",
-        "for (int sp = 0; sp < n_live - (n_live > 1); ++sp) {"),
-    "decode_weight_block": (
+        FLASH, "const float p = exp2_approx(s[i] - m_i[(i >> 1) & 1]);",
+        "const float p = exp2_approx(s[i] - m_i[(i >> 1) & 1]) * "
+        "(j == n_tiles - 1 && n_tiles > 1 ? 0.9f : 1.f);"),
+    "flash_key_coordinate": (
+        FLASH, "&k_map, &k_full[st],\n"
+        "                      c * TK::kChunkCols, k0, kvh, b);",
+        "&k_map, &k_full[st],\n"
+        "                      c * TK::kChunkCols, k0 + 1, kvh, b);"),
+    "flash_wrong_q_heads": (
+        FLASH, "c * TQ::kChunkCols, kvh * group, q_first, b);",
+        "c * TQ::kChunkCols, kvh * group + (group > 1), q_first, b);"),
+    "decode_drop_split": (
+        DECODE, "for (int sp = first_split; sp <= last_split; ++sp) {",
+        "for (int sp = first_split; sp < last_split; ++sp) {"),
+    "decode_weight_split": (
         DECODE,
-        "const float w = __expf(__ldcg(part_m + sp * group + g) - big);",
-        "const float w = __expf(__ldcg(part_m + sp * group + g) - big) * "
-        "(sp == n_live - 1 && n_live > 1 ? 0.9f : 1.f);"),
+        "const float w = __expf(__ldcg(part_m + sp * group + a) - big);",
+        "const float w = __expf(__ldcg(part_m + sp * group + a) - big) * "
+        "(sp == last_split ? 0.9f : 1.f);"),
     "chunk_no_zero": (
         CHUNK, "const float p = (visible >> (nt * 4 + e)) & 1u",
         "const float p = true"),
@@ -149,6 +158,9 @@ def phase2(name: str) -> bool:
     elif kind == "decode":
         rows, worst, _ = chip_smoke.check_decode(torch, paged_attention,
                                                  llama, device)
+        paged_rows, paged_worst = chip_smoke.check_decode_paged(
+            torch, paged_attention, llama, device)
+        rows, worst = rows + paged_rows, max(worst, paged_worst)
     elif kind == "int4":
         rows, worst, _ = chip_smoke.check_int4_matmul(
             torch, quant, device, llama.CONFIGS["llama3_8b"])

@@ -312,6 +312,93 @@ def test_flash_attention_strided_inputs(cuda):
     _close(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("q_len,k_len", [(1, 1), (1, 300), (65, 65),
+                                         (129, 200), (1000, 1000),
+                                         (2048, 2048)])
+def test_flash_attention_long_and_ragged(cuda, q_len, k_len, window):
+    """head_dim 128, group 4: one query, ragged 64-row tiles (65, 129),
+    k_len > q_len, and long rows whose causal tiles run longest first."""
+    gen = torch.Generator(device=cuda).manual_seed(q_len * 7 + k_len)
+    q = torch.randn((1, 8, q_len, 128), generator=gen, device=cuda)
+    k = torch.randn((1, 2, k_len, 128), generator=gen, device=cuda)
+    v = torch.randn((1, 2, k_len, 128), generator=gen, device=cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = attention.flash_attention(q, k, v, window=window)
+    want = attention.attention_reference(
+        q.float(), k.float().repeat_interleave(4, 1),
+        v.float().repeat_interleave(4, 1), window=window)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (6, 2), (8, 1),
+                                            (64, 1)])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attention_every_head_dim_and_group(cuda, hd, heads, kv_heads,
+                                                  causal):
+    """Every head_dim of the envelope (32-, 64- and 128-byte swizzles),
+    groups that fill 64 tile rows (1, 8, 64 heads) and one that does not
+    (3 heads: 21 queries, 63 rows), causal and not."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + heads)
+    q = torch.randn((2, heads, 100, hd), generator=gen, device=cuda)
+    k = torch.randn((2, kv_heads, 160, hd), generator=gen, device=cuda)
+    v = torch.randn((2, kv_heads, 160, hd), generator=gen, device=cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = attention.flash_attention(q, k, v, causal=causal)
+    group = heads // kv_heads
+    want = attention.attention_reference(
+        q.float(), k.float().repeat_interleave(group, 1),
+        v.float().repeat_interleave(group, 1), causal=causal)
+    _close(got, want, torch.bfloat16)
+
+
+def test_flash_attention_llama_layout(cuda):
+    """llama's prefill: q and k are slices of one (batch, seq, heads +
+    kv_heads, hd) RoPE output, v its own tensor, all transposed to
+    (batch, heads, seq, hd): the tensor maps take the strides as given."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qk = torch.randn((2, 300, 8 + 2, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    v = torch.randn((2, 300, 2, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    q, k = qk[:, :, :8].transpose(1, 2), qk[:, :, 8:].transpose(1, 2)
+    got = attention.flash_attention(q, k, v.transpose(1, 2))
+    want = attention.attention_reference(
+        q.float(), k.float().repeat_interleave(4, 1),
+        v.transpose(1, 2).float().repeat_interleave(4, 1))
+    _close(got, want, torch.bfloat16)
+
+
+def test_flash_attention_raises_on_what_tma_does_not_take(cuda):
+    """The wrapper raises, never falls back: types other than bf16, a
+    feature axis that is not contiguous, a stride that is not a multiple
+    of 8 elements (16 bytes), a start that is not 16-byte aligned, and a
+    group wider than the kernel's 64 tile rows."""
+    def qkv(heads=4, kv_heads=2, hd=32, dtype=torch.bfloat16):
+        return (torch.randn((1, heads, 64, hd), device=cuda).to(dtype),
+                torch.randn((1, kv_heads, 64, hd), device=cuda).to(dtype),
+                torch.randn((1, kv_heads, 64, hd), device=cuda).to(dtype))
+
+    before = attention.flash_attention.launches
+    for dtype in (torch.float16, torch.float32):
+        with pytest.raises(TypeError):
+            attention.flash_attention(*qkv(dtype=dtype))
+    q, k, v = qkv()
+    wide = torch.randn((1, 4, 64, 64), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):      # feature axis of stride 2
+        attention.flash_attention(wide[..., ::2], k, v)
+    odd = torch.randn((1, 4, 64, 36), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):      # rows 36 elements (72 bytes) apart
+        attention.flash_attention(odd[..., :32], k, v)
+    flat = torch.randn(4 * 64 * 32 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):      # start 2 bytes past alignment
+        attention.flash_attention(flat[1:].reshape(1, 4, 64, 32), k, v)
+    with pytest.raises(ValueError):      # 65 query heads on one kv head
+        attention.flash_attention(*qkv(heads=65, kv_heads=1))
+    assert attention.flash_attention.launches == before
+
+
 def _pool(cuda, gen, batch, kv, group, hd, bs, max_blocks, dtype, quant_kv):
     n_blocks = batch * max_blocks + 1
     q = torch.randn((batch, kv, group, hd), generator=gen, device=cuda)
@@ -354,6 +441,82 @@ def test_paged_decode_kernel(cuda, dtype, quant_kv, kv, group, window, bs):
     want = paged_attention.paged_decode_reference(
         q.float(), *pools, tables, positions, window=window, **scales)
     _close(got, want, dtype)
+
+
+#: Row positions of the split tests: one key, a block edge, a split's
+#: last key, the next split's first, a row of more than 80 16-row blocks,
+#: and the table's last key (positions are clipped to the table).
+SPLIT_POSITIONS = (0, 15, 255, 256, 1300, 1535)
+#: pool dtype -> q dtype of the split tests.
+SPLIT_POOLS = {"bf16": torch.bfloat16, "f32": torch.float32,
+               "int8": torch.bfloat16}
+
+
+def _split_case(cuda, seed, bs, pool, rows, window, wide=200):
+    """Rows at SPLIT_POSITIONS (cycled) over 1,536 keys of bs-row blocks
+    in a table `wide` entries wide (much wider than any row's live blocks):
+    every entry past a row's last live block, or below its window, holds -1,
+    which the kernel must never read (the plain versions mask those keys)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    kv, group, hd = 2, 4, 64
+    live_blocks = 1536 // bs
+    q, k, v, _, scales = _pool(cuda, gen, rows, kv, group, hd, bs,
+                               live_blocks, SPLIT_POOLS[pool],
+                               pool == "int8")
+    if pool == "f32":
+        q = q.float()
+    ids = torch.randperm(k.shape[0] - 1, generator=gen, device=cuda)
+    ids = (ids[:rows * live_blocks] + 1).reshape(rows, live_blocks)
+    positions = torch.tensor([SPLIT_POSITIONS[i % len(SPLIT_POSITIONS)]
+                              for i in range(rows)], dtype=torch.int32,
+                             device=cuda)
+    tables = torch.full((rows, wide), -1, dtype=torch.int32, device=cuda)
+    for r, pos in enumerate(positions.tolist()):
+        first = max(pos - window + 1, 0) // bs if window else 0
+        last = pos // bs
+        tables[r, first:last + 1] = ids[r, first:last + 1].to(torch.int32)
+    return q, k, v, tables, positions, scales
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("pool", sorted(SPLIT_POOLS))
+@pytest.mark.parametrize("bs", [16, 128])
+def test_paged_decode_splits(cuda, bs, pool, window):
+    """Rows spanning several 256-key splits, positions on split and block
+    edges, a one-key row, a window that cuts a split, a table far wider
+    than its live blocks (its dead entries are -1): the kernel against the
+    plain split-and-merge version (f32) and the one-shot plain version,
+    and bitwise equal across two calls."""
+    q, k, v, tables, positions, scales = _split_case(
+        cuda, bs + len(pool), bs, pool, 6, window)
+    got = paged_attention.paged_decode_attention(
+        q, k, v, tables, positions, window=window, **scales)
+    again = paged_attention.paged_decode_attention(
+        q, k, v, tables, positions, window=window, **scales)
+    assert torch.equal(got, again)
+    pools = (k, v) if pool == "int8" else (k.float(), v.float())
+    safe = tables.clamp_min(0)      # the plain versions gather every entry
+    want = paged_attention.paged_decode_split_reference(
+        q.float(), *pools, safe, positions, window=window, **scales)
+    _close(got, want, q.dtype)
+    plain = paged_attention.paged_decode_reference(
+        q.float(), *pools, safe, positions, window=window, **scales)
+    _close(got, plain, q.dtype)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_paged_decode_is_batch_invariant(cuda, bs, pool):
+    """A row's output is bitwise the same alone and among 8 and 64 rows
+    of other lengths: the splits depend on the block size alone."""
+    q, k, v, tables, positions, scales = _split_case(
+        cuda, 40 + bs, bs, pool, 64, None)
+    alone = paged_attention.paged_decode_attention(
+        q[4:5], k, v, tables[4:5], positions[4:5], **scales)
+    for rows in (8, 64):
+        among = paged_attention.paged_decode_attention(
+            q[:rows], k, v, tables[:rows], positions[:rows], **scales)
+        assert torch.equal(among[4:5], alone), rows
 
 
 @pytest.mark.parametrize("quantize_kv", [False, True])

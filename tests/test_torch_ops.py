@@ -226,6 +226,52 @@ def test_paged_decode_int8_pools(window):
 
 
 @pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("window", [None, 40, 300])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_paged_decode_split_reference(bs, window, quant_kv):
+    """The kernel's split-and-merge algorithm in plain PyTorch against the
+    one-shot plain version and the JAX kernel (interpret mode): 640 keys
+    of a table, splits of 256 keys (16 blocks of 16) or 128 (one block of
+    128); rows with one key, ending on a split edge, starting the next
+    split, and at the table's end, so later splits are empty; a window of
+    40 leaves early splits wholly outside it, 300 cuts one.  f32, 2e-5
+    (1e-4 int8)."""
+    rng = np.random.default_rng(bs + (window or 0) + 7 * quant_kv)
+    case = _pool_case(rng, batch=4, bs=bs, max_blocks=640 // bs,
+                      quant_kv=quant_kv)
+    q, k, v, tables, scales = case
+    positions = np.array([0, 255, 256, 639], np.int32)
+    assert paged_attention.decode_split_keys(bs) == (256 if bs == 16
+                                                     else 128)
+    args = [_t(x) for x in (q, k, v, tables, positions)]
+    scales_t = {key: _t(val) for key, val in scales.items()}
+    got = paged_attention.paged_decode_split_reference(
+        *args, window=window, **scales_t)
+    plain = paged_attention.paged_decode_reference(*args, window=window,
+                                                   **scales_t)
+    tol = 1e-4 if quant_kv else 2e-5
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=tol, atol=tol)
+    _paged_parity(case, positions, tol, window=window)
+    ref = jax_paged.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(positions), window=window, interpret=True,
+        **{key: jnp.asarray(val) for key, val in scales.items()})
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("block_size", [1, 16, 48, 100, 128, 256, 512])
+def test_decode_split_keys_are_whole_blocks(block_size):
+    """A split is whole blocks: at most 256 keys, one block from 128 rows
+    up; it depends on the block size alone."""
+    keys = paged_attention.decode_split_keys(block_size)
+    assert keys % block_size == 0
+    assert keys <= max(256, block_size)
+    expect = {1: 256, 16: 256, 48: 240, 100: 200, 128: 128, 256: 256,
+              512: 512}
+    assert keys == expect[block_size]
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
 def test_cached_gqa_attention_matches_jax(quant_kv):
     """The contiguous-cache oracle (span-wise int8 dequant: 64 rows are
     two 32-row spans) with two queries per row and a window."""
@@ -274,7 +320,8 @@ def test_every_kernel_wrapper_counts_its_launches():
 def _port_sources():
     sources = sorted((REPO / "aiko_services_tpu_torch").rglob("*.py"))
     return sources + [REPO / "chip_smoke.py",
-                      REPO / "scripts" / "torch_kernel_mutants.py"]
+                      REPO / "scripts" / "torch_kernel_mutants.py",
+                      REPO / "scripts" / "attention_variant_lab.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
