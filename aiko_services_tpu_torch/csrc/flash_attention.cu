@@ -81,43 +81,11 @@ constexpr size_t smem_bytes() {
          2 * kStages * (size_t)Tile<HD, kBK>::kBytes + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers ----
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
+using aiko::mbar_arrive;
+using aiko::mbar_expect_tx;
+using aiko::mbar_init;
+using aiko::mbar_wait;
+using aiko::smem_u32;
 
 // ---- TMA: a 4-d box of `map` at (c0, c1, c2, c3) into shared memory ----
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
@@ -133,41 +101,12 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 }
 
 // ---- wgmma ----
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed wgmma groups are still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// 2^x (the online softmax runs in the log2 domain: scores are scaled by
-// sm_scale * log2(e) once, so each weight is one subtraction and one ex2).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Pin accumulators around an asynchronous wgmma: no read or write of them
-// may move across this point.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using aiko::exp2_approx;
+using aiko::fence_operands;
+using aiko::make_desc;
+using aiko::wgmma_commit;
+using aiko::wgmma_fence;
+using aiko::wgmma_wait;
 
 // d (64 x N, f32) (+)= A (64 x 16, K-major in shared memory) * B (16 x N,
 // K-major in shared memory), N keys; scale_d 0 overwrites d.
@@ -575,34 +514,9 @@ __global__ void __launch_bounds__(kThreads, kWarpgroups == 1 ? 2 : 1)
   }
 }
 
-// ---- host: tensor maps through the driver's entry point, cached ----
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded: the
-// library is linked without -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  });
-  return fn;
-}
+// ---- host: tensor maps, cached ----
+using aiko::EncodeTiled;
+using aiko::encoder;
 
 struct MapKey {
   const void* ptr;

@@ -101,21 +101,7 @@ size_t smem_bytes(int head_dim, int group) {
   return ring > sums ? ring : sums;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p,
-                                            bool trans) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
+using aiko::ldmatrix_x4;
 
 // Two int8 values of `word` (at bit offsets lo and hi) as a bf16x2 operand
 // register, low half first; exact.

@@ -61,9 +61,9 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_ring_ag_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aiko_ring_rs_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                             _P],
+    "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _I, _P],
 }
 
 _LOCK = threading.Lock()

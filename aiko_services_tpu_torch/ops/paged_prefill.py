@@ -21,7 +21,8 @@ decode position.
   t`` (``csrc/paged_append_ragged.cu`` on CUDA tensors).  Neither it nor
   its plain version writes anything for rows past ``chunk_len``.
 * :func:`chunk_attention` runs the chunk's queries over the appended
-  pool (``csrc/paged_prefill.cu`` on CUDA tensors).
+  pool (``csrc/paged_prefill.cu`` on CUDA tensors: fixed-size key splits
+  merged in split order, see :func:`chunk_attention_split_reference`).
 * :func:`paged_prefill_attention` is :func:`append_kv` then
   :func:`chunk_attention`; :func:`paged_verify_attention` is
   :func:`append_kv_ragged` then :func:`chunk_attention`.  On CPU tensors
@@ -40,15 +41,27 @@ from typing import Dict, Optional
 import torch
 
 from . import _cuda
+from .attention import NEG_INF
 from .paged_attention import cached_gqa_attention
 
 __all__ = ["paged_prefill_attention", "paged_prefill_reference",
            "paged_verify_attention", "append_kv", "append_kv_reference",
            "append_kv_ragged", "append_kv_ragged_reference",
-           "chunk_attention", "chunk_attention_reference"]
+           "chunk_attention", "chunk_attention_reference",
+           "chunk_attention_split_reference", "chunk_split_keys",
+           "chunk_live_splits"]
 
 #: Head dims the chunk-attention kernel is built for.
 CHUNK_HEAD_DIMS = (16, 32, 64, 128)
+#: Most keys one CTA of the chunk-attention kernel covers (``kSplitKeys``
+#: of csrc/paged_prefill.cu), and the (token, query head) rows of its
+#: query tile (``kRows``).
+CHUNK_SPLIT_KEYS = 256
+CHUNK_TILE_ROWS = 64
+#: Most bytes of split partials one chunk-attention launch may keep; a
+#: launch that would need more walks each query tile's splits in one CTA
+#: (the same bits, about 1.5x the work, no partials).
+CHUNK_SCRATCH_BYTES = 1 << 29
 #: Widest verify window the dispatch sends through the kernels (the JAX
 #: package's ``Q_TILE_CAP``).
 VERIFY_T_MAX = 128
@@ -312,6 +325,92 @@ def chunk_attention_reference(q, pool, tables, cached_lens,
                                 q.shape[-1], window=window)
 
 
+def chunk_split_keys(block_size: int) -> int:
+    """Keys of one split of the chunk kernel's key sweep: whole blocks,
+    :data:`CHUNK_SPLIT_KEYS` where the block size divides it, else one
+    block.  A function of the block size alone, so a query's result never
+    depends on its chunk, its batch or the data."""
+    if block_size >= CHUNK_SPLIT_KEYS:
+        return block_size
+    return CHUNK_SPLIT_KEYS // block_size * block_size
+
+
+def chunk_live_splits(T: int, group: int, block_size: int, kv_blocks: int,
+                      window: Optional[int] = None) -> int:
+    """Most splits that hold a live key of one query tile of the chunk
+    kernel: every split of the table, or with a window the splits that
+    a tile's span of tokens plus the window can touch."""
+    split = chunk_split_keys(block_size)
+    n_splits = -(-kv_blocks * block_size // split)
+    if not window:
+        return n_splits
+    span = min(T - 1, (CHUNK_TILE_ROWS - 1) // group + 1)
+    return min(n_splits, (span + window - 1) // split + 2)
+
+
+def chunk_attention_split_reference(q, pool, tables, cached_lens,
+                                    chunk_lens, window: Optional[int] = None,
+                                    kv_limit: Optional[int] = None):
+    """The kernel's algorithm in plain f32 PyTorch: the key axis cut into
+    :func:`chunk_split_keys` splits on absolute key positions, each
+    split's (max, sum, weighted values) partial over its visible keys, and
+    the splits merged by log-sum-exp in split order (a split with no
+    visible key carries no mass; a query whose sum is 0 divides by 1).
+    Query ``t`` of row ``b`` sees keys ``<= min(cached + t, cached +
+    chunk_len - 1)`` inside the window and the first ``kv_limit`` table
+    entries, as the kernel does (padding queries see the chunk's real
+    keys).  Same arguments and result as :func:`chunk_attention`; only the
+    tests use it."""
+    batch, T, kv, group, hd = q.shape
+    block_size = pool["k"].shape[1]
+    kv_blocks = tables.shape[1] if kv_limit is None \
+        else min(int(kv_limit), tables.shape[1])
+    n_keys = kv_blocks * block_size
+    split = chunk_split_keys(block_size)
+    n_splits = -(-n_keys // split)
+    pad = n_splits * split - n_keys
+    ids = tables[:, :kv_blocks].to(torch.int64)
+
+    def view(buf):
+        gathered = buf[ids].to(torch.float32)
+        flat = gathered.reshape((batch, n_keys) + tuple(gathered.shape[3:]))
+        widths = [0, 0] * (flat.dim() - 2) + [0, pad]
+        return torch.nn.functional.pad(flat, widths).reshape(
+            (batch, n_splits, split) + tuple(flat.shape[2:]))
+
+    k, v = view(pool["k"]), view(pool["v"])           # (b, n, s, kv, hd)
+    scores = torch.einsum("btkgd,bnskd->bkgtns", q.to(torch.float32),
+                          k) * hd ** -0.5
+    weight_scale = None
+    if "ks" in pool:
+        scores = scores * view(pool["ks"]).permute(0, 3, 1, 2)[
+            :, :, None, None]
+        weight_scale = view(pool["vs"]).permute(0, 3, 1, 2)[:, :, None, None]
+    key = torch.arange(n_splits * split, device=q.device)
+    pos = _query_positions(cached_lens, T)                    # (b, T)
+    last = torch.minimum(pos, (cached_lens.to(torch.int64)
+                               + chunk_lens.to(torch.int64) - 1)[:, None])
+    visible = (key <= last[..., None]) & (key < n_keys)
+    if window is not None:
+        visible &= key > pos[..., None] - window
+    visible = visible.reshape(batch, 1, 1, T, n_splits, split)
+    m = torch.where(visible, scores, torch.full_like(scores, NEG_INF)) \
+        .amax(-1)                                             # (b,k,g,T,n)
+    p = torch.where(visible, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    total = p.sum(-1)
+    if weight_scale is not None:
+        p = p * weight_scale
+    acc = torch.einsum("bkgtns,bnskd->bkgtnd", p, v)
+    big = m.amax(-1, keepdim=True)
+    w = torch.exp(m - big)                  # dead splits: w * 0 mass
+    value = (w[..., None] * acc).sum(-2)
+    denom = (w * total).sum(-1)
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    out = value / denom[..., None]                        # (b, k, g, T, hd)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
 def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
                     window: Optional[int] = None,
                     kv_limit: Optional[int] = None):
@@ -328,7 +427,10 @@ def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
     the chunk for them and the caller discards them.  Returns the same
     shape as ``q`` in ``q.dtype``.  CPU tensors take
     :func:`chunk_attention_reference`; CUDA tensors launch
-    ``csrc/paged_prefill.cu``."""
+    ``csrc/paged_prefill.cu`` (one CUDA kernel a call: query tiles whose
+    keys span several :func:`chunk_split_keys` splits merge in the last
+    CTA of the tile to finish, or, where their partials would pass
+    :data:`CHUNK_SCRATCH_BYTES`, in one CTA a tile that walks them all)."""
     if q.device.type == "cpu":
         return chunk_attention_reference(q, pool, tables, cached_lens,
                                          window=window)
@@ -356,13 +458,22 @@ def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
         _check_scales("chunk_attention", pool)
         operands += [pool["ks"], pool["vs"]]
     device = _cuda.check_cuda("chunk_attention", *operands)
+    # Query tiles whose keys span several splits merge per-split partials,
+    # one slot for each live split of a tile.
+    tiles = batch * kv_heads * -(-T * group // CHUNK_TILE_ROWS)
+    live_cap = chunk_live_splits(T, group, block_size, kv_blocks, window)
+    floats = tiles * live_cap * CHUNK_TILE_ROWS * (head_dim + 2)
+    if 4 * floats > CHUNK_SCRATCH_BYTES:
+        live_cap, floats = 0, 0
+    partials, arrivals = _cuda.scratch(device, floats, tiles)
     _cuda.launch("aiko_chunk_attention", device, q.data_ptr(),
                  pool["k"].data_ptr(), pool["v"].data_ptr(),
                  _cuda.ptr(pool.get("ks")), _cuda.ptr(pool.get("vs")),
                  tables.data_ptr(), cached_lens.data_ptr(),
-                 chunk_lens.data_ptr(), out.data_ptr(), batch, T, kv_heads,
+                 chunk_lens.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                 arrivals.data_ptr(), batch, T, kv_heads,
                  group, head_dim, block_size, max_blocks, kv_blocks,
-                 int(window or 0), float(head_dim ** -0.5),
+                 int(window or 0), live_cap, float(head_dim ** -0.5),
                  _cuda.DTYPE_CODES[pool["k"].dtype])
     chunk_attention.launches += 1
     return out

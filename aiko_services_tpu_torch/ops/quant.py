@@ -131,7 +131,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"int8_matmul: scale shape {tuple(s.shape)} does "
                          f"not match N={n}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    splits, k_split, partials, arrivals = _split_k(x.device, m, k, n)
+    splits, k_split, partials, arrivals = _split_k(
+        x.device, m, k, n, INT8_TILE_COLS, INT8_CTAS_PER_SM)
     device = _cuda.check_cuda("int8_matmul", x2, q, s, out)
     _cuda.launch("aiko_int8_matmul", device, x2.data_ptr(), q.data_ptr(),
                  s.data_ptr(), out.data_ptr(), _cuda.ptr(partials),
@@ -140,33 +141,43 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     return out.reshape(*lead, n)
 
 
-#: SMs of an H100 SXM; the K split aims at two CTAs on each.
+#: SMs of an H100 SXM.
 _SMS = 132
+#: Output columns of one CTA of each weight matmul kernel, and the CTAs on
+#: each SM its K split aims at.
+INT8_TILE_COLS, INT8_CTAS_PER_SM = 64, 2
+INT4_TILE_COLS, INT4_CTAS_PER_SM = 256, 3
 
 
 @functools.lru_cache(maxsize=None)
-def _k_split(k: int, tiles: int):
+def _k_split(k: int, tiles: int, per_sm: int, one_wave: bool = False):
     """(slices, rows per slice) of the K axis for a launch of ``tiles``
-    output tiles: enough tile x K-slice CTAs for ~2 per SM, each slice at
-    least four 64-row pipeline stages."""
-    splits = max(1, min(-(-2 * _SMS // tiles), k // 256))
+    output tiles: enough tile x K-slice CTAs for about ``per_sm`` on each
+    SM (``one_wave``: never more, so no wave runs part full), each slice
+    at least four 64-row pipeline stages."""
+    ctas = per_sm * _SMS
+    splits = ctas // tiles if one_wave else -(-ctas // tiles)
+    splits = max(1, min(splits, k // 256))
     rows = -(-k // splits)
     rows = -(-rows // 64) * 64
     return -(-k // rows), rows
 
 
-def _split_k(device: torch.device, m: int, k: int, n: int,
-             tiled: bool = False):
+def _split_k(device: torch.device, m: int, k: int, n: int, cols: int,
+             per_sm: int, one_wave: bool = False, tiled: bool = False):
     """(slices, rows per slice, partials, arrivals) of an (m, K, N) launch
-    of either weight matmul kernel (``tiled``: the int4 kernel's m-tiled
-    instance, 64-row tiles of m): the f32 partial tiles and arrival
-    counters of the split-K merge (None when K is not split)."""
-    tiles = n // 64 * (-(-m // 64) if tiled else 1)
-    splits, k_split = _k_split(k, tiles)
+    of a weight matmul kernel whose CTAs own ``cols`` columns, K split by
+    :func:`_k_split` (``tiled``: the int4 kernel's m-tiled instance,
+    64-row tiles of m): the f32 partial tiles and arrival counters of the
+    split-K merge (None when K is not split).  The split depends on (K,
+    N) and the tiles of m alone, so a row's sum is the same for every m
+    of one instance."""
+    tiles = -(-n // cols) * (-(-m // 64) if tiled else 1)
+    splits, k_split = _k_split(k, tiles, per_sm, one_wave)
     if splits == 1:
         return splits, k_split, None, None
     rows = 64 if tiled else next(r for r in (8, 16, 32, 64) if m <= r)
-    partials, arrivals = _cuda.scratch(device, tiles * splits * rows * 64,
+    partials, arrivals = _cuda.scratch(device, tiles * splits * rows * cols,
                                        tiles)
     return splits, k_split, partials, arrivals
 
@@ -346,8 +357,9 @@ def _int4_launch(name: str, x2: torch.Tensor, q4: torch.Tensor,
                          f"multiple of 64 rows and N % 64; got m={m}, "
                          f"group {group}, N={n}")
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    splits, k_split, partials, arrivals = _split_k(x2.device, m, k, n,
-                                                   tiled)
+    splits, k_split, partials, arrivals = _split_k(
+        x2.device, m, k, n, INT4_TILE_COLS, INT4_CTAS_PER_SM, one_wave=True,
+        tiled=tiled)
     device = _cuda.check_cuda(name, x2, q4, s, out)
     pointers = (x2.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
                 _cuda.ptr(partials), _cuda.ptr(arrivals), m, k, n, group,

@@ -50,8 +50,9 @@ Phases (any failure exits non-zero):
    bf16 and int8 KV) and a short paired-draft speculative run (the
    verify at m = 40 and the resync at m = 32 through the int4 kernel),
    each held as phases 3-5 are, the launches of both int4 instances exact
-   (every prefill slice of m > 64 through the m-tiled one), and TTFT p50
-   printed beside the int8 runs'.
+   (every prefill slice of m > 64 through the m-tiled one), TTFT p50
+   printed beside the int8 runs', and the 64-slot steady step's weight
+   matmul ms beside its device ms (int4 and int8).
 7. The ring collective matmuls (parallel/rdma_collective.py): four ranks
    on this card, each with its own compute and copy streams, at
    llama3_8b's TP-4 MLP shapes in bf16 (the w_gate all-gather and the
@@ -62,8 +63,11 @@ Phases (any failure exits non-zero):
 
 Phase 2 also holds int4_matmul (both numerics: scale after each group,
 the path's; and scale first) at every projection width and m = 1, 8, 40,
-64 against its plain version, and its m-tiled instance at m = 256 and
-2,048, there also to the tighter TIGHT_REL / TIGHT_ROW; flash_attention
+64 against its plain version (the int4 kernel lab's shapes at m = 64
+printed on their own line), and its m-tiled instance at m = 256 and
+2,048, there also to the tighter TIGHT_REL / TIGHT_ROW; chunk_attention
+at every admission slice and the verify shape, each with SDPA and the
+bound beside it; flash_attention
 at batch 1 (64-1,024 tokens) and at the 64-slot admission shape (64 rows
 of 128 tokens); paged_decode_attention on the contiguous server's
 128-row blocks and on the paged server's 16-row blocks at 8 and 64 rows.
@@ -345,6 +349,9 @@ INT4_ROWS = (1, 8, 40, 64)
 #: Rows of x in the checks of the m-tiled int4 instance: a 256-token prefill
 #: slice (the paged server's chunk) and a 2,048-row prefill.
 TILED_ROWS = (256, 2048)
+#: (K, N) of the int4 kernel lab's shapes (w_gate/w_up, w_down, wq/wo),
+#: which phase 2 times at m = 64 among its rows.
+INT4_LAB_SHAPES = ((4096, 14336), (14336, 4096), (4096, 4096))
 #: The scale-after numerics, held tighter than TOL_REL / TOL_ROW: the
 #: kernel's f32 result differs from the f32 plain version by summation
 #: order only, so its bf16 output is within its own rounding (2^-8 of
@@ -487,7 +494,7 @@ def check_int4_matmul(torch, quant, device, config):
                 plain_ms = device_ms(torch, plain, 2)
                 rows.append(dict(
                     shape=f"{key} {name} m={m} K={k} N={n} G={groups}",
-                    numerics=key, m=m, err=err, ratio=ratio, ms=ms,
+                    numerics=key, m=m, k=k, n=n, err=err, ratio=ratio, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=library_ms, library_err=library_err,
                     dequant_mm_ms=dequant_mm_ms))
@@ -1115,6 +1122,10 @@ def step_bound_by(rows, numerics, m=SLOTS):
     kinds = {r["bound_by"] for r in rows
              if r["numerics"] == numerics and r["m"] == m}
     return "operations" if "operations" in kinds else "bytes"
+
+
+def fmt_ms(value):
+    return "not measured" if value is None else f"{value:.4f}"
 
 
 def print_rows(title, rows):
@@ -2158,6 +2169,12 @@ def main() -> None:
             f" ms, plain {step['plain_ms']:.4f} ms, bound "
             f"{step['bound_ms']:.4f} ms, library {step['library_ms']}, "
             f"dequantize + mm {step['dequant_mm_ms']:.4f} ms")
+    log("  the int4 kernel lab's shapes at m = 64 (scale after; "
+        "tools/int4_kernel_lab.py SHAPES): " + ", ".join(
+            f"K={r['k']} N={r['n']} {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f}, library {fmt_ms(r['library_ms'])})"
+            for r in int4_rows if r["numerics"] == "after" and r["m"] == 64
+            and (r["k"], r["n"]) in INT4_LAB_SHAPES))
     flash_rows, flash_worst, flash_main = check_flash(torch, attention,
                                                       device)
     print_rows("flash_attention", flash_rows)
@@ -2264,6 +2281,11 @@ def main() -> None:
                           device)
     log("--- serving llama3_8b int4 at 64 slots, bf16 KV: "
         + json.dumps(wide_run))
+    for label, run in (("int4", wide_run), ("int8", wide8)):
+        log(f"64-slot {label} steady decode step: weight matmul "
+            f"{fmt_ms(run['matmul_device_ms_per_step'])} ms of "
+            f"{fmt_ms(run['steady_device_ms_per_step'])} ms device time, "
+            f"{run['steady_step_ms']:.4f} ms a step unprofiled")
     kernels4_paged = kernels4 + (pp.append_kv, pp.chunk_attention)
     paged4_runs = []
     for quantize_kv in (False, True):

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Time variants of the port's two attention kernels on one card, in turns.
+"""Time variants of the port's three attention kernels on one card, in turns.
 
-Each variant is a copy of ``csrc/paged_decode.cu`` or
-``csrc/flash_attention.cu`` with one constant edited (the ring depth, the
-split size, the warpgroups of a flash CTA).  Every copy is built with the
-port's own nvcc flags into a shared library of its own, bound with ctypes,
-and called at the smoke's shapes: paged decode at block size 16 (8 rows
-at positions 1,100-1,199, bf16 and int8 pools; 64 rows, int8) and at the
-contiguous server's block size 128, and flash attention at batch 1 (64,
-256, 1,024 and 2,048 tokens, causal, llama3_8b heads) and at 64 rows of
-128 tokens.  Variants run in turns (the list given, then reversed), each
+Each variant is a copy of ``csrc/paged_decode.cu``,
+``csrc/flash_attention.cu`` or ``csrc/paged_prefill.cu`` with one constant
+edited (the ring depth, the split size, the warpgroups of a flash CTA,
+the chunk kernel's bf16 products on mma.sync instead of wgmma).
+Every copy is built with the port's own nvcc flags into a shared library
+of its own, bound with ctypes, and called at the smoke's shapes: paged
+decode at block size 16 (8 rows at positions 1,100-1,199, bf16 and int8
+pools; 64 rows, int8) and at the contiguous server's block size 128,
+flash attention at batch 1 (64, 256, 1,024 and 2,048 tokens, causal,
+llama3_8b heads) and at 64 rows of 128 tokens, and paged chunk attention
+at 16-row blocks (a 256-token slice after 1,024 cached tokens, bf16 and
+int8 pools; a 16-token slice after 1,792; the verify's 5-token windows on
+8 rows at 1,030-1,199).  Variants run in turns (the list given, then reversed), each
 time the least of three CUDA-event windows (``chip_smoke.device_ms``),
 after three warm-up calls, and each output is held to the f32 plain
 version (err/tol in brackets, as the smoke's).  The pools hold more
@@ -29,7 +33,10 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "aiko_services_tpu_torch" / "csrc"
-DECODE, FLASH = "paged_decode.cu", "flash_attention.cu"
+DECODE, FLASH, CHUNK = ("paged_decode.cu", "flash_attention.cu",
+                        "paged_prefill.cu")
+ENTRIES = {DECODE: "aiko_paged_decode", FLASH: "aiko_flash_attention",
+           CHUNK: "aiko_chunk_attention"}
 #: name -> (source, [(text, replacement), ...]); the first of each source
 #: is the source as it is.
 VARIANTS = {
@@ -48,6 +55,33 @@ VARIANTS = {
                                "constexpr int kStages = 3;")]),
     "flash_two_warpgroups": (FLASH, [("constexpr int kWarpgroups = 1;",
                                       "constexpr int kWarpgroups = 2;")]),
+    "chunk": (CHUNK, []),
+    "chunk_split128": (CHUNK, [("constexpr int kSplitKeys = 256;",
+                                "constexpr int kSplitKeys = 128;")]),
+    "chunk_split512": (CHUNK, [("constexpr int kSplitKeys = 256;",
+                                "constexpr int kSplitKeys = 512;")]),
+    "chunk_stages2": (CHUNK, [("constexpr int kStages = 3;",
+                               "constexpr int kStages = 2;")]),
+    "chunk_stages4": (CHUNK, [("constexpr int kStages = 3;",
+                               "constexpr int kStages = 4;")]),
+    "chunk_warps8": (CHUNK, [("constexpr int kWarps = 4;",
+                              "constexpr int kWarps = 8;")]),
+    # Where the time goes (wrong results): no product, no partials, no
+    # merge.
+    "chunk_loads_only": (CHUNK, [(
+        "    // ---- S = Q K^T for 64 keys: 8 n-tiles of 8 keys ----",
+        "    if (n_st > 0) continue;\n"
+        "    // ---- S = Q K^T for 64 keys: 8 n-tiles of 8 keys ----")]),
+    "chunk_no_publish": (CHUNK, [(
+        "  // ---- several live splits: publish partials, the last CTA "
+        "merges ----",
+        "  return;\n  // ---- several live splits: publish partials, the "
+        "last CTA merges ----")]),
+    "chunk_no_merge": (CHUNK, [("  if (!last_flag) return;", "  return;")]),
+    # bf16 at head_dim 128 on mma.sync, as int8 (the kernel runs wgmma).
+    "chunk_mma_sync": (CHUNK, [(
+        "static constexpr bool kWg = !kInt8 && HD == 128;",
+        "static constexpr bool kWg = false;")]),
 }
 
 
@@ -76,8 +110,7 @@ def build(names, workdir):
         if job.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{output}")
         lib = ctypes.CDLL(str(workdir / name / "lib.so"))
-        entry = "aiko_paged_decode" if VARIANTS[name][0] == DECODE \
-            else "aiko_flash_attention"
+        entry = ENTRIES[VARIANTS[name][0]]
         fn = getattr(lib, entry)
         fn.argtypes = _cuda.SIGNATURES[entry]
         fn.restype = ctypes.c_int
@@ -147,6 +180,7 @@ def decode_call(torch, fn, case, device):
         code = fn(*args)
         if code:
             raise RuntimeError(f"aiko_paged_decode: CUDA error {code}")
+    call.scratch = (partials, arrivals)     # args hold only their addresses
     return call, out
 
 
@@ -194,6 +228,75 @@ def flash_want(attention, case):
         v.float().repeat_interleave(group, 1))
 
 
+def chunk_cases(torch, llama, device):
+    """The smoke's chunk rows (chip_smoke.check_chunk and
+    check_chunk_verify): (q, pool, tables, cached, chunk_lens, kv_limit)."""
+    import chip_smoke
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = {}
+    for quant_kv in (False, True):
+        pool, tables = chip_smoke.paged_pool(torch, llama, device, gen,
+                                             quant_kv)
+        for cached, T in ((1024, 256), (1792, 16)):
+            if quant_kv and T == 16:
+                continue
+            q = torch.randn((1, T, 8, 4, 128), generator=gen,
+                            device=device).to(torch.bfloat16)
+            meta = [torch.tensor([value], dtype=torch.int32, device=device)
+                    for value in (cached, T)]
+            cases[f"T {T} after {cached}, {'int8' if quant_kv else 'bf16'}"] \
+                = (q, pool, tables, *meta, -(-(cached + T) // 16))
+    pool, _ = chip_smoke.paged_pool(torch, llama, device, gen, False)
+    starts = (1030, 1047, 1064, 1100, 1121, 1150, 1183, 1199, 0)
+    tables = chip_smoke.ragged_tables(torch, pool, gen, len(starts),
+                                      (max(starts) + 5) // 16 + 1)
+    q = torch.randn((len(starts), 5, 8, 4, 128), generator=gen,
+                    device=device).to(torch.bfloat16)
+    cases["verify T 5, 8 rows + 1 idle, bf16"] = (
+        q, pool, tables,
+        torch.tensor(starts, dtype=torch.int32, device=device),
+        torch.tensor((5,) * 8 + (0,), dtype=torch.int32, device=device),
+        tables.shape[1])
+    return cases
+
+
+def chunk_call(torch, fn, case, device):
+    q, pool, tables, cached, chunk, kv_blocks = case
+    out = torch.empty_like(q)
+    partials = torch.empty(1 << 25, dtype=torch.float32, device=device)
+    arrivals = torch.zeros(1 << 16, dtype=torch.int32, device=device)
+    quant_kv = "ks" in pool
+    args = (q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(),
+            pool["ks"].data_ptr() if quant_kv else None,
+            pool["vs"].data_ptr() if quant_kv else None, tables.data_ptr(),
+            cached.data_ptr(), chunk.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), arrivals.data_ptr(), q.shape[0], q.shape[1],
+            q.shape[2], q.shape[3], q.shape[4], pool["k"].shape[1],
+            tables.shape[1], kv_blocks, 0,
+            # partial slots a tile: every split at the smallest split size
+            -(-kv_blocks * pool["k"].shape[1] // 128), q.shape[4] ** -0.5,
+            2 if quant_kv else 1, torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        code = fn(*args)
+        if code:
+            raise RuntimeError(f"aiko_chunk_attention: CUDA error {code}")
+    call.scratch = (partials, arrivals)     # args hold only their addresses
+    return call, out
+
+
+def chunk_want(paged_prefill, case):
+    import torch
+    q, pool, tables, cached, chunk, _ = case
+    plain = pool if "ks" in pool else {key: buf.float()
+                                       for key, buf in pool.items()}
+    want = paged_prefill.chunk_attention_reference(q.float(), plain, tables,
+                                                   cached)
+    live = chunk.bool()     # the idle row's output is zeros, not the plain
+    return torch.where(live[:, None, None, None, None], want,
+                       torch.zeros_like(want))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("names", nargs="*", choices=[[], *VARIANTS],
@@ -205,20 +308,24 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from aiko_services_tpu_torch.models import llama
-    from aiko_services_tpu_torch.ops import attention, paged_attention
+    from aiko_services_tpu_torch.ops import (attention, paged_attention,
+                                             paged_prefill)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     libs = build(names, ROOT / "_build" / "lab")
     device = torch.device("cuda", 0)
     for source, cases, call, want in (
-            (DECODE, decode_cases(torch, llama, device), decode_call,
-             lambda case: decode_want(paged_attention, case)),
-            (FLASH, flash_cases(torch, device), flash_call,
-             lambda case: flash_want(attention, case))):
+            (DECODE, lambda: decode_cases(torch, llama, device),
+             decode_call, lambda case: decode_want(paged_attention, case)),
+            (FLASH, lambda: flash_cases(torch, device), flash_call,
+             lambda case: flash_want(attention, case)),
+            (CHUNK, lambda: chunk_cases(torch, llama, device), chunk_call,
+             lambda case: chunk_want(paged_prefill, case))):
         order = [n for n in names if VARIANTS[n][0] == source]
         if not order:
             continue
+        cases = cases()
         order += order[::-1]
         for title, case in cases.items():
             expected = want(case)

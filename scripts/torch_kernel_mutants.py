@@ -6,13 +6,17 @@ bug in a CUDA kernel: the flash kernel drops the last key tile of rows
 that have more than one, gives that tile 0.9 of its weight, loads every K
 tile one key late (an off-by-one TMA coordinate), or loads a group's Q
 rows from the wrong query heads; the decode kernel's log-sum-exp merge
-drops a row's last split, or gives it 0.9 of its weight; the paged chunk-attention kernel stops zeroing masked
-probabilities, or drops the last live 16-row block of a tile's sweep; the
-ragged verify-window append writes at the block-aligned start (dropping
-``cached % block_size``), or skips each row's last live token; the int4
-dequant-matmul swaps the two nibbles of each byte, reads nibbles as
-unsigned (0..15), or scales each group with its neighbour's scales, and its
-m-tiled instance feeds bf16(q * s) to the product (scale first); the ring
+drops a row's last split, or gives it 0.9 of its weight; the paged
+chunk-attention kernel stops zeroing masked probabilities, drops the last
+live 16-row block of a tile's sweep, drops a tile's last split from its
+merge, or gives that split 0.9 of its weight; the ragged verify-window
+append writes at the block-aligned start (dropping ``cached %
+block_size``), or skips each row's last live token; the int4
+dequant-matmul swaps the two nibbles of a byte, reads nibbles as unsigned
+(0..15), takes 128 for the magic number's bias (136), leaves x's B
+fragment in its natural k order (not permuted to match the weights'), or
+scales each group with its neighbour's scales, and its m-tiled instance
+feeds bf16(q * s) to the product (scale first); the ring
 all-gather step writes each block one row block too low, the ring
 reduce-scatter drops the last step's partial, and the ring's copies skip
 the capacity wait.  Each copy is built and held to the same checks the
@@ -74,10 +78,18 @@ MUTANTS = {
         CHUNK, "const float p = (visible >> (nt * 4 + e)) & 1u",
         "const float p = true"),
     "chunk_drop_block": (
-        CHUNK, "const int t_begin = key_lo / kBK;",
-        "if (key_hi / block_size > key_lo / block_size)\n"
+        CHUNK, "  const int first_split = key_lo / split_keys;",
+        "  if (key_hi / block_size > key_lo / block_size)\n"
         "    key_hi = key_hi / block_size * block_size - 1;\n"
-        "  const int t_begin = key_lo / kBK;"),
+        "  const int first_split = key_lo / split_keys;"),
+    "chunk_drop_split": (
+        CHUNK, "    fold(acc, total, v, m_sp, l_sp, big);",
+        "    if (sp < n_live - 1) fold(acc, total, v, m_sp, l_sp, big);"),
+    "chunk_weight_split": (
+        CHUNK, "const float m_sp[2] = {part_ml(sp, 0, 0), part_ml(sp, 0, 1)};",
+        "const float drift = sp == n_live - 1 ? 0.152f : 0.f;  // x0.9\n"
+        "    const float m_sp[2] = {part_ml(sp, 0, 0) - drift,\n"
+        "                           part_ml(sp, 0, 1) - drift};"),
     "ragged_aligned_start": (
         RAGGED, "const int pos = cached_lens[row] + token;",
         "const int pos = cached_lens[row] / block_size * block_size + token;"),
@@ -85,16 +97,22 @@ MUTANTS = {
         RAGGED, "if (token >= chunk_lens[row]) return;",
         "if (token >= chunk_lens[row] - 1) return;"),
     "int4_nibble_swap": (
-        INT4, "static_cast<unsigned>(word) << (28 - shift)) >> 28);",
-        "static_cast<unsigned>(word) << (28 - (shift ^ 4))) >> 28);"),
+        INT4, "lo0 = nibbles_to_bf16x2(p), hi0 = nibbles_to_bf16x2(p >> 4);",
+        "lo0 = nibbles_to_bf16x2(p >> 4), hi0 = nibbles_to_bf16x2(p);"),
     "int4_unsigned": (
-        INT4, "static_cast<int>(static_cast<unsigned>(word) << (28 - shift)) "
-        ">> 28);",
-        "(static_cast<unsigned>(word) << (28 - shift)) >> 28);"),
+        INT4, "return bf16x2_fma((v & 0x000f000fu) ^ kMagic, kOne, kMinus136);",
+        "return bf16x2_fma((v & 0x000f000fu) | 0x43004300u, kOne, "
+        "0xC300C300u);"),
+    "int4_magic_bias": (
+        INT4, "constexpr unsigned kMinus136 = 0xC308C308u;",
+        "constexpr unsigned kMinus136 = 0xC300C300u;"),
+    "int4_k_unpermuted": (
+        INT4, "const unsigned b0 = __byte_perm(xa, xb, 0x5410);\n"
+        "        const unsigned b1 = __byte_perm(xa, xb, 0x7632);",
+        "const unsigned b0 = xa;\n        const unsigned b1 = xb;"),
     "int4_neighbour_scale": (
-        INT4, "s + (size_t)(k0 / group) * N + n0 + chunk * 4, true);",
-        "s + (size_t)((k0 / group + 1) % (K / group)) * N + n0 + chunk * 4, "
-        "true);"),
+        INT4, "s + (size_t)(k0 / group) * N + n0, cols * 4,",
+        "s + (size_t)((k0 / group + 1) % (K / group)) * N + n0, cols * 4,"),
     "int4_tiled_scale_first": (
         INT4, "return launch<64, false>(x, q4, s, out, partials, arrivals, m, "
         "K, N, group,",

@@ -110,8 +110,9 @@ def _int4_weight(gen, device, k, n, group):
 
 #: (K, N, group rows) of the int4 kernel cases: groups of 64, 128, 256 and
 #: one group of all K; K split over CTAs (4096 x 1024: 16 slices of 256,
-#: 14336 x 128: 56 slices; 4096 x 4096: slices of 832 rows, which end
-#: inside a group); the llama3_8b widths.
+#: which end inside its one 4096-row group; 14336 x 128: 56 slices;
+#: 14336 x 4096: 23 slices of 640 rows); N of 128 and 384, which end inside
+#: a 256-column CTA tile; the llama3_8b widths.
 INT4_SHAPES = [(512, 256, 64), (512, 256, 128), (512, 256, 512),
                (768, 384, 256), (4096, 1024, 128), (4096, 1024, 4096),
                (14336, 128, 128), (4096, 4096, 128), (4096, 14336, 128),
@@ -219,21 +220,43 @@ def test_int4_matmul_tiled_scales_after_each_group(cuda, m, k, n):
     _close_scale_after(got, quant.int4_matmul_reference(x.float(), q4, s))
 
 
-@pytest.mark.parametrize("k,n", [(256, 1024), (4096, 17408)])
+@pytest.mark.parametrize("k,n", [(256, 1024), (4096, 67584)])
 def test_int4_matmul_tiled_tiles_equal_the_decode_instance(cuda, k, n):
     """Where neither instance splits K (K = 256, or N wide enough to fill
-    the card with m <= 64), each 64-row tile of the tiled instance is bit
-    for bit what the m <= 64 instance gives on those rows (a row's sum
-    does not depend on the instance's row count, as the batch-invariance
-    test holds)."""
+    the card with m <= 64: 264 tiles of 256 columns), each 64-row tile of
+    the tiled instance is bit for bit what the m <= 64 instance gives on
+    those rows (a row's sum does not depend on the instance's row count,
+    as the batch-invariance test holds)."""
     gen = torch.Generator(device=cuda).manual_seed(k + n)
     x = torch.randn((200, k), generator=gen, device=cuda).to(torch.bfloat16)
     q4, s = _int4_weight(gen, cuda, k, n, 128)
-    assert quant._k_split(k, n // 64)[0] == 1
+    assert quant._k_split(k, -(-n // quant.INT4_TILE_COLS),
+                          quant.INT4_CTAS_PER_SM, True)[0] == 1
     full = quant.int4_matmul_tiled(x, q4, s)
     for row0 in range(0, 200, 64):     # three full tiles and 8 rows
         part = quant._int4_launch("int4_matmul", x[row0:row0 + 64], q4, s)
         assert torch.equal(part, full[row0:row0 + 64]), row0
+
+
+def test_int4_matmul_recovers_every_byte(cuda):
+    """m = 1 with one-hot rows of x: row k of the product is row k of
+    dequantize_int4, bit for bit, for every k of two 128-row groups
+    (both nibble positions of every packed row, and the group edge), with
+    all 256 byte values in every packed row."""
+    k, n = 256, 256
+    codes = (torch.arange(k // 2, device=cuda)[:, None]
+             + torch.arange(n, device=cuda)[None, :]) % 256 - 128
+    q4 = codes.to(torch.int8)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    s = torch.rand((2, n), generator=gen, device=cuda) * 0.05 + 1e-3
+    want = quant.dequantize_int4({"q4": q4, "s": s}, torch.bfloat16)
+    before = quant.int4_matmul.launches
+    for row in range(k):
+        x = torch.zeros((1, k), device=cuda, dtype=torch.bfloat16)
+        x[0, row] = 1.0
+        got = quant.int4_matmul(x, q4, s)
+        assert torch.equal(got[0], want[row]), row
+    assert quant.int4_matmul.launches == before + k
 
 
 def test_int4_matmul_raises_on_what_the_kernel_does_not_take(cuda):
@@ -794,6 +817,150 @@ def test_chunk_attention_verify_shape(cuda, quant_kv, window):
                                                    cached, window=window)
     _close(got[:-1], want[:-1], torch.bfloat16)
     assert bool(torch.isfinite(got[-1]).all())
+
+
+def _chunk_pool(cuda, seed, rows, entries, quant_kv, kv=8, hd=128, bs=16):
+    """llama3_8b widths: a pool of random K/V (bf16, or int8 from the
+    plain quantizer) and ``rows`` shuffled tables of ``entries`` blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_blocks = rows * entries + 1
+    k = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    if quant_kv:
+        (k, ks), (v, vs) = llama._kv_quantize(k), llama._kv_quantize(v)
+        pool = dict(k=k, v=v, ks=ks, vs=vs)
+    else:
+        pool = dict(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16))
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=cuda) + 1
+    tables = ids.reshape(rows, entries).to(torch.int32)
+    return pool, tables, gen
+
+
+def _meta(cuda, values):
+    return torch.tensor(values, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+def test_chunk_attention_is_batch_and_call_invariant(cuda, quant_kv):
+    """llama3_8b widths: a row's output is bitwise the same alone and
+    among 8 rows of other lengths, and across two calls (the splits
+    depend on the block size alone and merge in split order)."""
+    pool, tables, gen = _chunk_pool(cuda, 21, 8, 80, quant_kv)
+    T = 64
+    cached = _meta(cuda, [1024, 0, 256, 512, 1100 // 16 * 16, 64, 960, 16])
+    chunk = _meta(cuda, [64, 40, 64, 17, 64, 64, 1, 64])
+    q = torch.randn((8, T, 8, 4, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    among = paged_prefill.chunk_attention(q, pool, tables, cached, chunk)
+    again = paged_prefill.chunk_attention(q, pool, tables, cached, chunk)
+    assert torch.equal(among, again)
+    for row in (0, 3, 4):
+        alone = paged_prefill.chunk_attention(
+            q[row:row + 1].contiguous(), pool,
+            tables[row:row + 1].contiguous(), cached[row:row + 1].clone(),
+            chunk[row:row + 1].clone())
+        n = int(chunk[row])
+        assert torch.equal(alone[0, :n], among[row, :n]), row
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("quant_kv", [False, True])
+def test_chunk_attention_is_chunk_size_invariant(cuda, quant_kv, window):
+    """A query at position p over the same pool gives the same bits in a
+    256-token chunk after 1,024 cached tokens and in a 16-token chunk
+    that starts at p's slice (1,024 + 64, 1,024 + 240)."""
+    pool, tables, gen = _chunk_pool(cuda, 22, 1, 80, quant_kv)
+    q = torch.randn((1, 256, 8, 4, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    whole = paged_prefill.chunk_attention(
+        q, pool, tables, _meta(cuda, [1024]), _meta(cuda, [256]),
+        window=window)
+    for offset in (64, 240):
+        part = paged_prefill.chunk_attention(
+            q[:, offset:offset + 16].contiguous(), pool, tables,
+            _meta(cuda, [1024 + offset]), _meta(cuda, [16]), window=window)
+        assert torch.equal(part[0], whole[0, offset:offset + 16]), offset
+
+
+#: (cached, T, chunk_len, window) of the split checks at block size 16:
+#: a chunk starting on a split edge, one ending on one, one crossing two
+#: edges, and windows that leave early splits wholly outside them.
+CHUNK_SPLIT_CASES = [(256, 16, 16, None), (240, 16, 16, None),
+                     (496, 64, 64, None), (1024, 256, 256, None),
+                     (1024, 256, 256, 40), (768, 64, 50, 300),
+                     (0, 64, 64, None), (1792, 16, 9, 256)]
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("cached,T,chunk_len,window", CHUNK_SPLIT_CASES)
+def test_chunk_attention_equals_the_split_reference(cuda, cached, T,
+                                                    chunk_len, window,
+                                                    quant_kv):
+    """The kernel against the plain split-and-merge version (f32) and the
+    one-shot plain version, on the real rows, at llama3_8b widths."""
+    pool, tables, gen = _chunk_pool(cuda, cached + T, 1, 128, quant_kv)
+    q = torch.randn((1, T, 8, 4, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    meta = (_meta(cuda, [cached]), _meta(cuda, [chunk_len]))
+    got = paged_prefill.chunk_attention(q, pool, tables, *meta,
+                                        window=window)
+    plain = pool if quant_kv else {key: buf.float()
+                                   for key, buf in pool.items()}
+    want = paged_prefill.chunk_attention_split_reference(
+        q.float(), plain, tables, *meta, window=window)
+    _close(got[0, :chunk_len], want[0, :chunk_len], torch.bfloat16)
+    one_shot = paged_prefill.chunk_attention_reference(
+        q.float(), plain, tables, meta[0], window=window)
+    _close(got[0, :chunk_len], one_shot[0, :chunk_len], torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [4096, None])
+@pytest.mark.parametrize("quant_kv", [False, True])
+def test_chunk_attention_long_table(cuda, quant_kv, window):
+    """A 256-token chunk at the end of a 32,768-key table (mistral_7b's
+    and mixtral_8x7b's max_seq_len) at llama3_8b widths, against the plain
+    split version: with a 4,096-key window the tile keeps one partial slot
+    for each split the window can reach; with none the partials would
+    pass the scratch budget, so one CTA a tile walks its 128 splits."""
+    pool, tables, gen = _chunk_pool(cuda, 23, 1, 2048, quant_kv)
+    T = 256
+    q = torch.randn((1, T, 8, 4, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    meta = (_meta(cuda, [32_768 - T]), _meta(cuda, [T]))
+    tiles = 8 * T * 4 // paged_prefill.CHUNK_TILE_ROWS
+    slots = paged_prefill.chunk_live_splits(T, 4, 16, 2048, window)
+    over_budget = 4 * tiles * slots * 64 * 130 \
+        > paged_prefill.CHUNK_SCRATCH_BYTES
+    assert over_budget == (window is None)
+    got = paged_prefill.chunk_attention(q, pool, tables, *meta,
+                                        window=window)
+    plain = pool if quant_kv else {key: buf.float()
+                                   for key, buf in pool.items()}
+    want = paged_prefill.chunk_attention_split_reference(
+        q.float(), plain, tables, *meta, window=window)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("quant_kv", [False, True])
+def test_chunk_attention_one_cta_a_tile_gives_the_same_bits(
+        cuda, quant_kv, window, monkeypatch):
+    """With no scratch budget every launch takes one CTA a query tile,
+    which walks the tile's splits itself: the same bits as the launch of
+    one CTA a split, for a 256-token chunk after 1,024 cached tokens and
+    8 rows of other lengths."""
+    pool, tables, gen = _chunk_pool(cuda, 24, 8, 80, quant_kv)
+    cached = _meta(cuda, [1024, 0, 256, 512, 1100 // 16 * 16, 64, 960, 16])
+    chunk = _meta(cuda, [256, 40, 256, 17, 200, 256, 1, 256])
+    q = torch.randn((8, 256, 8, 4, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    split = paged_prefill.chunk_attention(q, pool, tables, cached, chunk,
+                                          window=window)
+    monkeypatch.setattr(paged_prefill, "CHUNK_SCRATCH_BYTES", 0)
+    walked = paged_prefill.chunk_attention(q, pool, tables, cached, chunk,
+                                           window=window)
+    for row, n in enumerate(chunk.tolist()):
+        assert torch.equal(walked[row, :n], split[row, :n]), row
 
 
 @pytest.mark.parametrize("hd,T", [(256, 5), (128, 129)])

@@ -618,3 +618,27 @@ def test_paired_spec_server_int4_matches_jax():
         assert ours[key] == theirs[key], key
     assert ours["spec_rounds"] > 0 and ours["spec_tokens_per_target_pass"] > 1
     assert _accounting(port_server) == _accounting(jax_server)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4096, 128256),
+                                 (4096, 67584), (256, 1024), (512, 384),
+                                 (14336, 128)])
+@pytest.mark.parametrize("m_tiles", [0, 1, 4, 32])
+def test_int4_k_split_fills_one_wave(k, n, m_tiles):
+    """The int4 kernel's K split for 256-column CTAs (``m_tiles`` 64-row
+    tiles of m in the tiled instance, 0 for the m <= 64 instance): whole
+    64-row stages, at least four a slice unless K is shorter, the slices
+    covering K, and never more CTAs than three on each of the 132 SMs
+    unless the grid is that wide unsplit.  It depends on (K, N) and the m
+    tiles alone, so every m of the m <= 64 instance sums a row alike."""
+    tiles = -(-n // quant.INT4_TILE_COLS) * max(m_tiles, 1)
+    splits, rows = quant._k_split(k, tiles, quant.INT4_CTAS_PER_SM, True)
+    assert rows % 64 == 0 and splits * rows >= k > (splits - 1) * rows
+    assert rows >= min(k, 256)
+    assert tiles * splits <= max(3 * 132, tiles)
+    if m_tiles == 0:
+        for m in (1, 8, 13, 40, 64):
+            assert quant._split_k("cpu", m, k, n, quant.INT4_TILE_COLS,
+                                  quant.INT4_CTAS_PER_SM, one_wave=True
+                                  )[:2] == (splits, rows)
