@@ -104,15 +104,17 @@ size_t smem_bytes(int head_dim, int group) {
 using aiko::ldmatrix_x4;
 
 // Two int8 values of `word` (at bit offsets lo and hi) as a bf16x2 operand
-// register, low half first; exact.
-__device__ __forceinline__ unsigned int8x2_to_bf16x2(unsigned word, int lo,
-                                                     int hi) {
+// register, low half first; exact, through the conversion unit (unlike
+// aiko::int8x2_to_bf16x2).
+__device__ __forceinline__ unsigned int8x2_to_bf16x2_cvt(unsigned word,
+                                                         int lo, int hi) {
   return aiko::pack_bf16x2(
       static_cast<float>(static_cast<int8_t>(word >> lo)),
       static_cast<float>(static_cast<int8_t>(word >> hi)));
 }
-__device__ __forceinline__ unsigned int8x2_to_bf16x2(unsigned word, int lo) {
-  return int8x2_to_bf16x2(word, lo, lo + 8);
+__device__ __forceinline__ unsigned int8x2_to_bf16x2_cvt(unsigned word,
+                                                         int lo) {
+  return int8x2_to_bf16x2_cvt(word, lo, lo + 8);
 }
 
 // Eight consecutive elements of a staged row as floats (f32 path).
@@ -295,10 +297,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
                 *reinterpret_cast<const unsigned*>(a_row + kk * 16);
             const unsigned hi = *reinterpret_cast<const unsigned*>(
                 a_row + 8 * ld + kk * 16);
-            a[0] = int8x2_to_bf16x2(lo, 0);
-            a[1] = int8x2_to_bf16x2(hi, 0);
-            a[2] = int8x2_to_bf16x2(lo, 16);
-            a[3] = int8x2_to_bf16x2(hi, 16);
+            a[0] = int8x2_to_bf16x2_cvt(lo, 0);
+            a[1] = int8x2_to_bf16x2_cvt(hi, 0);
+            a[2] = int8x2_to_bf16x2_cvt(lo, 16);
+            a[3] = int8x2_to_bf16x2_cvt(hi, 16);
           } else {
             ldmatrix_x4(a, a_row + kk * 32, false);
           }
@@ -417,10 +419,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
               *reinterpret_cast<const unsigned short*>(at + 8 * ld);
           const unsigned k9 =
               *reinterpret_cast<const unsigned short*>(at + 9 * ld);
-          a[0] = int8x2_to_bf16x2(k0 | k1 << 16, 0, 16);
-          a[1] = int8x2_to_bf16x2(k0 | k1 << 16, 8, 24);
-          a[2] = int8x2_to_bf16x2(k8 | k9 << 16, 0, 16);
-          a[3] = int8x2_to_bf16x2(k8 | k9 << 16, 8, 24);
+          a[0] = int8x2_to_bf16x2_cvt(k0 | k1 << 16, 0, 16);
+          a[1] = int8x2_to_bf16x2_cvt(k0 | k1 << 16, 8, 24);
+          a[2] = int8x2_to_bf16x2_cvt(k8 | k9 << 16, 0, 16);
+          a[3] = int8x2_to_bf16x2_cvt(k8 | k9 << 16, 8, 24);
         } else {
           ldmatrix_x4(a, v_row + mt * 32, true);
         }

@@ -200,16 +200,7 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                "l"(gmem), "r"(pred ? 4 : 0));
 }
 
-// The int8 bytes at bits 0-7 and 16-23 of v as an exact bf16x2 (low lane
-// first), with integer ops and one bf16x2 subtraction: 0x4300 | (b & 0x7f)
-// is 128 + (b & 0x7f), 0x4300 | (b & 0x80) is 128 or 256.
-__device__ __forceinline__ unsigned int8x2_to_bf16x2(unsigned v) {
-  const unsigned biased = (v & 0x007f007fu) | 0x43004300u;
-  const unsigned offset = (v & 0x00800080u) | 0x43004300u;
-  unsigned d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(biased), "r"(offset));
-  return d;
-}
+using aiko::int8x2_to_bf16x2;
 
 template <int HD, typename KVT, bool kSeq>
 __global__ void __launch_bounds__(kThreads) chunk_attention_kernel(

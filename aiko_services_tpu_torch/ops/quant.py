@@ -132,7 +132,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                          f"not match N={n}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     splits, k_split, partials, arrivals = _split_k(
-        x.device, m, k, n, INT8_TILE_COLS, INT8_CTAS_PER_SM)
+        x.device, m, k, n, INT8_TILE_COLS, INT8_CTAS_PER_SM, one_wave=True)
     device = _cuda.check_cuda("int8_matmul", x2, q, s, out)
     _cuda.launch("aiko_int8_matmul", device, x2.data_ptr(), q.data_ptr(),
                  s.data_ptr(), out.data_ptr(), _cuda.ptr(partials),
@@ -144,8 +144,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 #: SMs of an H100 SXM.
 _SMS = 132
 #: Output columns of one CTA of each weight matmul kernel, and the CTAs on
-#: each SM its K split aims at.
-INT8_TILE_COLS, INT8_CTAS_PER_SM = 64, 2
+#: each SM its K split aims at (the same split for every m).  int4: three,
+#: what its m <= 8 instance holds.  int8: two, though its m <= 16
+#: instances hold three: fewer, longer slices halve the merge's partials,
+#: which bound m >= 40 (lab, ``--tunings`` ``split2``), and cost m = 8
+#: nothing.
+INT8_TILE_COLS, INT8_CTAS_PER_SM = 256, 2
 INT4_TILE_COLS, INT4_CTAS_PER_SM = 256, 3
 
 

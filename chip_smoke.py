@@ -61,9 +61,11 @@ Phases (any failure exits non-zero):
    schedule with torch.mm in f32); R^2 step launches and R(R - 1) copies
    a call; a rank slowed on purpose still gives the right result.
 
-Phase 2 also holds int4_matmul (both numerics: scale after each group,
-the path's; and scale first) at every projection width and m = 1, 8, 40,
-64 against its plain version (the int4 kernel lab's shapes at m = 64
+Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
+(the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
+its library call.  It also holds int4_matmul (both numerics: scale after
+each group, the path's; and scale first) at every projection width and
+m = 1, 8, 40, 64 against its plain version (the int4 kernel lab's shapes at m = 64
 printed on their own line), and its m-tiled instance at m = 256 and
 2,048, there also to the tighter TIGHT_REL / TIGHT_ROW; chunk_attention
 at every admission slice and the verify shape, each with SDPA and the
@@ -253,10 +255,15 @@ class MatmulShapes:
 # --------------------------------------------------------------------------- #
 # Phase 2: kernels against their plain versions
 
+#: Rows of x in the int8 checks: batch-1 decode, the 8-slot decode batch,
+#: the verify of k = 4 on 8 slots (8 x 5), and 64 (the 64-slot decode
+#: batch and the largest kernel prefill).
+INT8_ROWS = (1, 8, 40, 64)
+
+
 def check_int8_matmul(torch, quant, device, config):
-    """Every llama3_8b projection width and the LM head at m = 1, 8, 64
-    (batch-1 decode, the 8-slot decode batch, the largest kernel
-    prefill).  Weights rotate through enough copies to exceed the 50 MB
+    """Every llama3_8b projection width and the LM head at m in INT8_ROWS.
+    Weights rotate through enough copies to exceed the 50 MB
     L2, as a decode step finds them: cold.  Also probes
     ``torch._weight_int8pack_mm`` (bf16 x, int8 (N, K) weights, per-row
     scales in x's type) as the library call; if the card's PyTorch has
@@ -284,7 +291,7 @@ def check_int8_matmul(torch, quant, device, config):
             for w in weights:
                 w["qt"] = w["q"].t().contiguous()
                 w["st"] = w["s"].flatten().to(torch.bfloat16)
-        for m in (1, 8, 64):
+        for m in INT8_ROWS:
             x = torch.randn((m, k), generator=gen, device=device) \
                 .to(torch.bfloat16)
             w = weights[0]
@@ -325,9 +332,9 @@ def check_int8_matmul(torch, quant, device, config):
             plain_ms = device_ms(torch, plain, 4)
             b_ms, b_by = bound(k * n + 4 * n + 2 * m * k + 2 * m * n,
                                2 * m * k * n)
-            rows.append(dict(shape=f"{name} m={m} K={k} N={n}", err=err,
-                             ratio=ratio, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by,
+            rows.append(dict(shape=f"{name} m={m} K={k} N={n}", m=m, k=k,
+                             n=n, err=err, ratio=ratio, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms, library_err=library_err))
             if m == SLOTS:
                 step["ms"] += per_step * ms

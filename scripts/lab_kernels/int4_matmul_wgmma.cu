@@ -93,89 +93,8 @@ using aiko::wgmma_commit;
 using aiko::wgmma_fence;
 using aiko::wgmma_wait;
 
-// d (64 weight columns x N rows of x, f32) += A (64 x 16 bf16, registers)
-// * B (16 x N, K-major in shared memory).
 template <int N>
-struct WgmmaX;
-
-template <>
-struct WgmmaX<8> {
-  static __device__ __forceinline__ void run(float (&d)[1][4],
-                                             const unsigned (&a)[4],
-                                             uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3"
-        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaX<16> {
-  static __device__ __forceinline__ void run(float (&d)[2][4],
-                                             const unsigned (&a)[4],
-                                             uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaX<32> {
-  static __device__ __forceinline__ void run(float (&d)[4][4],
-                                             const unsigned (&a)[4],
-                                             uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-        "%10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaX<64> {
-  static __device__ __forceinline__ void run(float (&d)[8][4],
-                                             const unsigned (&a)[4],
-                                             uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-        "%30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  }
-};
+using WgmmaX = aiko::WgmmaRS<N>;
 
 // The signed nibbles at bits 0-3 and 16-19 of v as an exact bf16x2 (low
 // lane first): 0x4300 | (nibble ^ 8) is the bf16 of 136 + nibble.

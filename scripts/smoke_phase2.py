@@ -6,12 +6,13 @@ tolerances and timings) and prints the smoke's rows; a failed case is
 reported and the run goes on to every case.  Exits non-zero if any case
 failed.
 
-    python3 scripts/smoke_phase2.py [chunk] [verify] [int4]
+    python3 scripts/smoke_phase2.py [chunk] [verify] [int4] [int8]
 
-Without names it runs all three: chunk attention at every admission
-slice, chunk attention at the verify shape, and int4_matmul at every
-projection and m (with the m-tiled instance and the step sums).  Needs an
-NVIDIA card and nvcc.
+Without names it runs all four: chunk attention at every admission
+slice, chunk attention at the verify shape, int4_matmul at every
+projection and m (with the m-tiled instance and the step sums), and
+int8_matmul at every projection and m (with the 8-slot step's sum).
+Needs an NVIDIA card and nvcc.
 """
 
 import argparse
@@ -19,7 +20,7 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-CHECKS = ("chunk", "verify", "int4")
+CHECKS = ("chunk", "verify", "int4", "int8")
 
 
 def main() -> None:
@@ -52,6 +53,12 @@ def main() -> None:
         chip_smoke.print_rows("int4_matmul", rows)
         for key, step in steps.items():
             print(f"  int4 ({key}) sum of the isolated times: {step}")
+    if "int8" in names:
+        rows, _, step = chip_smoke.check_int8_matmul(
+            torch, quant, device, llama.CONFIGS["llama3_8b"])
+        chip_smoke.print_rows("int8_matmul", rows)
+        print(f"  int8 one 8-slot decode step, sum of the isolated times: "
+              f"{step}")
     for message in failures:
         print(f"FAIL: {message}")
     sys.exit(1 if failures else 0)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Mutation check of the port's attention-kernel tolerances, on the card.
+"""Mutation check of the port's kernel tolerances, on the card.
 
 Each mutant is a copy of ``aiko_services_tpu_torch`` with one deliberate
 bug in a CUDA kernel: the flash kernel drops the last key tile of rows
@@ -16,7 +16,11 @@ dequant-matmul swaps the two nibbles of a byte, reads nibbles as unsigned
 (0..15), takes 128 for the magic number's bias (136), leaves x's B
 fragment in its natural k order (not permuted to match the weights'), or
 scales each group with its neighbour's scales, and its m-tiled instance
-feeds bf16(q * s) to the product (scale first); the ring
+feeds bf16(q * s) to the product (scale first); the int8 dequant-matmul
+drops the sign term of its integer-op conversion (bytes read as their low
+seven bits), scales each column with its neighbour's scale, drops a tile's
+last K slice from the split merge (weight_stream.cuh), or swaps k rows k
+and k + 1 in its A fragments; the ring
 all-gather step writes each block one row block too low, the ring
 reduce-scatter drops the last step's partial, and the ring's copies skip
 the capacity wait.  Each copy is built and held to the same checks the
@@ -47,6 +51,8 @@ DECODE = "aiko_services_tpu_torch/csrc/paged_decode.cu"
 CHUNK = "aiko_services_tpu_torch/csrc/paged_prefill.cu"
 RAGGED = "aiko_services_tpu_torch/csrc/paged_append_ragged.cu"
 INT4 = "aiko_services_tpu_torch/csrc/int4_matmul.cu"
+INT8 = "aiko_services_tpu_torch/csrc/int8_matmul.cu"
+WSTREAM = "aiko_services_tpu_torch/csrc/weight_stream.cuh"
 RING = "aiko_services_tpu_torch/csrc/ring_matmul.cu"
 RING_HOST = "aiko_services_tpu_torch/parallel/rdma_collective.py"
 #: name -> (source, text replaced, replacement)
@@ -118,6 +124,33 @@ MUTANTS = {
         "K, N, group,",
         "return launch<64, true>(x, q4, s, out, partials, arrivals, m, K, N, "
         "group,"),
+    "int8_sign_dropped": (
+        INT8, "    a[t][0] = aiko::int8x2_to_bf16x2(__byte_perm(w0, w1, even));\n"
+        "    a[t][1] = aiko::int8x2_to_bf16x2(__byte_perm(w0, w1, odd));\n"
+        "    a[t][2] = aiko::int8x2_to_bf16x2(__byte_perm(w8, w9, even));\n"
+        "    a[t][3] = aiko::int8x2_to_bf16x2(__byte_perm(w8, w9, odd));",
+        "    auto low7 = [](unsigned v) {\n"
+        "      unsigned d;\n"
+        "      asm(\"sub.rn.bf16x2 %0, %1, %2;\\n\" : \"=r\"(d)\n"
+        "          : \"r\"((v & 0x007f007fu) | 0x43004300u), "
+        "\"r\"(0x43004300u));\n"
+        "      return d;\n"
+        "    };\n"
+        "    a[t][0] = low7(__byte_perm(w0, w1, even));\n"
+        "    a[t][1] = low7(__byte_perm(w0, w1, odd));\n"
+        "    a[t][2] = low7(__byte_perm(w8, w9, even));\n"
+        "    a[t][3] = low7(__byte_perm(w8, w9, odd));"),
+    "int8_neighbour_scale": (
+        INT8, "*reinterpret_cast<const float4*>(s + n0 + c4)",
+        "*reinterpret_cast<const float4*>(s + (n0 + c4 + 4) % N)"),
+    "int8_drop_slice": (
+        WSTREAM, "        if (sp0 + j < splits)\n#pragma unroll\n"
+        "          for (int e = 0; e < kPass; ++e) {",
+        "        if (sp0 + j < splits - 1)\n#pragma unroll\n"
+        "          for (int e = 0; e < kPass; ++e) {"),
+    "int8_k_order": (
+        INT8, "const unsigned even = 0x0400u + 0x0101u * (2 * t);",
+        "const unsigned even = 0x0004u + 0x0101u * (2 * t);"),
     "ag_wrong_row_offset": (
         RING, "const size_t out_offset = (size_t)out_row0 * n_local;",
         "const size_t out_offset =\n"
@@ -132,6 +165,7 @@ MUTANTS = {
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
              "chunk": "chunk_attention", "ragged": "ragged", "int4": "int4",
+             "int8": "int8",
              "ag": "ring", "rs": "ring", "ring": "ring"}
 
 
@@ -181,6 +215,9 @@ def phase2(name: str) -> bool:
         rows, worst = rows + paged_rows, max(worst, paged_worst)
     elif kind == "int4":
         rows, worst, _ = chip_smoke.check_int4_matmul(
+            torch, quant, device, llama.CONFIGS["llama3_8b"])
+    elif kind == "int8":
+        rows, worst, _ = chip_smoke.check_int8_matmul(
             torch, quant, device, llama.CONFIGS["llama3_8b"])
     elif kind in ("ag", "rs", "ring"):
         rows, _, _ = chip_smoke.check_ring(torch, parallel, device)

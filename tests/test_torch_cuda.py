@@ -78,14 +78,90 @@ def test_int8_matmul_kernel(cuda, m, k, n):
     _close(got, want, dtype)
 
 
-def test_int8_matmul_is_batch_invariant(cuda):
-    """Row r's result does not depend on the other rows of x."""
-    x = torch.randn((64, 4096), device=cuda, dtype=torch.bfloat16)
-    qw = quant.quantize_int8(torch.randn((4096, 1024), device=cuda))
+@pytest.mark.parametrize("k,n", [(4096, 1024), (14336, 4096)])
+def test_int8_matmul_is_batch_invariant(cuda, k, n):
+    """Row r's result does not depend on the other rows of x, bit for bit:
+    m = 1, 8, 13 and 40 (the 8- and 16-row instances on mma.sync, the
+    64-row instance on wgmma) against the rows of m = 64, with K split by
+    (K, N) alone (16 slices at both)."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((64, k), generator=gen, device=cuda).to(torch.bfloat16)
+    qw = quant.quantize_int8(torch.randn((k, n), generator=gen,
+                                         device=cuda))
+    assert quant._k_split(k, -(-n // quant.INT8_TILE_COLS),
+                          quant.INT8_CTAS_PER_SM, True)[0] > 1
     full = quant.int8_matmul(x, qw["q"], qw["s"])
-    for m in (1, 8, 13):
+    for m in (1, 8, 13, 40):
         part = quant.int8_matmul(x[:m], qw["q"], qw["s"])
-        assert torch.equal(part, full[:m])
+        assert torch.equal(part, full[:m]), m
+
+
+def _int8_weight(gen, device, k, n):
+    """Codes drawn uniformly from all 256 byte values (-128 too, which the
+    quantizer never makes but the kernel must take) and positive scales."""
+    q = torch.randint(-128, 128, (k, n), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand((1, n), generator=gen, device=device) * (k ** -0.5 / 64)
+    return q, s
+
+
+#: (K, N) of llama3_8b's int8 projections: wq/wo, wk/wv, w_gate/w_up,
+#: w_down and the LM head.
+LLAMA3_8B_INT8 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                  (4096, 128256)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 64])
+@pytest.mark.parametrize("k,n", LLAMA3_8B_INT8)
+def test_int8_matmul_llama3_8b_shapes(cuda, k, n, m):
+    """The main path's shapes at batch-1 decode, the 8-slot step, the
+    verify of 8 slots x 5 and 64 slots, against the f32 plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 7 + n + m)
+    q, s = _int8_weight(gen, cuda, k, n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, q, s)
+    assert quant.int8_matmul.launches == before + 1
+    _close(got, quant.int8_matmul_reference(x.float(), q, s), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 64])
+@pytest.mark.parametrize("k,n", [(352, 128), (352, 384), (4128, 384),
+                                 (4128, 128)])
+def test_int8_matmul_tails(cuda, k, n, m):
+    """N not a multiple of 256 (a last tile of 128 columns: one TMA box,
+    four idle warps) and K not a multiple of 64 (the last stage's rows
+    past K land as zeros), with and without split K (4128 at N = 384: 13
+    slices, the last one 288 rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n * 3 + m)
+    q, s = _int8_weight(gen, cuda, k, n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, q, s)
+    assert quant.int8_matmul.launches == before + 1
+    assert got.shape == (m, n)
+    _close(got, quant.int8_matmul_reference(x.float(), q, s), torch.bfloat16)
+
+
+def test_int8_matmul_recovers_every_byte(cuda):
+    """One-hot rows of x, 64 at a time: row k of the product is
+    bf16(q[k] * s), bit for bit, for every k of a 1,024-row weight split
+    four ways (every k position of a stage, both TMA boxes, the merge),
+    with all 256 byte values in every row."""
+    k, n = 1024, 256
+    q = ((torch.arange(k, device=cuda)[:, None]
+          + torch.arange(n, device=cuda)[None, :]) % 256 - 128)
+    q = q.to(torch.int8)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    s = torch.rand((1, n), generator=gen, device=cuda) * 0.05 + 1e-3
+    assert quant._k_split(k, 1, quant.INT8_CTAS_PER_SM, True)[0] == 4
+    want = quant.dequantize({"q": q, "s": s}, torch.bfloat16)
+    eye = torch.eye(k, device=cuda, dtype=torch.bfloat16)
+    before = quant.int8_matmul.launches
+    for row0 in range(0, k, 64):
+        got = quant.int8_matmul(eye[row0:row0 + 64], q, s)
+        assert torch.equal(got, want[row0:row0 + 64]), row0
+    assert quant.int8_matmul.launches == before + k // 64
 
 
 def test_int8_matmul_large_m_takes_the_matrix_product(cuda):

@@ -109,6 +109,33 @@ def test_int8_matmul_bf16_leading_dims():
                                rtol=2 ** -7, atol=1e-6)
 
 
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4096, 128256), (352, 128),
+                                 (352, 384), (4128, 384), (64, 128)])
+def test_int8_k_split_fills_one_wave(k, n):
+    """The int8 kernel's K split for 256-column CTAs: whole 64-row stages,
+    at least four a slice unless K is shorter, the slices covering K, and
+    never more CTAs than two on each of the 132 SMs unless the grid is
+    that wide unsplit.  It depends on (K, N) alone, so every m (every
+    instance of the kernel: 8, 16, 32 or 64 rows) sums a row alike, and
+    the partials hold one (instance rows x 256) tile a slice."""
+    assert quant.INT8_TILE_COLS == 256
+    tiles = -(-n // quant.INT8_TILE_COLS)
+    splits, rows = quant._k_split(k, tiles, quant.INT8_CTAS_PER_SM, True)
+    assert rows % 64 == 0 and splits * rows >= k > (splits - 1) * rows
+    assert rows >= min(k, 256)
+    assert tiles * splits <= max(2 * 132, tiles)
+    for m, instance in ((1, 8), (8, 8), (13, 16), (40, 64), (64, 64)):
+        got = quant._split_k("cpu", m, k, n, quant.INT8_TILE_COLS,
+                             quant.INT8_CTAS_PER_SM, one_wave=True)
+        assert got[:2] == (splits, rows)
+        if splits > 1:
+            assert got[2].numel() >= tiles * splits * instance * 256
+            assert got[3].numel() >= tiles
+        else:
+            assert got[2] is None and got[3] is None
+
+
 # --------------------------------------------------------------------------- #
 # flash attention
 
