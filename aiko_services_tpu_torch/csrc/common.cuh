@@ -12,6 +12,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <utility>
 
 // dtype codes shared with ops/_cuda.py (DTYPE_CODES).
 enum AikoDtype { AIKO_F32 = 0, AIKO_BF16 = 1, AIKO_I8 = 2 };
@@ -312,6 +313,39 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(p);
   });
   return fn;
+}
+
+// Hopper's programmatic dependent launch.  The KV writer triggers its
+// dependents on entry (trigger_dependents); the attention kernels that read
+// the pool next are launched by launch_dependent, so each may begin its
+// launch while the writer drains, and each executes wait_for_producer
+// before its first global read: the wait returns once the kernel before it
+// on the stream has finished and its writes are visible (at once when that
+// kernel never triggered, as PyTorch's do not, since it then launched only
+// after that kernel's end).
+__device__ __forceinline__ void trigger_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_producer() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                                    dim3 block, size_t smem,
+                                    cudaStream_t stream, Args&&... args) {
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, std::forward<Args>(args)...);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

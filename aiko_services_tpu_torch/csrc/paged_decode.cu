@@ -159,6 +159,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     int group, int head_dim, int block_size, int max_blocks, int window,
     float sm_scale) {
   using P = Path<QT, KVT>;
+  // Launched as a dependent of the kernel before it (the KV writer): every
+  // global read, of q, the tables and positions and the pool, comes after
+  // this wait.
+  aiko::wait_for_producer();
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ __align__(16) float q_s[kMaxGroup][kMaxHeadDim];  // f32 path
   // Scores, then softmax weights (x V scale), of the split: [key][head].
@@ -549,14 +553,15 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const int split_keys = split_keys_for(block_size);
   const int n_splits = (max_blocks * block_size + split_keys - 1) / split_keys;
   dim3 grid(batch * kv_heads, n_splits);
-  paged_decode_kernel<QT, KVT><<<grid, kThreads, smem, stream>>>(
+  err = aiko::launch_dependent(
+      paged_decode_kernel<QT, KVT>, grid, dim3(kThreads), smem, stream,
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
       static_cast<const int*>(positions), static_cast<QT*>(out),
       static_cast<float*>(partials), static_cast<int*>(arrivals), kv_heads,
       group, head_dim, block_size, max_blocks, window, sm_scale);
-  return cudaGetLastError();
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename QT>

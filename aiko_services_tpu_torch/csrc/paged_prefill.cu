@@ -213,6 +213,9 @@ __global__ void __launch_bounds__(kThreads) chunk_attention_kernel(
     int block_size, int max_blocks, int kv_blocks, int window,
     int live_cap, float sm_scale) {
   using L = Layout<HD, KVT>;
+  // Launched as a dependent of the kernel before it (the KV writer): every
+  // global read, of q, the metadata and the pool, comes after this wait.
+  aiko::wait_for_producer();
   constexpr int kLd = L::kLd;
   constexpr int kRawChunks = HD * (int)sizeof(KVT) / 16;  // pool row
   constexpr int kDT = HD / 8;   // output n-tiles (8 features each)
@@ -753,7 +756,9 @@ cudaError_t launch_mode(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid(kSeq ? 1 : n_splits, (T * group + kRows - 1) / kRows,
             batch * kv_heads);
   if (grid.y == 0 || batch == 0) return cudaSuccess;
-  chunk_attention_kernel<HD, KVT, kSeq><<<grid, kThreads, smem, stream>>>(
+  err = aiko::launch_dependent(
+      chunk_attention_kernel<HD, KVT, kSeq>, grid, dim3(kThreads), smem,
+      stream,
       static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
@@ -762,7 +767,7 @@ cudaError_t launch_mode(const void* q, const void* k_pool, const void* v_pool,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(partials),
       static_cast<int*>(arrivals), T, kv_heads, group, block_size,
       max_blocks, kv_blocks, window, live_cap, sm_scale);
-  return cudaGetLastError();
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // live_cap > 0: one CTA a (tile, split), live_cap partial slots a tile;

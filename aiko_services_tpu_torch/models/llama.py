@@ -11,15 +11,15 @@ grouped-query attention, SwiGLU MLP, untied LM head, bfloat16 params with
 f32 norm/softmax accumulation.  The casts sit where the JAX code puts
 them: bf16 agreement depends on them.
 
-Seven hand-written CUDA kernels carry the serving paths: ``int8_matmul``
-or ``int4_matmul`` (by the weights' layout) in every projection at decode
-shapes, ``flash_attention`` in contiguous
-prefill, ``paged_decode_attention`` in every decode step (contiguous caches
-feed it as a degenerate pool), ``append_kv`` + ``chunk_attention`` in
-paged admission (:func:`prefill_append_paged`, :func:`serve_chunk_mixed`),
-and ``append_kv_ragged`` + ``chunk_attention`` in the speculative verify
-(:func:`verify_chunk_paged`).  Each takes its plain version only on CPU
-tensors.
+Hand-written CUDA kernels carry the serving paths: ``int8_matmul`` or
+``int4_matmul`` (by the weights' layout) in every projection at decode
+shapes, ``flash_attention`` in contiguous prefill, ``write_kv_rows`` (the
+KV writer's row mode) and ``paged_decode_attention`` in every decode step
+(contiguous caches feed both as a degenerate pool), ``append_kv`` +
+``chunk_attention`` in paged admission (:func:`prefill_append_paged`,
+:func:`serve_chunk_mixed`), and ``append_kv_ragged`` + ``chunk_attention``
+in the speculative verify (:func:`verify_chunk_paged`).  Each takes its
+plain version only on CPU tensors.
 
 JAX donates caches to its jitted programs; here caches are updated IN
 PLACE (each write function mutates and returns the same per-layer dict),
@@ -46,7 +46,7 @@ from ..ops.paged_attention import (cached_gqa_attention,
 from ..ops.paged_prefill import (_gathered_view, _kv_quantize_rows,
                                  _pool_sources, _write_rows_reference,
                                  paged_prefill_attention,
-                                 paged_verify_attention)
+                                 paged_verify_attention, write_kv_rows)
 from ..ops.quant import (_unpack_int4, int4_matmul, int8_matmul,
                          is_quantized, is_quantized_int4, quantize_tree)
 
@@ -467,13 +467,17 @@ def _cache_write_slab(cache_layer, k, v, start_index: int):
 
 def _cache_write_rows(cache_layer, k, v, positions):
     """Write one (batch, 1, kv, hd) row per batch element at per-row
-    ``positions``, in place."""
-    rows = _iota(k.shape[0], k.device)
-    positions = positions.to(torch.int64)
-    for key, src in _pool_sources(cache_layer, k, v).items():
-        buf = cache_layer[key]
-        buf[rows, positions] = src[:, 0].to(buf.dtype)
-    return cache_layer
+    int32 ``positions``, in place: :func:`write_kv_rows` on the cache
+    viewed as a pool of ``batch`` blocks of ``max_seq`` rows."""
+    return write_kv_rows(k, v, cache_layer,
+                         _slot_tables(k.shape[0], k.device), positions)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_tables(batch: int, device: torch.device):
+    """``arange(batch)[:, None]`` int32, made once: the block tables of a
+    contiguous cache seen as a pool of one block a row."""
+    return _iota(batch, device, torch.int32)[:, None]
 
 
 @torch.no_grad()
@@ -498,9 +502,10 @@ def prefill(params, tokens, cache, config: LlamaConfig):
 def _decode_attention_contiguous(q_g, cache_layer, positions, hd, window):
     """Single-token ragged decode attention over a CONTIGUOUS cache: on a
     CUDA tensor, the paged decode kernel over the cache viewed as a
-    degenerate block pool (a free reshape, iota block tables); elsewhere,
-    or when ``max_seq`` has no usable block size, the plain
-    :func:`cached_gqa_attention` (the JAX package's dispatch rule)."""
+    degenerate block pool (a free reshape, iota block tables; ``q_g``
+    contiguous); elsewhere, or when ``max_seq`` has no usable block size,
+    the plain :func:`cached_gqa_attention` (the JAX package's dispatch
+    rule)."""
     max_seq = cache_layer["k"].shape[1]
     block_size = contiguous_block_size(max_seq)
     if q_g.device.type != "cuda" or not block_size:
@@ -514,7 +519,7 @@ def _decode_attention_contiguous(q_g, cache_layer, positions, hd, window):
                              + tuple(buf.shape[2:]))
             for key, buf in cache_layer.items()}
     out = paged_decode_attention(
-        q_g[:, 0].contiguous(), pool["k"], pool["v"], tables,
+        q_g[:, 0], pool["k"], pool["v"], tables,
         positions.to(torch.int32), ks=pool.get("ks"), vs=pool.get("vs"),
         window=window)
     return out[:, None]
@@ -527,8 +532,10 @@ def _attention_decode_ragged(layer, config, x, rope, cache_layer,
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     q, k, v = _qkv(layer, config, x, rope)
+    # q's copy first, so that the attention kernel directly follows the
+    # K/V write it depends on (a programmatic dependent launch).
+    q_g = q.reshape(batch, seq, kv, h // kv, hd).contiguous()
     _cache_write_rows(cache_layer, k, v, positions)
-    q_g = q.reshape(batch, seq, kv, h // kv, hd)
     out = _decode_attention_contiguous(q_g, cache_layer, positions, hd,
                                        config.sliding_window)
     out = out.reshape(batch, seq, h * hd)
@@ -539,7 +546,8 @@ def _decode_core_ragged(params, token, cache, positions,
                         config: LlamaConfig):
     """One autoregressive step with PER-ROW cache positions: token
     (batch, 1) + positions (batch,) -> (logits (batch, 1, vocab) f32,
-    cache updated in place)."""
+    cache updated in place).  The positions become int32 once a step."""
+    positions = positions.to(torch.int32)
     rope = _rope_tables(config, positions[:, None])
     x = _embed_lookup(params, token, config.dtype)
     for layer, cache_layer in zip(params["layers"], cache):
@@ -764,9 +772,10 @@ _paged_gather = _gathered_view
 
 
 def _paged_write_rows(pool_layer, k, v, tables, positions):
-    """Scatter one (batch, 1, kv, hd) row per slot into the pool at
-    ``(tables[s, pos // bs], pos % bs)``, in place."""
-    return _paged_write_slab(pool_layer, k, v, tables, positions[:, None])
+    """Write one (batch, 1, kv, hd) row per slot into the pool at
+    ``(tables[s, pos // bs], pos % bs)``, in place (:func:`write_kv_rows`;
+    int32 tables and positions)."""
+    return write_kv_rows(k, v, pool_layer, tables, positions)
 
 
 def _attention_decode_paged(layer, config, x, rope, pool_layer, tables,
@@ -777,12 +786,14 @@ def _attention_decode_paged(layer, config, x, rope, pool_layer, tables,
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     q, k, v = _qkv(layer, config, x, rope)
+    # q's copy first, so that the attention kernel directly follows the
+    # K/V write it depends on (a programmatic dependent launch).
+    q_g = q.reshape(batch, seq, kv, h // kv, hd).contiguous()
     _paged_write_rows(pool_layer, k, v, tables, positions)
-    q_g = q.reshape(batch, seq, kv, h // kv, hd)
     if q_g.device.type == "cuda":
         out = paged_decode_attention(
-            q_g[:, 0].contiguous(), pool_layer["k"], pool_layer["v"],
-            tables, positions.to(torch.int32), ks=pool_layer.get("ks"),
+            q_g[:, 0], pool_layer["k"], pool_layer["v"],
+            tables, positions, ks=pool_layer.get("ks"),
             vs=pool_layer.get("vs"), window=config.sliding_window)[:, None]
     else:
         out = cached_gqa_attention(q_g, _paged_gather(pool_layer, tables),
@@ -795,7 +806,10 @@ def _attention_decode_paged(layer, config, x, rope, pool_layer, tables,
 def _decode_core_paged(params, token, pool, tables, positions,
                        config: LlamaConfig):
     """One paged decode step: token (batch, 1) at per-row ``positions``
-    -> (logits (batch, 1, vocab) f32, pool updated in place)."""
+    -> (logits (batch, 1, vocab) f32, pool updated in place).  The tables
+    and positions become int32 once a step, for every layer's write and
+    attention."""
+    tables, positions = tables.to(torch.int32), positions.to(torch.int32)
     rope = _rope_tables(config, positions[:, None])
     x = _embed_lookup(params, token, config.dtype)
     for layer, pool_layer in zip(params["layers"], pool):
@@ -810,13 +824,15 @@ def _paged_step_core(params, tables, pool, config: LlamaConfig):
     """One paged decode step over the slots' ``tables``: inactive lanes
     write scratch block 0 at their slot offset and are never read."""
     block_size = pool[0]["k"].shape[1]
+    tables = tables.to(torch.int32)
     scratch_tables = torch.zeros_like(tables)
     scratch_positions = _iota(tables.shape[0], tables.device,
                               torch.int32) % block_size
 
     def step_core(token, pool, positions, active):
         write_tables = torch.where(active[:, None], tables, scratch_tables)
-        write_pos = torch.where(active, positions, scratch_positions)
+        write_pos = torch.where(active, positions.to(torch.int32),
+                                scratch_positions)
         return _decode_core_paged(params, token, pool, write_tables,
                                   write_pos, config)
     return step_core

@@ -32,8 +32,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-#: Never -use_fast_math: the append kernels' int8 KV quantizer
-#: (csrc/kv_write.cuh) must keep IEEE division to stay bit-identical to the
+#: Never -use_fast_math: the KV writer's int8 quantizer
+#: (csrc/kv_write.cu) must keep IEEE division to stay bit-identical to the
 #: plain quantizer.
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
@@ -44,6 +44,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C entry points and their argument types (see each .cu's extern "C").
 SIGNATURES = {
     "aiko_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -59,6 +60,8 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_append_kv_ragged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_write_kv_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _L, _L, _I, _I, _P],
     "aiko_ring_ag_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aiko_ring_rs_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -153,17 +156,25 @@ def library() -> ctypes.CDLL:
     return _LIBRARY
 
 
+def entry(name: str):
+    """The bound C entry ``name`` (its last argument is the stream)."""
+    return getattr(library(), name)
+
+
+def raise_error(name: str, code: int) -> None:
+    message = library().aiko_error_string(code).decode()
+    raise RuntimeError(f"{name}: CUDA error {code} ({message})")
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry ``name`` on ``device``'s current stream; raise if its
     launch was refused."""
-    lib = library()
     # The raw handle: building a torch.cuda.Stream object per launch costs
     # more host time than the smaller kernels take on the card.
     stream = torch._C._cuda_getCurrentRawStream(device.index)
-    code = getattr(lib, name)(*args, stream)
+    code = entry(name)(*args, stream)
     if code:
-        message = lib.aiko_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA error {code} ({message})")
+        raise_error(name, code)
 
 
 #: Per-device scratch of the kernels that split work across CTAs: f32

@@ -1,6 +1,7 @@
 """Ragged paged append attention: chunked prefill and speculative verify
-straight against the block pool, with their three hand-written CUDA
-kernels and their plain versions.
+straight against the block pool, and the decode step's K/V write, with
+their hand-written CUDA kernels (the KV writer's three modes and the chunk
+attention) and their plain versions.
 
 Port of ``aiko_services_tpu/ops/paged_prefill.py``.  Admission appends a
 prompt chunk into the slot's block chain and attends its queries over the
@@ -11,15 +12,21 @@ decode position.
 
 * :func:`append_kv` writes the chunk's ``(batch, T, kv, hd)`` K/V into
   pool blocks ``tables[row, cached // bs + cb]`` in place
-  (``csrc/paged_append.cu`` on CUDA tensors); int8 pools quantize each
-  (token, kv head) vector exactly as :func:`_kv_quantize_rows`.  Blocks
-  past a row's ``chunk_len`` are not written by the kernel; the plain
-  version flushes them into scratch block 0 (never attended), as the JAX
-  kernel does, so the two agree everywhere but block 0.
+  (``csrc/kv_write.cu``'s aligned mode on CUDA tensors); int8 pools
+  quantize each (token, kv head) vector exactly as
+  :func:`_kv_quantize_rows`.  Blocks past a row's ``chunk_len`` are not
+  written by the kernel; the plain version flushes them into scratch
+  block 0 (never attended), as the JAX kernel does, so the two agree
+  everywhere but block 0.
 * :func:`append_kv_ragged` writes a verify window's rows at any per-row
   start: row ``t < chunk_lens[b]`` lands at position ``cached_lens[b] +
-  t`` (``csrc/paged_append_ragged.cu`` on CUDA tensors).  Neither it nor
-  its plain version writes anything for rows past ``chunk_len``.
+  t`` (``csrc/kv_write.cu``'s ragged mode on CUDA tensors).  Neither it
+  nor its plain version writes anything for rows past ``chunk_len``.
+* :func:`write_kv_rows` is the decode step's write: one ``(batch, 1, kv,
+  hd)`` row a slot at ``positions`` through the slots' tables
+  (``csrc/kv_write.cu``'s row mode on CUDA tensors, the ragged writer at
+  T = 1 with every row live); a contiguous cache is a pool of ``batch``
+  blocks of ``max_seq`` rows with tables ``arange(batch)[:, None]``.
 * :func:`chunk_attention` runs the chunk's queries over the appended
   pool (``csrc/paged_prefill.cu`` on CUDA tensors: fixed-size key splits
   merged in split order, see :func:`chunk_attention_split_reference`).
@@ -36,6 +43,7 @@ what the JAX kernels' input/output aliasing buys on the TPU.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -47,6 +55,7 @@ from .paged_attention import cached_gqa_attention
 __all__ = ["paged_prefill_attention", "paged_prefill_reference",
            "paged_verify_attention", "append_kv", "append_kv_reference",
            "append_kv_ragged", "append_kv_ragged_reference",
+           "write_kv_rows", "write_kv_rows_reference",
            "chunk_attention", "chunk_attention_reference",
            "chunk_attention_split_reference", "chunk_split_keys",
            "chunk_live_splits"]
@@ -71,7 +80,7 @@ def _kv_quantize_rows(rows):
     """(..., hd) -> (int8 rows, f32 scales (...,)): symmetric absmax per
     vector (one scale per cached token per kv head).  THE int8 KV
     quantizer of the port: the model's cache writers use it too, and
-    ``csrc/paged_append.cu`` reproduces it bit for bit (a true division
+    ``csrc/kv_write.cu`` reproduces it bit for bit (a true division
     by the scale, round half to even).  The 127 is a tensor: PyTorch's
     CUDA division by a Python scalar multiplies by its reciprocal, which
     is one ulp off a true division in places."""
@@ -191,7 +200,7 @@ def append_kv(k_new, v_new, pool, tables, cached_lens, chunk_lens):
       chunk_lens: ``(batch,)`` int32 real tokens of the chunk per row.
 
     CPU tensors take :func:`append_kv_reference`; CUDA tensors launch
-    ``csrc/paged_append.cu``.  Returns ``pool``."""
+    ``csrc/kv_write.cu``'s aligned writer.  Returns ``pool``."""
     if k_new.device.type == "cpu":
         return append_kv_reference(k_new, v_new, pool, tables, cached_lens,
                                    chunk_lens)
@@ -228,6 +237,7 @@ def _launch_append(entry: str, name: str, k_new, v_new, pool, tables,
                         "take none")
     if pool["k"].dtype not in _cuda.DTYPE_CODES:
         raise TypeError(f"{name}: pool dtype {pool['k'].dtype}")
+    _check_head_dim(name, k_new)
     _check_meta(name, tables, cached_lens, chunk_lens, batch)
     operands = [k_new, v_new, pool["k"], pool["v"], tables, cached_lens,
                 chunk_lens]
@@ -297,7 +307,7 @@ def append_kv_ragged(k_new, v_new, pool, tables, cached_lens, chunk_lens):
     ``(cached_lens[b] + t) % bs``.
 
     CPU tensors take :func:`append_kv_ragged_reference`; CUDA tensors
-    launch ``csrc/paged_append_ragged.cu``.  Returns ``pool``."""
+    launch ``csrc/kv_write.cu``'s ragged writer.  Returns ``pool``."""
     if k_new.device.type == "cpu":
         return append_kv_ragged_reference(k_new, v_new, pool, tables,
                                           cached_lens, chunk_lens)
@@ -309,6 +319,184 @@ def append_kv_ragged(k_new, v_new, pool, tables, cached_lens, chunk_lens):
 
 #: Kernel launches on the CUDA path (never counts the plain version).
 append_kv_ragged.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# write_kv_rows: the decode step's K/V write (the ragged writer at T = 1)
+
+def write_kv_rows_reference(k, v, pool, tables, positions):
+    """Plain version of :func:`write_kv_rows`: the eager scatter of every
+    slot's row at its table-resolved (block, offset),
+    :func:`_write_rows_reference` at ``positions[:, None]``, in place."""
+    return _write_rows_reference(pool, k, v, tables, positions[:, None])
+
+
+def write_kv_rows(k, v, pool, tables, positions):
+    """The decode step's K/V write, in place: slot ``b``'s row lands in
+    pool block ``tables[b, positions[b] // bs]`` at offset ``positions[b]
+    % bs`` (table entry clamped to the table), int8 pools quantized as
+    :func:`_kv_quantize_rows`.
+
+    Args:
+      k / v: ``(batch, 1, kv_heads, head_dim)``.  On CUDA tensors only the
+        kv heads and features need be contiguous: the rotary pass hands
+        ``k`` over as a slice of the fused q/k tensor, and the kernel takes
+        its row stride.
+      pool: per-layer dict as :func:`append_kv`'s.  A contiguous cache
+        ``(batch, max_seq, kv, hd)`` is a pool of ``batch`` blocks of
+        ``max_seq`` rows, with tables ``arange(batch)[:, None]``.
+      tables: ``(batch, max_blocks)`` int32 block tables.
+      positions: ``(batch,)`` int32 positions.
+
+    CPU tensors take :func:`write_kv_rows_reference`; CUDA tensors launch
+    ``csrc/kv_write.cu``'s row writer (the ragged writer with ``T = 1`` and
+    every row live) or raise.  Returns ``pool``."""
+    if not k.is_cuda:
+        return write_kv_rows_reference(k, v, pool, tables, positions)
+    _launch_rows(k, v, pool, tables, positions)
+    write_kv_rows.launches += 1
+    return pool
+
+
+#: Kernel launches on the CUDA path (never counts the plain version).
+write_kv_rows.launches = 0
+
+#: The row writer's launch plan of each pool layer, keyed by ``id`` of the
+#: layer's ``k`` buffer: the layer's buffers (weak references, so a freed
+#: pool is not kept), the row dtype and shape they were checked with, and
+#: what the launch needs of them.  A decode step calls the writer once a
+#: layer with the same buffers every step, so their checks run once.
+_ROW_PLANS: Dict[int, tuple] = {}
+#: The (tables, positions, batch, device) checked last, with their
+#: pointers: every layer of a step passes the same two tensors.
+_ROW_META = [None] * 6
+
+
+def _launch_rows(k, v, pool, tables, positions) -> None:
+    """Launch the row writer; the checks of what repeats from layer to
+    layer and step to step run on a plan's first use (:func:`_row_plan`),
+    the rest on every call, and any failure is reported by the full
+    checks."""
+    k_pool = pool["k"]
+    plan = _ROW_PLANS.get(id(k_pool))
+    if plan is not None:
+        for key, ref in plan[0]:
+            if ref() is not pool.get(key):
+                plan = None
+                break
+    if plan is None or len(pool) != len(plan[0]) \
+            or k.dtype is not plan[1] or k.shape[1:] != plan[2]:
+        plan = _row_plan(k, v, pool)
+    (_, dtype, row_shape, device, head_dim, elem, pool_args, dims, codes,
+     fn) = plan
+    k_stride, v_stride = k.stride(), v.stride()
+    batch = k.shape[0]
+    if v.shape != k.shape or v.dtype is not dtype \
+            or k_stride[3] != 1 or v_stride[3] != 1 \
+            or (row_shape[1] > 1 and (k_stride[2] != head_dim
+                                      or v_stride[2] != head_dim)) \
+            or k.get_device() != device or v.get_device() != device \
+            or k.data_ptr() % 16 or v.data_ptr() % 16 \
+            or (batch > 1 and (k_stride[0] * elem % 16
+                               or v_stride[0] * elem % 16)):
+        _check_rows(k, v, pool)          # raises with the reason
+    meta = _ROW_META
+    if meta[0] is not tables or meta[1] is not positions \
+            or meta[2] != batch or meta[3] != device:
+        _check_row_meta(tables, positions, batch, k_pool)
+        meta[:] = [tables, positions, batch, device, tables.data_ptr(),
+                   positions.data_ptr()]
+    code = fn(k.data_ptr(), v.data_ptr(), *pool_args, meta[4], meta[5],
+              batch, *dims, tables.shape[1], k_stride[0], v_stride[0],
+              *codes, torch._C._cuda_getCurrentRawStream(device))
+    if code:
+        _cuda.raise_error("aiko_write_kv_rows", code)
+
+
+def _row_plan(k, v, pool) -> tuple:
+    """Check a pool layer and the rows written into it (:func:`_check_rows`)
+    and make the layer's launch plan."""
+    _check_rows(k, v, pool)
+    k_pool = pool["k"]
+    keys = ("k", "v", "ks", "vs") if "ks" in pool else ("k", "v")
+    kv_heads, head_dim = k.shape[2:]
+    plan = (tuple((key, weakref.ref(pool[key])) for key in keys), k.dtype,
+            tuple(k.shape[1:]), k_pool.get_device(), head_dim,
+            k.element_size(),
+            (k_pool.data_ptr(), pool["v"].data_ptr(),
+             _cuda.ptr(pool.get("ks")), _cuda.ptr(pool.get("vs"))),
+            (kv_heads, head_dim, k_pool.shape[1]),
+            (_cuda.DTYPE_CODES[k.dtype], _cuda.DTYPE_CODES[k_pool.dtype]),
+            _cuda.entry("aiko_write_kv_rows"))
+    _ROW_PLANS[id(k_pool)] = plan
+    return plan
+
+
+def _check_rows(k, v, pool) -> None:
+    """Every check of a decode write's rows and pool layer; raises on what
+    the row writer does not take."""
+    name = "write_kv_rows"
+    batch, T, kv_heads, head_dim = k.shape
+    k_pool, v_pool = pool["k"], pool["v"]
+    quantized = "ks" in pool
+    if T != 1 or v.shape != k.shape or v_pool.shape != k_pool.shape \
+            or k_pool.shape[2:] != (kv_heads, head_dim):
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}, pool "
+                         f"{tuple(k_pool.shape)}")
+    if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
+        raise TypeError(f"{name}: k/v dtype {k.dtype}")
+    if k_pool.dtype not in _cuda.DTYPE_CODES or v_pool.dtype != k_pool.dtype \
+            or quantized != (k_pool.dtype == torch.int8) \
+            or set(pool) - {"k", "v", "ks", "vs"}:
+        raise TypeError(f"{name}: pool dtype {k_pool.dtype} (int8 pools "
+                        "need ks/vs and float pools take none)")
+    _check_head_dim(name, k)
+    device = k.device
+    _check_row_layout(name, k, device)
+    _check_row_layout(name, v, device)
+    operands = [k_pool, v_pool]
+    if quantized:
+        _check_scales(name, pool)
+        operands += [pool["ks"], pool["vs"]]
+    if _cuda.check_cuda(name, *operands) != device:
+        raise ValueError(f"{name}: k/v on {device}, the pool on "
+                         f"{k_pool.device}")
+
+
+def _check_row_meta(tables, positions, batch, k_pool) -> None:
+    name = "write_kv_rows"
+    if tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise TypeError(f"{name}: tables and positions must be int32")
+    if tables.dim() != 2 or tables.shape[0] != batch \
+            or tuple(positions.shape) != (batch,):
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} and "
+                         f"positions {tuple(positions.shape)} do not match "
+                         f"the batch {batch}")
+    _cuda.check_cuda(name, k_pool, tables, positions)
+
+
+def _check_row_layout(name, x, device) -> None:
+    """``x``'s rows on ``device``, their kv heads and features contiguous,
+    the rows and their stride 16-byte aligned."""
+    stride = x.stride()
+    if x.device != device:
+        raise ValueError(f"{name}: tensors on {x.device} and {device}")
+    if stride[3] != 1 or (x.shape[2] > 1 and stride[2] != x.shape[3]) \
+            or x.data_ptr() % 16 \
+            or (x.shape[0] > 1 and stride[0] * x.element_size() % 16):
+        raise ValueError(f"{name}: a row of shape {tuple(x.shape[2:])} "
+                         f"with strides {stride} is not contiguous and "
+                         "16-byte aligned")
+
+
+def _check_head_dim(name, k_new) -> None:
+    """The KV writer's envelope: a (token, kv head) vector is a power of
+    two of 16-byte chunks, at most 32 (one lane each of a warp)."""
+    chunks, rest = divmod(k_new.shape[-1] * k_new.element_size(), 16)
+    if rest or not chunks or chunks > 32 or chunks & (chunks - 1):
+        raise ValueError(f"{name}: head_dim {k_new.shape[-1]} in "
+                         f"{k_new.dtype} is not a power of two of 16-byte "
+                         "chunks, at most 32")
 
 
 # --------------------------------------------------------------------------- #

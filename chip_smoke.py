@@ -23,11 +23,14 @@ Phases (any failure exits non-zero):
    tokens each, every served token held against a batch-1 prefill +
    generate_tokens oracle on the card (teacher-forced past a near-tie),
    the kernels' launch counts held against the decode steps and the
-   prefill dispatches of the run, then a full-batch steady decode window
-   timed bare, under cProfile (host functions) and under torch.profiler
-   (device time by kernel; int8_matmul's time per step in the kernel
-   line is read from it); then phase 6's 64-slot run on these int8
-   weights, for the comparison with int4.
+   prefill dispatches of the run (the decode step's K/V write,
+   write_kv_rows, once a layer a step), then a full-batch steady decode
+   window timed bare, under cProfile (host functions; the K/V write's host
+   microseconds a call) and under torch.profiler (device time by kernel,
+   kernels a step, and no per-layer index_put_ left in the step;
+   int8_matmul's time per step in the kernel line is read from it); then
+   phase 6's 64-slot run on these int8 weights, for the comparison with
+   int4.
 4. Paged serving: the same weights through PagedContinuousServer (8
    slots, 4096-row tables of 16-row blocks, the default 1,024-block pool,
    prefix cache on, 256-token chunked admission), bf16 KV then int8 KV:
@@ -72,7 +75,11 @@ at every admission slice and the verify shape, each with SDPA and the
 bound beside it; flash_attention
 at batch 1 (64-1,024 tokens) and at the 64-slot admission shape (64 rows
 of 128 tokens); paged_decode_attention on the contiguous server's
-128-row blocks and on the paged server's 16-row blocks at 8 and 64 rows.
+128-row blocks and on the paged server's 16-row blocks at 8 and 64 rows;
+the KV writer's three modes byte-equal to their plain versions:
+append_kv at every admission slice, append_kv_ragged at every verify
+window, and write_kv_rows (the decode step's K/V write) at 8 and 64
+slots, bf16 and int8 KV, each beside two index_put_ calls.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -797,11 +804,29 @@ def paged_pool(torch, llama, device, gen, quant_kv, kv=8, hd=128,
     return pool, tables
 
 
+def plant_division_ties(torch, rows):
+    """Fill the (n, hd) bf16 ``rows`` in place with vectors [m, m / 2, ...,
+    m / 2], m a bf16 value for which (m / 2) / (m / 127) lands on a
+    half-integer under IEEE division but not under a multiply by the
+    scale's reciprocal: an int8 quantizer that multiplies rounds those
+    codes otherwise than the plain one's true division."""
+    import numpy as np
+    bits = (np.arange(0x3F00, 0x4080, dtype=np.uint32) << 16) \
+        .view(np.float32)
+    scale, half = bits / np.float32(127), bits / np.float32(2)
+    ties = bits[np.rint(half / scale)
+                != np.rint(half * (np.float32(1) / scale))]
+    m = torch.from_numpy(np.resize(ties, rows.shape[0])).to(rows.device)
+    rows[:] = (m / 2)[:, None].to(rows.dtype)
+    rows[:, 0] = m.to(rows.dtype)
+
+
 def check_append(torch, pp, llama, device):
     """Every admission slice: the chunk's K/V (1, T, 8 kv heads, 128) into
-    shuffled 16-row blocks after a cached prefix, bf16 and int8 pools.
-    The kernel's pool must equal the plain version's byte for byte (the
-    slices are whole, so both write the same blocks and nothing else).
+    shuffled 16-row blocks after a cached prefix, bf16 and int8 pools,
+    head 0's K vectors :func:`plant_division_ties`'s.  The kernel's pool
+    must equal the plain version's byte for byte (the slices are whole,
+    so both write the same blocks and nothing else).
     Library: two ``index_put_`` calls (K, V) with precomputed rows, bf16
     only (no single call quantizes)."""
     gen = torch.Generator(device=device).manual_seed(4)
@@ -814,6 +839,7 @@ def check_append(torch, pp, llama, device):
                                 device=device).to(torch.bfloat16)
             v_new = torch.randn((1, T, kv, hd), generator=gen,
                                 device=device).to(torch.bfloat16)
+            plant_division_ties(torch, k_new[0, :, 0])
             meta = (torch.tensor([cached], dtype=torch.int32, device=device),
                     torch.tensor([T], dtype=torch.int32, device=device))
             got = {key: buf.clone() for key, buf in pool.items()}
@@ -962,8 +988,9 @@ def ragged_tables(torch, pool, gen, rows, entries):
 
 def check_append_ragged(torch, pp, llama, device):
     """Every verify window's append: 8 rows of (T, 8 kv heads, 128) at the
-    RAGGED_STARTS into shuffled 16-row blocks, bf16 and int8 pools.  The
-    kernel's pool must equal the plain version's byte for byte, and every
+    RAGGED_STARTS into shuffled 16-row blocks, bf16 and int8 pools, each
+    row's first K vector :func:`plant_division_ties`'s.  The kernel's
+    pool must equal the plain version's byte for byte, and every
     pool row outside the live windows must be as it was.  Library: two
     ``index_put_`` calls (K, V) with precomputed rows, bf16 only."""
     gen = torch.Generator(device=device).manual_seed(8)
@@ -979,6 +1006,7 @@ def check_append_ragged(torch, pp, llama, device):
                                 device=device).to(torch.bfloat16)
             v_new = torch.randn((rows_n, T, kv, hd), generator=gen,
                                 device=device).to(torch.bfloat16)
+            plant_division_ties(torch, k_new[:, 0, 0])
             meta = (torch.tensor(RAGGED_STARTS, dtype=torch.int32,
                                  device=device),
                     torch.tensor(lens, dtype=torch.int32, device=device))
@@ -1036,6 +1064,88 @@ def check_append_ragged(torch, pp, llama, device):
                 main = row
             del got, want
         del pool
+    return rows, main
+
+
+#: Slots of the phase-2 decode-write rows: the 8-slot and 64-slot batches.
+DECODE_WRITE_SLOTS = (8, 64)
+
+
+def check_write_kv_rows(torch, pp, llama, device):
+    """The decode step's K/V write (``write_kv_rows``, the KV writer's row
+    mode): one (1, 8 kv heads, 128) row a slot at 8 and 64 slots, as
+    ``llama._paged_step_core`` issues it (``k`` a slice of the fused q/k
+    tensor, head 0's vectors :func:`plant_division_ties`'s; every fourth
+    slot inactive, redirected to scratch block 0 at offset ``slot %
+    16``), into a pool of 16-row blocks through 4096-row
+    tables (every slot its own blocks), bf16 and int8 pools.  The
+    kernel's pool must equal the plain version's byte for byte in every
+    block but 0 (inactive lanes s and s + 16 share a scratch row, in no
+    set order).  Library: two
+    ``index_put_`` calls (K, V) with precomputed rows, bf16 only."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    kv, hd, heads = 8, 128, 32
+    rows, main = [], None
+    entries = PAGED_MAX_SEQ // BLOCK
+    for quant_kv in (False, True):
+        for slots in DECODE_WRITE_SLOTS:
+            pool, _ = paged_pool(torch, llama, device, gen, quant_kv,
+                                 n_blocks=slots * entries + 1)
+            tables = ragged_tables(torch, pool, gen, slots, entries)
+            positions = torch.randint(0, PAGED_MAX_SEQ, (slots,),
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+            active = torch.arange(slots, device=device) % 4 != 3
+            tables = torch.where(active[:, None], tables,
+                                 torch.zeros_like(tables))
+            positions = torch.where(active, positions, torch.arange(
+                slots, device=device, dtype=torch.int32) % BLOCK)
+            fused = torch.randn((slots, 1, heads + kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            k_new = fused[:, :, heads:]
+            v_new = torch.randn((slots, 1, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            plant_division_ties(torch, k_new[:, 0, 0])
+            got = {key: buf.clone() for key, buf in pool.items()}
+            want = {key: buf.clone() for key, buf in pool.items()}
+            pp.write_kv_rows(k_new, v_new, got, tables, positions)
+            pp.write_kv_rows_reference(k_new, v_new, want, tables, positions)
+            torch.cuda.synchronize()
+            err = max(float((got[key][1:].float() - want[key][1:].float())
+                            .abs().max()) for key in got)
+            if not all(torch.equal(got[key][1:], want[key][1:])
+                       for key in got):
+                fail(f"write_kv_rows int8={quant_kv} slots={slots}: pool "
+                     f"differs from the plain version outside block 0 "
+                     f"(max abs {err})")
+            ms = device_ms(torch, lambda: pp.write_kv_rows(
+                k_new, v_new, got, tables, positions), 50)
+            plain_ms = device_ms(torch, lambda: pp.write_kv_rows_reference(
+                k_new, v_new, want, tables, positions), 20)
+            library_ms = None
+            if not quant_kv:
+                flat_rows = (tables.long().gather(
+                    1, positions.long()[:, None] // BLOCK)[:, 0] * BLOCK
+                    + positions.long() % BLOCK)
+                flat = {key: got[key].view(-1, kv, hd) for key in got}
+                k_rows, v_rows = k_new[:, 0], v_new[:, 0]
+
+                def library():
+                    flat["k"].index_put_((flat_rows,), k_rows)
+                    flat["v"].index_put_((flat_rows,), v_rows)
+                library_ms = device_ms(torch, library, 20)
+            elem = 1 if quant_kv else 2
+            moved = 2 * slots * kv * hd * 2 + 2 * slots * kv * hd * elem \
+                + (2 * slots * kv * 4 if quant_kv else 0)
+            b_ms, b_by = bound(moved, 0)
+            row = dict(shape=f"decode write {slots} slots T=1 kv=8 hd=128 "
+                             f"bs=16 int8={quant_kv}", err=err, ratio=0.0,
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=library_ms)
+            rows.append(row)
+            if slots == SLOTS and not quant_kv:
+                main = row
+            del got, want, pool
     return rows, main
 
 
@@ -1273,6 +1383,7 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
             + sum(matmul_launches(weights, config, rows, seq, name)
                   for rows, seq in dispatches) for name in weights.rules}
     want.update(paged_decode_attention=layers * steps,
+                write_kv_rows=layers * steps,
                 flash_attention=layers * len(dispatches))
     for name, expected in want.items():
         if launches[name] != expected or expected == 0:
@@ -1318,10 +1429,14 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     tokens admitted together into ``make_server()``; after every request
     has its first token, 32 decode steps
     are timed with nothing attached, 16 more under cProfile (the host's
-    top functions by own time are printed) and 16 more under
-    torch.profiler (the card's kernel time per step, by kernel; busy
-    share = kernel time per step over the unprofiled step;
-    the weight matmul's device time per step).
+    top functions by own time are printed; the K/V write's microseconds a
+    call, llama's ``_cache_write_rows`` / ``_paged_write_rows``) and 16
+    more under torch.profiler, host ops and kernels (the card's kernel
+    time per step, by kernel; busy share = kernel time per step over the
+    unprofiled step; kernels a step; the weight matmul's device time per
+    step; ``aten::index_put_`` ops a step, which must stay under one a
+    layer: the decode write launches the row writer, not an eager
+    scatter).
 
     The tracer may miss the kernels launched while it comes up, and a
     window of consumed steps need not hold whole dispatched steps (the
@@ -1335,6 +1450,7 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     import io
     import pstats
 
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     server = make_server()
     rng = np.random.default_rng(11)
@@ -1363,7 +1479,17 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     host_wall, host_steps = window(16)
     host.disable()
     text = io.StringIO()
-    pstats.Stats(host, stream=text).sort_stats("tottime").print_stats(12)
+    host_stats = pstats.Stats(host, stream=text)
+    host_stats.sort_stats("tottime").print_stats(12)
+    # The decode step's K/V write under cProfile: llama's write function
+    # (write_kv_rows inside), microseconds a call with the profiler on.
+    writes = [(calls, cumulative) for (_, _, fn), (_, calls, _, cumulative,
+                                                   _) in
+              host_stats.stats.items()
+              if fn in ("_cache_write_rows", "_paged_write_rows")]
+    write_calls = sum(calls for calls, _ in writes)
+    write_host_us = (sum(cum for _, cum in writes) * 1e6 / write_calls
+                     if write_calls else None)
     log(f"--- host, {weights.label} weights, {slots} slots, "
         f"{'int8' if quantize_kv else 'bf16'} KV steady decode "
         f"(cProfile, {host_wall * 1e3 / host_steps:.3f} ms a step with it "
@@ -1373,20 +1499,36 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
             log("  " + line.rstrip())
     per_step = matmul_launches(weights, config, slots, 1)
     launched = weights.matmul.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        window(16)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, traced_steps = window(16)
     launched = weights.matmul.launches - launched
     server.run_until_drained()
     averages = prof.key_averages()
-    device_us = sum(event.self_device_time_total for event in averages)
-    matmul = [event for event in averages if weights.trace_key in event.key]
+    kernels = [event for event in averages
+               if event.device_type == DeviceType.CUDA]
+    device_us = sum(event.self_device_time_total for event in kernels)
+    matmul = [event for event in kernels if weights.trace_key in event.key]
     recorded = sum(event.count for event in matmul)
+    # In-place index_put_ ops of the window (host-side records, which the
+    # tracer does not miss): the eager K/V write issued 2 (bf16 KV) or 4
+    # (int8 KV) a layer a step; the decode write now launches none.
+    index_puts = sum(event.count for event in averages
+                     if event.key == "aten::index_put_") / traced_steps
+    if index_puts >= config.n_layers:
+        fail(f"{weights.label} {'int8' if quantize_kv else 'bf16'} KV "
+             f"steady decode: {index_puts:g} index_put_ a step, a "
+             "per-layer K/V write left outside write_kv_rows")
     result = dict(steady_slots=slots,
                   steady_decode_tok_s=slots * 1e3 / step_ms,
                   steady_step_ms=step_ms, steady_device_ms_per_step=None,
                   steady_device_busy=None, matmul_device_ms_per_step=None,
                   matmul_launches_traced=recorded,
-                  matmul_launches_in_trace=launched)
+                  matmul_launches_in_trace=launched,
+                  steady_kernels_per_step=None,
+                  steady_index_put_per_step=index_puts,
+                  write_host_us_per_call=write_host_us,
+                  write_calls_per_step=write_calls / host_steps)
     if not device_us or not recorded:
         log(f"--- device: the profiler recorded no {weights.name} launch "
             "(not measured)")
@@ -1403,6 +1545,7 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     result.update(
         steady_device_ms_per_step=device_ms,
         steady_device_busy=device_ms / step_ms,
+        steady_kernels_per_step=sum(e.count for e in kernels) / steps,
         matmul_device_ms_per_step=sum(e.self_device_time_total
                                       for e in matmul) / 1e3 / steps)
     return result
@@ -1477,6 +1620,7 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
                           for rows, seq in dispatches)
             for name in weights.rules}
     want.update(paged_decode_attention=layers * steps,
+                write_kv_rows=layers * steps,
                 flash_attention=layers * len(dispatches))
     for name, expected in want.items():
         if launches[name] != expected or expected == 0:
@@ -1629,7 +1773,8 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
              f"{slices}")
     layers, steps = config.n_layers, stats["decode_steps"]
     want = {"append_kv": layers * slices, "chunk_attention": layers * slices,
-            "paged_decode_attention": layers * steps}
+            "paged_decode_attention": layers * steps,
+            "write_kv_rows": layers * steps}
     for name in weights.rules:
         want[name] = matmul_launches(weights, config, SLOTS, 1, name) \
             * steps + sum(layer_launches(weights, config, w, name)
@@ -1808,6 +1953,10 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
         # Fixed k: every decode step is a draft proposal step (none at all
         # when the slot's own history drafts).
         want["paged_decode_attention"] = draft_layers * SPEC_K * rounds
+    # Every decode step's attention follows its K/V write, one each a layer
+    # (the adaptive controller's k varies: the two counts tie).
+    want["write_kv_rows"] = want.get("paged_decode_attention",
+                                     launches["paged_decode_attention"])
     if weights.bits == 4:
         want.update(shapes.predicted())
         for name in ("int8_matmul", "int4_matmul_scale_first"):
@@ -1820,7 +1969,8 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
                  f"{len(requests)})")
     used = (weights.name, "append_kv", "append_kv_ragged",
             "chunk_attention") + (() if mode == "ngram" else (
-                "paged_decode_attention", "flash_attention"))
+                "paged_decode_attention", "write_kv_rows",
+                "flash_attention"))
     for name in used:
         if not launches[name]:
             fail(f"spec {mode}: {name} was never launched")
@@ -1927,7 +2077,7 @@ def steady_spec(torch, np, make_server, request_cls, config, quantize_kv):
     by_kernel = {}
     for name in ("int8_matmul_kernel", "paged_decode", "chunk_attention",
                  "append_kv_ragged_kernel", "append_kv_kernel",
-                 "flash_attention"):
+                 "write_kv_rows_kernel", "flash_attention"):
         us = sum(e.self_device_time_total for e in averages if name in e.key)
         by_kernel[name] = us / 1e3 / seen
     device_ms = device_us / 1e3 / seen
@@ -2202,6 +2352,10 @@ def main() -> None:
     ragged_rows, ragged_main = check_append_ragged(torch, pp, llama, device)
     print_rows("append_kv_ragged (pool bytes equal to the plain version's, "
                "rows outside the windows untouched)", ragged_rows)
+    write_rows, write_main = check_write_kv_rows(torch, pp, llama, device)
+    print_rows("write_kv_rows, the decode step's K/V write (pool bytes "
+               "equal to the plain version's outside scratch block 0)",
+               write_rows)
     verify_rows, verify_worst, verify_main = check_chunk_verify(
         torch, pp, llama, device)
     print_rows("chunk_attention at the verify shape", verify_rows)
@@ -2214,7 +2368,7 @@ def main() -> None:
         f"{time.monotonic() - t0:.1f} s")
     w8 = Weights(quant, 8)
     kernels = (quant.int8_matmul, attention.flash_attention,
-               paged_attention.paged_decode_attention)
+               paged_attention.paged_decode_attention, pp.write_kv_rows)
     runs = []
     for quantize_kv in (False, True):
         run = serve(torch, np, llama, w8, kernels,
@@ -2274,7 +2428,7 @@ def main() -> None:
     kernels4 = (quant.int4_matmul, quant.int4_matmul_tiled,
                 quant.int4_matmul_scale_first, quant.int8_matmul,
                 attention.flash_attention,
-                paged_attention.paged_decode_attention)
+                paged_attention.paged_decode_attention, pp.write_kv_rows)
     for k, n in projections(config) + [(config.d_model, config.vocab_size)]:
         if not quant.tiles_int4(k, n, max(1, k // 128)):
             fail(f"int4 {k}x{n}: the m-tiled instance does not take it, so "
@@ -2435,7 +2589,7 @@ def main() -> None:
              bound_by=decode_main["bound_by"],
              library_ms=decode_main["library_ms"]),
         dict(name="append_kv", route="cuda",
-             source="aiko_services_tpu_torch/csrc/paged_append.cu",
+             source="aiko_services_tpu_torch/csrc/kv_write.cu",
              replaces="aiko_services_tpu/ops/paged_prefill.py:264",
              launches=paged_main["append_kv"],
              max_abs_err=max(r["err"] for r in append_rows),
@@ -2453,7 +2607,7 @@ def main() -> None:
              bound_by=chunk_main["bound_by"],
              library_ms=chunk_main["library_ms"]),
         dict(name="append_kv_ragged", route="cuda",
-             source="aiko_services_tpu_torch/csrc/paged_append_ragged.cu",
+             source="aiko_services_tpu_torch/csrc/kv_write.cu",
              replaces="aiko_services_tpu/ops/paged_prefill.py:619",
              launches=spec_main["append_kv_ragged"],
              max_abs_err=max(r["err"] for r in ragged_rows),
@@ -2461,6 +2615,16 @@ def main() -> None:
              bound_ms=ragged_main["bound_ms"],
              bound_by=ragged_main["bound_by"],
              library_ms=ragged_main["library_ms"]),
+        # The ragged writer's row mode: the decode step's K/V write.
+        dict(name="write_kv_rows", route="cuda",
+             source="aiko_services_tpu_torch/csrc/kv_write.cu",
+             replaces="aiko_services_tpu/ops/paged_prefill.py:619",
+             launches=main_run["write_kv_rows"],
+             max_abs_err=max(r["err"] for r in write_rows),
+             ms=write_main["ms"], plain_ms=write_main["plain_ms"],
+             bound_ms=write_main["bound_ms"],
+             bound_by=write_main["bound_by"],
+             library_ms=write_main["library_ms"]),
     ]
     log(f"chunk_attention at the verify shape (T=5, bf16, no window): "
         f"{verify_main['ms']:.4f} ms, SDPA {verify_main['library_ms']:.4f} "
@@ -2470,8 +2634,8 @@ def main() -> None:
         f"{flash_worst:.3f}, decode {decode_worst:.3f} (bs 16: "
         f"{paged_decode_worst:.3f}), chunk_attention {chunk_worst:.3f} "
         f"(verify shape {verify_worst:.3f}), ring "
-        f"{max(r['ratio'] for r in ring_rows):.3f}; append_kv and "
-        f"append_kv_ragged pools byte-equal; total "
+        f"{max(r['ratio'] for r in ring_rows):.3f}; append_kv, "
+        f"append_kv_ragged and write_kv_rows pools byte-equal; total "
         f"{time.monotonic() - began:.1f} s")
     log(smi)
     print(json.dumps(report), flush=True)

@@ -6,12 +6,14 @@ tolerances and timings) and prints the smoke's rows; a failed case is
 reported and the run goes on to every case.  Exits non-zero if any case
 failed.
 
-    python3 scripts/smoke_phase2.py [chunk] [verify] [int4] [int8]
+    python3 scripts/smoke_phase2.py [chunk] [verify] [int4] [int8] [kv]
 
-Without names it runs all four: chunk attention at every admission
+Without names it runs all five: chunk attention at every admission
 slice, chunk attention at the verify shape, int4_matmul at every
-projection and m (with the m-tiled instance and the step sums), and
-int8_matmul at every projection and m (with the 8-slot step's sum).
+projection and m (with the m-tiled instance and the step sums),
+int8_matmul at every projection and m (with the 8-slot step's sum), and
+the KV writer's three modes (append_kv, append_kv_ragged and the decode
+write write_kv_rows, each byte-equal to its plain version).
 Needs an NVIDIA card and nvcc.
 """
 
@@ -20,7 +22,7 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-CHECKS = ("chunk", "verify", "int4", "int8")
+CHECKS = ("chunk", "verify", "int4", "int8", "kv")
 
 
 def main() -> None:
@@ -59,6 +61,13 @@ def main() -> None:
         chip_smoke.print_rows("int8_matmul", rows)
         print(f"  int8 one 8-slot decode step, sum of the isolated times: "
               f"{step}")
+    if "kv" in names:
+        for title, check in (
+                ("append_kv", chip_smoke.check_append),
+                ("append_kv_ragged", chip_smoke.check_append_ragged),
+                ("write_kv_rows", chip_smoke.check_write_kv_rows)):
+            rows, _ = check(torch, pp, llama, device)
+            chip_smoke.print_rows(title, rows)
     for message in failures:
         print(f"FAIL: {message}")
     sys.exit(1 if failures else 0)

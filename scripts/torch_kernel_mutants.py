@@ -9,9 +9,11 @@ rows from the wrong query heads; the decode kernel's log-sum-exp merge
 drops a row's last split, or gives it 0.9 of its weight; the paged
 chunk-attention kernel stops zeroing masked probabilities, drops the last
 live 16-row block of a tile's sweep, drops a tile's last split from its
-merge, or gives that split 0.9 of its weight; the ragged verify-window
-append writes at the block-aligned start (dropping ``cached %
-block_size``), or skips each row's last live token; the int4
+merge, or gives that split 0.9 of its weight; the KV writer's ragged mode
+writes at the block-aligned start (dropping ``cached % block_size``) or
+skips each row's last live token, its int8 quantizer multiplies by the
+scale's reciprocal instead of dividing by it, and its ragged and row modes
+write an unaligned row one offset late; the int4
 dequant-matmul swaps the two nibbles of a byte, reads nibbles as unsigned
 (0..15), takes 128 for the magic number's bias (136), leaves x's B
 fragment in its natural k order (not permuted to match the weights'), or
@@ -49,7 +51,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FLASH = "aiko_services_tpu_torch/csrc/flash_attention.cu"
 DECODE = "aiko_services_tpu_torch/csrc/paged_decode.cu"
 CHUNK = "aiko_services_tpu_torch/csrc/paged_prefill.cu"
-RAGGED = "aiko_services_tpu_torch/csrc/paged_append_ragged.cu"
+KV_WRITE = "aiko_services_tpu_torch/csrc/kv_write.cu"
 INT4 = "aiko_services_tpu_torch/csrc/int4_matmul.cu"
 INT8 = "aiko_services_tpu_torch/csrc/int8_matmul.cu"
 WSTREAM = "aiko_services_tpu_torch/csrc/weight_stream.cuh"
@@ -97,11 +99,20 @@ MUTANTS = {
         "    const float m_sp[2] = {part_ml(sp, 0, 0) - drift,\n"
         "                           part_ml(sp, 0, 1) - drift};"),
     "ragged_aligned_start": (
-        RAGGED, "const int pos = cached_lens[row] + token;",
-        "const int pos = cached_lens[row] / block_size * block_size + token;"),
+        KV_WRITE, "    entry = (cached + token) / block_size;\n"
+        "    offset = (cached + token) % block_size;",
+        "    entry = cached / block_size + token / block_size;\n"
+        "    offset = token % block_size;"),
     "ragged_skip_last": (
-        RAGGED, "if (token >= chunk_lens[row]) return;",
+        KV_WRITE, "if (token >= chunk_lens[row]) return;",
         "if (token >= chunk_lens[row] - 1) return;"),
+    "kvwrite_reciprocal_scale": (
+        KV_WRITE, "__float2int_rn(__fdiv_rn(f[4 * w + b], scale))",
+        "__float2int_rn(f[4 * w + b] * (1.f / scale))"),
+    "kvwrite_late_row": (
+        KV_WRITE, "    offset = (cached + token) % block_size;",
+        "    offset = (cached + token) % block_size;\n"
+        "    if (offset != 0 && offset < block_size - 1) ++offset;"),
     "int4_nibble_swap": (
         INT4, "lo0 = nibbles_to_bf16x2(p), hi0 = nibbles_to_bf16x2(p >> 4);",
         "lo0 = nibbles_to_bf16x2(p >> 4), hi0 = nibbles_to_bf16x2(p);"),
@@ -164,7 +175,8 @@ MUTANTS = {
 }
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
-             "chunk": "chunk_attention", "ragged": "ragged", "int4": "int4",
+             "chunk": "chunk_attention", "ragged": "ragged",
+             "kvwrite": "append or write_kv", "int4": "int4",
              "int8": "int8",
              "ag": "ring", "rs": "ring", "ring": "ring"}
 
@@ -222,15 +234,20 @@ def phase2(name: str) -> bool:
     elif kind in ("ag", "rs", "ring"):
         rows, _, _ = chip_smoke.check_ring(torch, parallel, device)
         worst = max(row["ratio"] for row in rows)
-    elif kind == "ragged":
-        # A byte-equality check: the rows' max abs error is the measure.
+    elif kind in ("ragged", "kvwrite"):
+        # Byte-equality checks: the rows' max abs error is the measure.
         rows, _ = chip_smoke.check_append_ragged(torch, paged_prefill, llama,
                                                  device)
+        if kind == "kvwrite":
+            rows += chip_smoke.check_append(torch, paged_prefill, llama,
+                                            device)[0]
+            rows += chip_smoke.check_write_kv_rows(torch, paged_prefill,
+                                                   llama, device)[0]
         worst = max(row["err"] for row in rows)
     else:
         rows, worst, _ = chip_smoke.check_chunk(torch, paged_prefill, llama,
                                                 device)
-    measure = "max abs err" if kind == "ragged" else "err/tol"
+    measure = "max abs err" if kind in ("ragged", "kvwrite") else "err/tol"
     phase = "7" if kind in ("ag", "rs", "ring") else "2"
     print(f"{name}: smoke phase {phase} reported {len(failures)} failures over "
           f"{len(rows)} cases, worst {measure} {worst:.3f}")

@@ -870,6 +870,279 @@ def test_append_kv_ragged_rejects_non_int32_tables(cuda):
         assert torch.equal(pool[key], before[key]), key
 
 
+# --------------------------------------------------------------------------- #
+# The KV writer (csrc/kv_write.cu): its aligned, ragged and row modes
+# against their plain versions, byte for byte.
+
+WRITER_IN = {"bf16": torch.bfloat16, "f32": torch.float32}
+WRITER_POOLS = ("bf16", "f32", "int8")
+
+
+def _writer_pool(cuda, gen, n_blocks, bs, kv, hd, pool_dtype):
+    """A random pool: bf16 or f32 values, or int8 codes and scales from
+    the plain quantizer."""
+    k = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((n_blocks, bs, kv, hd), generator=gen, device=cuda)
+    if pool_dtype == "int8":
+        (k, ks), (v, vs) = llama._kv_quantize(k), llama._kv_quantize(v)
+        return dict(k=k, v=v, ks=ks, vs=vs)
+    dtype = WRITER_IN[pool_dtype]
+    return dict(k=k.to(dtype), v=v.to(dtype))
+
+
+def _writer_tables(cuda, gen, n_blocks, rows, entries):
+    """Distinct shuffled pool blocks (never scratch block 0)."""
+    ids = torch.randperm(n_blocks - 1, generator=gen,
+                         device=cuda)[:rows * entries] + 1
+    return ids.to(torch.int32).reshape(rows, entries).contiguous()
+
+
+def _writer_rows(cuda, gen, rows, T, kv, hd, in_dtype):
+    k_new = torch.randn((rows, T, kv, hd), generator=gen, device=cuda)
+    v_new = torch.randn((rows, T, kv, hd), generator=gen, device=cuda)
+    k_new[0, 0, 0] = 0.0                  # an all-zero vector: scale 1
+    return k_new.to(WRITER_IN[in_dtype]), v_new.to(WRITER_IN[in_dtype])
+
+
+def _assert_pools_equal(got, want, skip_scratch):
+    for key in got:
+        first = 1 if skip_scratch else 0
+        assert torch.equal(got[key][first:], want[key][first:]), key
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pool_dtype", WRITER_POOLS)
+@pytest.mark.parametrize("in_dtype", sorted(WRITER_IN))
+@pytest.mark.parametrize("T,bs", [(16, 16), (256, 16), (256, 128)])
+def test_append_kv_writer_aligned(cuda, T, bs, in_dtype, pool_dtype, hd):
+    """append_kv: three rows after 0, 2 and 5 cached blocks with chunks of
+    T, T / 2 + 3 (a part-live last block) and 0 tokens; every block but
+    scratch 0 (where the plain version flushes the dead blocks) byte-equal
+    to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(T + bs + hd)
+    kv, rows = 8, 3
+    cached_blocks = (0, 2, 5)
+    entries = max(cached_blocks) + T // bs + 1
+    n_blocks = rows * entries + 1
+    pool = _writer_pool(cuda, gen, n_blocks, bs, kv, hd, pool_dtype)
+    tables = _writer_tables(cuda, gen, n_blocks, rows, entries)
+    k_new, v_new = _writer_rows(cuda, gen, rows, T, kv, hd, in_dtype)
+    cached = torch.tensor([c * bs for c in cached_blocks], dtype=torch.int32,
+                          device=cuda)
+    chunk = torch.tensor([T, T // 2 + 3, 0], dtype=torch.int32, device=cuda)
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    before = paged_prefill.append_kv.launches
+    paged_prefill.append_kv(k_new, v_new, pool, tables, cached, chunk)
+    assert paged_prefill.append_kv.launches == before + 1
+    paged_prefill.append_kv_reference(k_new, v_new, plain, tables, cached,
+                                      chunk)
+    _assert_pools_equal(pool, plain, skip_scratch=True)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pool_dtype", WRITER_POOLS)
+@pytest.mark.parametrize("in_dtype", sorted(WRITER_IN))
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("T", [1, 5, 17])
+def test_append_kv_writer_ragged(cuda, T, bs, in_dtype, pool_dtype, hd):
+    """append_kv_ragged: eight rows at unaligned starts (one a row short of
+    a block's end, one at a block's start, two deep in a long row), chunks
+    of T, T - 1 and 1 tokens and an idle row; every pool byte equal to the
+    plain version's (neither writes past a row's chunk_len)."""
+    gen = torch.Generator(device=cuda).manual_seed(T * bs + hd)
+    kv = 8
+    starts = (0, bs - 1, bs, bs + 1, 1023, 1030, 40, 5)
+    lens = (T, T, max(T - 1, 1), T, T, 1, T, 0)
+    rows = len(starts)
+    entries = (max(starts) + T) // bs + 2
+    n_blocks = rows * entries + 1
+    pool = _writer_pool(cuda, gen, n_blocks, bs, kv, hd, pool_dtype)
+    tables = _writer_tables(cuda, gen, n_blocks, rows, entries)
+    k_new, v_new = _writer_rows(cuda, gen, rows, T, kv, hd, in_dtype)
+    cached = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    chunk = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    before = paged_prefill.append_kv_ragged.launches
+    paged_prefill.append_kv_ragged(k_new, v_new, pool, tables, cached, chunk)
+    assert paged_prefill.append_kv_ragged.launches == before + 1
+    paged_prefill.append_kv_ragged_reference(k_new, v_new, plain, tables,
+                                             cached, chunk)
+    _assert_pools_equal(pool, plain, skip_scratch=False)
+
+
+def _division_ties(rows, device):
+    """``rows`` f32 values m, bf16-exact, for which (m / 2) / (m / 127)
+    lands on a half-integer under IEEE division but not under a multiply
+    by the scale's reciprocal."""
+    bits = (np.arange(0x3F00, 0x4080, dtype=np.uint32) << 16) \
+        .view(np.float32)
+    scale, half = bits / np.float32(127), bits / np.float32(2)
+    ties = bits[np.rint(half / scale)
+                != np.rint(half * (np.float32(1) / scale))]
+    return torch.from_numpy(np.resize(ties, rows)).to(device)
+
+
+@pytest.mark.parametrize("in_dtype", sorted(WRITER_IN))
+@pytest.mark.parametrize("mode", ["aligned", "ragged", "rows"])
+def test_write_kv_int8_divides_by_the_scale(cuda, mode, in_dtype):
+    """Vectors whose codes a reciprocal multiply would round otherwise than
+    the plain quantizer's true division: every mode writes the plain
+    version's codes and scales."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    rows = 16
+    m = _division_ties(rows, cuda)
+    T = 16 if mode == "aligned" else 1
+    batch = rows // T
+    pool = _writer_pool(cuda, gen, 33, 16, 2, 128, "int8")
+    k = (m / 2)[:, None, None].expand(rows, 2, 128).clone()
+    k[:, :, 0] = m[:, None]
+    k = k.reshape(batch, T, 2, 128).to(WRITER_IN[in_dtype])
+    scale = m / torch.full_like(m, 127.0)
+    assert bool(((m / 2 / scale).round()
+                 != (m / 2 * (1 / scale)).round()).any())
+    tables = _writer_tables(cuda, gen, 33, batch, 2)
+    positions = torch.arange(batch, dtype=torch.int32, device=cuda) * 3 % 32
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    if mode == "rows":
+        paged_prefill.write_kv_rows(k, k, pool, tables, positions)
+        paged_prefill.write_kv_rows_reference(k, k, plain, tables, positions)
+    else:
+        append = {"aligned": paged_prefill.append_kv,
+                  "ragged": paged_prefill.append_kv_ragged}[mode]
+        reference = {"aligned": paged_prefill.append_kv_reference,
+                     "ragged": paged_prefill.append_kv_ragged_reference}[mode]
+        meta = (positions * (16 if mode == "aligned" else 1),
+                torch.full((batch,), T, dtype=torch.int32, device=cuda))
+        append(k, k, pool, tables, *meta)
+        reference(k, k, plain, tables, *meta)
+    _assert_pools_equal(pool, plain, skip_scratch=True)
+
+
+def _decode_write_case(cuda, gen, slots, bs, kv, hd, in_dtype, pool_dtype):
+    """One decode step's write as ``llama._paged_step_core`` issues it:
+    ``k`` a slice of the fused q/k tensor, a quarter of the slots inactive
+    and redirected to scratch block 0 at offset ``slot % bs``."""
+    entries = 1024 // bs + 1
+    n_blocks = slots * entries + 1
+    pool = _writer_pool(cuda, gen, n_blocks, bs, kv, hd, pool_dtype)
+    tables = _writer_tables(cuda, gen, n_blocks, slots, entries)
+    fused = torch.randn((slots, 1, 5 * kv, hd), generator=gen, device=cuda)
+    k = fused.to(WRITER_IN[in_dtype])[:, :, 4 * kv:]
+    v = torch.randn((slots, 1, kv, hd), generator=gen,
+                    device=cuda).to(WRITER_IN[in_dtype])
+    positions = torch.randint(0, 1024, (slots,), generator=gen, device=cuda,
+                              dtype=torch.int32)
+    positions[:4] = torch.tensor([0, bs - 1, bs, 1023], dtype=torch.int32)
+    active = torch.arange(slots, device=cuda) % 4 != 3
+    slot_offsets = torch.arange(slots, device=cuda, dtype=torch.int32) % bs
+    tables = torch.where(active[:, None], tables, torch.zeros_like(tables))
+    positions = torch.where(active, positions, slot_offsets)
+    return k, v, pool, tables, positions
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pool_dtype", WRITER_POOLS)
+@pytest.mark.parametrize("in_dtype", sorted(WRITER_IN))
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("slots", [8, 64])
+def test_write_kv_rows_kernel(cuda, slots, bs, in_dtype, pool_dtype, hd):
+    """The decode write: every block but scratch 0 (where inactive lanes
+    s and s + bs may land on one row, in either order) byte-equal to the
+    plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(slots + bs + hd)
+    k, v, pool, tables, positions = _decode_write_case(
+        cuda, gen, slots, bs, 8, hd, in_dtype, pool_dtype)
+    assert not k.is_contiguous()
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    before = paged_prefill.write_kv_rows.launches
+    paged_prefill.write_kv_rows(k, v, pool, tables, positions)
+    assert paged_prefill.write_kv_rows.launches == before + 1
+    paged_prefill.write_kv_rows_reference(k, v, plain, tables, positions)
+    _assert_pools_equal(pool, plain, skip_scratch=True)
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("slots", [8, 64])
+def test_write_kv_rows_contiguous_cache(cuda, slots, quantize_kv):
+    """llama's ``_cache_write_rows`` on the card: the row writer over a
+    (slots, 1024, 8, 128) cache as a pool of one block a row, inactive
+    slots at the scratch row 1023; every byte equal to the plain write."""
+    gen = torch.Generator(device=cuda).manual_seed(slots)
+    config = dataclasses.replace(llama.CONFIGS["llama3_8b"], n_layers=1)
+    cache = llama.init_cache(config, slots, 1024, quantize_kv=quantize_kv,
+                             device=cuda)[0]
+    fused = torch.randn((slots, 1, 40, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    k, v = fused[:, :, 32:], fused[:, :, :8].contiguous()
+    positions = torch.randint(0, 1023, (slots,), generator=gen, device=cuda,
+                              dtype=torch.int32)
+    positions[::5] = 1023
+    plain = {key: buf.clone() for key, buf in cache.items()}
+    before = paged_prefill.write_kv_rows.launches
+    llama._cache_write_rows(cache, k, v, positions)
+    assert paged_prefill.write_kv_rows.launches == before + 1
+    paged_prefill.write_kv_rows_reference(
+        k, v, plain, torch.arange(slots, device=cuda,
+                                  dtype=torch.int32)[:, None], positions)
+    _assert_pools_equal(cache, plain, skip_scratch=False)
+
+
+def test_write_kv_rows_raises_on_what_the_kernel_does_not_take(cuda):
+    """int64 positions, a head_dim of three 16-byte chunks, and rows whose
+    features are not contiguous raise before anything is written."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    k, v, pool, tables, positions = _decode_write_case(
+        cuda, gen, 8, 16, 8, 128, "bf16", "bf16")
+    before = {key: buf.clone() for key, buf in pool.items()}
+    with pytest.raises(TypeError, match="int32"):
+        paged_prefill.write_kv_rows(k, v, pool, tables, positions.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_prefill.write_kv_rows(k.transpose(2, 3).contiguous()
+                                    .transpose(2, 3), v, pool, tables,
+                                    positions)
+    odd = _writer_pool(cuda, gen, 9, 16, 8, 24, "bf16")
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        paged_prefill.write_kv_rows(k[..., :24].contiguous(),
+                                    v[..., :24].contiguous(), odd, tables,
+                                    positions)
+    for key in pool:
+        assert torch.equal(pool[key], before[key]), key
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_decode_write_launches_once_a_layer_a_step(cuda, layout,
+                                                   quantize_kv):
+    """tiny with int8 weights on the card: the decode steps write K/V only
+    through the row writer, one launch a layer a decode step (and one
+    decode attention launch beside each)."""
+    kwargs = dict(config_name="tiny", slots=3, max_seq=128, chunk_steps=4,
+                  quantize=True, quantize_kv=quantize_kv, seed=1)
+    if layout == "paged":
+        server = PagedContinuousServer(block_size=16, chunk_prefill_tokens=16,
+                                       enable_prefix_cache=True, **kwargs)
+    else:
+        server = ContinuousBatchingServer(**kwargs)
+    rng = np.random.default_rng(5)
+    requests = [DecodeRequest(f"r{i}", rng.integers(1, 1024, plen)
+                              .astype(np.int32), new)
+                for i, (plen, new) in enumerate(
+                    [(5, 6), (30, 9), (17, 4), (40, 7)])]
+    before = (paged_prefill.write_kv_rows.launches,
+              paged_attention.paged_decode_attention.launches)
+    for request in requests:
+        server.submit(request)
+    server.run_until_drained()
+    launches = paged_prefill.write_kv_rows.launches - before[0]
+    steps = server.stats()["decode_steps"]
+    assert steps > 0
+    assert launches == server.config.n_layers * steps
+    assert paged_attention.paged_decode_attention.launches - before[1] \
+        == launches
+    for request in requests:
+        assert len(request.tokens) == request.max_new_tokens
+
+
 @pytest.mark.parametrize("quant_kv", [False, True])
 @pytest.mark.parametrize("window", [None, 256])
 def test_chunk_attention_verify_shape(cuda, quant_kv, window):
