@@ -43,10 +43,11 @@ from ..ops.attention import flash_attention
 from ..ops.paged_attention import (cached_gqa_attention,
                                    contiguous_block_size,
                                    paged_decode_attention)
-from ..ops.paged_prefill import (_gathered_view, _kv_quantize_rows,
-                                 _pool_sources, _write_rows_reference,
+from ..ops.paged_prefill import (DecodeRows, KVLayer, _gathered_view,
+                                 _kv_quantize_rows, _pool_sources,
+                                 _write_rows_reference,
                                  paged_prefill_attention,
-                                 paged_verify_attention, write_kv_rows)
+                                 paged_verify_attention, write_decode_rows)
 from ..ops.quant import (_unpack_int4, int4_matmul, int8_matmul,
                          is_quantized, is_quantized_int4, quantize_tree)
 
@@ -433,19 +434,22 @@ def init_cache(config: LlamaConfig, batch: int,
 
 def _kv_layer_buffers(config: LlamaConfig, shape, quantize_kv: bool,
                       device) -> List[Dict]:
-    """Per-layer KV buffer dicts: the ONE place the cache layout (dtypes,
+    """Per-layer KV buffer dicts (:class:`KVLayer`, which keep what the
+    decode write checked of them): the ONE place the cache layout (dtypes,
     scale keys) is defined."""
     if quantize_kv:
         sshape = shape[:-1]
-        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                 "ks": torch.ones(sshape, dtype=torch.float32,
-                                  device=device),
-                 "vs": torch.ones(sshape, dtype=torch.float32,
-                                  device=device)}
+        return [KVLayer(k=torch.zeros(shape, dtype=torch.int8,
+                                      device=device),
+                        v=torch.zeros(shape, dtype=torch.int8,
+                                      device=device),
+                        ks=torch.ones(sshape, dtype=torch.float32,
+                                      device=device),
+                        vs=torch.ones(sshape, dtype=torch.float32,
+                                      device=device))
                 for _ in range(config.n_layers)]
-    return [{"k": torch.zeros(shape, dtype=config.dtype, device=device),
-             "v": torch.zeros(shape, dtype=config.dtype, device=device)}
+    return [KVLayer(k=torch.zeros(shape, dtype=config.dtype, device=device),
+                    v=torch.zeros(shape, dtype=config.dtype, device=device))
             for _ in range(config.n_layers)]
 
 
@@ -465,12 +469,19 @@ def _cache_write_slab(cache_layer, k, v, start_index: int):
     return cache_layer
 
 
-def _cache_write_rows(cache_layer, k, v, positions):
-    """Write one (batch, 1, kv, hd) row per batch element at per-row
-    int32 ``positions``, in place: :func:`write_kv_rows` on the cache
-    viewed as a pool of ``batch`` blocks of ``max_seq`` rows."""
-    return write_kv_rows(k, v, cache_layer,
-                         _slot_tables(k.shape[0], k.device), positions)
+def _cache_write_rows(cache_layer, k, v, rows: DecodeRows):
+    """Write one (batch, 1, kv, hd) row per batch element at the step's
+    positions, in place: :func:`write_kv_rows` on the cache viewed as a
+    pool of ``batch`` blocks of ``max_seq`` rows (``rows`` from
+    :func:`_cache_rows`)."""
+    return write_decode_rows(k, v, cache_layer, rows)
+
+
+def _cache_rows(positions) -> DecodeRows:
+    """A contiguous cache's decode-write targets at int32 ``positions``
+    (batch,): tables :func:`_slot_tables`."""
+    return DecodeRows(_slot_tables(positions.shape[0], positions.device),
+                      positions)
 
 
 @functools.lru_cache(maxsize=None)
@@ -526,17 +537,18 @@ def _decode_attention_contiguous(q_g, cache_layer, positions, hd, window):
 
 
 def _attention_decode_ragged(layer, config, x, rope, cache_layer,
-                             positions):
+                             rows: DecodeRows):
     """Single-token decode where every batch row sits at its OWN cache
-    position.  ``x`` (batch, 1, d), ``positions`` (batch,)."""
+    position.  ``x`` (batch, 1, d), ``rows`` the step's
+    :func:`_cache_rows`."""
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     q, k, v = _qkv(layer, config, x, rope)
     # q's copy first, so that the attention kernel directly follows the
     # K/V write it depends on (a programmatic dependent launch).
     q_g = q.reshape(batch, seq, kv, h // kv, hd).contiguous()
-    _cache_write_rows(cache_layer, k, v, positions)
-    out = _decode_attention_contiguous(q_g, cache_layer, positions, hd,
+    _cache_write_rows(cache_layer, k, v, rows)
+    out = _decode_attention_contiguous(q_g, cache_layer, rows.positions, hd,
                                        config.sliding_window)
     out = out.reshape(batch, seq, h * hd)
     return x + _matmul(out, layer["wo"]).to(x.dtype)
@@ -546,13 +558,14 @@ def _decode_core_ragged(params, token, cache, positions,
                         config: LlamaConfig):
     """One autoregressive step with PER-ROW cache positions: token
     (batch, 1) + positions (batch,) -> (logits (batch, 1, vocab) f32,
-    cache updated in place).  The positions become int32 once a step."""
-    positions = positions.to(torch.int32)
-    rope = _rope_tables(config, positions[:, None])
+    cache updated in place).  The positions become int32, and the K/V
+    write's targets, once a step."""
+    rows = _cache_rows(positions.to(torch.int32))
+    rope = _rope_tables(config, rows.positions[:, None])
     x = _embed_lookup(params, token, config.dtype)
     for layer, cache_layer in zip(params["layers"], cache):
         x = _attention_decode_ragged(layer, config, x, rope, cache_layer,
-                                     positions)
+                                     rows)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return _matmul(x, params["lm_head"]).to(torch.float32), cache
@@ -771,25 +784,26 @@ _paged_write_slab = _write_rows_reference
 _paged_gather = _gathered_view
 
 
-def _paged_write_rows(pool_layer, k, v, tables, positions):
+def _paged_write_rows(pool_layer, k, v, rows: DecodeRows):
     """Write one (batch, 1, kv, hd) row per slot into the pool at
-    ``(tables[s, pos // bs], pos % bs)``, in place (:func:`write_kv_rows`;
-    int32 tables and positions)."""
-    return write_kv_rows(k, v, pool_layer, tables, positions)
+    ``(tables[s, pos // bs], pos % bs)`` of the step's ``rows``, in place
+    (:func:`write_kv_rows`)."""
+    return write_decode_rows(k, v, pool_layer, rows)
 
 
-def _attention_decode_paged(layer, config, x, rope, pool_layer, tables,
-                            positions):
+def _attention_decode_paged(layer, config, x, rope, pool_layer,
+                            rows: DecodeRows):
     """Single-token decode against the block pool (per-row positions).  On
     a CUDA tensor the paged decode kernel walks the REAL block tables; on
     the CPU the gathered view goes through the plain attention."""
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    tables, positions = rows.tables, rows.positions
     q, k, v = _qkv(layer, config, x, rope)
     # q's copy first, so that the attention kernel directly follows the
     # K/V write it depends on (a programmatic dependent launch).
     q_g = q.reshape(batch, seq, kv, h // kv, hd).contiguous()
-    _paged_write_rows(pool_layer, k, v, tables, positions)
+    _paged_write_rows(pool_layer, k, v, rows)
     if q_g.device.type == "cuda":
         out = paged_decode_attention(
             q_g[:, 0], pool_layer["k"], pool_layer["v"],
@@ -807,14 +821,15 @@ def _decode_core_paged(params, token, pool, tables, positions,
                        config: LlamaConfig):
     """One paged decode step: token (batch, 1) at per-row ``positions``
     -> (logits (batch, 1, vocab) f32, pool updated in place).  The tables
-    and positions become int32 once a step, for every layer's write and
-    attention."""
-    tables, positions = tables.to(torch.int32), positions.to(torch.int32)
-    rope = _rope_tables(config, positions[:, None])
+    and positions become int32, and the K/V write's targets, once a step
+    (the one place of the paged decode step that converts them), for
+    every layer's write and attention."""
+    rows = DecodeRows(tables.to(torch.int32), positions.to(torch.int32))
+    rope = _rope_tables(config, rows.positions[:, None])
     x = _embed_lookup(params, token, config.dtype)
     for layer, pool_layer in zip(params["layers"], pool):
         x = _attention_decode_paged(layer, config, x, rope, pool_layer,
-                                    tables, positions)
+                                    rows)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return _matmul(x, params["lm_head"]).to(torch.float32), pool
@@ -824,15 +839,13 @@ def _paged_step_core(params, tables, pool, config: LlamaConfig):
     """One paged decode step over the slots' ``tables``: inactive lanes
     write scratch block 0 at their slot offset and are never read."""
     block_size = pool[0]["k"].shape[1]
-    tables = tables.to(torch.int32)
     scratch_tables = torch.zeros_like(tables)
     scratch_positions = _iota(tables.shape[0], tables.device,
                               torch.int32) % block_size
 
     def step_core(token, pool, positions, active):
         write_tables = torch.where(active[:, None], tables, scratch_tables)
-        write_pos = torch.where(active, positions.to(torch.int32),
-                                scratch_positions)
+        write_pos = torch.where(active, positions, scratch_positions)
         return _decode_core_paged(params, token, pool, write_tables,
                                   write_pos, config)
     return step_core

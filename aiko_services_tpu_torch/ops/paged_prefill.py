@@ -43,7 +43,6 @@ what the JAX kernels' input/output aliasing buys on the TPU.
 
 from __future__ import annotations
 
-import weakref
 from typing import Dict, Optional
 
 import torch
@@ -55,7 +54,8 @@ from .paged_attention import cached_gqa_attention
 __all__ = ["paged_prefill_attention", "paged_prefill_reference",
            "paged_verify_attention", "append_kv", "append_kv_reference",
            "append_kv_ragged", "append_kv_ragged_reference",
-           "write_kv_rows", "write_kv_rows_reference",
+           "write_kv_rows", "write_kv_rows_reference", "write_decode_rows",
+           "DecodeRows", "KVLayer",
            "chunk_attention", "chunk_attention_reference",
            "chunk_attention_split_reference", "chunk_split_keys",
            "chunk_live_splits"]
@@ -350,150 +350,177 @@ def write_kv_rows(k, v, pool, tables, positions):
 
     CPU tensors take :func:`write_kv_rows_reference`; CUDA tensors launch
     ``csrc/kv_write.cu``'s row writer (the ragged writer with ``T = 1`` and
-    every row live) or raise.  Returns ``pool``."""
-    if not k.is_cuda:
-        return write_kv_rows_reference(k, v, pool, tables, positions)
-    _launch_rows(k, v, pool, tables, positions)
-    write_kv_rows.launches += 1
-    return pool
+    every row live) or raise.  A decode step writes every layer through
+    the same tables and positions: it makes their :class:`DecodeRows`
+    once and calls :func:`write_decode_rows`, this write, for each layer.
+    Returns ``pool``."""
+    return write_decode_rows(k, v, pool, DecodeRows(tables, positions))
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
 write_kv_rows.launches = 0
 
-#: The row writer's launch plan of each pool layer, keyed by ``id`` of the
-#: layer's ``k`` buffer: the layer's buffers (weak references, so a freed
-#: pool is not kept), the row dtype and shape they were checked with, and
-#: what the launch needs of them.  A decode step calls the writer once a
-#: layer with the same buffers every step, so their checks run once.
-_ROW_PLANS: Dict[int, tuple] = {}
-#: The (tables, positions, batch, device) checked last, with their
-#: pointers: every layer of a step passes the same two tensors.
-_ROW_META = [None] * 6
+
+class DecodeRows:
+    """Where one decode step writes its rows: the ``(batch, max_blocks)``
+    tables and ``(batch,)`` positions of :func:`write_kv_rows`.  The
+    model's decode core makes it once a step; on CUDA tensors it checks
+    them then (int32, on one device, contiguous), for every layer."""
+
+    __slots__ = ("tables", "positions", "batch", "device")
+
+    def __init__(self, tables, positions):
+        self.tables, self.positions = tables, positions
+        self.batch, self.device = positions.shape[0], None
+        if not (tables.is_cuda or positions.is_cuda):
+            return
+        name = "write_kv_rows"
+        if tables.dtype != torch.int32 or positions.dtype != torch.int32:
+            raise TypeError(f"{name}: tables and positions must be int32")
+        if tables.dim() != 2 or positions.dim() != 1 \
+                or tables.shape[0] != self.batch:
+            raise ValueError(f"{name}: tables {tuple(tables.shape)} and "
+                             f"positions {tuple(positions.shape)} do not "
+                             "match")
+        self.device = _cuda.check_cuda(name, tables, positions)
 
 
-def _launch_rows(k, v, pool, tables, positions) -> None:
-    """Launch the row writer; the checks of what repeats from layer to
-    layer and step to step run on a plan's first use (:func:`_row_plan`),
-    the rest on every call, and any failure is reported by the full
-    checks."""
-    k_pool = pool["k"]
-    plan = _ROW_PLANS.get(id(k_pool))
-    if plan is not None:
-        for key, ref in plan[0]:
-            if ref() is not pool.get(key):
-                plan = None
-                break
-    if plan is None or len(pool) != len(plan[0]) \
-            or k.dtype is not plan[1] or k.shape[1:] != plan[2]:
-        plan = _row_plan(k, v, pool)
-    (_, dtype, row_shape, device, head_dim, elem, pool_args, dims, codes,
-     fn) = plan
-    k_stride, v_stride = k.stride(), v.stride()
-    batch = k.shape[0]
-    if v.shape != k.shape or v.dtype is not dtype \
-            or k_stride[3] != 1 or v_stride[3] != 1 \
-            or (row_shape[1] > 1 and (k_stride[2] != head_dim
-                                      or v_stride[2] != head_dim)) \
-            or k.get_device() != device or v.get_device() != device \
-            or k.data_ptr() % 16 or v.data_ptr() % 16 \
-            or (batch > 1 and (k_stride[0] * elem % 16
-                               or v_stride[0] * elem % 16)):
-        _check_rows(k, v, pool)          # raises with the reason
-    meta = _ROW_META
-    if meta[0] is not tables or meta[1] is not positions \
-            or meta[2] != batch or meta[3] != device:
-        _check_row_meta(tables, positions, batch, k_pool)
-        meta[:] = [tables, positions, batch, device, tables.data_ptr(),
-                   positions.data_ptr()]
-    code = fn(k.data_ptr(), v.data_ptr(), *pool_args, meta[4], meta[5],
-              batch, *dims, tables.shape[1], k_stride[0], v_stride[0],
-              *codes, torch._C._cuda_getCurrentRawStream(device))
+class KVLayer(dict):
+    """One layer's KV buffers ``{"k", "v"[, "ks", "vs"]}`` as the model's
+    caches and pools hold them: a dict that also keeps its buffers as the
+    row writer checked them (:class:`_LayerPlan`), from its first write on
+    the card, checked again only if a buffer is replaced.  A plain dict
+    of buffers is written the same way, checked on every call."""
+
+    __slots__ = ("row_plan",)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.row_plan = None
+
+
+class _LayerPlan:
+    """A pool layer's buffers, checked for the row writer (one CUDA
+    device, contiguous, 16-byte aligned; int8 pools with f32 scales), and
+    the sizes its launch takes, with the row dtypes whose (token, kv
+    head) vector the writer takes at this head_dim."""
+
+    __slots__ = ("k", "v", "ks", "vs", "device", "block_size", "kv_heads",
+                 "head_dim", "pool_code", "row_dtypes")
+
+    def __init__(self, pool):
+        name = "write_kv_rows"
+        k_pool, v_pool = pool["k"], pool["v"]
+        quantized = "ks" in pool
+        if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+            raise ValueError(f"{name}: pool k {tuple(k_pool.shape)}, v "
+                             f"{tuple(v_pool.shape)}")
+        if k_pool.dtype not in _cuda.DTYPE_CODES \
+                or v_pool.dtype != k_pool.dtype \
+                or quantized != (k_pool.dtype == torch.int8) \
+                or set(pool) - {"k", "v", "ks", "vs"}:
+            raise TypeError(f"{name}: pool dtype {k_pool.dtype} (int8 pools "
+                            "need ks/vs and float pools take none)")
+        operands = [k_pool, v_pool]
+        if quantized:
+            _check_scales(name, pool)
+            operands += [pool["ks"], pool["vs"]]
+        self.device = _cuda.check_cuda(name, *operands)
+        if self.device.type != "cuda":
+            raise ValueError(f"{name}: the pool is on {self.device}")
+        self.k, self.v = k_pool, v_pool
+        self.ks, self.vs = pool.get("ks"), pool.get("vs")
+        self.block_size, self.kv_heads, self.head_dim = k_pool.shape[1:]
+        self.pool_code = _cuda.DTYPE_CODES[k_pool.dtype]
+        self.row_dtypes = tuple(
+            dtype for dtype in (torch.bfloat16, torch.float32)
+            if _vector_chunks_fit(self.head_dim * dtype.itemsize))
+
+    def holds(self, pool) -> bool:
+        """Whether ``pool`` still holds the buffers checked."""
+        if self.ks is None:
+            return "ks" not in pool and pool["k"] is self.k \
+                and pool["v"] is self.v
+        return "ks" in pool and "vs" in pool and pool["k"] is self.k \
+            and pool["v"] is self.v and pool["ks"] is self.ks \
+            and pool["vs"] is self.vs
+
+
+def write_decode_rows(k, v, pool, rows: DecodeRows):
+    """:func:`write_kv_rows` at a decode step's :class:`DecodeRows`."""
+    if not k.is_cuda:
+        return write_kv_rows_reference(k, v, pool, rows.tables,
+                                       rows.positions)
+    try:
+        layer = pool.row_plan
+    except AttributeError:               # a plain dict: checked every call
+        layer = None
+    if layer is None or not layer.holds(pool):
+        layer = _LayerPlan(pool)
+        if isinstance(pool, KVLayer):
+            pool.row_plan = layer
+    k_ptr, v_ptr, k_stride, v_stride = _checked_rows(k, v, layer, rows)
+    quantized = layer.ks is not None
+    code = _cuda.library().aiko_write_kv_rows(
+        k_ptr, v_ptr, layer.k.data_ptr(), layer.v.data_ptr(),
+        layer.ks.data_ptr() if quantized else None,
+        layer.vs.data_ptr() if quantized else None,
+        rows.tables.data_ptr(), rows.positions.data_ptr(), rows.batch,
+        layer.kv_heads, layer.head_dim, layer.block_size,
+        rows.tables.shape[1], k_stride, v_stride,
+        _cuda.DTYPE_CODES[k.dtype], layer.pool_code,
+        torch._C._cuda_getCurrentRawStream(layer.device.index))
     if code:
         _cuda.raise_error("aiko_write_kv_rows", code)
+    write_kv_rows.launches += 1
+    return pool
 
 
-def _row_plan(k, v, pool) -> tuple:
-    """Check a pool layer and the rows written into it (:func:`_check_rows`)
-    and make the layer's launch plan."""
-    _check_rows(k, v, pool)
-    k_pool = pool["k"]
-    keys = ("k", "v", "ks", "vs") if "ks" in pool else ("k", "v")
-    kv_heads, head_dim = k.shape[2:]
-    plan = (tuple((key, weakref.ref(pool[key])) for key in keys), k.dtype,
-            tuple(k.shape[1:]), k_pool.get_device(), head_dim,
-            k.element_size(),
-            (k_pool.data_ptr(), pool["v"].data_ptr(),
-             _cuda.ptr(pool.get("ks")), _cuda.ptr(pool.get("vs"))),
-            (kv_heads, head_dim, k_pool.shape[1]),
-            (_cuda.DTYPE_CODES[k.dtype], _cuda.DTYPE_CODES[k_pool.dtype]),
-            _cuda.entry("aiko_write_kv_rows"))
-    _ROW_PLANS[id(k_pool)] = plan
-    return plan
-
-
-def _check_rows(k, v, pool) -> None:
-    """Every check of a decode write's rows and pool layer; raises on what
-    the row writer does not take."""
+def _checked_rows(k, v, layer: _LayerPlan, rows: DecodeRows):
+    """Check a decode write's ``k`` and ``v`` against its pool layer and
+    the step's rows: ``(batch, 1, kv_heads, head_dim)``, bf16 or f32 (a
+    vector the writer takes), on the pool's device, their kv heads and
+    features contiguous, each row and row stride 16-byte aligned.
+    Returns their pointers and row strides for the launch."""
     name = "write_kv_rows"
-    batch, T, kv_heads, head_dim = k.shape
-    k_pool, v_pool = pool["k"], pool["v"]
-    quantized = "ks" in pool
-    if T != 1 or v.shape != k.shape or v_pool.shape != k_pool.shape \
-            or k_pool.shape[2:] != (kv_heads, head_dim):
-        raise ValueError(f"{name}: k/v {tuple(k.shape)}, pool "
-                         f"{tuple(k_pool.shape)}")
-    if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
-        raise TypeError(f"{name}: k/v dtype {k.dtype}")
-    if k_pool.dtype not in _cuda.DTYPE_CODES or v_pool.dtype != k_pool.dtype \
-            or quantized != (k_pool.dtype == torch.int8) \
-            or set(pool) - {"k", "v", "ks", "vs"}:
-        raise TypeError(f"{name}: pool dtype {k_pool.dtype} (int8 pools "
-                        "need ks/vs and float pools take none)")
-    _check_head_dim(name, k)
-    device = k.device
-    _check_row_layout(name, k, device)
-    _check_row_layout(name, v, device)
-    operands = [k_pool, v_pool]
-    if quantized:
-        _check_scales(name, pool)
-        operands += [pool["ks"], pool["vs"]]
-    if _cuda.check_cuda(name, *operands) != device:
-        raise ValueError(f"{name}: k/v on {device}, the pool on "
-                         f"{k_pool.device}")
+    if k.shape != (rows.batch, 1, layer.kv_heads, layer.head_dim) \
+            or v.shape != k.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} for {rows.batch} slots of "
+                         f"{layer.kv_heads} x {layer.head_dim}")
+    dtype = k.dtype
+    if dtype not in layer.row_dtypes or v.dtype != dtype:
+        if dtype in (torch.bfloat16, torch.float32) and v.dtype == dtype:
+            _check_head_dim(name, k)
+        raise TypeError(f"{name}: k/v dtype {dtype}, {v.dtype}")
+    if rows.device != layer.device:
+        raise ValueError(f"{name}: tables and positions on "
+                         f"{rows.tables.device}, the pool on {layer.device}")
+    k_stride, v_stride = k.stride(), v.stride()
+    k_ptr, v_ptr = k.data_ptr(), v.data_ptr()
+    for x, stride, ptr in ((k, k_stride, k_ptr), (v, v_stride, v_ptr)):
+        if x.device != layer.device:
+            raise ValueError(f"{name}: rows on {x.device}, the pool on "
+                             f"{layer.device}")
+        if stride[3] != 1 or (layer.kv_heads > 1
+                              and stride[2] != layer.head_dim) or ptr % 16 \
+                or (rows.batch > 1 and stride[0] * dtype.itemsize % 16):
+            raise ValueError(f"{name}: a row of shape {tuple(x.shape[2:])} "
+                             f"with strides {stride} is not contiguous and "
+                             "16-byte aligned")
+    return k_ptr, v_ptr, k_stride[0], v_stride[0]
 
 
-def _check_row_meta(tables, positions, batch, k_pool) -> None:
-    name = "write_kv_rows"
-    if tables.dtype != torch.int32 or positions.dtype != torch.int32:
-        raise TypeError(f"{name}: tables and positions must be int32")
-    if tables.dim() != 2 or tables.shape[0] != batch \
-            or tuple(positions.shape) != (batch,):
-        raise ValueError(f"{name}: tables {tuple(tables.shape)} and "
-                         f"positions {tuple(positions.shape)} do not match "
-                         f"the batch {batch}")
-    _cuda.check_cuda(name, k_pool, tables, positions)
-
-
-def _check_row_layout(name, x, device) -> None:
-    """``x``'s rows on ``device``, their kv heads and features contiguous,
-    the rows and their stride 16-byte aligned."""
-    stride = x.stride()
-    if x.device != device:
-        raise ValueError(f"{name}: tensors on {x.device} and {device}")
-    if stride[3] != 1 or (x.shape[2] > 1 and stride[2] != x.shape[3]) \
-            or x.data_ptr() % 16 \
-            or (x.shape[0] > 1 and stride[0] * x.element_size() % 16):
-        raise ValueError(f"{name}: a row of shape {tuple(x.shape[2:])} "
-                         f"with strides {stride} is not contiguous and "
-                         "16-byte aligned")
+def _vector_chunks_fit(vector_bytes: int) -> bool:
+    """The KV writer's envelope: a (token, kv head) vector is a power of
+    two of 16-byte chunks, at most 32 (one lane each of a warp)."""
+    chunks, rest = divmod(vector_bytes, 16)
+    return not rest and 0 < chunks <= 32 and not chunks & (chunks - 1)
 
 
 def _check_head_dim(name, k_new) -> None:
-    """The KV writer's envelope: a (token, kv head) vector is a power of
-    two of 16-byte chunks, at most 32 (one lane each of a warp)."""
-    chunks, rest = divmod(k_new.shape[-1] * k_new.element_size(), 16)
-    if rest or not chunks or chunks > 32 or chunks & (chunks - 1):
+    """Raise unless ``k_new``'s vectors fit :func:`_vector_chunks_fit`."""
+    if not _vector_chunks_fit(k_new.shape[-1] * k_new.element_size()):
         raise ValueError(f"{name}: head_dim {k_new.shape[-1]} in "
                          f"{k_new.dtype} is not a power of two of 16-byte "
                          "chunks, at most 32")

@@ -29,15 +29,20 @@ build under test, so the host path is the port's.
 * ``--sass``: the 128-bit global loads and stores (``LDG.E.128``,
   ``STG.E.128``) of each writer kernel (``cuobjdump -sass``).
 * ``--steps ROOT ...``: the steady 8-slot decode step of this tree and of
-  each other repository root, in turns (each in its own process):
+  each other repository root, in turns (each in its own process, the
+  root's package measured by this tree's ``chip_smoke.steady_decode``):
   llama3_8b with random int8 weights through the contiguous and the paged
   server, bf16 and int8 KV: ms a step unprofiled; under cProfile the host
   microseconds a call of llama's K/V write function; under torch.profiler
   the kernels a step, ``aten::index_put_`` ops a step and the device busy
   share.
+* ``--host [ROOT ...]``: the decode write's host microseconds a call
+  (:data:`HOST_PROBE`: one step's writes over 32 layers, bare and under
+  cProfile) of this tree and each other root, in turns, each in its own
+  process.
 
     python -m aiko_services_tpu_torch.tools.kv_write_lab [--compare DIR]
-        [--pdl] [--sass] [--steps ROOT ...]
+        [--pdl] [--sass] [--host [ROOT ...]] [--steps ROOT ...]
 
 Needs an NVIDIA card and nvcc.
 """
@@ -143,12 +148,10 @@ def routed(routes: Dict[str, pathlib.Path]):
     """The port's wrappers launch the routed builds while inside."""
     saved = _cuda.library()
     _cuda._LIBRARY = Routed(routes)
-    pp._ROW_PLANS.clear()        # the row writer's plans hold its entry
     try:
         yield
     finally:
         _cuda._LIBRARY = saved
-        pp._ROW_PLANS.clear()
 
 
 def device_us(fn: Callable[[], object], reps: int) -> float:
@@ -389,13 +392,21 @@ def run_sass() -> None:
         print(f"  {name.strip()}: {ldg128} / {stg128} / {ldg}", flush=True)
 
 
+#: The steady-step probe one process runs: the package from the root in
+#: ``sys.argv[1]``, the measurement from this tree's smoke
+#: (``chip_smoke.steady_decode``, at ``sys.argv[2]``): 8 slots, 32
+#: steps bare, 16 under cProfile, 16 under torch.profiler.  The smoke's
+#: check that no per-layer ``index_put_`` is left in the step is a note
+#: here: the tree before the writer has one a layer.
 STEP_PROBE = r"""
-import cProfile, json, pstats, sys, time
+import importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+smoke.fail = lambda message: print("note: " + message, flush=True)
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 from aiko_services_tpu_torch.models import llama
 from aiko_services_tpu_torch.ops import quant
 from aiko_services_tpu_torch.orchestration.continuous import (
@@ -410,77 +421,126 @@ for layout in ("contiguous", "paged"):
                       params=params, quantize=True, quantize_kv=quantize_kv,
                       device=device)
         if layout == "paged":
-            server = PagedContinuousServer(max_seq=4096, block_size=16,
-                                           enable_prefix_cache=True,
-                                           chunk_prefill_tokens=256, **kwargs)
+            make = lambda: PagedContinuousServer(
+                max_seq=4096, block_size=16, enable_prefix_cache=True,
+                chunk_prefill_tokens=256, **kwargs)
             prompt_len = 1023
         else:
-            server = ContinuousBatchingServer(max_seq=1024, **kwargs)
+            make = lambda: ContinuousBatchingServer(max_seq=1024, **kwargs)
             prompt_len = 128
-        rng = np.random.default_rng(11)
-        requests = [DecodeRequest(f"s{i}", rng.integers(
-            1, config.vocab_size, prompt_len).astype(np.int32), 120)
-            for i in range(8)]
-        for request in requests:
-            server.submit(request)
-        while any(r.first_token_ts is None for r in requests):
-            server.step()
-
-        def window(steps):
-            start = server.counters["decode_steps"]
-            torch.cuda.synchronize()
-            began = time.perf_counter()
-            while server.counters["decode_steps"] - start < steps:
-                server.step()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - began,
-                    server.counters["decode_steps"] - start)
-        window(8)
-        wall, steps = window(32)
-        host = cProfile.Profile()
-        host.enable()
-        host_wall, host_steps = window(16)
-        host.disable()
-        writes = [(nc, ct) for (_, _, fn), (_, nc, _, ct, _) in
-                  pstats.Stats(host).stats.items()
-                  if fn in ("_cache_write_rows", "_paged_write_rows")]
-        calls = sum(nc for nc, _ in writes)
-        launched = quant.int8_matmul.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, traced = window(16)
-        per_step = (quant.int8_matmul.launches - launched) / traced
-        averages = prof.key_averages()
-        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
-        seen = sum(e.count for e in kernels
-                   if "int8_matmul_kernel" in e.key) / per_step
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
-            / seen
+        steady = smoke.steady_decode(
+            torch, np, smoke.Weights(quant, 8), make, DecodeRequest,
+            quantize_kv, config, prompt_len=prompt_len, new_tokens=120)
         print("STEP " + json.dumps(dict(
             root=sys.argv[1], layout=layout,
-            kv="int8" if quantize_kv else "bf16",
-            step_ms=wall * 1e3 / steps,
-            cprofile_step_ms=host_wall * 1e3 / host_steps,
-            write_host_us_per_call=sum(ct for _, ct in writes) * 1e6
-            / max(calls, 1), write_calls_per_step=calls / host_steps,
-            kernels_per_step=sum(e.count for e in kernels) / seen,
-            index_put_per_step=sum(e.count for e in averages
-                                   if e.key == "aten::index_put_") / traced,
-            device_ms_per_step=device_ms,
-            device_busy=device_ms / (wall * 1e3 / steps))), flush=True)
-        server.run_until_drained()
-        del server
+            kv="int8" if quantize_kv else "bf16", **steady)), flush=True)
         torch.cuda.empty_cache()
 """
+
+
+#: The decode write's host time, run in a fresh process from a repository
+#: root (argv[1]): one 8-slot decode step's K/V writes, llama's write
+#: function once for each of 32 layers of llama3_8b's shape (contiguous
+#: caches of 1,024 rows, paged pools of 16-row blocks; bf16 and int8 KV;
+#: ``k`` a slice of the fused q/k tensor), the step's ``DecodeRows`` made
+#: once a step where the tree has them.  Forty windows of one step, each
+#: queued behind a device-side sleep so that no call waits on the card
+#: (one step of the eager int8-KV write queues ~600 launches, inside the
+#: launch queue's depth), in turns bare and under cProfile.  Microseconds
+#: a call: the least bare window, and the write function's cumulative
+#: time under cProfile over its calls.
+HOST_PROBE = r"""
+import cProfile, pstats, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from aiko_services_tpu_torch.models import llama
+device = torch.device("cuda", 0)
+config = llama.CONFIGS["llama3_8b"]
+kv, hd, heads = config.n_kv_heads, config.head_dim, config.n_heads
+gen = torch.Generator(device=device).manual_seed(0)
+fused = torch.randn((8, 1, heads + kv, hd), generator=gen,
+                    device=device).to(torch.bfloat16)
+k, v = fused[:, :, heads:], fused[:, :, :kv].contiguous()
+positions = torch.arange(8, dtype=torch.int32, device=device) * 100 + 5
+tables = (torch.arange(8 * 64, dtype=torch.int32, device=device)
+          + 1).reshape(8, 64)
+rows_api = hasattr(llama, "DecodeRows")
+for layout in ("contiguous", "paged"):
+    for quantize_kv in (False, True):
+        if layout == "contiguous":
+            layers = llama.init_cache(config, 8, 1024, quantize_kv=quantize_kv,
+                                      device=device)
+            write, name = llama._cache_write_rows, "_cache_write_rows"
+            if rows_api:
+                def step():
+                    rows = llama._cache_rows(positions)
+                    for layer in layers:
+                        write(layer, k, v, rows)
+            else:
+                def step():
+                    for layer in layers:
+                        write(layer, k, v, positions)
+        else:
+            layers = llama.init_paged_cache(config, 8 * 64 + 1, 16,
+                                            quantize_kv=quantize_kv,
+                                            device=device)
+            write, name = llama._paged_write_rows, "_paged_write_rows"
+            if rows_api:
+                def step():
+                    rows = llama.DecodeRows(tables, positions)
+                    for layer in layers:
+                        write(layer, k, v, rows)
+            else:
+                def step():
+                    for layer in layers:
+                        write(layer, k, v, tables, positions)
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        best, profiler = None, cProfile.Profile()
+        for window in range(40):
+            torch.cuda._sleep(50_000_000)
+            start = time.perf_counter()
+            if window % 2:
+                profiler.enable()
+            step()
+            if window % 2:
+                profiler.disable()
+            else:
+                host = (time.perf_counter() - start) / len(layers) * 1e6
+                best = host if best is None else min(best, host)
+            torch.cuda.synchronize()
+        calls, cumulative = [(nc, ct) for (_, _, fn), (_, nc, _, ct, _)
+                             in pstats.Stats(profiler).stats.items()
+                             if fn == name][0]
+        print(f"host {sys.argv[1]} {layout} "
+              f"{'int8' if quantize_kv else 'bf16'} KV: {best:.2f} us a "
+              f"call bare, {cumulative / calls * 1e6:.2f} under cProfile",
+              flush=True)
+        del layers
+        torch.cuda.empty_cache()
+"""
+
+
+def run_host(roots) -> None:
+    """``--host``: the decode write's host microseconds a call
+    (:data:`HOST_PROBE`) of this tree and each other root, in turns (the
+    list, then reversed, twice)."""
+    order = [_cuda.PACKAGE_DIR.parent] + [pathlib.Path(root).resolve()
+                                          for root in roots]
+    for root in (order + order[::-1]) * 2:
+        subprocess.run([sys.executable, "-c", HOST_PROBE, str(root)],
+                       check=True)
 
 
 def run_steps(roots) -> None:
     """This tree and each other root in turns (the list, then reversed)."""
     here = _cuda.PACKAGE_DIR.parent
     order = [here] + [pathlib.Path(root).resolve() for root in roots]
+    smoke = here / "chip_smoke.py"
     for root in order + order[::-1]:
-        subprocess.run([sys.executable, "-c", STEP_PROBE, str(root)],
-                       check=True)
+        subprocess.run([sys.executable, "-c", STEP_PROBE, str(root),
+                        str(smoke)], check=True)
 
 
 def main(argv=None) -> None:
@@ -497,6 +557,9 @@ def main(argv=None) -> None:
     parser.add_argument("--steps", nargs="+", metavar="ROOT",
                         help="the steady decode step of this tree and of "
                              "these repository roots, in turns")
+    parser.add_argument("--host", nargs="*", metavar="ROOT",
+                        help="the decode write's host microseconds a "
+                             "call, this tree and these roots in turns")
     parser.add_argument("--no-race", action="store_true",
                         help="skip the writer race")
     args = parser.parse_args(argv)
@@ -511,6 +574,8 @@ def main(argv=None) -> None:
         run_race(args)
     if args.pdl:
         run_pdl()
+    if args.host is not None:
+        run_host(args.host)
     if args.steps:
         run_steps(args.steps)
 

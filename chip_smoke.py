@@ -78,8 +78,11 @@ of 128 tokens); paged_decode_attention on the contiguous server's
 128-row blocks and on the paged server's 16-row blocks at 8 and 64 rows;
 the KV writer's three modes byte-equal to their plain versions:
 append_kv at every admission slice, append_kv_ragged at every verify
-window, and write_kv_rows (the decode step's K/V write) at 8 and 64
-slots, bf16 and int8 KV, each beside two index_put_ calls.
+window, and write_kv_rows (the decode step's K/V write, through the
+functions the serving path calls) at 8 and 64 slots of the paged
+server's 16-row blocks and on the contiguous caches of phase 3 (8 x
+1,024 rows) and of the 64-slot run (64 x 512), bf16 and int8 KV, each
+beside two index_put_ calls.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -87,6 +90,7 @@ card, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -1067,66 +1071,110 @@ def check_append_ragged(torch, pp, llama, device):
     return rows, main
 
 
-#: Slots of the phase-2 decode-write rows: the 8-slot and 64-slot batches.
-DECODE_WRITE_SLOTS = (8, 64)
+#: The phase-2 decode-write cases: (layout, slots, rows a slot), as the
+#: serving phases write: the paged server's 4096-row tables of 16-row
+#: blocks at 8 and 64 slots, and the contiguous cache of phase 3 (8
+#: slots of 1,024 rows, its main row: its launches are the kernels
+#: line's) and of the 64-slot run (64 of 512).
+DECODE_WRITE_CASES = (("paged", 8, PAGED_MAX_SEQ),
+                      ("paged", 64, PAGED_MAX_SEQ),
+                      ("contiguous", SLOTS, MAX_SEQ),
+                      ("contiguous", 64, 512))
+
+
+def decode_write_case(torch, llama, device, gen, layout, slots, max_seq,
+                      quant_kv, kv=8, hd=128, heads=32):
+    """One decode step's K/V write as the serving path makes it: ``k``
+    a slice of the fused q/k tensor, head 0's vectors
+    :func:`plant_division_ties`'s, every fourth slot inactive.  Paged: a
+    pool of 16-row blocks (every slot its own blocks of ``max_seq``
+    rows), the inactive lanes redirected to scratch block 0 at offset
+    ``slot % 16`` as ``llama._paged_step_core`` does.  Contiguous: a
+    (slots, max_seq, kv, hd) cache from ``llama.init_cache``, one block
+    of ``max_seq`` rows a slot, the inactive lanes at the scratch row
+    ``max_seq - 1`` as ``llama.serve_chunk_ragged`` does.  Returns (k, v,
+    pool, tables, positions, first block compared): pools are compared
+    from block 1 on where inactive lanes s and s + 16 share a scratch row
+    of block 0, in no set order."""
+    active = torch.arange(slots, device=device) % 4 != 3
+    positions = torch.randint(0, max_seq - 1, (slots,), generator=gen,
+                              device=device, dtype=torch.int32)
+    if layout == "paged":
+        entries = max_seq // BLOCK
+        pool, _ = paged_pool(torch, llama, device, gen, quant_kv,
+                             n_blocks=slots * entries + 1)
+        tables = ragged_tables(torch, pool, gen, slots, entries)
+        tables = torch.where(active[:, None], tables,
+                             torch.zeros_like(tables))
+        positions = torch.where(active, positions, torch.arange(
+            slots, device=device, dtype=torch.int32) % BLOCK)
+        first = 1
+    else:
+        config = dataclasses.replace(llama.CONFIGS["llama3_8b"], n_layers=1)
+        pool = llama.init_cache(config, slots, max_seq,
+                                quantize_kv=quant_kv, device=device)[0]
+        tables = llama._slot_tables(slots, device)
+        positions = torch.where(active, positions,
+                                torch.full_like(positions, max_seq - 1))
+        first = 0
+    fused = torch.randn((slots, 1, heads + kv, hd), generator=gen,
+                        device=device).to(torch.bfloat16)
+    k_new = fused[:, :, heads:]
+    v_new = torch.randn((slots, 1, kv, hd), generator=gen,
+                        device=device).to(torch.bfloat16)
+    plant_division_ties(torch, k_new[:, 0, 0])
+    return k_new, v_new, pool, tables, positions, first
 
 
 def check_write_kv_rows(torch, pp, llama, device):
     """The decode step's K/V write (``write_kv_rows``, the KV writer's row
-    mode): one (1, 8 kv heads, 128) row a slot at 8 and 64 slots, as
-    ``llama._paged_step_core`` issues it (``k`` a slice of the fused q/k
-    tensor, head 0's vectors :func:`plant_division_ties`'s; every fourth
-    slot inactive, redirected to scratch block 0 at offset ``slot %
-    16``), into a pool of 16-row blocks through 4096-row
-    tables (every slot its own blocks), bf16 and int8 pools.  The
-    kernel's pool must equal the plain version's byte for byte in every
-    block but 0 (inactive lanes s and s + 16 share a scratch row, in no
-    set order).  Library: two
-    ``index_put_`` calls (K, V) with precomputed rows, bf16 only."""
+    mode) at every :data:`DECODE_WRITE_CASES` case, bf16 and int8 KV
+    (:func:`decode_write_case`), through the function the serving path
+    calls: ``llama._paged_write_rows`` on the pool,
+    ``llama._cache_write_rows`` on the contiguous cache, each with the
+    step's ``DecodeRows``.  The kernel's pool must equal the plain
+    version's byte for byte (every block but the paged pool's scratch
+    block 0).  Library: two ``index_put_`` calls (K, V) with precomputed
+    rows, bf16 only.  The main row is phase 3's (contiguous, 8 slots,
+    bf16)."""
     gen = torch.Generator(device=device).manual_seed(10)
-    kv, hd, heads = 8, 128, 32
+    kv, hd = 8, 128
     rows, main = [], None
-    entries = PAGED_MAX_SEQ // BLOCK
     for quant_kv in (False, True):
-        for slots in DECODE_WRITE_SLOTS:
-            pool, _ = paged_pool(torch, llama, device, gen, quant_kv,
-                                 n_blocks=slots * entries + 1)
-            tables = ragged_tables(torch, pool, gen, slots, entries)
-            positions = torch.randint(0, PAGED_MAX_SEQ, (slots,),
-                                      generator=gen, device=device,
-                                      dtype=torch.int32)
-            active = torch.arange(slots, device=device) % 4 != 3
-            tables = torch.where(active[:, None], tables,
-                                 torch.zeros_like(tables))
-            positions = torch.where(active, positions, torch.arange(
-                slots, device=device, dtype=torch.int32) % BLOCK)
-            fused = torch.randn((slots, 1, heads + kv, hd), generator=gen,
-                                device=device).to(torch.bfloat16)
-            k_new = fused[:, :, heads:]
-            v_new = torch.randn((slots, 1, kv, hd), generator=gen,
-                                device=device).to(torch.bfloat16)
-            plant_division_ties(torch, k_new[:, 0, 0])
-            got = {key: buf.clone() for key, buf in pool.items()}
+        for layout, slots, max_seq in DECODE_WRITE_CASES:
+            k_new, v_new, pool, tables, positions, first = \
+                decode_write_case(torch, llama, device, gen, layout, slots,
+                                  max_seq, quant_kv)
+            write = (llama._paged_write_rows if layout == "paged"
+                     else llama._cache_write_rows)
+            step_rows = pp.DecodeRows(tables, positions)
+            got = pool
             want = {key: buf.clone() for key, buf in pool.items()}
-            pp.write_kv_rows(k_new, v_new, got, tables, positions)
+            write(got, k_new, v_new, step_rows)
             pp.write_kv_rows_reference(k_new, v_new, want, tables, positions)
             torch.cuda.synchronize()
-            err = max(float((got[key][1:].float() - want[key][1:].float())
-                            .abs().max()) for key in got)
-            if not all(torch.equal(got[key][1:], want[key][1:])
+            err = max(float((got[key][first:].float()
+                             - want[key][first:].float()).abs().max())
+                      for key in got)
+            shape = (f"decode write {layout} {slots} slots x {max_seq} rows "
+                     f"T=1 kv=8 hd=128 bs="
+                     f"{BLOCK if layout == 'paged' else max_seq} "
+                     f"int8={quant_kv}")
+            if not all(torch.equal(got[key][first:], want[key][first:])
                        for key in got):
-                fail(f"write_kv_rows int8={quant_kv} slots={slots}: pool "
-                     f"differs from the plain version outside block 0 "
+                fail(f"write_kv_rows {shape}: pool differs from the plain "
+                     f"version{' outside block 0' if first else ''} "
                      f"(max abs {err})")
-            ms = device_ms(torch, lambda: pp.write_kv_rows(
-                k_new, v_new, got, tables, positions), 50)
+            ms = device_ms(torch, lambda: write(got, k_new, v_new,
+                                                step_rows), 50)
             plain_ms = device_ms(torch, lambda: pp.write_kv_rows_reference(
                 k_new, v_new, want, tables, positions), 20)
             library_ms = None
             if not quant_kv:
+                block = got["k"].shape[1]
                 flat_rows = (tables.long().gather(
-                    1, positions.long()[:, None] // BLOCK)[:, 0] * BLOCK
-                    + positions.long() % BLOCK)
+                    1, positions.long()[:, None] // block)[:, 0] * block
+                    + positions.long() % block)
                 flat = {key: got[key].view(-1, kv, hd) for key in got}
                 k_rows, v_rows = k_new[:, 0], v_new[:, 0]
 
@@ -1138,12 +1186,11 @@ def check_write_kv_rows(torch, pp, llama, device):
             moved = 2 * slots * kv * hd * 2 + 2 * slots * kv * hd * elem \
                 + (2 * slots * kv * 4 if quant_kv else 0)
             b_ms, b_by = bound(moved, 0)
-            row = dict(shape=f"decode write {slots} slots T=1 kv=8 hd=128 "
-                             f"bs=16 int8={quant_kv}", err=err, ratio=0.0,
-                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=library_ms)
+            row = dict(shape=shape, err=err, ratio=0.0, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms)
             rows.append(row)
-            if slots == SLOTS and not quant_kv:
+            if (layout, slots, quant_kv) == ("contiguous", SLOTS, False):
                 main = row
             del got, want, pool
     return rows, main

@@ -17,6 +17,8 @@ outputs.  f32 outputs to 1e-4 (summation order).
 """
 
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -970,16 +972,13 @@ def test_append_kv_writer_ragged(cuda, T, bs, in_dtype, pool_dtype, hd):
     _assert_pools_equal(pool, plain, skip_scratch=False)
 
 
-def _division_ties(rows, device):
-    """``rows`` f32 values m, bf16-exact, for which (m / 2) / (m / 127)
-    lands on a half-integer under IEEE division but not under a multiply
-    by the scale's reciprocal."""
-    bits = (np.arange(0x3F00, 0x4080, dtype=np.uint32) << 16) \
-        .view(np.float32)
-    scale, half = bits / np.float32(127), bits / np.float32(2)
-    ties = bits[np.rint(half / scale)
-                != np.rint(half * (np.float32(1) / scale))]
-    return torch.from_numpy(np.resize(ties, rows)).to(device)
+def _plant_division_ties(rows):
+    """``chip_smoke.plant_division_ties`` (the smoke's generator of
+    vectors [m, m / 2, ...] whose codes a reciprocal multiply rounds
+    otherwise than a true division) on the (n, hd) ``rows``."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.plant_division_ties(torch, rows)
 
 
 @pytest.mark.parametrize("in_dtype", sorted(WRITER_IN))
@@ -990,12 +989,12 @@ def test_write_kv_int8_divides_by_the_scale(cuda, mode, in_dtype):
     version's codes and scales."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     rows = 16
-    m = _division_ties(rows, cuda)
     T = 16 if mode == "aligned" else 1
     batch = rows // T
     pool = _writer_pool(cuda, gen, 33, 16, 2, 128, "int8")
-    k = (m / 2)[:, None, None].expand(rows, 2, 128).clone()
-    k[:, :, 0] = m[:, None]
+    k = torch.empty((rows * 2, 128), device=cuda)
+    _plant_division_ties(k)
+    m = k[:, 0].clone()
     k = k.reshape(batch, T, 2, 128).to(WRITER_IN[in_dtype])
     scale = m / torch.full_like(m, 127.0)
     assert bool(((m / 2 / scale).round()
@@ -1079,12 +1078,46 @@ def test_write_kv_rows_contiguous_cache(cuda, slots, quantize_kv):
     positions[::5] = 1023
     plain = {key: buf.clone() for key, buf in cache.items()}
     before = paged_prefill.write_kv_rows.launches
-    llama._cache_write_rows(cache, k, v, positions)
+    llama._cache_write_rows(cache, k, v, llama._cache_rows(positions))
     assert paged_prefill.write_kv_rows.launches == before + 1
     paged_prefill.write_kv_rows_reference(
         k, v, plain, torch.arange(slots, device=cuda,
                                   dtype=torch.int32)[:, None], positions)
     _assert_pools_equal(cache, plain, skip_scratch=False)
+
+
+def test_write_kv_rows_layer_plan_follows_replaced_buffers(cuda):
+    """A cache layer keeps its buffers as the row writer checked them on
+    its first write; a buffer replaced afterwards is checked and written,
+    never the one it replaced, and a plain dict of the same buffers
+    writes the same bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    config = dataclasses.replace(llama.CONFIGS["llama3_8b"], n_layers=1)
+    cache = llama.init_cache(config, 8, 256, device=cuda)[0]
+    assert isinstance(cache, paged_prefill.KVLayer) \
+        and cache.row_plan is None
+    k = torch.randn((8, 1, 8, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    v = torch.randn((8, 1, 8, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    positions = torch.arange(8, dtype=torch.int32, device=cuda) * 31
+    rows = llama._cache_rows(positions)
+    llama._cache_write_rows(cache, k, v, rows)
+    plan = cache.row_plan
+    assert plan is not None and plan.holds(cache)
+    old_k = cache["k"]
+    cache["k"] = torch.zeros_like(old_k)
+    kept = old_k.clone()
+    llama._cache_write_rows(cache, -k, v, rows)
+    assert cache.row_plan is not plan and cache.row_plan.holds(cache)
+    assert torch.equal(old_k, kept)
+    plain = {key: torch.zeros_like(buf) for key, buf in cache.items()}
+    paged_prefill.write_kv_rows(-k, v, plain, rows.tables, positions)
+    want = {key: torch.zeros_like(buf) for key, buf in cache.items()}
+    paged_prefill.write_kv_rows_reference(-k, v, want, rows.tables,
+                                          positions)
+    assert torch.equal(cache["k"], want["k"])
+    assert torch.equal(plain["k"], want["k"])
 
 
 def test_write_kv_rows_raises_on_what_the_kernel_does_not_take(cuda):

@@ -129,7 +129,8 @@ def test_cache_write_rows_matches_jax(dtype, quantize_kv):
     positions = np.array([0, 17, 39], np.int32)
     want = jax_llama._cache_write_rows(jax_cache, jk, jv,
                                        jnp.asarray(positions))
-    got = llama._cache_write_rows(cache, k, v, torch.from_numpy(positions))
+    got = llama._cache_write_rows(
+        cache, k, v, llama._cache_rows(torch.from_numpy(positions)))
     assert got is cache
     _assert_bitwise(cache, want)
 
@@ -158,14 +159,15 @@ def test_strided_rows_write_what_their_copy_writes(quantize_kv):
 
 
 def _count_writes(monkeypatch):
-    """Count llama's calls of ``write_kv_rows`` (the decode write)."""
+    """Count llama's calls of ``write_decode_rows`` (the decode write,
+    ``write_kv_rows`` at a step's ``DecodeRows``)."""
     calls = []
-    inner = llama.write_kv_rows
+    inner = llama.write_decode_rows
 
     def counted(*args):
         calls.append(args[0].shape[0])
         return inner(*args)
-    monkeypatch.setattr(llama, "write_kv_rows", counted)
+    monkeypatch.setattr(llama, "write_decode_rows", counted)
     return calls
 
 
