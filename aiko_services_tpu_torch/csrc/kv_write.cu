@@ -21,7 +21,12 @@
 //     every row live, at position positions[b].  A contiguous cache (batch,
 //     max_seq, kv, hd) is a pool of `batch` blocks of max_seq rows with
 //     tables arange(batch)[:, None], so both decode layouts take it.
-// Table entries are clamped to max_blocks - 1, as the JAX index maps do.
+// The two append modes clamp table entries to max_blocks - 1, as the JAX
+// index maps do.  The row mode does what the JAX package's decode writes do
+// past the end: on a contiguous cache (clamp_rows) the position is clamped
+// to the last row (`dynamic_update_slice`), and on a pool a row whose table
+// entry is past the table is dropped (an out-of-range scatter).  The two
+// look alike here (a one-entry table), so the caller says which it is.
 //
 // Bound on the H100: bytes (2 * rows * kv * hd activations read once, as
 // many pool elements written, one f32 scale a vector on int8 pools), and
@@ -171,7 +176,7 @@ __device__ __forceinline__ void write_kv(
     const int* __restrict__ tables, const int* __restrict__ cached_lens,
     const int* __restrict__ chunk_lens, int T, int kv_heads, int head_dim,
     int block_size, int max_blocks, long long k_stride, long long v_stride,
-    int lanes) {
+    int lanes, int clamp_rows) {
   constexpr int kVec = Chunk<InT>::kVec;
   aiko::trigger_dependents();   // the next kernel may begin its launch
   const int bt = blockIdx.x;                  // row * T + token
@@ -190,11 +195,16 @@ __device__ __forceinline__ void write_kv(
     if (cb * block_size >= chunk_lens[row]) return;
     entry = cached / block_size + cb;
     offset = token % block_size;
-  } else {  // kRagged; kRows is kRagged at T = 1 with every row live
-    if constexpr (M == kRagged)
-      if (token >= chunk_lens[row]) return;
+  } else if constexpr (M == kRagged) {
+    if (token >= chunk_lens[row]) return;
     entry = (cached + token) / block_size;
     offset = (cached + token) % block_size;
+  } else {  // kRows: kRagged at T = 1 with every row live
+    const int last = max_blocks * block_size - 1;
+    const int pos = clamp_rows ? min(cached, last) : cached;
+    if (pos > last) return;                   // past the pool's table
+    entry = pos / block_size;
+    offset = pos % block_size;
   }
   const int blk = tables[(size_t)row * max_blocks + min(entry, max_blocks - 1)];
   const size_t slot =
@@ -222,11 +232,11 @@ __device__ __forceinline__ void write_kv(
       const int* __restrict__ tables, const int* __restrict__ cached_lens,  \
       const int* __restrict__ chunk_lens, int T, int kv_heads, int head_dim, \
       int block_size, int max_blocks, long long k_stride,                   \
-      long long v_stride, int lanes) {                                      \
+      long long v_stride, int lanes, int clamp_rows) {                      \
     write_kv<MODE, InT, PoolT>(k_new, v_new, k_pool, v_pool, k_scale,       \
                                v_scale, tables, cached_lens, chunk_lens, T, \
                                kv_heads, head_dim, block_size, max_blocks,  \
-                               k_stride, v_stride, lanes);                  \
+                               k_stride, v_stride, lanes, clamp_rows);      \
   }
 
 AIKO_KV_WRITE_KERNEL(append_kv_kernel, kAligned)
@@ -240,6 +250,7 @@ struct Args {
   int batch, T, kv_heads, head_dim, block_size, max_blocks;
   long long k_stride, v_stride;
   cudaStream_t stream;
+  int clamp_rows;  // kRows: clamp to the last row (else drop past the table)
 };
 
 template <int M>
@@ -264,7 +275,8 @@ struct Launch {
         static_cast<const int*>(a.tables),
         static_cast<const int*>(a.cached_lens),
         static_cast<const int*>(a.chunk_lens), a.T, a.kv_heads, a.head_dim,
-        a.block_size, a.max_blocks, a.k_stride, a.v_stride, lanes);
+        a.block_size, a.max_blocks, a.k_stride, a.v_stride, lanes,
+        a.clamp_rows);
     return cudaGetLastError();
   }
 };
@@ -315,7 +327,8 @@ extern "C" int aiko_append_kv(const void* k_new, const void* v_new,
       in_dtype, pool_dtype,
       Args{k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
            cached_lens, chunk_lens, batch, T, kv_heads, head_dim, block_size,
-           max_blocks, stride, stride, static_cast<cudaStream_t>(stream)});
+           max_blocks, stride, stride, static_cast<cudaStream_t>(stream),
+           0});
 }
 
 extern "C" int aiko_append_kv_ragged(const void* k_new, const void* v_new,
@@ -333,12 +346,15 @@ extern "C" int aiko_append_kv_ragged(const void* k_new, const void* v_new,
       in_dtype, pool_dtype,
       Args{k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
            cached_lens, chunk_lens, batch, T, kv_heads, head_dim, block_size,
-           max_blocks, stride, stride, static_cast<cudaStream_t>(stream)});
+           max_blocks, stride, stride, static_cast<cudaStream_t>(stream),
+           0});
 }
 
 // One row a slot: k/v (batch, 1, kv_heads, head_dim) whose kv heads and
 // features are contiguous, row b at k + b * k_stride (v likewise), lands at
-// position positions[b] (int32) through tables (batch, max_blocks).
+// position positions[b] (int32, non-negative) through tables (batch,
+// max_blocks).  A position at or past max_blocks * block_size is clamped to
+// the last row when clamp_rows is set (a contiguous cache), else dropped.
 extern "C" int aiko_write_kv_rows(const void* k, const void* v, void* k_pool,
                                   void* v_pool, void* k_scale, void* v_scale,
                                   const void* tables, const void* positions,
@@ -346,10 +362,11 @@ extern "C" int aiko_write_kv_rows(const void* k, const void* v, void* k_pool,
                                   int block_size, int max_blocks,
                                   long long k_stride, long long v_stride,
                                   int in_dtype, int pool_dtype,
-                                  void* stream) {
+                                  int clamp_rows, void* stream) {
   return dispatch<kRows>(
       in_dtype, pool_dtype,
       Args{k, v, k_pool, v_pool, k_scale, v_scale, tables, positions,
            nullptr, batch, 1, kv_heads, head_dim, block_size, max_blocks,
-           k_stride, v_stride, static_cast<cudaStream_t>(stream)});
+           k_stride, v_stride, static_cast<cudaStream_t>(stream),
+           clamp_rows});
 }

@@ -25,7 +25,10 @@ JAX donates caches to its jitted programs; here caches are updated IN
 PLACE (each write function mutates and returns the same per-layer dict),
 which is what donation buys on the TPU.  ``lax.scan`` becomes a Python
 loop over steps; EOS/budget retirement stays on the device as
-``torch.where`` on the state tensors, with no host sync per step.
+``torch.where`` on the state tensors, with no host sync per step.  On the
+card the steady greedy chunk is one program, as the jitted one is: a
+:class:`ChunkGraph` captures it as a CUDA graph over static state buffers
+and replays it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops import _cuda
 from ..ops.attention import flash_attention
 from ..ops.paged_attention import (cached_gqa_attention,
                                    contiguous_block_size,
@@ -54,7 +58,8 @@ from ..ops.quant import (_unpack_int4, int4_matmul, int8_matmul,
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
            "random_quantized_params", "forward", "init_cache", "prefill",
            "decode_step", "generate_tokens", "serve_chunk_ragged",
-           "scatter_state_rows", "sample_logits", "rms_norm",
+           "scatter_state_rows", "scatter_state_rows_", "ChunkGraph",
+           "sample_logits", "rms_norm",
            "apply_rope", "init_paged_cache", "decode_chunk_paged",
            "serve_chunk_paged", "prefill_append_paged",
            "serve_chunk_mixed", "paged_insert_prefix", "verify_chunk_paged",
@@ -473,15 +478,16 @@ def _cache_write_rows(cache_layer, k, v, rows: DecodeRows):
     """Write one (batch, 1, kv, hd) row per batch element at the step's
     positions, in place: :func:`write_kv_rows` on the cache viewed as a
     pool of ``batch`` blocks of ``max_seq`` rows (``rows`` from
-    :func:`_cache_rows`)."""
+    :func:`_cache_rows`: a position past the cache writes its last row)."""
     return write_decode_rows(k, v, cache_layer, rows)
 
 
 def _cache_rows(positions) -> DecodeRows:
     """A contiguous cache's decode-write targets at int32 ``positions``
-    (batch,): tables :func:`_slot_tables`."""
+    (batch,): tables :func:`_slot_tables`, a position past the cache
+    clamped to its last row (the JAX package's ``dynamic_update_slice``)."""
     return DecodeRows(_slot_tables(positions.shape[0], positions.device),
-                      positions)
+                      positions, clamp=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -733,6 +739,18 @@ def scatter_state_rows(state: Dict, rows, packet: Dict) -> Dict:
     return merged
 
 
+def scatter_state_rows_(state: Dict, rows, packet: Dict) -> Dict:
+    """In-place twin of :func:`scatter_state_rows` for the static state
+    buffers a :class:`ChunkGraph` reads: the same rows with the same
+    values (padding rows repeat the last dirty row and its payload, so the
+    duplicates agree), written by ``index_put_`` into the tensors of
+    ``state``.  Returns ``state``."""
+    for key, host in packet.items():
+        dev = state[key]
+        dev.index_put_((rows,), host.to(dev.dtype))
+    return state
+
+
 @torch.no_grad()
 def serve_chunk_ragged(params, state, cache, num_steps: int,
                        config: LlamaConfig, eos_id: int = -1,
@@ -752,6 +770,101 @@ def serve_chunk_ragged(params, state, cache, num_steps: int,
 
     return _serve_scan(step_core, state, cache, num_steps, eos_id,
                        sampled, generator)
+
+
+# --------------------------------------------------------------------------- #
+# The steady chunk as one program: captured CUDA graphs
+
+class ChunkGraph:
+    """The steady greedy decode chunk of one server as CUDA graphs: the
+    port's counterpart of the JAX package's jitted
+    :func:`serve_chunk_ragged` / :func:`serve_chunk_paged` with the cache
+    donated.
+
+    ``state`` is the server's STATIC state (token, positions, active,
+    remaining, temps, tops; paged: tables): the program reads it and
+    writes the new state back into the same tensors, so a replay finds its
+    inputs where the capture read them.  ``cache`` (a contiguous cache, or
+    with ``paged`` a block pool) is updated in place, as every decode step
+    of the port updates it: that is the donation.  One graph is kept per
+    key (layout, slots, ``num_steps``, KV dtype, ``eos_id``, weight kind).
+    The first chunk of a key runs eagerly and is its warm-up: it builds
+    what the capture must find made (the lru-cached index tensors, the
+    weights' TMA maps, the kernels' scratch, the cache layers' row plans),
+    and a capture executes nothing, so no separate warm-up decodes a step
+    of served state.  The second captures and replays; the rest replay.
+    Every replay computes the same kernels on the same inputs as the eager
+    chunk: tokens, counts, state and cache bytes are bitwise the same.
+
+    The wrappers count their launches in Python, which a replay does not
+    run and a capture runs without launching: the capture's counts are
+    taken back and added again on every replay (``ops/_cuda.py``).  A
+    capture that fails raises; nothing falls back to the eager chunk.
+    ``ledger`` (:class:`~..obs.compiles.CaptureLedger`) counts captures
+    and replays.  On the card only: CPU tensors never capture."""
+
+    def __init__(self, params, config: LlamaConfig, cache, state: Dict,
+                 paged: bool, ledger):
+        self.params, self.config, self.cache = params, config, cache
+        self.state, self.paged, self.ledger = state, paged, ledger
+        wq = params["layers"][0]["wq"]
+        self._fixed = ("paged" if paged else "contiguous",
+                       state["token"].shape[0], str(cache[0]["k"].dtype),
+                       "int4" if is_quantized_int4(wq) else
+                       "int8" if is_quantized(wq) else str(wq.dtype))
+        #: key -> (graph, outputs, launches a replay, scratch held), or
+        #: None once the key's eager warm-up chunk ran.
+        self._graphs: Dict[Tuple, Any] = {}
+
+    def key(self, num_steps: int, eos_id: int) -> Tuple:
+        layout, slots, kv_dtype, weights = self._fixed
+        return (layout, slots, int(num_steps), kv_dtype, int(eos_id),
+                weights)
+
+    def run(self, num_steps: int, eos_id: int = -1):
+        """One greedy chunk of ``num_steps`` steps from the static state:
+        returns ``(tokens_out (slots, num_steps), counts (slots,))``, the
+        graph's own output buffers once the key is captured (the next
+        replay overwrites them: read them on the stream before it)."""
+        key = self.key(num_steps, eos_id)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return self._program(num_steps, eos_id)
+        captured = self._graphs[key]
+        if captured is None:
+            captured = self._graphs[key] = self._capture(num_steps, eos_id)
+        graph, outputs, launches, _ = captured
+        graph.replay()
+        _cuda.add_launches(launches)
+        self.ledger.record_replay()
+        return outputs
+
+    def _program(self, num_steps: int, eos_id: int):
+        """The chunk: the eager serve function, its new state written back
+        into the static buffers."""
+        chunk = serve_chunk_paged if self.paged else serve_chunk_ragged
+        tokens_out, counts, new_state, _ = chunk(
+            self.params, self.state, self.cache, num_steps, self.config,
+            eos_id=eos_id)
+        for key, value in new_state.items():
+            if value is not self.state[key]:
+                self.state[key].copy_(value)
+        return tokens_out, counts
+
+    def _capture(self, num_steps: int, eos_id: int):
+        device = self.state["token"].device
+        if device.type != "cuda":
+            raise ValueError("ChunkGraph: a CUDA graph needs the state on a "
+                             f"card, not on {device}")
+        before = _cuda.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = self._program(num_steps, eos_id)
+        finally:
+            launches = _cuda.take_back(before)
+        self.ledger.record_capture()
+        return graph, outputs, launches, _cuda.scratch_buffers(device)
 
 
 # --------------------------------------------------------------------------- #
@@ -787,7 +900,7 @@ _paged_gather = _gathered_view
 def _paged_write_rows(pool_layer, k, v, rows: DecodeRows):
     """Write one (batch, 1, kv, hd) row per slot into the pool at
     ``(tables[s, pos // bs], pos % bs)`` of the step's ``rows``, in place
-    (:func:`write_kv_rows`)."""
+    (:func:`write_kv_rows`); a row past the table is dropped."""
     return write_decode_rows(k, v, pool_layer, rows)
 
 

@@ -61,7 +61,7 @@ SIGNATURES = {
     "aiko_append_kv_ragged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_write_kv_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _L, _L, _I, _I, _P],
+                           _I, _L, _L, _I, _I, _I, _P],
     "aiko_ring_ag_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "aiko_ring_rs_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -180,21 +180,75 @@ def launch(name: str, device: torch.device, *args) -> None:
 #: Per-device scratch of the kernels that split work across CTAs: f32
 #: partial results and int32 arrival counters.  Launches on one stream run
 #: in order, each consumes its partials before the next starts and leaves
-#: the counters zero, so one grow-only pair serves every launch.
+#: the counters zero, so one grow-only pair serves every launch.  A CUDA
+#: graph keeps the pair it captured (:func:`scratch_buffers`): a later
+#: growth replaces the pair here, never under a graph.
 _SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def scratch(device: torch.device, floats: int,
             counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
     partials, arrivals = _SCRATCH.get(device, (None, None))
-    if partials is None or partials.numel() < floats:
+    grow_partials = partials is None or partials.numel() < floats
+    grow_arrivals = arrivals is None or arrivals.numel() < counters
+    if (grow_partials or grow_arrivals) \
+            and torch.device(device).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"kernel scratch on {device} would grow to {floats} floats and "
+            f"{counters} counters while a CUDA graph is captured: run the "
+            "captured work once eagerly first, which sizes it")
+    if grow_partials:
         partials = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
                                device=device)
-    if arrivals is None or arrivals.numel() < counters:
+    if grow_arrivals:
         arrivals = torch.zeros(max(counters, 4096), dtype=torch.int32,
                                device=device)
     _SCRATCH[device] = (partials, arrivals)
     return partials, arrivals
+
+
+def scratch_buffers(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The scratch pair now in use on ``device`` (empty before the first
+    launch that needs one): what a graph captured holds on to."""
+    return _SCRATCH.get(device, ())
+
+
+#: Every kernel wrapper with a ``.launches`` counter, which it bumps where
+#: it launches its kernel (:func:`counted`).
+COUNTED: List = []
+
+
+def counted(wrapper):
+    """Give kernel wrapper ``wrapper`` its launch counter (0) and register
+    it, so that a CUDA graph can count what a replay launches
+    (:func:`launch_counts`, :func:`take_back`, :func:`add_launches`)."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+def launch_counts() -> Dict:
+    """Every registered wrapper's counter now."""
+    return {wrapper: wrapper.launches for wrapper in COUNTED}
+
+
+def take_back(before: Dict) -> Dict:
+    """Reset every counter to ``before`` (taken by :func:`launch_counts`)
+    and return what each gained since: a capture runs the wrappers'
+    Python, whose increments the capture itself never launches."""
+    delta = {}
+    for wrapper, count in before.items():
+        if wrapper.launches != count:
+            delta[wrapper] = wrapper.launches - count
+            wrapper.launches = count
+    return delta
+
+
+def add_launches(delta: Dict) -> None:
+    """Count one replay of a graph whose capture gained ``delta``."""
+    for wrapper, count in delta.items():
+        wrapper.launches += count
 
 
 def ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:

@@ -132,4 +132,4 @@ def flash_attention(q, k, v, causal: bool = True,
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
-flash_attention.launches = 0
+_cuda.counted(flash_attention)

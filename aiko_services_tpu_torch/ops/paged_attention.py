@@ -299,4 +299,4 @@ def paged_decode_attention(q, k_pool, v_pool, tables, positions,
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
-paged_decode_attention.launches = 0
+_cuda.counted(paged_decode_attention)

@@ -26,7 +26,9 @@ decode position.
   hd)`` row a slot at ``positions`` through the slots' tables
   (``csrc/kv_write.cu``'s row mode on CUDA tensors, the ragged writer at
   T = 1 with every row live); a contiguous cache is a pool of ``batch``
-  blocks of ``max_seq`` rows with tables ``arange(batch)[:, None]``.
+  blocks of ``max_seq`` rows with tables ``arange(batch)[:, None]``.  Past
+  the end it clamps to the last row on a contiguous cache and drops the
+  row on a pool, as the JAX package's decode writes do.
 * :func:`chunk_attention` runs the chunk's queries over the appended
   pool (``csrc/paged_prefill.cu`` on CUDA tensors: fixed-size key splits
   merged in split order, see :func:`chunk_attention_split_reference`).
@@ -105,13 +107,18 @@ def _pool_sources(layer: Dict, k, v) -> Dict:
 def _write_rows_reference(pool: Dict, k_new, v_new, tables, positions):
     """Scatter every chunk row (padding rows too) into the pool at its
     absolute position ``positions`` (batch, T), in place; int8 layouts
-    quantize like the cache writer."""
+    quantize like the cache writer.  A row whose table entry is past the
+    table is dropped, as the JAX package's scatter drops the out-of-range
+    gather's row."""
     block_size = pool["k"].shape[1]
     positions = positions.to(torch.int64)
-    block_ids = tables.to(torch.int64).gather(1, positions // block_size)
-    offsets = positions % block_size
+    entries = positions // block_size
+    live = entries < tables.shape[1]
+    block_ids = tables.to(torch.int64).gather(
+        1, entries.clamp(max=tables.shape[1] - 1))[live]
+    offsets = (positions % block_size)[live]
     for key, src in _pool_sources(pool, k_new, v_new).items():
-        pool[key][block_ids, offsets] = src.to(pool[key].dtype)
+        pool[key][block_ids, offsets] = src[live].to(pool[key].dtype)
     return pool
 
 
@@ -215,7 +222,7 @@ def append_kv(k_new, v_new, pool, tables, cached_lens, chunk_lens):
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
-append_kv.launches = 0
+_cuda.counted(append_kv)
 
 
 def _launch_append(entry: str, name: str, k_new, v_new, pool, tables,
@@ -318,24 +325,34 @@ def append_kv_ragged(k_new, v_new, pool, tables, cached_lens, chunk_lens):
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
-append_kv_ragged.launches = 0
+_cuda.counted(append_kv_ragged)
 
 
 # --------------------------------------------------------------------------- #
 # write_kv_rows: the decode step's K/V write (the ragged writer at T = 1)
 
-def write_kv_rows_reference(k, v, pool, tables, positions):
+def write_kv_rows_reference(k, v, pool, tables, positions,
+                            clamp: bool = False):
     """Plain version of :func:`write_kv_rows`: the eager scatter of every
     slot's row at its table-resolved (block, offset),
-    :func:`_write_rows_reference` at ``positions[:, None]``, in place."""
+    :func:`_write_rows_reference` at ``positions[:, None]`` (clamped to
+    the last row first when ``clamp``), in place."""
+    if clamp:
+        positions = positions.clamp(
+            max=tables.shape[1] * pool["k"].shape[1] - 1)
     return _write_rows_reference(pool, k, v, tables, positions[:, None])
 
 
-def write_kv_rows(k, v, pool, tables, positions):
+def write_kv_rows(k, v, pool, tables, positions, clamp: bool = False):
     """The decode step's K/V write, in place: slot ``b``'s row lands in
     pool block ``tables[b, positions[b] // bs]`` at offset ``positions[b]
-    % bs`` (table entry clamped to the table), int8 pools quantized as
-    :func:`_kv_quantize_rows`.
+    % bs``, int8 pools quantized as :func:`_kv_quantize_rows`.  Past the
+    end it does what the JAX package's decode writes do: with ``clamp``
+    (a contiguous cache, ``_cache_write_rows``'s ``dynamic_update_slice``)
+    a position at or past ``max_blocks * bs`` writes the last row; without
+    it (a pool, ``_paged_write_rows``'s scatter) that row is dropped.  A
+    contiguous cache and a one-entry pool table look alike, so the caller
+    says which rule holds.
 
     Args:
       k / v: ``(batch, 1, kv_heads, head_dim)``.  On CUDA tensors only the
@@ -346,7 +363,8 @@ def write_kv_rows(k, v, pool, tables, positions):
         ``(batch, max_seq, kv, hd)`` is a pool of ``batch`` blocks of
         ``max_seq`` rows, with tables ``arange(batch)[:, None]``.
       tables: ``(batch, max_blocks)`` int32 block tables.
-      positions: ``(batch,)`` int32 positions.
+      positions: ``(batch,)`` int32 non-negative positions.
+      clamp: the contiguous cache's rule past the end (see above).
 
     CPU tensors take :func:`write_kv_rows_reference`; CUDA tensors launch
     ``csrc/kv_write.cu``'s row writer (the ragged writer with ``T = 1`` and
@@ -354,23 +372,26 @@ def write_kv_rows(k, v, pool, tables, positions):
     the same tables and positions: it makes their :class:`DecodeRows`
     once and calls :func:`write_decode_rows`, this write, for each layer.
     Returns ``pool``."""
-    return write_decode_rows(k, v, pool, DecodeRows(tables, positions))
+    return write_decode_rows(k, v, pool, DecodeRows(tables, positions,
+                                                    clamp))
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
-write_kv_rows.launches = 0
+_cuda.counted(write_kv_rows)
 
 
 class DecodeRows:
     """Where one decode step writes its rows: the ``(batch, max_blocks)``
-    tables and ``(batch,)`` positions of :func:`write_kv_rows`.  The
-    model's decode core makes it once a step; on CUDA tensors it checks
-    them then (int32, on one device, contiguous), for every layer."""
+    tables and ``(batch,)`` positions of :func:`write_kv_rows`, and its
+    rule past the end (``clamp``: a contiguous cache's).  The model's
+    decode core makes it once a step; on CUDA tensors it checks them then
+    (int32, on one device, contiguous), for every layer."""
 
-    __slots__ = ("tables", "positions", "batch", "device")
+    __slots__ = ("tables", "positions", "clamp", "batch", "device")
 
-    def __init__(self, tables, positions):
+    def __init__(self, tables, positions, clamp: bool = False):
         self.tables, self.positions = tables, positions
+        self.clamp = bool(clamp)
         self.batch, self.device = positions.shape[0], None
         if not (tables.is_cuda or positions.is_cuda):
             return
@@ -450,7 +471,7 @@ def write_decode_rows(k, v, pool, rows: DecodeRows):
     """:func:`write_kv_rows` at a decode step's :class:`DecodeRows`."""
     if not k.is_cuda:
         return write_kv_rows_reference(k, v, pool, rows.tables,
-                                       rows.positions)
+                                       rows.positions, rows.clamp)
     try:
         layer = pool.row_plan
     except AttributeError:               # a plain dict: checked every call
@@ -468,7 +489,7 @@ def write_decode_rows(k, v, pool, rows: DecodeRows):
         rows.tables.data_ptr(), rows.positions.data_ptr(), rows.batch,
         layer.kv_heads, layer.head_dim, layer.block_size,
         rows.tables.shape[1], k_stride, v_stride,
-        _cuda.DTYPE_CODES[k.dtype], layer.pool_code,
+        _cuda.DTYPE_CODES[k.dtype], layer.pool_code, int(rows.clamp),
         torch._C._cuda_getCurrentRawStream(layer.device.index))
     if code:
         _cuda.raise_error("aiko_write_kv_rows", code)
@@ -695,7 +716,7 @@ def chunk_attention(q, pool, tables, cached_lens, chunk_lens,
 
 
 #: Kernel launches on the CUDA path (never counts the plain version).
-chunk_attention.launches = 0
+_cuda.counted(chunk_attention)
 
 
 def _check_query(name, q):

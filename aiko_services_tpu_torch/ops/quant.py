@@ -187,7 +187,7 @@ def _split_k(device: torch.device, m: int, k: int, n: int, cols: int,
 
 
 #: Kernel launches on the CUDA path (never counts the plain versions).
-int8_matmul.launches = 0
+_cuda.counted(int8_matmul)
 
 
 # --------------------------------------------------------------------------- #
@@ -467,6 +467,6 @@ def int4_matmul_scale_first(x: torch.Tensor, q4: torch.Tensor,
 
 
 #: Kernel launches on the CUDA path (never counts the plain versions).
-int4_matmul.launches = 0
-int4_matmul_tiled.launches = 0
-int4_matmul_scale_first.launches = 0
+_cuda.counted(int4_matmul)
+_cuda.counted(int4_matmul_tiled)
+_cuda.counted(int4_matmul_scale_first)

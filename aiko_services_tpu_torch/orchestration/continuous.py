@@ -17,7 +17,13 @@ its lifetime.
   positions, active, remaining budget, sampling controls) lives on the
   device and EOS/budget retirement happens there.  Host mirrors reach the
   device only through :meth:`_sync_dirty`, a compact scatter of the rows
-  an admission, retirement or sampling edit touched.
+  an admission, retirement or sampling edit touched.  On the card a greedy
+  chunk with no admission slice replays a captured CUDA graph
+  (:class:`~..models.llama.ChunkGraph`, one a key, the first chunk of a
+  key its eager warm-up) over static state buffers, which the dirty-row
+  merge updates in place and which are refilled on the device after an
+  eager round (a speculation round, a mixed step, a sampled chunk);
+  ``graph_ledger`` counts captures and replays for :meth:`stats`.
 * In-flight ring: each dispatched chunk queues a non-blocking copy of its
   tiny ``(tokens_out, counts, active)`` result into pinned host memory
   and an event; :meth:`_consume_ready` waits on that event, the ONLY
@@ -70,6 +76,7 @@ from ..models import llama
 from ..models.speculative import (SpecStats, delta_draft_logits,
                                   greedy_accept_batch, mrs_accept_batch,
                                   ngram_propose, spec_commit)
+from ..obs.compiles import CaptureLedger
 from ..obs.metrics import CounterDict
 from ..ops.paged_attention import contiguous_block_size
 from .spec_control import SpecController, default_ladder, validate_ladder
@@ -235,6 +242,16 @@ class ContinuousBatchingServer:
         self._queue: List[DecodeRequest] = []
         self.completed: List[DecodeRequest] = []
         self._state = self._init_device_state()
+        # On the card a greedy steady chunk replays a captured CUDA graph
+        # (llama.ChunkGraph) that reads and writes these first state
+        # tensors in place, the static buffers; CPU tensors never capture.
+        # _graphs_on is private: tests and measurements turn it off for the
+        # eager chunk.
+        self.graph_ledger = CaptureLedger()
+        self._static_state = (self._state if self.device.type == "cuda"
+                              else None)
+        self._graphs_on = self._static_state is not None
+        self._chunk_graph = None
         # In-flight ring of dispatched-but-unconsumed chunks; depth adapts
         # between ring_min (double buffering) and ring_max.
         self._ring = collections.deque()
@@ -283,6 +300,10 @@ class ContinuousBatchingServer:
         self.cache = llama.init_cache(self.config, self.slots, self.max_seq,
                                       quantize_kv=self.quantize_kv,
                                       device=self.device)
+
+    def _graph_cache(self):
+        """``(KV buffers, paged)`` the chunk graph decodes into."""
+        return self.cache, False
 
     def _attention_blocks(self):
         """``(block_size, blocks_per_row)`` of the decode-attention view:
@@ -404,30 +425,61 @@ class ContinuousBatchingServer:
         dispatch.  The dirty rows are gathered into a small packet
         (fancy indexing copies, so later mirror edits cannot race the
         upload), padded to a pow2 bucket by repeating the last row, and
-        row-scattered by :func:`~..models.llama.scatter_state_rows`."""
+        row-scattered by :func:`~..models.llama.scatter_state_rows`; with
+        graphs on, into the static buffers in place
+        (:func:`~..models.llama.scatter_state_rows_`)."""
         structural = self._dirty
         sampling = self._dirty_sampling & ~structural
         if not (structural.any() or sampling.any()):
             return
+        if self._graphs_on:
+            self._adopt_static()
+            scatter = llama.scatter_state_rows_
+        else:
+            scatter = llama.scatter_state_rows
         rows = np.nonzero(structural)[0].astype(np.int32)
         sampling_rows = np.nonzero(sampling)[0].astype(np.int32)
         if len(rows):
             padded = self._pow2_rows(rows)
             packet = {key: self._upload(value[padded])
                       for key, value in self._host_state().items()}
-            self._state = llama.scatter_state_rows(
+            self._state = scatter(
                 self._state, self._upload(padded.astype(np.int64)), packet)
         if len(sampling_rows):
             padded = self._pow2_rows(sampling_rows)
             packet = {"temps": self._upload(self._temperatures[padded]),
                       "tops": self._upload(self._top_ps[padded])}
-            self._state = llama.scatter_state_rows(
+            self._state = scatter(
                 self._state, self._upload(padded.astype(np.int64)), packet)
         self._dirty[:] = False
         self._dirty_sampling[:] = False
         self.counters["state_uploads"] += 1
         self.counters["dirty_rows_uploaded"] += len(rows) \
             + len(sampling_rows)
+
+    def _adopt_static(self) -> None:
+        """Make the static buffers hold the resident state: after an eager
+        round (a spec round, a mixed step, a sampled chunk) the state is
+        new tensors, copied back on the device (a few bytes a slot)."""
+        static = self._static_state
+        if self._state is static:
+            return
+        for key, value in self._state.items():
+            if value is not static[key]:
+                static[key].copy_(value)
+        self._state = static
+
+    def _graph_chunk(self, steps: int, eos_id: int):
+        """A greedy steady chunk as a replay of the server's
+        :class:`~..models.llama.ChunkGraph` over the static state, which
+        becomes the resident state: ``(tokens_out, counts)``."""
+        self._adopt_static()
+        if self._chunk_graph is None:
+            cache, paged = self._graph_cache()
+            self._chunk_graph = llama.ChunkGraph(
+                self.params, self.config, cache, self._static_state, paged,
+                self.graph_ledger)
+        return self._chunk_graph.run(steps, eos_id)
 
     def _pow2_rows(self, rows: np.ndarray) -> np.ndarray:
         """Pad a dirty-row index vector to its pow2 bucket (clamped to
@@ -829,10 +881,15 @@ class ContinuousBatchingServer:
         steps = int(min(self.chunk_steps, int(plan[live].max())))
         self._sync_dirty()
         serial = self._slot_serial.copy()
-        tokens_d, counts_d, self._state = self._serve_chunk(
-            self._state, steps,
-            -1 if self.eos_id is None else int(self.eos_id),
-            self._any_sampled)
+        eos_id = -1 if self.eos_id is None else int(self.eos_id)
+        if self._graphs_on and not self._any_sampled \
+                and not self._prefilling:
+            tokens_d, counts_d = self._graph_chunk(steps, eos_id)
+        else:
+            tokens_d, counts_d, self._state = self._serve_chunk(
+                self._state, steps, eos_id, self._any_sampled)
+        # Packed on the stream now, before a later replay can overwrite a
+        # graph's outputs.
         result = torch.cat([tokens_d, counts_d[:, None],
                             self._state["active"][:, None].to(torch.int32)],
                            dim=1)
@@ -1088,7 +1145,8 @@ class ContinuousBatchingServer:
                 if elapsed > 0 else 0.0),
             sync_stalls_per_100_steps=(
                 round(100.0 * self.counters["host_syncs"] / steps, 2)
-                if steps else 0.0))
+                if steps else 0.0),
+            **self.graph_ledger.counters())
         if self._spec is not None:
             controller = self._spec["controller"]
             stats = self.spec_stats

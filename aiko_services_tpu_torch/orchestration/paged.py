@@ -208,6 +208,9 @@ class PagedContinuousServer(ContinuousBatchingServer):
         host["tables"] = self.tables
         return host
 
+    def _graph_cache(self):
+        return self.pool, True
+
     def _attention_blocks(self):
         # Real pool geometry: the kernel walks the slot's block table.
         return self.block_size, self.tables.shape[1]

@@ -185,9 +185,9 @@ def rdma_matmul_reducescatter(x_shards: Sequence[torch.Tensor],
 
 #: Kernel launches (step kernels) and slot copies on the CUDA path; the
 #: plain version counts neither.
-rdma_allgather_matmul.launches = 0
+_cuda.counted(rdma_allgather_matmul)
 rdma_allgather_matmul.copies = 0
-rdma_matmul_reducescatter.launches = 0
+_cuda.counted(rdma_matmul_reducescatter)
 rdma_matmul_reducescatter.copies = 0
 
 

@@ -24,13 +24,20 @@ Phases (any failure exits non-zero):
    generate_tokens oracle on the card (teacher-forced past a near-tie),
    the kernels' launch counts held against the decode steps and the
    prefill dispatches of the run (the decode step's K/V write,
-   write_kv_rows, once a layer a step), then a full-batch steady decode
-   window timed bare, under cProfile (host functions; the K/V write's host
-   microseconds a call) and under torch.profiler (device time by kernel,
-   kernels a step, and no per-layer index_put_ left in the step;
-   int8_matmul's time per step in the kernel line is read from it); then
-   phase 6's 64-slot run on these int8 weights, for the comparison with
-   int4.
+   write_kv_rows, once a layer a step).  The greedy steady chunks serve
+   through captured CUDA graphs (llama.ChunkGraph, the servers' default
+   on the card; a replay counts the launches its capture made, so the
+   counts stay exact), and the run must replay some.  Then a full-batch
+   steady decode window (steady_decode): once the steady chunk is
+   captured the capture ledger's fence drops, and the same server decodes
+   in turns with its graphs on and off, timed bare; the eager path under
+   cProfile (host functions; the K/V write's host microseconds a call)
+   and under torch.profiler (device time by kernel, kernels a step, and
+   no per-layer index_put_ left in the step; int8_matmul's time per step
+   in the kernel line is read from it); the graphed path under
+   torch.profiler (kernels a replay, busy share) and with CUDA events
+   around the replays; no capture after the fence.  Then phase 6's
+   64-slot run on these int8 weights, for the comparison with int4.
 4. Paged serving: the same weights through PagedContinuousServer (8
    slots, 4096-row tables of 16-row blocks, the default 1,024-block pool,
    prefix cache on, 256-token chunked admission), bf16 KV then int8 KV:
@@ -40,7 +47,8 @@ Phases (any failure exits non-zero):
    batch-1 paged run with the prefix cache off), launches of every kernel
    held to the decode steps and prefill slices, prefix hits > 0, the pool
    balanced after the drain, then phase 3's steady decode window at
-   positions ~1,025-1,090.
+   positions ~1,025-1,120; then that window at 64 slots (512-row tables,
+   bf16 KV, 128-token prompts).
 5. Speculative serving: phase 4's server with spec_k = 4, bf16 then int8
    KV, a paired draft (the target as its own draft), an int8 1b draft
    under the adaptive controller and n-gram self-drafting, every greedy
@@ -54,8 +62,11 @@ Phases (any failure exits non-zero):
    verify at m = 40 and the resync at m = 32 through the int4 kernel),
    each held as phases 3-5 are, the launches of both int4 instances exact
    (every prefill slice of m > 64 through the m-tiled one), TTFT p50
-   printed beside the int8 runs', and the 64-slot steady step's weight
-   matmul ms beside its device ms (int4 and int8).
+   printed beside the int8 runs', the 64-slot steady step's weight
+   matmul ms beside its device ms (int4 and int8), and the paged 64-slot
+   steady window.  One line a steady window then sets the graphed step
+   beside the eager one (ms, tok/s, busy share, kernels a replay or a
+   step) for 8 and 64 slots, int8 and int4, contiguous and paged.
 7. The ring collective matmuls (parallel/rdma_collective.py): four ranks
    on this card, each with its own compute and copy streams, at
    llama3_8b's TP-4 MLP shapes in bf16 (the w_gate all-gather and the
@@ -82,7 +93,9 @@ window, and write_kv_rows (the decode step's K/V write, through the
 functions the serving path calls) at 8 and 64 slots of the paged
 server's 16-row blocks and on the contiguous caches of phase 3 (8 x
 1,024 rows) and of the 64-slot run (64 x 512), bf16 and int8 KV, each
-beside two index_put_ calls.
+beside two index_put_ calls; and past the end, slot 0 at max_seq - 1,
+max_seq and max_seq + 3 on the 8-slot pool (the row dropped) and cache
+(clamped to the last row), byte-equal to the plain version.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.  Without a CUDA
@@ -1145,13 +1158,13 @@ def check_write_kv_rows(torch, pp, llama, device):
             k_new, v_new, pool, tables, positions, first = \
                 decode_write_case(torch, llama, device, gen, layout, slots,
                                   max_seq, quant_kv)
-            write = (llama._paged_write_rows if layout == "paged"
-                     else llama._cache_write_rows)
-            step_rows = pp.DecodeRows(tables, positions)
+            write, step_rows = decode_write_rows(llama, pp, layout, tables,
+                                                 positions)
             got = pool
             want = {key: buf.clone() for key, buf in pool.items()}
             write(got, k_new, v_new, step_rows)
-            pp.write_kv_rows_reference(k_new, v_new, want, tables, positions)
+            pp.write_kv_rows_reference(k_new, v_new, want, tables, positions,
+                                       clamp=step_rows.clamp)
             torch.cuda.synchronize()
             err = max(float((got[key][first:].float()
                              - want[key][first:].float()).abs().max())
@@ -1168,7 +1181,7 @@ def check_write_kv_rows(torch, pp, llama, device):
             ms = device_ms(torch, lambda: write(got, k_new, v_new,
                                                 step_rows), 50)
             plain_ms = device_ms(torch, lambda: pp.write_kv_rows_reference(
-                k_new, v_new, want, tables, positions), 20)
+                k_new, v_new, want, tables, positions, step_rows.clamp), 20)
             library_ms = None
             if not quant_kv:
                 block = got["k"].shape[1]
@@ -1193,7 +1206,59 @@ def check_write_kv_rows(torch, pp, llama, device):
             if (layout, slots, quant_kv) == ("contiguous", SLOTS, False):
                 main = row
             del got, want, pool
+    check_write_past_end(torch, pp, llama, device, gen)
     return rows, main
+
+
+def decode_write_rows(llama, pp, layout, tables, positions):
+    """(llama's write function, the step's ``DecodeRows``) of a decode
+    write as the serving path makes them: a contiguous cache's rows clamp
+    past its end (``llama._cache_rows``), a pool's drop."""
+    if layout == "paged":
+        return llama._paged_write_rows, pp.DecodeRows(tables, positions)
+    return llama._cache_write_rows, llama._cache_rows(positions)
+
+
+def check_write_past_end(torch, pp, llama, device, gen):
+    """The decode write with slot 0 at ``max_seq - 1``, ``max_seq`` and
+    ``max_seq + 3`` (the other slots as :func:`decode_write_case` makes
+    them), on the 8-slot paged pool and contiguous cache, bf16 and int8
+    KV: every byte of the kernel's pool equal to the plain version's (the
+    contiguous cache clamps to its last row, the pool drops the row), and
+    the contiguous cache's row 0 of slot 0 untouched."""
+    cases, equal = 0, 0
+    for quant_kv in (False, True):
+        for layout, slots, max_seq in DECODE_WRITE_CASES:
+            if slots != SLOTS:
+                continue
+            for past in (-1, 0, 3):
+                k_new, v_new, pool, tables, positions, first = \
+                    decode_write_case(torch, llama, device, gen, layout,
+                                      slots, max_seq, quant_kv)
+                positions[0] = max_seq + past
+                write, step_rows = decode_write_rows(llama, pp, layout,
+                                                     tables, positions)
+                want = {key: buf.clone() for key, buf in pool.items()}
+                write(pool, k_new, v_new, step_rows)
+                pp.write_kv_rows_reference(k_new, v_new, want, tables,
+                                           positions, clamp=step_rows.clamp)
+                torch.cuda.synchronize()
+                cases += 1
+                if not all(torch.equal(pool[key][first:], want[key][first:])
+                           for key in pool):
+                    fail(f"write_kv_rows at position {max_seq + past} of a "
+                         f"{layout} {slots} x {max_seq} cache, int8="
+                         f"{quant_kv}: pool differs from the plain version")
+                elif layout == "contiguous" and bool(pool["k"][0, 0].any()):
+                    fail(f"write_kv_rows at position {max_seq + past}: the "
+                         "contiguous cache's row 0 was written")
+                else:
+                    equal += 1
+                del pool, want
+    log(f"write_kv_rows past the end (slot 0 at max_seq - 1, max_seq, "
+        f"max_seq + 3; paged {SLOTS} x {PAGED_MAX_SEQ} drops, contiguous "
+        f"{SLOTS} x {MAX_SEQ} clamps; bf16 and int8 KV): {equal} of {cases} "
+        "cases byte-equal to the plain version")
 
 
 def check_chunk_verify(torch, pp, llama, device):
@@ -1362,6 +1427,17 @@ def check_requests(torch, requests, oracle):
     return exact, equal, checked, ties
 
 
+def graph_counts(stats, where):
+    """The serving run's chunk graphs: captures (one a key the run met
+    twice) and replays, which must not be 0: the greedy steady chunks
+    serve through the graph on the card."""
+    if not stats["graph_replays"]:
+        fail(f"{where}: no decode chunk replayed a CUDA graph "
+             f"({stats['graph_captures']} captures)")
+    return dict(run_graph_captures=stats["graph_captures"],
+                run_graph_replays=stats["graph_replays"])
+
+
 def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
           params, quantize_kv, device):
     """ContinuousBatchingServer, llama3_8b, 8 slots, 1024-row cache: the
@@ -1467,23 +1543,39 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
                 kernel_prefills=kernel_prefills,
                 wall_s=wall, served_tok_s=generated / wall,
                 ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
-                peak_gb=peak_gb, **steady)
+                peak_gb=peak_gb, **graph_counts(stats, "contiguous"),
+                **steady)
+
+
+#: Decode steps of each timed turn of the steady window (graphed, eager,
+#: eager, graphed), of the eager window under cProfile, and of each
+#: profiled or event-timed window.
+TURN_STEPS, TRACE_STEPS = 12, 8
 
 
 def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
-                  config, prompt_len=128, slots=SLOTS, new_tokens=96):
+                  config, prompt_len=128, slots=SLOTS, new_tokens=128):
     """Decode at a full batch: ``slots`` requests of ``prompt_len`` prompt
-    tokens admitted together into ``make_server()``; after every request
-    has its first token, 32 decode steps
-    are timed with nothing attached, 16 more under cProfile (the host's
-    top functions by own time are printed; the K/V write's microseconds a
-    call, llama's ``_cache_write_rows`` / ``_paged_write_rows``) and 16
-    more under torch.profiler, host ops and kernels (the card's kernel
-    time per step, by kernel; busy share = kernel time per step over the
-    unprofiled step; kernels a step; the weight matmul's device time per
-    step; ``aten::index_put_`` ops a step, which must stay under one a
-    layer: the decode write launches the row writer, not an eager
-    scatter).
+    tokens admitted together into ``make_server()``; once every request
+    has its first token and the steady chunk's graph is captured, the
+    capture ledger's fence drops and the same server decodes in turns of
+    TURN_STEPS steps with its chunk graphs on and off (graphed, eager,
+    eager, graphed; ``_graphs_on``, the private switch), timed with
+    nothing attached.  Then, on the eager path, a window of TURN_STEPS
+    under cProfile (the host's top functions by own time are printed; the
+    K/V write's microseconds a call, llama's ``_cache_write_rows`` /
+    ``_paged_write_rows``) and one under torch.profiler, host ops and
+    kernels for TRACE_STEPS (the card's kernel time per step, by kernel;
+    busy share = kernel time per step over the unprofiled eager step;
+    kernels a step;
+    the weight matmul's device time per step; ``aten::index_put_`` ops a
+    step, which must stay under one a layer: the decode write launches
+    the row writer, not an eager scatter); on the graphed path one window
+    under torch.profiler (kernel time, kernels a step and a replay, busy
+    over the unprofiled graphed step) and one with CUDA events around
+    every replay (the replays' device span a step, and busy by it).  No
+    chunk may be captured after the fence.  A tree whose servers have no
+    chunk graph runs the eager windows only.
 
     The tracer may miss the kernels launched while it comes up, and a
     window of consumed steps need not hold whole dispatched steps (the
@@ -1500,30 +1592,45 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     server = make_server()
+    graphs = hasattr(server, "graph_ledger")
+    label = (f"{weights.label} weights, {slots} slots, "
+             f"{'int8' if quantize_kv else 'bf16'} KV, "
+             f"{type(server).__name__}")
     rng = np.random.default_rng(11)
     requests = [request_cls(f"s{i}", rng.integers(
         1, config.vocab_size, prompt_len).astype(np.int32), new_tokens)
         for i in range(slots)]
     for request in requests:
         server.submit(request)
-    while any(r.first_token_ts is None for r in requests):
+    while any(r.first_token_ts is None for r in requests) or (
+            graphs and not server.stats()["graph_replays"]):
         server.step()
+    if graphs:
+        server.graph_ledger.fence()
 
-    def window(steps):
+    def window(steps, graphed):
+        if graphs:
+            server._graphs_on = graphed
         start = server.counters["decode_steps"]
         torch.cuda.synchronize()
         began = time.perf_counter()
         while server.counters["decode_steps"] - start < steps:
+            if not server.busy:
+                fail(f"steady decode ({label}): the requests ran out "
+                     "before the window ended")
             server.step()
         torch.cuda.synchronize()
         return time.perf_counter() - began, \
             server.counters["decode_steps"] - start
 
-    wall, steps = window(32)
-    step_ms = wall * 1e3 / steps
+    turns = {True: [], False: []}
+    for graphed in ((True, False, False, True) if graphs else (False,)):
+        wall, steps = window(TURN_STEPS, graphed)
+        turns[graphed].append(wall * 1e3 / steps)
+    eager_ms = sum(turns[False]) / len(turns[False])
     host = cProfile.Profile()
     host.enable()
-    host_wall, host_steps = window(16)
+    host_wall, host_steps = window(TURN_STEPS, False)
     host.disable()
     text = io.StringIO()
     host_stats = pstats.Stats(host, stream=text)
@@ -1537,64 +1644,148 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     write_calls = sum(calls for calls, _ in writes)
     write_host_us = (sum(cum for _, cum in writes) * 1e6 / write_calls
                      if write_calls else None)
-    log(f"--- host, {weights.label} weights, {slots} slots, "
-        f"{'int8' if quantize_kv else 'bf16'} KV steady decode "
-        f"(cProfile, {host_wall * 1e3 / host_steps:.3f} ms a step with it "
-        "on):")
+    log(f"--- host, {label}, eager steady decode (cProfile, "
+        f"{host_wall * 1e3 / host_steps:.3f} ms a step with it on):")
     for line in text.getvalue().splitlines():
         if line.strip() and not line.lstrip().startswith(("Ordered", "List")):
             log("  " + line.rstrip())
     per_step = matmul_launches(weights, config, slots, 1)
-    launched = weights.matmul.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, traced_steps = window(16)
-    launched = weights.matmul.launches - launched
-    server.run_until_drained()
-    averages = prof.key_averages()
-    kernels = [event for event in averages
-               if event.device_type == DeviceType.CUDA]
-    device_us = sum(event.self_device_time_total for event in kernels)
-    matmul = [event for event in kernels if weights.trace_key in event.key]
-    recorded = sum(event.count for event in matmul)
+
+    def traced(graphed):
+        """One window under torch.profiler: (averages, kernels, device ms a
+        step or None, steps the tracer saw, matmul records, steps)."""
+        launched = weights.matmul.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, steps = window(TRACE_STEPS, graphed)
+        launched = weights.matmul.launches - launched
+        averages = prof.key_averages()
+        kernels = [event for event in averages
+                   if event.device_type == DeviceType.CUDA]
+        device_us = sum(event.self_device_time_total for event in kernels)
+        matmul = [event for event in kernels
+                  if weights.trace_key in event.key]
+        recorded = sum(event.count for event in matmul)
+        seen = recorded / per_step if device_us and recorded else None
+        return dict(averages=averages, kernels=kernels, launched=launched,
+                    recorded=recorded, steps=steps, seen=seen,
+                    device_ms=device_us / 1e3 / seen if seen else None,
+                    matmul_ms=(sum(e.self_device_time_total for e in matmul)
+                               / 1e3 / seen if seen else None),
+                    kernels_per_step=(sum(e.count for e in kernels) / seen
+                                      if seen else None))
+
+    eager = traced(False)
     # In-place index_put_ ops of the window (host-side records, which the
     # tracer does not miss): the eager K/V write issued 2 (bf16 KV) or 4
     # (int8 KV) a layer a step; the decode write now launches none.
-    index_puts = sum(event.count for event in averages
-                     if event.key == "aten::index_put_") / traced_steps
+    index_puts = sum(event.count for event in eager["averages"]
+                     if event.key == "aten::index_put_") / eager["steps"]
     if index_puts >= config.n_layers:
-        fail(f"{weights.label} {'int8' if quantize_kv else 'bf16'} KV "
-             f"steady decode: {index_puts:g} index_put_ a step, a "
+        fail(f"{label} steady decode: {index_puts:g} index_put_ a step, a "
              "per-layer K/V write left outside write_kv_rows")
-    result = dict(steady_slots=slots,
-                  steady_decode_tok_s=slots * 1e3 / step_ms,
-                  steady_step_ms=step_ms, steady_device_ms_per_step=None,
-                  steady_device_busy=None, matmul_device_ms_per_step=None,
-                  matmul_launches_traced=recorded,
-                  matmul_launches_in_trace=launched,
-                  steady_kernels_per_step=None,
+    if eager["seen"] is None:
+        log(f"--- device, {label}, eager: the profiler recorded no "
+            f"{weights.name} launch (not measured)")
+    else:
+        log(f"--- device, {label}, eager ({eager['device_ms']:.3f} ms of "
+            f"kernels a step over {eager['seen']:g} steps; {weights.name}: "
+            f"{eager['recorded']} launches recorded of {eager['launched']} "
+            "made under the profiler):")
+        for line in eager["averages"].table(
+                sort_by="self_device_time_total", row_limit=10,
+                max_name_column_width=50).splitlines():
+            log("  " + line)
+    result = dict(steady_slots=slots, steady_layout=type(server).__name__,
+                  eager_step_ms=eager_ms, eager_step_ms_turns=turns[False],
+                  eager_decode_tok_s=slots * 1e3 / eager_ms,
+                  eager_device_ms_per_step=eager["device_ms"],
+                  eager_busy=(eager["device_ms"] / eager_ms
+                              if eager["device_ms"] else None),
+                  eager_kernels_per_step=eager["kernels_per_step"],
+                  matmul_device_ms_per_step=eager["matmul_ms"],
+                  matmul_launches_traced=eager["recorded"],
+                  matmul_launches_in_trace=eager["launched"],
                   steady_index_put_per_step=index_puts,
                   write_host_us_per_call=write_host_us,
-                  write_calls_per_step=write_calls / host_steps)
-    if not device_us or not recorded:
-        log(f"--- device: the profiler recorded no {weights.name} launch "
-            "(not measured)")
+                  write_calls_per_step=write_calls / host_steps,
+                  steady_step_ms=eager_ms, steady_decode_tok_s=(
+                      slots * 1e3 / eager_ms))
+    if not graphs:
+        server.run_until_drained()
         return result
-    steps = recorded / per_step
-    device_ms = device_us / 1e3 / steps
-    log(f"--- device ({device_ms:.3f} ms of kernels a step over {steps:g} "
-        f"steps; {weights.name}: {recorded} launches recorded of {launched} "
-        "made under the profiler):")
-    for line in averages.table(sort_by="self_device_time_total",
-                               row_limit=10,
-                               max_name_column_width=50).splitlines():
-        log("  " + line)
+
+    graphed = traced(True)
+    # The replays' device span: CUDA events around every replay of a
+    # window (the graph's kernels and the gaps between them).
+    spans, chunk_graph = [], server._chunk_graph
+    run = chunk_graph.run
+
+    def timed_run(num_steps, eos_id=-1):
+        began, ended = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+        began.record()
+        out = run(num_steps, eos_id)
+        ended.record()
+        spans.append((began, ended, num_steps))
+        return out
+    chunk_graph.run = timed_run
+    try:
+        window(TRACE_STEPS, True)
+    finally:
+        del chunk_graph.run
+    torch.cuda.synchronize()
+    replay_ms = (sum(b.elapsed_time(e) for b, e, _ in spans)
+                 / sum(n for _, _, n in spans))
+    server._graphs_on = True
+    server.run_until_drained()
+    stats = server.stats()
+    if stats["graph_captures_steady_state"]:
+        fail(f"{label} steady decode: {stats['graph_captures_steady_state']}"
+             " graph captures after the warm-up fence")
+    graphed_ms = sum(turns[True]) / len(turns[True])
+    steady_keys = [key for key, value in chunk_graph._graphs.items()
+                   if value is not None and key[2] == CHUNK_STEPS]
+    port_launches = (sum(chunk_graph._graphs[steady_keys[0]][2].values())
+                     if steady_keys else None)
+    per_replay = (graphed["kernels_per_step"] * CHUNK_STEPS
+                  if graphed["kernels_per_step"] else None)
     result.update(
-        steady_device_ms_per_step=device_ms,
-        steady_device_busy=device_ms / step_ms,
-        steady_kernels_per_step=sum(e.count for e in kernels) / steps,
-        matmul_device_ms_per_step=sum(e.self_device_time_total
-                                      for e in matmul) / 1e3 / steps)
+        steady_step_ms=graphed_ms, steady_decode_tok_s=slots * 1e3
+        / graphed_ms, graphed_step_ms_turns=turns[True],
+        graphed_device_ms_per_step=graphed["device_ms"],
+        graphed_busy=(graphed["device_ms"] / graphed_ms
+                      if graphed["device_ms"] else None),
+        graphed_replay_ms_per_step=replay_ms,
+        graphed_busy_by_events=replay_ms / graphed_ms,
+        graphed_kernels_per_replay=per_replay,
+        graphed_port_launches_per_replay=port_launches,
+        graphed_matmul_device_ms_per_step=graphed["matmul_ms"],
+        graph_captures=stats["graph_captures"],
+        graph_replays=stats["graph_replays"],
+        graph_captures_steady_state=stats["graph_captures_steady_state"])
+    profiled = (f"{graphed['device_ms']:.3f} ms of kernels a step "
+                f"(profiler), busy {result['graphed_busy']:.3f}, "
+                f"{per_replay:g} kernels a replay of {CHUNK_STEPS} steps"
+                if graphed["device_ms"] else
+                "the profiler broke no replay into kernels: device ms "
+                "from CUDA events around the replays only")
+    log(f"--- steady decode, {label}: graphed {graphed_ms:.3f} ms a step "
+        f"(turns {', '.join(f'{t:.3f}' for t in turns[True])}), "
+        f"{profiled}; replays' device span {replay_ms:.3f} ms a step "
+        f"(CUDA events), busy by it {replay_ms / graphed_ms:.3f}; "
+        f"{port_launches} port kernel launches a replay | eager "
+        f"{eager_ms:.3f} ms a step (turns "
+        f"{', '.join(f'{t:.3f}' for t in turns[False])}), "
+        + (f"{eager['device_ms']:.3f} ms of kernels, busy "
+           f"{result['eager_busy']:.3f}, {eager['kernels_per_step']:g} "
+           "kernels a step" if eager["device_ms"] else
+           "device ms not measured"))
+    if graphed["device_ms"]:
+        for line in graphed["averages"].table(
+                sort_by="self_device_time_total", row_limit=6,
+                max_name_column_width=50).splitlines():
+            log("  " + line)
     return result
 
 
@@ -1697,7 +1888,8 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
                 prefill_dispatches=dispatches, wall_s=wall,
                 served_tok_s=WIDE_SLOTS * WIDE_NEW / wall,
                 ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
-                peak_gb=peak_gb, **steady)
+                peak_gb=peak_gb, **graph_counts(stats, "64 slots"),
+                **steady)
 
 
 # --------------------------------------------------------------------------- #
@@ -1871,7 +2063,48 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
                 pool_balance=balance, wall_s=wall,
                 served_tok_s=len(requests) * NEW_TOKENS / wall,
                 ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
-                peak_gb=peak_gb, **steady)
+                peak_gb=peak_gb, **graph_counts(stats, "paged"), **steady)
+
+
+def steady_paged_wide(torch, np, llama, weights, server_cls, request_cls,
+                      params, device):
+    """The paged server's steady window at 64 slots: bf16 KV, 512-row
+    tables of 16-row blocks, a pool that holds every slot's whole table,
+    WIDE_PROMPT-token prompts (:func:`steady_decode`: the graphed step
+    beside the eager one)."""
+    config = llama.CONFIGS["llama3_8b"]
+
+    def make_server():
+        return server_cls(config_name="llama3_8b", slots=WIDE_SLOTS,
+                          max_seq=WIDE_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                          params=params, quantize=True, quantize_kv=False,
+                          block_size=BLOCK, enable_prefix_cache=True,
+                          chunk_prefill_tokens=CHUNK,
+                          total_blocks=WIDE_SLOTS * WIDE_MAX_SEQ // BLOCK,
+                          device=device)
+    return dict(weights=weights.label, kv="bf16", server="paged",
+                **steady_decode(torch, np, weights, make_server, request_cls,
+                                False, config, prompt_len=WIDE_PROMPT,
+                                slots=WIDE_SLOTS, new_tokens=WIDE_NEW))
+
+
+def print_steady_cells(cells):
+    """One line a steady cell: the graphed step beside the eager one."""
+    log("steady decode, graphed beside eager (step ms unprofiled, mean of "
+        "two turns; busy = kernel ms a step (profiler) over the step, "
+        "'events' = the replays' device span over the step):")
+    for name, run in cells:
+        graphed_busy = run.get("graphed_busy")
+        eager_busy = run.get("eager_busy")
+        log(f"  {name}: graphed {run['steady_step_ms']:.3f} ms, "
+            f"{run['steady_decode_tok_s']:.1f} tok/s, busy "
+            f"{fmt_ms(graphed_busy)} (events "
+            f"{fmt_ms(run.get('graphed_busy_by_events'))}), kernels a "
+            f"replay {run.get('graphed_kernels_per_replay')} | eager "
+            f"{run['eager_step_ms']:.3f} ms, "
+            f"{run['eager_decode_tok_s']:.1f} tok/s, busy "
+            f"{fmt_ms(eager_busy)}, kernels a step "
+            f"{run.get('eager_kernels_per_step')}")
 
 
 # --------------------------------------------------------------------------- #
@@ -2442,6 +2675,11 @@ def main() -> None:
             f"{run['kv']} KV: " + json.dumps(run))
         paged_runs.append(run)
     paged_main = paged_runs[0]["launches"]
+    paged_wide8 = steady_paged_wide(torch, np, llama, w8,
+                                    PagedContinuousServer, DecodeRequest,
+                                    params, device)
+    log("--- steady decode, llama3_8b int8 through the paged server at 64 "
+        "slots, bf16 KV: " + json.dumps(paged_wide8))
 
     # ---- phase 5: speculative decoding on the paged server ----
     spec_kernels = paged_kernels + (pp.append_kv_ragged,)
@@ -2490,10 +2728,13 @@ def main() -> None:
     log("--- serving llama3_8b int4 at 64 slots, bf16 KV: "
         + json.dumps(wide_run))
     for label, run in (("int4", wide_run), ("int8", wide8)):
-        log(f"64-slot {label} steady decode step: weight matmul "
+        log(f"64-slot {label} steady decode step, eager: weight matmul "
             f"{fmt_ms(run['matmul_device_ms_per_step'])} ms of "
-            f"{fmt_ms(run['steady_device_ms_per_step'])} ms device time, "
-            f"{run['steady_step_ms']:.4f} ms a step unprofiled")
+            f"{fmt_ms(run['eager_device_ms_per_step'])} ms device time, "
+            f"{run['eager_step_ms']:.4f} ms a step unprofiled; graphed: "
+            f"{fmt_ms(run['graphed_matmul_device_ms_per_step'])} of "
+            f"{fmt_ms(run['graphed_device_ms_per_step'])} ms, "
+            f"{run['steady_step_ms']:.4f} ms a step")
     kernels4_paged = kernels4 + (pp.append_kv, pp.chunk_attention)
     paged4_runs = []
     for quantize_kv in (False, True):
@@ -2503,6 +2744,11 @@ def main() -> None:
         log(f"--- serving llama3_8b int4 through the paged server, "
             f"{run['kv']} KV: " + json.dumps(run))
         paged4_runs.append(run)
+    paged_wide4 = steady_paged_wide(torch, np, llama, w4,
+                                    PagedContinuousServer, DecodeRequest,
+                                    params4, device)
+    log("--- steady decode, llama3_8b int4 through the paged server at 64 "
+        "slots, bf16 KV: " + json.dumps(paged_wide4))
     log("TTFT p50, int4 against int8 (same traffic, this run): contiguous "
         f"{int4_run['ttft_ms_p50']:.1f} against {runs[0]['ttft_ms_p50']:.1f}"
         f" ms; 64 slots {wide_run['ttft_ms_p50']:.1f} against "
@@ -2545,6 +2791,18 @@ def main() -> None:
     ring_main = {kind: next(r for r in ring_rows if r["kind"] == kind)
                  for kind in ("ag", "rs")}
 
+    print_steady_cells([
+        ("contiguous int8, 8 slots, bf16 KV", runs[0]),
+        ("contiguous int8, 8 slots, int8 KV", runs[1]),
+        ("contiguous int8, 64 slots, bf16 KV", wide8),
+        ("paged int8, 8 slots, bf16 KV", paged_runs[0]),
+        ("paged int8, 8 slots, int8 KV", paged_runs[1]),
+        ("paged int8, 64 slots, bf16 KV", paged_wide8),
+        ("contiguous int4, 8 slots, bf16 KV", int4_run),
+        ("contiguous int4, 64 slots, bf16 KV", wide_run),
+        ("paged int4, 8 slots, bf16 KV", paged4_runs[0]),
+        ("paged int4, 8 slots, int8 KV", paged4_runs[1]),
+        ("paged int4, 64 slots, bf16 KV", paged_wide4)])
     main_run = runs[0]["launches"]
     # int8_matmul's time is the path's: device time of its launches per
     # steady bf16-KV decode step, from the profiler (the sum of isolated

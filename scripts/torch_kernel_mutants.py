@@ -13,7 +13,9 @@ merge, or gives that split 0.9 of its weight; the KV writer's ragged mode
 writes at the block-aligned start (dropping ``cached % block_size``) or
 skips each row's last live token, its int8 quantizer multiplies by the
 scale's reciprocal instead of dividing by it, and its ragged and row modes
-write an unaligned row one offset late; the int4
+write an unaligned row one offset late; past the end of the table its row
+mode keeps the offset on the slot's last block instead of dropping the
+row, or drops a contiguous cache's row instead of clamping it; the int4
 dequant-matmul swaps the two nibbles of a byte, reads nibbles as unsigned
 (0..15), takes 128 for the magic number's bias (136), leaves x's B
 fragment in its natural k order (not permuted to match the weights'), or
@@ -113,6 +115,15 @@ MUTANTS = {
         KV_WRITE, "    offset = (cached + token) % block_size;",
         "    offset = (cached + token) % block_size;\n"
         "    if (offset != 0 && offset < block_size - 1) ++offset;"),
+    "kvwrite_rows_late_row": (
+        KV_WRITE, "    offset = pos % block_size;",
+        "    offset = pos % block_size;\n"
+        "    if (offset != 0 && offset < block_size - 1) ++offset;"),
+    "kvwrite_rows_wrap": (
+        KV_WRITE, "    if (pos > last) return;                   "
+        "// past the pool's table\n", ""),
+    "kvwrite_rows_no_clamp": (
+        KV_WRITE, "clamp_rows ? min(cached, last) : cached", "cached"),
     "int4_nibble_swap": (
         INT4, "lo0 = nibbles_to_bf16x2(p), hi0 = nibbles_to_bf16x2(p >> 4);",
         "lo0 = nibbles_to_bf16x2(p >> 4), hi0 = nibbles_to_bf16x2(p);"),

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from aiko_services_tpu_torch.models import llama
-from aiko_services_tpu_torch.ops import (attention, paged_attention,
+from aiko_services_tpu_torch.ops import (_cuda, attention, paged_attention,
                                          paged_prefill, quant)
 from aiko_services_tpu_torch.orchestration.continuous import (
     ContinuousBatchingServer, DecodeRequest)
@@ -1140,6 +1140,171 @@ def test_write_kv_rows_raises_on_what_the_kernel_does_not_take(cuda):
                                     positions)
     for key in pool:
         assert torch.equal(pool[key], before[key]), key
+
+
+#: Positions of the write past the end: max_seq - 1, max_seq, max_seq + 3.
+PAST_END = (-1, 0, 3)
+
+
+@pytest.mark.parametrize("past", PAST_END)
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_write_kv_rows_past_the_end(cuda, layout, quantize_kv, past):
+    """The decode write at ``max_seq + past`` for slot 0 (the others
+    inside) byte-equal to the plain version's: on a contiguous cache (8 x
+    1,024, the caller's clamp) the row lands on the last row, never row 0;
+    on a pool (64-entry tables of 16-row blocks) a row past the table is
+    dropped, never written into the slot's last block."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + past)
+    slots, max_seq, bs = 8, 1024, 16
+    fused = torch.randn((slots, 1, 40, 128), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    k, v = fused[:, :, 32:], fused[:, :, :8].contiguous()
+    positions = torch.randint(0, max_seq - 1, (slots,), generator=gen,
+                              device=cuda, dtype=torch.int32)
+    positions[0] = max_seq + past
+    if layout == "contiguous":
+        config = dataclasses.replace(llama.CONFIGS["llama3_8b"], n_layers=1)
+        pool = llama.init_cache(config, slots, max_seq,
+                                quantize_kv=quantize_kv, device=cuda)[0]
+        rows = llama._cache_rows(positions)
+        last = (0, max_seq - 1)
+    else:
+        entries = max_seq // bs
+        n_blocks = slots * entries + 1
+        pool = _writer_pool(cuda, gen, n_blocks, bs, 8, 128,
+                            "int8" if quantize_kv else "bf16")
+        rows = paged_prefill.DecodeRows(
+            _writer_tables(cuda, gen, n_blocks, slots, entries), positions)
+        last = (int(rows.tables[0, -1]), bs - 1)
+    plain = {key: buf.clone() for key, buf in pool.items()}
+    before = paged_prefill.write_kv_rows.launches
+    paged_prefill.write_decode_rows(k, v, pool, rows)
+    assert paged_prefill.write_kv_rows.launches == before + 1
+    paged_prefill.write_kv_rows_reference(k, v, plain, rows.tables,
+                                          positions, clamp=rows.clamp)
+    _assert_pools_equal(pool, plain, skip_scratch=False)
+    if layout == "contiguous":
+        assert bool(pool["k"][last].any()) and not bool(pool["k"][0, 0].any())
+
+
+def _graph_server(cuda, layout, quantize_kv, bits, width, params=None):
+    """A server of ``width`` ("narrow": tiny; "8b": llama3_8b's widths
+    with two layers, registered as ``llama3_8b_2l``) on int8 or int4
+    weights: 3 slots, 2-step chunks, a fixed ring depth (so that the
+    dispatches, and with them the chunks' keys, do not follow the host's
+    timing)."""
+    name = "tiny" if width == "narrow" else "llama3_8b_2l"
+    config = llama.CONFIGS[name]
+    if params is None:
+        params = llama.random_quantized_params(config, seed=2, bits=bits,
+                                               device=cuda)
+    kwargs = dict(config_name=name, slots=3, max_seq=128, chunk_steps=2,
+                  params=params, quantize=True, quantize_kv=quantize_kv,
+                  ring_max=2, device=cuda)
+    if layout == "contiguous":
+        return ContinuousBatchingServer(**kwargs)
+    kwargs.update(block_size=16, chunk_prefill_tokens=16)
+    if layout == "paged_spec":
+        kwargs.update(draft_mode="ngram", spec_k=2, spec_adaptive=True)
+    else:
+        kwargs.update(enable_prefix_cache=True)
+    return PagedContinuousServer(**kwargs)
+
+
+def _graph_traffic(server, seed):
+    """Staggered admissions: three waves of two requests, two steps apart
+    (dirty-row merges, retirements, paged mixed steps)."""
+    rng = np.random.default_rng(seed)
+    vocab = server.config.vocab_size
+    requests = [DecodeRequest(f"r{i}", rng.integers(1, vocab, plen)
+                              .astype(np.int32), new)
+                for i, (plen, new) in enumerate(
+                    [(5, 9), (40, 4), (3, 12), (33, 7), (12, 3), (21, 8)])]
+    for start in range(0, len(requests), 2):
+        for request in requests[start:start + 2]:
+            server.submit(request)
+        for _ in range(2):
+            server.step()
+    server.run_until_drained()
+    torch.cuda.synchronize()
+    return requests
+
+
+@pytest.fixture
+def llama3_8b_2l(monkeypatch):
+    monkeypatch.setitem(llama.CONFIGS, "llama3_8b_2l", dataclasses.replace(
+        llama.CONFIGS["llama3_8b"], n_layers=2))
+
+
+@pytest.mark.parametrize("width", ["narrow", "8b"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "paged", "paged_spec"])
+def test_graphed_chunks_equal_eager_chunks(cuda, llama3_8b_2l, layout,
+                                           quantize_kv, bits, width):
+    """Greedy steady chunks replayed from captured CUDA graphs against the
+    same server with graphs off: tokens, emitted counts (decode steps),
+    resident state, every cache or pool byte and every kernel's launches
+    bitwise equal, across dirty-row merges, retirements, mixed steps and
+    speculation rounds followed by graphed chunks."""
+    eager = _graph_server(cuda, layout, quantize_kv, bits, width)
+    eager._graphs_on = False
+    graphed = _graph_server(cuda, layout, quantize_kv, bits, width,
+                            params=eager.params)
+    assert graphed._graphs_on
+    runs = []
+    for server in (eager, graphed):
+        before = {fn.__name__: fn.launches for fn in _cuda.COUNTED}
+        requests = _graph_traffic(server, 9)
+        launches = {fn.__name__: fn.launches - before[fn.__name__]
+                    for fn in _cuda.COUNTED}
+        runs.append((requests, server.stats(), launches))
+    (want, want_stats, want_launches), (got, stats, launches) = runs
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert all(len(r.tokens) == r.max_new_tokens for r in got)
+    assert stats["decode_steps"] == want_stats["decode_steps"]
+    assert launches == want_launches
+    assert stats["graph_captures"] > 0 and stats["graph_replays"] > 0
+    assert want_stats["graph_captures"] == 0
+    for key, value in eager._state.items():
+        assert torch.equal(graphed._state[key], value), key
+    layers = (eager.cache, graphed.cache) if layout == "contiguous" \
+        else (eager.pool, graphed.pool)
+    for want_layer, got_layer in zip(*layers):
+        for key in want_layer:
+            assert torch.equal(got_layer[key], want_layer[key]), key
+    if layout == "paged_spec":
+        assert stats["spec_rounds"] > 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_no_capture_after_warm_up(cuda, layout):
+    """Two staggered runs (a key met once is warmed up by its eager chunk
+    and captured at its second), the fence, then the same traffic again:
+    every chunk of the last run replays a graph captured before it."""
+    server = _graph_server(cuda, layout, False, 8, "narrow")
+    for _ in range(2):
+        _graph_traffic(server, 5)
+    warm = server.stats()
+    assert warm["graph_captures"] > 0
+    server.graph_ledger.fence()
+    requests = _graph_traffic(server, 5)
+    stats = server.stats()
+    assert all(len(r.tokens) == r.max_new_tokens for r in requests)
+    assert stats["graph_captures_steady_state"] == 0
+    assert stats["graph_captures"] == warm["graph_captures"]
+    assert stats["graph_replays"] > warm["graph_replays"]
+
+
+def test_capture_never_grows_the_scratch(cuda):
+    """Kernel scratch that would grow inside a capture raises, rather
+    than free a buffer a graph holds."""
+    _cuda.scratch(cuda, 1 << 20, 4096)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="captured"):
+        with torch.cuda.graph(graph):
+            _cuda.scratch(cuda, 1 << 30, 4096)
 
 
 @pytest.mark.parametrize("quantize_kv", [False, True])
