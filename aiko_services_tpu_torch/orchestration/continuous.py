@@ -52,12 +52,29 @@ Layout hooks (``_init_layout``, ``_attention_blocks``, ``_reserve_slot``,
 paged server (:mod:`.paged`) plugs in its block pool, as in the JAX
 package.
 
+Robustness as in the reference: a bounded queue sheds with
+``error="overloaded"`` and a retry-after hint; deadlines reject at
+admission and evict live slots; the watchdog (``watchdog_s``) arms an
+alarm thread around the ring sync, which flips ``healthy`` while the
+event wait still blocks, and a sync past the threshold fails every queued
+and live request with the retriable ``error="watchdog_stalled"`` and
+refuses later submits.  The ``stall_step`` fault site
+(:mod:`~..runtime.faults`) sits in front of that sync.  Per-phase latency
+histograms (``latency_hists``) and the step log
+(:mod:`~..obs.steplog`, off unless a recorder is installed) follow the
+reference's sites.
+
+:class:`ContinuousReplica` is the actor that serves a server over the
+wire: ``(infer …)`` in, ``(infer_partial …)`` / ``(infer_response …)``
+out (:mod:`~..runtime`, :mod:`~..transport`, :mod:`.client`).
+
 Left out so far (they raise ``NotImplementedError``): meshes, LoRA
 adapters, grammars, speculation and chunked prefill on the contiguous
 layout (they need ``llama.verify_chunk_ragged`` and ``llama.prefill_chunk``;
-the paged server has its own), the compilation cache, the watchdog and the
-legacy full-mirror upload; the observability hooks; the actor wrapper
-``ContinuousReplica``.
+the paged server has its own), the compilation cache and the legacy
+full-mirror upload; the on-demand device profiler.  On the wire, the KV
+transfer (``kv_export``, warm starts from a ``kv_source``) and live
+migration answer as the reference does for a server without them.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -76,12 +94,17 @@ from ..models import llama
 from ..models.speculative import (SpecStats, delta_draft_logits,
                                   greedy_accept_batch, mrs_accept_batch,
                                   ngram_propose, spec_commit)
+from ..obs import flight, steplog, trace
 from ..obs.compiles import CaptureLedger
-from ..obs.metrics import CounterDict
+from ..obs.metrics import REGISTRY, CounterDict, Histogram
 from ..ops.paged_attention import contiguous_block_size
+from ..runtime import faults
+from ..runtime.actor import Actor
+from ..utils.sexpr import generate
 from .spec_control import SpecController, default_ladder, validate_ladder
 
-__all__ = ["ContinuousBatchingServer", "DecodeRequest"]
+__all__ = ["ContinuousBatchingServer", "ContinuousReplica",
+           "DecodeRequest"]
 
 #: Distinct ``instance=`` metric label per server in this process.
 _SERVER_INSTANCE_IDS = itertools.count()
@@ -118,6 +141,15 @@ class DecodeRequest:
     #: Speculative serving: proposals accepted in each of the request's
     #: rounds (each in [0, k]).
     spec_accepted_rounds: Optional[List[int]] = None
+    #: Milliseconds spent restoring this request's prefix KV from a
+    #: remote replica (0 when no kv_source hint / local hit).
+    kv_restore_ms: float = 0.0
+    #: Propagated trace context (``trace_id/span_id`` wire form): the
+    #: replica synthesizes phase spans under it at response time.
+    trace_ctx: Optional[str] = None
+    #: Encoded spans fetched alongside a remote KV restore (the
+    #: source's ``kv_export`` span), merged into the response tree.
+    remote_spans: Optional[str] = None
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -167,7 +199,6 @@ class ContinuousBatchingServer:
             "automata (grammar-constrained decoding, "
             "models/constrained.py)": bool(automata),
             "compilation_cache_dir": compilation_cache_dir is not None,
-            "watchdog_s": float(watchdog_s) > 0,
             "compact_upload=False": not compact_upload,
         }
         named = [name for name, given in unsupported.items() if given]
@@ -276,18 +307,42 @@ class ContinuousBatchingServer:
         #: sampling leaves, since chunks may be in flight for the slot.
         self._dirty = np.zeros(slots, bool)
         self._dirty_sampling = np.zeros(slots, bool)
+        #: The wave's last prefill may still be in flight at the next
+        #: dispatch (step-log classification only).
+        self._post_admission = False
         self.max_queue = max_queue
         self._instance_id = next(_SERVER_INSTANCE_IDS)
+        self._metrics_labels = {"instance": f"srv{self._instance_id}"}
         self.counters: Dict = CounterDict(dict(
             dispatches=0, decode_steps=0, tokens_committed=0,
             host_syncs=0, sync_wait_ms=0.0, sync_elements=0,
             state_uploads=0, dirty_rows_uploaded=0, max_in_flight=0,
             ring_starved_steps=0, admission_deferred=0,
             decode_blocks_read=0, prefill_tokens=0, prefill_dispatches=0,
-            deadline_exceeded=0, shed=0),
-            prefix="server",
-            labels={"instance": f"srv{self._instance_id}"})
+            deadline_exceeded=0, shed=0, watchdog_trips=0),
+            prefix="server", labels=self._metrics_labels)
+        # Per-phase latency histograms: fixed log-spaced buckets, so
+        # replicas' histograms merge exactly (they ride EC shares as
+        # ``hist.<phase>``) and the ``(metrics …)`` scrape renders them.
+        self.latency_hists: Dict[str, Histogram] = {
+            phase: REGISTRY.histogram(
+                f"aiko_latency_{phase}_ms",
+                help=f"Per-request {phase} latency (ms).",
+                labels=self._metrics_labels)
+            for phase in ("ttft", "total", "queue", "prefill",
+                          "decode", "kv_restore")}
         self._serve_started: Optional[float] = None
+        #: Host-side stall threshold (seconds) around the in-flight ring
+        #: sync; 0 disables.  A sync past it trips the watchdog: queued
+        #: and live work fails with the retriable
+        #: ``error="watchdog_stalled"`` and the server stays unhealthy
+        #: until an operator restarts it.
+        self.watchdog_s = float(watchdog_s)
+        self.healthy = True
+        self._watchdog_tripped = False
+        #: The alarm thread and the sync's own check after the wait can
+        #: both trip; the lock lets exactly one count and capture.
+        self._watchdog_lock = threading.Lock()
 
     # ---- layout hooks (the paged server overrides these) ---------------- #
 
@@ -439,6 +494,9 @@ class ContinuousBatchingServer:
             scatter = llama.scatter_state_rows
         rows = np.nonzero(structural)[0].astype(np.int32)
         sampling_rows = np.nonzero(sampling)[0].astype(np.int32)
+        if steplog.RECORDER is not None:
+            steplog.RECORDER.record(
+                "state_upload", rows=len(rows) + len(sampling_rows))
         if len(rows):
             padded = self._pow2_rows(rows)
             packet = {key: self._upload(value[padded])
@@ -518,6 +576,10 @@ class ContinuousBatchingServer:
         if request.deadline_ts is not None \
                 and request.submitted_ts >= request.deadline_ts:
             self._finish_rejected(request, "deadline_exceeded")
+            return
+        if not self.healthy:
+            # Tripped watchdog: a router re-dispatches on this error.
+            self._finish_rejected(request, "watchdog_stalled")
             return
         if self.max_queue is not None \
                 and len(self._queue) >= self.max_queue:
@@ -608,11 +670,19 @@ class ContinuousBatchingServer:
                                             prompt_len)
                 continue
             admissions.append((slot, request, prompt_padded, prompt_len))
+        if steplog.RECORDER is not None:
+            if admissions or self._prefilling:
+                steplog.RECORDER.record("admission",
+                                        slots=len(admissions),
+                                        chunked=len(self._prefilling))
         if not admissions:
             return
         self._prefill_and_insert(admissions)
         for slot, request, prompt_padded, prompt_len in admissions:
             self._activate_slot(slot, request, prompt_padded, prompt_len)
+        # The wave's last prefill is still in flight here; the step log
+        # files the gap to the next dispatch under admission.
+        self._post_admission = True
 
     def _activate_slot(self, slot: int, request, prompt_padded,
                        prompt_len: int) -> None:
@@ -634,6 +704,11 @@ class ContinuousBatchingServer:
             # New occupant: forget the previous request's acceptance
             # history (optimistic start at the ladder top).
             self._spec["controller"].reset(slot)
+        if steplog.RECORDER is not None:
+            steplog.RECORDER.record(
+                "sampling_edit", slot=slot,
+                temperature=float(request.temperature),
+                top_p=float(request.top_p))
 
     def _prefill_and_insert(self, admissions) -> None:
         """Group admissions by bucket size and prefill each group in
@@ -740,6 +815,11 @@ class ContinuousBatchingServer:
             if max_new_tokens is None:
                 self._dirty_sampling[slot] = True
             self._any_sampled = bool((self._temperatures > 0).any())
+            if steplog.RECORDER is not None:
+                steplog.RECORDER.record(
+                    "sampling_edit", slot=slot,
+                    temperature=float(self._temperatures[slot]),
+                    top_p=float(self._top_ps[slot]))
             return True
         return False
 
@@ -804,6 +884,23 @@ class ContinuousBatchingServer:
             self._prefilling.pop(slot, None)
             self._retire(slot)
 
+    def _fail_all(self, reason: str) -> None:
+        """Fail every queued and live request with ``reason`` (the
+        watchdog path: in-flight results are consumed first so partial
+        tokens stay on the responses)."""
+        self._drain_ring()
+        now = time.monotonic()
+        for request in self._queue:
+            request.error = reason
+            request.finished_ts = now
+            self.completed.append(request)
+        self._queue.clear()
+        for slot in range(self.slots):
+            if self._requests[slot] is not None:
+                self._requests[slot].error = reason
+                self._prefilling.pop(slot, None)
+                self._retire(slot)
+
     # ---- the step loop -------------------------------------------------- #
 
     def step(self) -> List[DecodeRequest]:
@@ -828,6 +925,12 @@ class ContinuousBatchingServer:
         self._ring_depth = self._ring_policy(
             depth, self.ring_min, self.ring_max, self._ema_wait_ms,
             self._ema_dispatch_ms, self._starved_streak)
+        if self._watchdog_tripped:
+            # A stalled sync already failed this batch's guarantees:
+            # fail everything live or queued with the retriable error so
+            # routers move the work, rather than letting clients find
+            # the wedge by timeout.
+            self._fail_all("watchdog_stalled")
         done, self.completed = self.completed, []
         return done
 
@@ -1024,6 +1127,13 @@ class ContinuousBatchingServer:
         self.counters["dispatches"] += 1
         self.counters["max_in_flight"] = max(
             self.counters["max_in_flight"], len(self._ring))
+        if steplog.RECORDER is not None:
+            if self._post_admission:
+                steplog.RECORDER.record("dispatch", ring=len(self._ring),
+                                        after_admission=1)
+            else:
+                steplog.RECORDER.record("dispatch", ring=len(self._ring))
+        self._post_admission = False
 
     def _consume_ready(self, max_entries: int) -> None:
         """Apply the oldest ``max_entries`` in-flight entries' results to
@@ -1037,6 +1147,23 @@ class ContinuousBatchingServer:
             return
         entries = [self._ring.popleft() for _ in range(count)]
         wait_start = time.monotonic()
+        alarm = None
+        if self.watchdog_s > 0:
+            # The alarm thread flips ``healthy`` even while this thread
+            # still blocks in the event wait (a wedged kernel never
+            # returns), so telemetry readers on other threads see the
+            # trip; the check after the wait handles a stall that ends.
+            alarm = threading.Timer(self.watchdog_s, self._trip_watchdog)
+            alarm.daemon = True
+            alarm.start()
+        if faults.PLAN is not None:
+            stall = faults.PLAN.check("stall_step")
+            if stall is not None:
+                # Simulated device wedge: the sync "takes" this long,
+                # which is what the watchdog exists to catch.  Inside the
+                # alarm's window (the reference sleeps before arming it),
+                # so the alarm fires during the stall as during a real one.
+                time.sleep(float(stall.get("ms", 50.0)) / 1e3)
         elements = 0
         for entry in entries:
             if entry["event"] is not None:
@@ -1049,6 +1176,10 @@ class ContinuousBatchingServer:
             if entry["kind"] == "spec":
                 entry["counts_full"] = packed[:, cols + 2]
             elements += packed.size
+        if alarm is not None:
+            alarm.cancel()
+            if time.monotonic() - wait_start > self.watchdog_s:
+                self._trip_watchdog()
         now = time.monotonic()
         wait_ms = (now - wait_start) * 1e3
         self._ema_wait_ms = (wait_ms if self._ema_wait_ms is None
@@ -1056,8 +1187,15 @@ class ContinuousBatchingServer:
         self.counters["host_syncs"] += 1
         self.counters["sync_wait_ms"] += wait_ms
         self.counters["sync_elements"] += elements
-        self.counters["decode_steps"] += sum(int(e["steps"])
-                                             for e in entries)
+        batch_steps = sum(int(entry["steps"]) for entry in entries)
+        self.counters["decode_steps"] += batch_steps
+        if steplog.RECORDER is not None:
+            steplog.RECORDER.record(
+                "sync", wait_ms=round(wait_ms, 3), steps=batch_steps,
+                entries=count)
+        dispatch_start = time.monotonic()
+        committed_upper = 0
+        touched_slots = set()
         # An entry's lane is live iff its dispatch-time serial still
         # matches and the slot is active and occupied; rows retired while
         # walking entry i are cleared from the younger entries' masks.
@@ -1082,8 +1220,10 @@ class ContinuousBatchingServer:
             full_list = entry["counts_full"].tolist() if spec else count_list
             active_list = entry["active_after"].tolist()
             caps = entry["caps"] if spec else None
+            committed_upper += int(entry["counts"].sum())
             for slot in np.nonzero(live)[0]:
                 slot = int(slot)
+                touched_slots.add(slot)
                 request = self._requests[slot]
                 emitted = count_list[slot]
                 if emitted:
@@ -1113,6 +1253,37 @@ class ContinuousBatchingServer:
                     self._retire(slot)
                     batch_live[index + 1:, slot] = False
         self.counters["tokens_committed"] += delivered
+        if steplog.RECORDER is not None:
+            steplog.RECORDER.record(
+                "token_dispatch", slots=len(touched_slots),
+                tokens=delivered,
+                ms=round((time.monotonic() - dispatch_start) * 1e3, 3))
+            # Device-reported emit counts: stale-serial lanes may be
+            # excluded above, so this is an upper bound on committed.
+            steplog.RECORDER.record("commit", tokens=committed_upper)
+
+    def _trip_watchdog(self) -> None:
+        """Mark the server wedged (idempotent; callable from the alarm
+        thread and the engine thread at once: only the first caller
+        counts the trip and captures).  ``step()`` fails outstanding
+        work on its next pass; recovery is an operator restart, never
+        self-clearing."""
+        with self._watchdog_lock:
+            if self._watchdog_tripped:
+                return
+            self._watchdog_tripped = True
+        self.healthy = False
+        self.counters["watchdog_trips"] += 1
+        if flight.FLIGHT is not None:
+            # Forensics around the stall, joined on whichever in-flight
+            # request's trace id there is.
+            carrier = next((r.trace_ctx for r in self._requests
+                            if r is not None and r.trace_ctx), "")
+            context = trace.extract(carrier)
+            flight.FLIGHT.capture(
+                "watchdog",
+                trace_id=context.trace_id if context else None,
+                reason=f"ring sync stalled past {self.watchdog_s:g}s")
 
     def _drain_ring(self) -> None:
         while self._ring:
@@ -1133,6 +1304,7 @@ class ContinuousBatchingServer:
             prefill_queue_depth=len(self._prefilling),
             slots_active=self.slots_active,
             free_slots=self.slots - self.slots_active,
+            healthy=int(self.healthy),
             device=str(self.device),
             decode_attention_path=self.decode_attention_path,
             blocks_read_per_step=(
@@ -1222,3 +1394,451 @@ class ContinuousBatchingServer:
             if chunks > max_chunks:
                 raise RuntimeError("continuous batching did not drain")
         return finished
+
+
+class ContinuousReplica(Actor):
+    """Actor wrapper: same ``(infer …)`` protocol as
+    :class:`~.serving.ModelReplica`, but requests join the continuous
+    batch instead of running serially.  A delayed self-post pump runs
+    server steps between message deliveries while any slot is live;
+    every server call runs on the engine's thread.
+
+    The port's copy of the reference's ``ContinuousReplica``: ``infer``,
+    ``pump``, ``infer_cancel``, ``retire``, streaming partials, the
+    telemetry share, per-phase latencies, slow requests and trace spans
+    on every response, and the ``kill_replica`` / ``corrupt_response``
+    fault sites.  It does not join the distributed KV cache yet (queue 1
+    item 3 of ``ROADMAP.md``): it advertises no prefix digest, a
+    ``kv_source`` hint is ignored (local prefill, the reference's own
+    fallback when the owner does not answer), ``(kv_export …)`` answers
+    ``kv_unsupported`` and ``(migrate_prepare …)`` answers
+    ``migrate_unsupported``, as the reference does for a server without
+    KV transfer.  So it serves a prefix-cached paged server without
+    calling the paged server's ``prefix_digest``, ``kv_export_payload``
+    or ``kv_import_payload``.  ``adapter_load`` / ``adapter_unload``
+    answer ``unsupported_command`` (the port's servers take no adapters
+    yet), as every other replica protocol speaker does."""
+
+    def __init__(self, context, process=None, server=None):
+        from .serving import (REPLICA_PROTOCOL,
+                              _register_unsupported_adapter_commands)
+        context.protocol = context.protocol or REPLICA_PROTOCOL
+        super().__init__(context, process)
+        self.server = server or ContinuousBatchingServer()
+        self._command_handlers["infer"] = self._wire_infer
+        self._command_handlers["pump"] = self._pump
+        _register_unsupported_adapter_commands(self)
+        self._command_handlers["infer_cancel"] = self._wire_cancel
+        self._command_handlers["kv_export"] = self._wire_kv_export
+        self._command_handlers["retire"] = self._wire_retire
+        self._command_handlers["migrate_prepare"] = \
+            self._wire_migrate_prepare
+        self.share["slots"] = self.server.slots
+        self.share["tp_degree"] = getattr(self.server, "tp_degree", 1)
+        self.share["mesh_shape"] = getattr(self.server, "mesh_shape",
+                                           "")
+        self.share["requests_served"] = 0
+        self._pumping = False
+        #: Graceful drain in progress (``(retire)`` received): routers
+        #: stop sending new work; queued/active requests finish here.
+        self._retiring = False
+        #: id(request) -> tokens already delivered via infer_partial.
+        #: Keyed by object identity, not request_id: the client owns
+        #: that string and may reuse it across concurrent requests.
+        self._stream_sent: Dict[int, int] = {}
+        #: slowest completed requests — ``(total_ms, request_id,
+        #: {phase: ms})`` kept sorted descending; surfaces in the EC
+        #: share as ``slow_requests`` for the dashboard pane.
+        self._slow: List = []
+
+    def _wire_infer(self, request_id, response_topic, payload=None):
+        from ..pipeline.codec import decode_swag
+        request = DecodeRequest(request_id=str(request_id), prompt=None,
+                                max_new_tokens=0, tokens=[],
+                                response_topic=str(response_topic))
+        try:
+            inputs = decode_swag(payload or {})
+            request.prompt = np.asarray(inputs["tokens"],
+                                        np.int32).reshape(-1)
+            request.max_new_tokens = int(
+                np.asarray(inputs.get("max_new_tokens", 16)))
+            request.temperature = float(
+                np.asarray(inputs.get("temperature", 0.0)))
+            request.top_p = float(np.asarray(inputs.get("top_p", 1.0)))
+            request.stream = bool(
+                int(np.asarray(inputs.get("stream", 0))))
+            adapter = inputs.get("adapter")
+            request.adapter = str(adapter) if adapter else None
+            automaton = inputs.get("automaton")
+            request.automaton = str(automaton) if automaton else None
+            deadline_ms = inputs.get("deadline_ms")
+            if deadline_ms is not None:
+                # Relative budget → local monotonic deadline (wall
+                # clocks never cross processes; transit time before
+                # arrival is not charged).
+                request.deadline_ts = time.monotonic() + \
+                    float(np.asarray(deadline_ms)) / 1e3
+            carrier = inputs.get("trace")
+            if carrier:
+                request.trace_ctx = str(carrier)
+        except Exception:  # noqa: BLE001 - bad request must still respond
+            self.logger.exception("%s: malformed infer request %s",
+                                  self.name, request_id)
+            request.error = "infer_failed"
+            self._respond(request)
+            return
+        self.server.submit(request)
+        self._ensure_pumping()
+
+    def _wire_retire(self, *_args):
+        """``(retire)`` — graceful drain (autoscaler scale-in): flip
+        the shared ``lifecycle`` to ``retiring`` so routers stop
+        sending NEW work, keep serving whatever is queued or active,
+        and advertise ``drained 1`` once idle so the supervisor knows
+        the process is safe to stop.  Requests that raced the flip in
+        transit are still served — zero-lost outranks a prompt exit."""
+        if self._retiring:
+            return
+        self._retiring = True
+        self.logger.info("%s: retiring — draining %d queued / %d active",
+                         self.name, self.server.queue_depth,
+                         self.server.slots_active)
+        updates = {"lifecycle": "retiring"}
+        if not self.server.busy:
+            updates["drained"] = 1
+        self.share.update(updates)
+        if self.ec_producer is not None:
+            for key, value in updates.items():
+                self.ec_producer.update(key, value)
+        if self.server.busy:
+            self._ensure_pumping()
+
+    def _wire_migrate_prepare(self, request_id, response_topic,
+                              payload=None):
+        """``(migrate_prepare mid reply swag{request_id})`` — a router
+        asks to live-migrate one of our requests away.  Live migration
+        rides the KV transfer, which the port does not have yet: the
+        answer is ``(migrate_ready mid swag{request_id, error})``, with
+        ``migrate_unknown_request`` when the request is not live here
+        and ``migrate_unsupported`` otherwise, as the reference answers
+        for a server without KV transfer.  The request keeps being
+        served."""
+        from ..pipeline.codec import decode_swag, encode_swag
+        mid = str(request_id)
+        try:
+            target_id = str(decode_swag(payload or {})["request_id"])
+        except Exception:  # noqa: BLE001 - malformed → router aborts
+            target_id = ""
+        request = next(
+            (r for r in self.server.live_requests()
+             if r.request_id == target_id), None)
+        error = ("migrate_unknown_request" if request is None
+                 else "migrate_unsupported")
+        self.process.message.publish(
+            str(response_topic),
+            generate("migrate_ready",
+                     [mid, encode_swag({"request_id": target_id,
+                                        "error": error})]))
+
+    def _ensure_pumping(self):
+        if not self._pumping:
+            self._pumping = True
+            self._schedule_pump()
+
+    def _schedule_pump(self):
+        from ..runtime.actor import ActorMessage, Mailbox
+        self._post_message(Mailbox.IN, ActorMessage("pump", []),
+                           delay=0.001)
+
+    def _pump(self):
+        if faults.PLAN is not None:
+            hit = faults.PLAN.check("kill_replica", key=self.name)
+            if hit is not None:
+                # Die mid-decode with requests in flight — the LWT
+                # (absent) fires, the Registrar evicts this process's
+                # services, and routers re-dispatch.  ``hard=1``
+                # additionally kills the OS process (cross-process
+                # chaos; the exit code marks an injected death).
+                self.logger.warning("%s: fault kill_replica firing",
+                                    self.name)
+                self._pumping = False
+                self.process.kill()
+                if hit.get("hard"):
+                    import os
+                    os._exit(13)
+                return
+        finished = self.server.step()
+        self._stream_partials()
+        for request in finished:
+            self._respond(request)
+        self._share_telemetry()
+        if self.server.busy or self.server.completed:
+            self._schedule_pump()
+        else:
+            self._pumping = False
+
+    def _share_telemetry(self):
+        """Operator view (dashboard / any ECConsumer): live slot
+        occupancy, queue depth, async-loop perf counters, latency
+        quantiles and encoded histograms, refreshed every pump.
+
+        Quantiles come from the server's fixed-bucket histograms
+        (obs.metrics) rather than a rolling raw-sample window: the
+        SAME bucket bounds everywhere mean a router can merge the
+        ``hist.<phase>`` encodings it watches across replicas and
+        quote exact fleet-level p50/p95/p99 — nearest-rank lists
+        cannot merge without shipping every sample."""
+        from .serving import serving_telemetry
+        updates = serving_telemetry(self.server.stats())
+        hists = self.server.latency_hists
+        if hists["ttft"].count:
+            updates["ttft_p50_ms"] = round(hists["ttft"].quantile(0.5), 1)
+            # p95 is the admission-stall number SLOs watch (p50 hides
+            # a prefill convoy behind the median).
+            updates["ttft_p95_ms"] = round(
+                hists["ttft"].quantile(0.95), 1)
+        if hists["total"].count:
+            updates["total_p50_ms"] = round(
+                hists["total"].quantile(0.5), 1)
+        for phase, hist in hists.items():
+            if hist.count:
+                updates[f"hist.{phase}"] = hist.encode()
+        if self._slow:
+            updates["slow_requests"] = " ".join(
+                f"{request_id}:{total_ms}:" + ",".join(
+                    f"{phase}={value}" for phase, value
+                    in sorted(breakdown.items()))
+                for total_ms, request_id, breakdown in self._slow)
+        if flight.FLIGHT is not None and flight.FLIGHT.captures:
+            # Recent flight-recorder triggers, newest last — the
+            # dashboard's recent-triggers pane reads this.
+            updates["flight_captures"] = flight.FLIGHT.captures
+            recent = flight.FLIGHT.recent()
+            if recent:
+                updates["last_capture"] = " ".join(
+                    f"{entry['trigger']}@{entry['ts']:.0f}"
+                    for entry in recent[-3:])
+        if self._retiring and not self.server.busy:
+            # Drain complete: every queued/active request reached a
+            # terminal state.  The supervisor watches this key before
+            # stopping the process.
+            updates["drained"] = 1
+        if not self.server.healthy \
+                and self.share.get("lifecycle") != "unhealthy":
+            # The router watches lifecycle on the replica's state
+            # topic: flipping it drains this replica (in-flight work
+            # re-dispatched, no new routes) without waiting for the
+            # process to die.
+            updates["lifecycle"] = "unhealthy"
+        changed = {key: value for key, value in updates.items()
+                   if self.share.get(key) != value}
+        if not changed:
+            return
+        self.share.update(changed)
+        if self.ec_producer is not None:
+            for key, value in changed.items():
+                self.ec_producer.update(key, value)
+
+    def _wire_kv_export(self, request_id, response_topic,
+                        payload=None):
+        """``(kv_export id reply swag)`` — a peer's block-transfer RPC.
+        The port has no KV transfer yet, so the answer is the
+        reference's for a server without it: ``(kv_export_response id
+        swag{error: kv_unsupported})``, which the importer treats as a
+        recompute fallback."""
+        from ..pipeline.codec import encode_swag
+        self.process.message.publish(
+            str(response_topic),
+            generate("kv_export_response",
+                     [str(request_id),
+                      encode_swag({"error": "kv_unsupported"})]))
+
+    def _wire_cancel(self, request_id, response_topic=None):
+        """``(infer_cancel request_id [response_topic])``: the
+        cancelled request's normal ``infer_response`` (error
+        ``cancelled``, any partial tokens) is the acknowledgement.  An
+        unknown id — already responded, or aged out — resolves the
+        caller's future with ``error="cancel_unrouted"`` when a reply
+        topic rides along (the true response may still arrive first;
+        the client's terminal-state race rules apply)."""
+        if self.server.cancel(str(request_id)):
+            self._ensure_pumping()
+            return
+        self.logger.info("%s: infer_cancel for unknown id %s",
+                         self.name, request_id)
+        if response_topic:
+            from ..pipeline.codec import encode_swag
+            self.process.message.publish(
+                str(response_topic),
+                generate("infer_response",
+                         [request_id,
+                          encode_swag({"error": "cancel_unrouted"})]))
+
+    def _stream_partials(self):
+        """Deliver newly decoded tokens for every live streaming
+        request — one ``(infer_partial request_id swag)`` per pump
+        with the increment since the last delivery."""
+        for request in self.server.live_requests():
+            self._emit_partial(request)
+
+    def _emit_partial(self, request: DecodeRequest):
+        if not (request.stream and request.response_topic
+                and request.tokens):
+            return
+        sent = self._stream_sent.get(id(request), 0)
+        if len(request.tokens) <= sent:
+            return
+        from ..pipeline.codec import encode_swag
+        increment = np.asarray(request.tokens[sent:], np.int32)
+        self._stream_sent[id(request)] = len(request.tokens)
+        self.process.message.publish(
+            request.response_topic,
+            generate("infer_partial",
+                     [request.request_id,
+                      encode_swag({"tokens_out": increment})]))
+
+    def _respond(self, request: DecodeRequest):
+        from ..pipeline.codec import encode_swag
+        # Flush the final streaming increment first: concatenated
+        # partials always equal the final sequence.
+        self._emit_partial(request)
+        self._stream_sent.pop(id(request), None)
+        self.share["requests_served"] += 1
+        if self.ec_producer is not None:
+            self.ec_producer.update("requests_served",
+                                    self.share["requests_served"])
+        if request.error is not None:
+            outputs: Dict = {"error": request.error}
+            if request.error == "cancelled" and request.tokens:
+                # Partial tokens are real work the client may keep.
+                outputs["tokens_out"] = np.asarray(request.tokens,
+                                                   np.int32)
+            if request.retry_after_ms is not None:
+                outputs["retry_after_ms"] = int(request.retry_after_ms)
+        else:
+            outputs = {"tokens_out": np.asarray(request.tokens,
+                                                np.int32)}
+        if request.spec_accepted_rounds is not None:
+            # Per-round accepted-token counts (draft replicas only):
+            # the client-side acceptance histogram loadgen A/B runs
+            # aggregate without touching server internals.
+            outputs["spec_accepted_rounds"] = np.asarray(
+                request.spec_accepted_rounds, np.int32)
+        served = request.error is None
+        phases = self._phase_latencies(request)
+        for phase, seconds in phases.items():
+            outputs[f"{phase}_ms"] = round(seconds * 1e3, 2)
+        if served:
+            # Aggregates track SERVED requests only: a burst of
+            # queued-then-cancelled requests must not drag the
+            # dashboard's p50 toward zero.
+            for phase, seconds in phases.items():
+                self.server.latency_hists[phase].observe(seconds * 1e3)
+            self._note_slow(request, phases)
+        if request.trace_ctx:
+            outputs["trace_spans"] = self._request_spans(request)
+        if request.response_topic:
+            encoded = encode_swag(outputs)
+            if faults.PLAN is not None:
+                if faults.PLAN.check("corrupt_response",
+                                     key=request.request_id) is not None:
+                    # Undecodable swag on the wire: the client resolves
+                    # the future with error="corrupt_response".
+                    encoded = "!corrupt!"
+            self.process.message.publish(
+                request.response_topic,
+                generate("infer_response",
+                         [request.request_id, encoded]))
+
+    def _phase_latencies(self, request: DecodeRequest) -> Dict[str, float]:
+        """Seconds per phase from the request's lifecycle stamps:
+        ``queue`` (submit→slot), ``prefill`` (slot→first token),
+        ``decode`` (first→finish), the classic end-to-end ``ttft`` /
+        ``total``, and any ``kv_restore`` time (the warm-start fetch
+        runs BEFORE submission, so it is invisible to — not double-
+        counted by — the queue phase).  Keys match the server's
+        ``latency_hists`` phases and respond as ``<phase>_ms``."""
+        out: Dict[str, float] = {}
+        if request.submitted_ts is None:
+            return out
+        if request.first_token_ts is not None:
+            out["ttft"] = request.first_token_ts - request.submitted_ts
+        if request.finished_ts is not None:
+            out["total"] = request.finished_ts - request.submitted_ts
+        if request.activated_ts is not None:
+            out["queue"] = request.activated_ts - request.submitted_ts
+            if request.first_token_ts is not None:
+                out["prefill"] = (request.first_token_ts
+                                  - request.activated_ts)
+                if request.finished_ts is not None:
+                    out["decode"] = (request.finished_ts
+                                     - request.first_token_ts)
+        if request.kv_restore_ms:
+            out["kv_restore"] = request.kv_restore_ms / 1e3
+        return out
+
+    _SLOW_K = 5
+
+    def _note_slow(self, request: DecodeRequest,
+                   phases: Dict[str, float]) -> None:
+        """Track the top-k slowest served requests with their phase
+        breakdown — the dashboard's \"slowest requests\" pane."""
+        total = phases.get("total")
+        if total is None:
+            return
+        self._slow.append((round(total * 1e3, 1), request.request_id,
+                           {phase: round(seconds * 1e3, 1)
+                            for phase, seconds in phases.items()}))
+        self._slow.sort(key=lambda entry: -entry[0])
+        del self._slow[self._SLOW_K:]
+
+    def _request_spans(self, request: DecodeRequest) -> str:
+        """Synthesize this replica's phase spans for a TRACED request
+        (``trace_ctx`` arrived on the wire) from its lifecycle stamps
+        — no tracer calls anywhere near the engine hot path, and an
+        untraced request pays exactly one ``is None`` test.
+
+        The monotonic stamps convert to the epoch-aligned span clock
+        through one wall-clock anchor taken here; sub-ms skew at
+        worst, far below the cross-process clock sync the tree
+        already tolerates."""
+        from ..obs import trace
+        offset = time.time() - time.monotonic()
+        spans = []
+        if request.submitted_ts is not None:
+            submitted = offset + request.submitted_ts
+            finished = offset + (request.finished_ts
+                                 or request.submitted_ts)
+            restore_s = request.kv_restore_ms / 1e3
+            replica_span = trace.synth_span(
+                "replica", request.trace_ctx, self.name,
+                submitted - restore_s, finished,
+                attrs={"request_id": request.request_id,
+                       "tokens_out": len(request.tokens or [])})
+            if request.error is not None:
+                replica_span.set_attr("error", request.error)
+            spans.append(replica_span)
+            parent = trace.inject(replica_span)
+            if restore_s:
+                spans.append(trace.synth_span(
+                    "kv_restore", parent, self.name,
+                    submitted - restore_s, submitted))
+            if request.activated_ts is not None:
+                activated = offset + request.activated_ts
+                spans.append(trace.synth_span(
+                    "queue", parent, self.name, submitted, activated))
+                if request.first_token_ts is not None:
+                    first = offset + request.first_token_ts
+                    spans.append(trace.synth_span(
+                        "prefill", parent, self.name, activated,
+                        first))
+                    decode_span = trace.synth_span(
+                        "decode", parent, self.name, first, finished)
+                    decode_span.mark("first_token", first)
+                    decode_span.mark("last_token", finished)
+                    spans.append(decode_span)
+        encoded = [span.to_dict() for span in spans]
+        if request.remote_spans:
+            encoded.extend(span.to_dict() for span in
+                           trace.decode_spans(request.remote_spans))
+        return trace.encode_spans(encoded)

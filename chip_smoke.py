@@ -74,6 +74,29 @@ Phases (any failure exits non-zero):
    eight ranks in f32 and bf16, each against the plain version (the same
    schedule with torch.mm in f32); R^2 step launches and R(R - 1) copies
    a call; a rank slowed on purpose still gives the right result.
+8. The wire (run after phase 5, while phase 4's int8 weights are still on
+   the card): phase 4's traffic and budgets through InferClient ->
+   ContinuousReplica -> PagedContinuousServer (8 slots, 4096-row tables
+   of 16-row blocks, prefix cache, 256-token slices, bf16 KV) on a
+   loopback broker, the engine in its own thread; three requests stream
+   and a 13th is cancelled after its first partial.  Every request must
+   be answered (no error, no timeout, no command failure in the log),
+   every greedy token held to phase 4's oracle, concatenated partials
+   equal to tokens_out, the cancelled request answered "cancelled" with
+   its partial tokens, graphed chunks replayed with no capture after the
+   warm-up fence, the launches exact, the (metrics) scrape naming the
+   server's counters, the replica idle with requests_served 13.  The
+   same traffic also runs driven by step() on the caller's thread, on a
+   server warmed the same way: six turns, wire and direct alternating
+   (WIRE_TURNS), each on a fresh server, every wire turn with every
+   check but the oracle (the first one only).  End to end it prints
+   what the caller sees on its own clock, each turn and the spread over
+   turns: TTFT p50 / max over the four requests that stream,
+   send-to-answer p50 / max over the 12 that finish, served tok/s, and
+   the wire's own time a request (send-to-answer less total_ms).  The
+   servers' own stamps (the responses' *_ms fields, which start at the
+   server's submit and so leave out the wire's time) are printed as the
+   server layer's, beside phase 4's direct step() run.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -105,6 +128,7 @@ and prints no result.
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2047,6 +2071,8 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
     exact, equal, checked, ties = check_requests(torch, requests, oracle)
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
+    totals = sorted((r.finished_ts - r.submitted_ts) * 1e3
+                    for r in requests)
     mixed = stats["prefill_slices_mixed"]
     steady = steady_decode(torch, np, weights, make_server, request_cls,
                            quantize_kv, config, prompt_len=1023)
@@ -2063,6 +2089,7 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
                 pool_balance=balance, wall_s=wall,
                 served_tok_s=len(requests) * NEW_TOKENS / wall,
                 ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
+                total_ms_p50=totals[len(totals) // 2],
                 peak_gb=peak_gb, **graph_counts(stats, "paged"), **steady)
 
 
@@ -2377,6 +2404,455 @@ def steady_spec(torch, np, make_server, request_cls, config, quantize_kv):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 8: the wire
+
+#: Wire requests that stream (``stream: 1``): the shared prefix's producer
+#: in wave 1, one each in waves 2 and 3.
+WIRE_STREAMED = ("p0", "p5", "p10")
+#: Budget of the extra streamed request that is cancelled after its first
+#: partial: long enough that the cancel lands while it still decodes.
+WIRE_CANCEL_TOKENS = 4 * NEW_TOKENS
+#: Seconds the caller waits for any one answer before the run fails.
+WIRE_TIMEOUT_S = 120.0
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps every log record at ERROR or above: a command that raises on
+    the engine thread is logged and swallowed by the actor runtime (the
+    protocol keeps the loop alive), so the smoke fails on the log
+    instead."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(
+            f"{record.name}: {record.getMessage()}"
+            + (f" ({record.exc_info[1]!r})" if record.exc_info else ""))
+
+
+def warm_wire_server(np, server_cls, request_cls, params, device, config):
+    """Phase 8's PagedContinuousServer (8 slots, 4096-row tables of 16-row
+    blocks, prefix cache, 256-token slices, bf16 KV), warmed before any
+    traffic: two short requests one after the other meet both chunk keys
+    of the run (2 and 1 steps) twice, so both are captured; then the
+    fence drops and any later capture counts."""
+    server = server_cls(config_name="llama3_8b", slots=SLOTS,
+                        max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                        params=params, quantize=True, quantize_kv=False,
+                        block_size=BLOCK, enable_prefix_cache=True,
+                        chunk_prefill_tokens=CHUNK, device=device)
+    rng = np.random.default_rng(23)
+    for index in range(2):
+        server.submit(request_cls(f"warm{index}", rng.integers(
+            1, config.vocab_size, 100).astype(np.int32), 5))
+        server.run_until_drained()
+    server.graph_ledger.fence()
+    return server
+
+
+def wire_cancel_prompt(np, vocab):
+    """The prompt of phase 8's 13th request, the one cancelled."""
+    return np.random.default_rng(29).integers(1, vocab, 200).astype(np.int32)
+
+
+def percentiles(values):
+    """(p50, max) of a list of numbers: the upper median, as elsewhere in
+    the smoke."""
+    values = sorted(values)
+    return values[len(values) // 2], values[-1]
+
+
+def caller_side(sent_at, first_at, answered_at, began):
+    """The end-to-end numbers a caller sees, from its own clock: TTFT over
+    the requests that stream (the three of WIRE_STREAMED and the
+    cancelled one: a request that does not stream shows its first token
+    only with its answer), send-to-answer over the 12 that finish, and
+    served tok/s over the 12 from the first send to the last answer."""
+    ttft = [(first_at[name] - sent_at[name]) * 1e3
+            for name in WIRE_STREAMED + ("cancel",)]
+    finished = [name for name in sent_at if name != "cancel"]
+    totals = [(answered_at[name] - sent_at[name]) * 1e3 for name in finished]
+    wall = max(answered_at[name] for name in finished) - began
+    ttft_p50, ttft_max = percentiles(ttft)
+    total_p50, total_max = percentiles(totals)
+    return dict(client_ttft_ms_p50=ttft_p50, client_ttft_ms_max=ttft_max,
+                client_total_ms_p50=total_p50, client_total_ms_max=total_max,
+                wall_s=wall,
+                served_tok_s=len(finished) * NEW_TOKENS / wall)
+
+
+def serve_direct_twin(torch, np, config, server, request_cls):
+    """Phase 8's traffic and pacing driven by ``step()`` on the caller's
+    thread, on a server warmed as the wire's was.  The caller is the
+    client here: a request's first token and its answer are stamped when
+    the ``step()`` that delivered them returns, on the definitions
+    :func:`caller_side` uses for the wire.  Also TTFT / total from the
+    requests' own stamps (what the replica's ``*_ms`` fields read), the
+    run's captures, and the requests' tokens."""
+    waves = paged_traffic(np, config.vocab_size)
+    requests, tracked = [], []
+    sent_at, first_at, answered_at = {}, {}, {}
+    before = server.stats()
+
+    def step():
+        done = server.step()
+        now = time.monotonic()
+        for request in tracked:
+            if request.tokens:
+                first_at.setdefault(request.request_id, now)
+        for request in done:
+            answered_at.setdefault(request.request_id, now)
+
+    def submit(request):
+        tracked.append(request)
+        sent_at[request.request_id] = time.monotonic()
+        server.submit(request)
+
+    began = time.monotonic()
+    for index, wave in enumerate(waves):
+        batch = [request_cls(f"p{len(requests) + i}", prompt, NEW_TOKENS)
+                 for i, prompt in enumerate(wave)]
+        requests += batch
+        for request in batch:
+            submit(request)
+        if index == 0:
+            while batch[0].request_id not in first_at:
+                step()
+        elif index == 1:
+            while any(r.request_id not in answered_at for r in requests[:4]):
+                step()
+    cancelled = request_cls("cancel", wire_cancel_prompt(
+        np, config.vocab_size), WIRE_CANCEL_TOKENS)
+    submit(cancelled)
+    while "cancel" not in first_at:
+        step()
+    server.cancel("cancel")
+    while server.busy or any(r.request_id not in answered_at
+                             for r in tracked):
+        step()
+    torch.cuda.synchronize()
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS:
+            fail(f"direct twin: {request.request_id} error {request.error}, "
+                 f"{len(request.tokens)} tokens")
+    if cancelled.error != "cancelled":
+        fail(f"direct twin: the cancel ended {cancelled.error!r}")
+    ttft_p50, ttft_max = percentiles(
+        (r.first_token_ts - r.submitted_ts) * 1e3 for r in requests)
+    total_p50, _ = percentiles(
+        (r.finished_ts - r.submitted_ts) * 1e3 for r in requests)
+    stats = server.stats()
+    return dict(caller_side(sent_at, first_at, answered_at, began),
+                ttft_ms_p50=ttft_p50, ttft_ms_max=ttft_max,
+                total_ms_p50=total_p50,
+                run_graph_captures=stats["graph_captures"]
+                - before["graph_captures"],
+                run_graph_replays=stats["graph_replays"]
+                - before["graph_replays"],
+                tokens={r.request_id: r.tokens for r in requests})
+
+
+def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
+                    request_cls, params, device):
+    """Phase 4's traffic through the wire, once: a fresh
+    PagedContinuousServer (:func:`warm_wire_server`) behind a
+    ContinuousReplica on a loopback broker, an InferClient on a real
+    EventEngine in its own thread.  The caller's thread only publishes
+    and waits, so every server call, capture and launch runs on the
+    engine thread.  Checks every answer, partials against the final
+    tokens, the cancel, the graph counters, exact launches, the
+    ``(metrics)`` scrape and the replica's drained share; returns the
+    run, the served requests and the cancelled one, for the oracle.
+    End-to-end numbers are the client's (:func:`caller_side`); the
+    responses' ``*_ms`` fields, stamped by the server from its submit,
+    are the server layer's."""
+    import threading
+
+    from aiko_services_tpu_torch.orchestration.client import InferClient
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.runtime import (EventEngine, Process,
+                                                 actor_args,
+                                                 compose_instance)
+    from aiko_services_tpu_torch.transport import reset_brokers
+    from aiko_services_tpu_torch.utils.sexpr import generate, parse
+
+    config = llama.CONFIGS["llama3_8b"]
+    server = warm_wire_server(np, server_cls, request_cls, params, device,
+                              config)
+    before = server.stats()
+
+    errors = ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    reset_brokers()
+    engine = EventEngine()
+    process = Process(namespace="smoke", hostname="card", pid="1",
+                      engine=engine, broker="wire")
+    replica = compose_instance(ContinuousReplica, actor_args("llama3_8b"),
+                               process=process, server=server)
+    client = InferClient(process, replica.topic_in)
+    scraped, scrape_done = [], threading.Event()
+
+    def on_metrics(_topic, payload):
+        command, params_ = parse(payload)
+        if command == "metrics_response":
+            scraped.append(str(params_[1]))
+            scrape_done.set()
+    process.add_message_handler(on_metrics, f"{replica.topic_path}/scrape")
+    # Client-side stamps: when each request was sent, when its first
+    # partial and its answer reached the client's topic (the partial in
+    # the client's own callback, the answer beside its handler).
+    sent_at, first_at, answered_at = {}, {}, {}
+
+    def on_answer(_topic, payload):
+        command, params_ = parse(payload)
+        if command == "infer_response":
+            answered_at.setdefault(str(params_[0]), time.monotonic())
+    process.add_message_handler(on_answer, client.response_topic)
+
+    waves = paged_traffic(np, config.vocab_size)
+    widths, core = [], llama._prefill_append_core
+
+    def recorded_core(params_, tokens, *args, **kwargs):
+        widths.append(int(tokens.shape[1]))
+        return core(params_, tokens, *args, **kwargs)
+
+    first_partial = {}
+
+    def submit(name, prompt, budget, stream):
+        first_partial[name] = threading.Event()
+
+        def on_partial(_increment):
+            first_at.setdefault(name, time.monotonic())
+            first_partial[name].set()
+        sent_at[name] = time.monotonic()
+        future = client.submit(
+            prompt, max_new_tokens=budget, stream=stream, request_id=name,
+            on_partial=on_partial)
+        return name, prompt, future
+
+    def wait(future):
+        client.wait(future, timeout=WIRE_TIMEOUT_S)
+        if future.error == "timeout":
+            fail(f"wire: request {future.request_id} was not answered in "
+                 f"{WIRE_TIMEOUT_S:.0f} s ({errors.records})")
+
+    def wait_partial(name):
+        if not first_partial[name].wait(WIRE_TIMEOUT_S):
+            fail(f"wire: no partial of {name} in {WIRE_TIMEOUT_S:.0f} s "
+                 f"({errors.records})")
+
+    torch.cuda.synchronize()
+    llama._prefill_append_core = recorded_core
+    thread = None
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        thread = engine.run_in_thread()
+        began = time.monotonic()
+        sent = []
+        for index, wave in enumerate(waves):
+            batch = [submit(f"p{len(sent) + i}", prompt, NEW_TOKENS,
+                            f"p{len(sent) + i}" in WIRE_STREAMED)
+                     for i, prompt in enumerate(wave)]
+            sent += batch
+            if index == 0:      # the next wave once the producer prefilled
+                wait_partial(batch[0][0])
+            elif index == 1:    # the last once wave 1's requests finished
+                for _, _, future in sent[:4]:
+                    wait(future)
+        cancelled = submit("cancel", wire_cancel_prompt(
+            np, config.vocab_size), WIRE_CANCEL_TOKENS, True)
+        wait_partial("cancel")
+        client.cancel(cancelled[2])
+        for _, _, future in sent:
+            wait(future)
+        wait(cancelled[2])
+        process.message.publish(replica.topic_in, generate(
+            "metrics", [f"{replica.topic_path}/scrape"]))
+        if not scrape_done.wait(WIRE_TIMEOUT_S):
+            fail("wire: no (metrics_response ...)")
+        deadline = time.monotonic() + WIRE_TIMEOUT_S
+        while (replica._pumping or server.busy) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        pumping = replica._pumping
+        engine.terminate()
+        thread.join(WIRE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama._prefill_append_core = core
+        logging.getLogger().removeHandler(errors)
+        if thread is not None and thread.is_alive():
+            engine.terminate()
+    if thread.is_alive():
+        fail("wire: the engine thread did not stop")
+    process.terminate()
+    reset_brokers()
+    if errors.records:
+        fail(f"wire: logged failures: {errors.records}")
+    if pumping:
+        fail("wire: the replica still pumps after the drain")
+    if replica.share.get("requests_served") != len(sent) + 1:
+        fail(f"wire: requests_served {replica.share.get('requests_served')}"
+             f", expected {len(sent) + 1}")
+
+    served = []
+    for name, prompt, future in sent:
+        outputs = future.outputs or {}
+        if future.error is not None or "tokens_out" not in outputs:
+            fail(f"wire: {name} answered error {future.error!r}")
+        tokens = [int(t) for t in np.asarray(outputs["tokens_out"])]
+        if len(tokens) != NEW_TOKENS:
+            fail(f"wire: {name} has {len(tokens)} tokens")
+        if name in WIRE_STREAMED and future.partial_tokens != tokens:
+            fail(f"wire: {name}'s partials {future.partial_tokens} differ "
+                 f"from its tokens_out {tokens}")
+        request = request_cls(name, prompt, NEW_TOKENS)
+        request.tokens = tokens
+        served.append((request, outputs))
+    name, prompt, future = cancelled
+    tokens = future.tokens
+    if future.error != "cancelled" or not tokens \
+            or len(tokens) >= WIRE_CANCEL_TOKENS \
+            or future.partial_tokens != tokens:
+        fail(f"wire: the cancelled request answered {future.error!r} with "
+             f"{len(tokens)} tokens (partials {len(future.partial_tokens)})")
+    cancel_request = request_cls(name, prompt, WIRE_CANCEL_TOKENS)
+    cancel_request.tokens = tokens
+
+    stats = server.stats()
+    if not stats["graph_replays"] > before["graph_replays"]:
+        fail("wire: no decode chunk replayed a CUDA graph")
+    if stats["graph_captures_steady_state"]:
+        fail(f"wire: {stats['graph_captures_steady_state']} captures after "
+             "the fence")
+    slices = stats["prefill_dispatches"] - before["prefill_dispatches"]
+    steps = stats["decode_steps"] - before["decode_steps"]
+    if len(widths) != slices:
+        fail(f"wire: {len(widths)} prefill slices recorded, the server "
+             f"counted {slices}")
+    layers = config.n_layers
+    want = {"append_kv": layers * slices, "chunk_attention": layers * slices,
+            "paged_decode_attention": layers * steps,
+            "write_kv_rows": layers * steps}
+    for name in weights.rules:
+        want[name] = matmul_launches(weights, config, SLOTS, 1, name) \
+            * steps + sum(layer_launches(weights, config, w, name)
+                          for w in widths)
+    for name, expected in want.items():
+        if launches[name] != expected or expected == 0:
+            fail(f"wire {name}: {launches[name]} launches, expected "
+                 f"{expected} (decode_steps {steps}, slices {widths})")
+    for name, count in launches.items():
+        if name not in want and count:
+            fail(f"the wire's path launched {name} {count} times")
+    text = scraped[0]
+    label = f'instance="srv{server._instance_id}"'
+    named = [key for key in ("decode_steps", "tokens_committed",
+                             "prefill_dispatches", "watchdog_trips")
+             if f"aiko_server_{key}{{{label}}}" in text]
+    if len(named) != 4 or "aiko_latency_ttft_ms_bucket" not in text:
+        fail(f"wire: the (metrics) text names {named} of the server's "
+             "counters, or no TTFT histogram")
+
+    ttft_p50, ttft_max = percentiles(float(np.asarray(o["ttft_ms"]))
+                                     for _, o in served)
+    total_p50, _ = percentiles(float(np.asarray(o["total_ms"]))
+                               for _, o in served)
+    # The wire's own time a request: the client's send-to-answer span
+    # less the server's submit-to-finish span (``total_ms``).
+    wire_p50, wire_max = percentiles(
+        (answered_at[r.request_id] - sent_at[r.request_id]) * 1e3
+        - float(np.asarray(o["total_ms"])) for r, o in served)
+    run = dict(caller_side(sent_at, first_at, answered_at, began),
+               weights=weights.label, kv="bf16", server="paged, wire",
+               requests=len(served) + 1, cancelled_tokens=len(tokens),
+               launches=launches, decode_steps=steps, prefill_slices=slices,
+               metrics_counters_named=named,
+               requests_served=replica.share["requests_served"],
+               ttft_ms_p50=ttft_p50, ttft_ms_max=ttft_max,
+               total_ms_p50=total_p50,
+               wire_ms_per_request_p50=wire_p50,
+               wire_ms_per_request_max=wire_max,
+               run_graph_captures=stats["graph_captures"]
+               - before["graph_captures"],
+               run_graph_replays=stats["graph_replays"]
+               - before["graph_replays"],
+               graph_captures_steady_state=stats[
+                   "graph_captures_steady_state"])
+    return run, served, cancel_request
+
+
+#: Phase 8's turns, in order, each on a fresh server warmed the same way:
+#: the wire and its direct twin alternate, so the wire's end-to-end cost
+#: is read against the spread between turns of one kind.
+WIRE_TURNS = ("wire", "direct", "direct", "wire", "wire", "direct")
+#: What each turn reports in the phase's spread, all from the caller's
+#: clock except the wire's own time a request.
+WIRE_TURN_KEYS = ("served_tok_s", "client_ttft_ms_p50", "client_ttft_ms_max",
+                  "client_total_ms_p50", "client_total_ms_max", "wall_s")
+
+
+def serve_wire(torch, np, llama, weights, kernels, server_cls, request_cls,
+               params, device):
+    """Phase 8: :data:`WIRE_TURNS` turns of phase 4's traffic, through the
+    wire (:func:`serve_wire_turn`) and by ``step()`` on the caller's
+    thread (:func:`serve_direct_twin`).  Every wire turn makes every
+    check; the first one's greedy tokens are held to phase 4's bf16
+    oracle.  Returns the first wire turn with its oracle counts, the
+    first direct turn as ``direct_twin``, every turn's numbers, and per
+    kind the least and most of each, with the wire's margin."""
+    import gc
+
+    config = llama.CONFIGS["llama3_8b"]
+    first, twin, turns, wire_tokens = None, None, [], None
+    for kind in WIRE_TURNS:
+        if kind == "wire":
+            run, served, cancel_request = serve_wire_turn(
+                torch, np, llama, weights, kernels, server_cls, request_cls,
+                params, device)
+            if first is None:
+                first = run
+                exact, equal, checked, ties = check_requests(
+                    torch, [request for request, _ in served]
+                    + [cancel_request],
+                    lambda request: contiguous_oracle(
+                        torch, llama, params, config, request.prompt,
+                        False, device, rows=PAGED_MAX_SEQ))
+                first.update(requests_exact=exact, tokens_checked=checked,
+                             tokens_equal=equal, accepted_near_ties=ties)
+                wire_tokens = {r.request_id: r.tokens for r, _ in served}
+        else:
+            run = serve_direct_twin(
+                torch, np, config, warm_wire_server(
+                    np, server_cls, request_cls, params, device, config),
+                request_cls)
+            tokens = run.pop("tokens")
+            if twin is None:
+                twin = run
+        turns.append(dict(kind=kind, **{key: run[key]
+                                        for key in WIRE_TURN_KEYS}))
+        if kind == "wire":
+            turns[-1]["wire_ms_per_request_p50"] = \
+                run["wire_ms_per_request_p50"]
+        else:
+            turns[-1]["requests_equal_to_first_wire_turn"] = sum(
+                tokens[name] == wire_tokens.get(name) for name in tokens)
+        gc.collect()
+        torch.cuda.empty_cache()
+    spread = {}
+    for key in WIRE_TURN_KEYS:
+        for kind in ("wire", "direct"):
+            values = [turn[key] for turn in turns if turn["kind"] == kind]
+            spread[f"{kind}_{key}_min"] = min(values)
+            spread[f"{kind}_{key}_max"] = max(values)
+    first.update(direct_twin=twin, turns=turns, spread=spread)
+    return first
+
 
 # --------------------------------------------------------------------------- #
 # Phase 7: the ring collective matmuls
@@ -2699,6 +3175,44 @@ def main() -> None:
                 f"{run['kv']} KV: " + json.dumps(run))
             spec_runs.append(run)
     spec_main = spec_runs[0]["launches"]
+
+    # ---- phase 8: the wire (phase 4's weights, run before phase 6 frees
+    # them) ----
+    t0 = time.monotonic()
+    wire = serve_wire(torch, np, llama, w8, paged_kernels,
+                      PagedContinuousServer, DecodeRequest, params, device)
+    log("--- serving llama3_8b int8 through the wire (InferClient -> "
+        "ContinuousReplica -> PagedContinuousServer), bf16 KV: "
+        + json.dumps(wire))
+    for label, run in (
+            ("wire (phase 8, first wire turn)", wire),
+            ("direct step(), warmed as the wire (phase 8, first direct "
+             "turn)", wire["direct_twin"]),
+            ("direct step() (phase 4)", paged_runs[0])):
+        log(f"{label}, server side (the requests' own stamps, from the "
+            f"server's submit): TTFT p50 {run['ttft_ms_p50']:.1f} ms, max "
+            f"{run['ttft_ms_max']:.1f} ms, total p50 "
+            f"{run['total_ms_p50']:.1f} ms; served "
+            f"{run['served_tok_s']:.1f} tok/s (12 requests, paged bf16 KV, "
+            f"8 slots); {smi}")
+    for index, turn in enumerate(wire["turns"]):
+        log(f"phase 8 turn {index} ({turn['kind']}), caller side: TTFT p50 "
+            f"{turn['client_ttft_ms_p50']:.1f} ms, max "
+            f"{turn['client_ttft_ms_max']:.1f} ms (the 4 requests that "
+            f"stream), send-to-answer p50 "
+            f"{turn['client_total_ms_p50']:.1f} ms, max "
+            f"{turn['client_total_ms_max']:.1f} ms, served "
+            f"{turn['served_tok_s']:.1f} tok/s"
+            + (f", the wire's own time a request (send-to-answer less "
+               f"total_ms) p50 {turn['wire_ms_per_request_p50']:.2f} ms"
+               if turn["kind"] == "wire" else "") + f"; {smi}")
+    spread = wire["spread"]
+    log("phase 8 spread over turns (min-max), caller side: " + "; ".join(
+        f"{key}: wire {spread[f'wire_{key}_min']:.1f}-"
+        f"{spread[f'wire_{key}_max']:.1f}, direct "
+        f"{spread[f'direct_{key}_min']:.1f}-"
+        f"{spread[f'direct_{key}_max']:.1f}" for key in WIRE_TURN_KEYS)
+        + f"; phase 8 took {time.monotonic() - t0:.1f} s; {smi}")
 
     # ---- phase 6: int4 weights through every server ----
     del params, draft_1b

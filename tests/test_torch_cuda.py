@@ -1297,6 +1297,120 @@ def test_no_capture_after_warm_up(cuda, layout):
     assert stats["graph_replays"] > warm["graph_replays"]
 
 
+def test_wire_replica_equals_direct_steps(cuda, llama3_8b_2l):
+    """The (infer ...) wire on the card: a ContinuousReplica on a loopback
+    broker, its engine in its own thread, in front of a 2-layer
+    llama3_8b-width paged int8 server, against the same server driven by
+    step() directly on the same submissions: every token bitwise equal,
+    graphed chunks replayed, and no command failure (a capture error
+    would be logged and swallowed by the actor runtime)."""
+    import logging
+    import threading
+
+    from aiko_services_tpu_torch.orchestration.client import InferClient
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.runtime import (EventEngine, Process,
+                                                 actor_args,
+                                                 compose_instance)
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    direct = _graph_server(cuda, "paged", False, 8, "8b")
+    served = _graph_server(cuda, "paged", False, 8, "8b",
+                           params=direct.params)
+    rng = np.random.default_rng(13)
+    specs = [(5, 9), (40, 4), (3, 12), (33, 7), (12, 3), (21, 8)]
+    prompts = [rng.integers(1, direct.config.vocab_size, plen)
+               .astype(np.int32) for plen, _ in specs]
+    requests = [DecodeRequest(f"r{i}", prompt, new) for i, (prompt, (_, new))
+                in enumerate(zip(prompts, specs))]
+    for request in requests:
+        direct.submit(request)
+    direct.run_until_drained()
+
+    errors = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(record.getMessage())
+    handler = Errors(logging.ERROR)
+    logging.getLogger().addHandler(handler)
+    reset_brokers()
+    engine = EventEngine()
+    process = Process(namespace="card", hostname="h", pid="1",
+                      engine=engine, broker="card_wire")
+    replica = compose_instance(ContinuousReplica, actor_args("cw"),
+                               process=process, server=served)
+    client = InferClient(process, replica.topic_in)
+    # Every submission is queued before the engine starts, so the replica
+    # admits them as the direct run did.
+    futures = [client.submit(prompt, max_new_tokens=new, stream=i % 2 == 0)
+               for i, (prompt, (_, new)) in enumerate(zip(prompts, specs))]
+    thread = engine.run_in_thread()
+    try:
+        for future in futures:
+            client.wait(future, timeout=300)
+        for _ in range(1000):
+            if not replica._pumping:
+                break
+            threading.Event().wait(0.01)
+    finally:
+        engine.terminate()
+        thread.join(60)
+        logging.getLogger().removeHandler(handler)
+        reset_brokers()
+    assert errors == []
+    assert [f.error for f in futures] == [None] * len(futures)
+    assert [f.tokens for f in futures] == [r.tokens for r in requests]
+    for index, future in enumerate(futures):
+        if index % 2 == 0:
+            assert future.partial_tokens == future.tokens
+    stats = served.stats()
+    assert stats["graph_replays"] > 0
+    assert stats["decode_steps"] == direct.stats()["decode_steps"]
+    assert not replica._pumping
+
+
+def test_watchdog_alarm_fires_during_the_event_wait(cuda):
+    """A ring sync stuck behind a long device sleep: the watchdog's alarm
+    thread trips while the serving thread still waits on the chunk's CUDA
+    event (the event wait releases the GIL), long before the wait ends;
+    the outstanding request then fails with watchdog_stalled."""
+    import threading
+    import time
+
+    server = ContinuousBatchingServer(config_name="tiny", slots=1,
+                                      max_seq=128, chunk_steps=2,
+                                      quantize=True, seed=1, watchdog_s=0.05,
+                                      device=cuda)
+    request = DecodeRequest("w", np.arange(1, 9, dtype=np.int32), 60)
+    server.submit(request)
+    for _ in range(3):
+        server.step()
+    assert request.tokens and request.error is None
+    trips = []
+    trip = server._trip_watchdog
+
+    def recorded():
+        trips.append((threading.current_thread().name, time.monotonic()))
+        trip()
+    server._trip_watchdog = recorded
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)        # ~0.5 s of device time
+    began = time.monotonic()
+    done = []
+    while not trips and not done and time.monotonic() - began < 30:
+        done = server.step()
+        returned = time.monotonic()
+    assert trips, "the watchdog never tripped"
+    name, tripped_at = trips[0]
+    assert name != threading.current_thread().name
+    assert returned - tripped_at > 0.2
+    while not done:
+        done = server.step()
+    assert request.error == "watchdog_stalled" and not server.healthy
+
+
 def test_capture_never_grows_the_scratch(cuda):
     """Kernel scratch that would grow inside a capture raises, rather
     than free a buffer a graph holds."""

@@ -349,7 +349,8 @@ def _port_sources():
     return sources + [REPO / "chip_smoke.py",
                       REPO / "scripts" / "torch_kernel_mutants.py",
                       REPO / "scripts" / "attention_variant_lab.py",
-                      REPO / "scripts" / "smoke_phase2.py"]
+                      REPO / "scripts" / "smoke_phase2.py",
+                      REPO / "scripts" / "smoke_wire.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

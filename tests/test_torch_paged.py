@@ -610,7 +610,7 @@ def test_warm_prefill_ladder_matches_jax():
 
 @pytest.mark.parametrize("option", [
     dict(host_tier_blocks=4), dict(spill_dir="spill"),
-    dict(adapters={"a": {}}), dict(watchdog_s=1.0),
+    dict(adapters={"a": {}}),
     dict(replica_mesh=object()), dict(automata={"g": object()}),
     dict(compilation_cache_dir="cache")])
 def test_paged_features_outside_the_slice_raise(option):
