@@ -62,8 +62,8 @@ __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
            "sample_logits", "rms_norm",
            "apply_rope", "init_paged_cache", "decode_chunk_paged",
            "serve_chunk_paged", "prefill_append_paged",
-           "serve_chunk_mixed", "paged_insert_prefix", "verify_chunk_paged",
-           "sampling_probs"]
+           "serve_chunk_mixed", "paged_insert_prefix", "paged_scatter_blocks",
+           "paged_gather_blocks", "verify_chunk_paged", "sampling_probs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1017,13 +1017,42 @@ def paged_insert_prefix(pool, tables, prefix_cache, slot: int):
     ``padded`` must be a multiple of the pool's block size."""
     block_size = pool[0]["k"].shape[1]
     padded = prefix_cache[0]["k"].shape[1]
-    block_ids = tables[int(slot), :padded // block_size].to(torch.int64)
+    block_ids = tables[int(slot), :padded // block_size]
+    return paged_scatter_blocks(pool, block_ids, prefix_cache, 0)
+
+
+def paged_scatter_blocks(pool, block_ids, prefix_cache, start_block: int):
+    """Write contiguous prefilled rows into explicit pool blocks, in place
+    (``index_copy_`` into the pool's own tensors, which the captured chunk
+    graphs hold): prefix rows ``[start_block * bs, (start_block +
+    len(block_ids)) * bs)`` land in ``pool[block_ids]``."""
+    block_size = pool[0]["k"].shape[1]
+    n_blocks = int(block_ids.shape[0])
+    ids = block_ids.to(torch.int64)
     for pool_layer, prefix_layer in zip(pool, prefix_cache):
         for key, buf in pool_layer.items():
             src = prefix_layer[key][0]
-            buf[block_ids] = src.reshape((padded // block_size, block_size)
-                                         + tuple(src.shape[1:])).to(buf.dtype)
+            blocked = src.reshape((src.shape[0] // block_size, block_size)
+                                  + tuple(src.shape[1:]))
+            rows = blocked[int(start_block):int(start_block) + n_blocks]
+            buf.index_copy_(0, ids, rows.to(buf.dtype))
     return pool
+
+
+def paged_gather_blocks(pool, block_ids, bucket, start_block: int = 0):
+    """Read ``pool[block_ids]`` into ``len(block_ids) * bs`` contiguous
+    rows of a bucket cache (per layer ``(1, rows, ...)``) starting at
+    block ``start_block``, in place; returns the bucket."""
+    block_size = pool[0]["k"].shape[1]
+    rows = int(block_ids.shape[0]) * block_size
+    start_row = int(start_block) * block_size
+    ids = block_ids.to(torch.int64)
+    for pool_layer, bucket_layer in zip(pool, bucket):
+        for key, buf in bucket_layer.items():
+            src = pool_layer[key].index_select(0, ids)
+            buf[0, start_row:start_row + rows] = src.reshape(
+                (rows,) + tuple(src.shape[2:])).to(buf.dtype)
+    return bucket
 
 
 def _prefill_append_core(params, tokens, pool, tables, start_index: int,

@@ -101,13 +101,20 @@ class InferClient:
                temperature: float = 0.0, top_p: float = 1.0,
                on_partial=None,
                deadline_s: Optional[float] = None,
-               request_id: Optional[str] = None) -> InferFuture:
+               request_id: Optional[str] = None,
+               kv_source: Optional[str] = None,
+               kv_migrate: bool = False) -> InferFuture:
         """Send one ``(infer …)``; returns the future immediately.
 
         ``deadline_s`` is a client-relative budget: the replica rejects
         the request at admission or evicts it from its slot once the
         budget elapses (``error="deadline_exceeded"``), and routers
         stop re-dispatching it.
+
+        ``kv_source`` names the replica (its topic path) that holds the
+        prompt's prefix: a paged replica pulls the prefix blocks from it
+        before admission instead of prefilling them (the hint a router
+        gives; ``kv_migrate`` marks a live migration's resume).
         """
         swag: Dict = {"tokens": np.asarray(tokens, np.int32),
                       "max_new_tokens": int(max_new_tokens)}
@@ -120,6 +127,10 @@ class InferClient:
             swag["top_p"] = float(top_p)
         if deadline_s is not None:
             swag["deadline_ms"] = int(float(deadline_s) * 1e3)
+        if kv_source:
+            swag["kv_source"] = str(kv_source)
+        if kv_migrate:
+            swag["kv_migrate"] = 1
         return self._send("infer", swag, on_partial=on_partial,
                           request_id=request_id)
 

@@ -100,7 +100,7 @@ from ..obs.metrics import REGISTRY, CounterDict, Histogram
 from ..ops.paged_attention import contiguous_block_size
 from ..runtime import faults
 from ..runtime.actor import Actor
-from ..utils.sexpr import generate
+from ..utils.sexpr import generate, parse
 from .spec_control import SpecController, default_ladder, validate_ladder
 
 __all__ = ["ContinuousBatchingServer", "ContinuousReplica",
@@ -1406,25 +1406,44 @@ class ContinuousReplica(Actor):
     The port's copy of the reference's ``ContinuousReplica``: ``infer``,
     ``pump``, ``infer_cancel``, ``retire``, streaming partials, the
     telemetry share, per-phase latencies, slow requests and trace spans
-    on every response, and the ``kill_replica`` / ``corrupt_response``
-    fault sites.  It does not join the distributed KV cache yet (queue 1
-    item 3 of ``ROADMAP.md``): it advertises no prefix digest, a
-    ``kv_source`` hint is ignored (local prefill, the reference's own
-    fallback when the owner does not answer), ``(kv_export …)`` answers
-    ``kv_unsupported`` and ``(migrate_prepare …)`` answers
-    ``migrate_unsupported``, as the reference does for a server without
-    KV transfer.  So it serves a prefix-cached paged server without
-    calling the paged server's ``prefix_digest``, ``kv_export_payload``
-    or ``kv_import_payload``.  ``adapter_load`` / ``adapter_unload``
-    answer ``unsupported_command`` (the port's servers take no adapters
-    yet), as every other replica protocol speaker does."""
+    on every response, and the ``kill_replica`` / ``corrupt_response`` /
+    ``kill_source_mid_migration`` / ``drop_migration_block`` fault sites.
 
-    def __init__(self, context, process=None, server=None):
+    Paged servers with the prefix cache enabled also join the distributed
+    KV cache (:mod:`~..kvstore`): the replica advertises its cached
+    prefix digest (``kv_prefixes``) on its share (every pump, plus a slow
+    re-advertise timer so an idle replica keeps its directory lease),
+    answers ``(kv_export …)`` block-transfer RPCs from peers, registers a
+    live request's chain for ``(migrate_prepare …)`` and answers
+    ``migrate_ready`` with its blocks and tokens, and — when a request
+    carries a ``kv_source`` hint — pulls the prefix from the named owner
+    before admission (``kv_migrate`` marks a migration's resume), falling
+    back to plain local prefill if the owner does not answer within
+    ``kv_fetch_timeout_s`` (counted in ``kv_transfer_failures``).  The
+    import lands behind the ``RESTORING`` sentinel a few blocks a step,
+    on the engine thread like every other server call.  A server without
+    the KV methods answers ``kv_unsupported`` / ``migrate_unsupported``.
+    ``kv_tier_hint`` starts the promotion of a demoted or spilled chain
+    at arrival.  Not ported: ``prefill_only`` (dedicated prefill
+    replicas come with the router, queue 1 item 4 of ``ROADMAP.md``).
+    ``adapter_load`` / ``adapter_unload`` answer ``unsupported_command``
+    (the port's servers take no adapters yet), as every other replica
+    protocol speaker does."""
+
+    #: Re-advertise the prefix digest this often even when idle — must
+    #: stay well under the router directory's ``lease_s``.
+    KV_ADVERTISE_S = 5.0
+
+    def __init__(self, context, process=None, server=None,
+                 kv_fetch_timeout_s: float = 2.0):
         from .serving import (REPLICA_PROTOCOL,
                               _register_unsupported_adapter_commands)
         context.protocol = context.protocol or REPLICA_PROTOCOL
         super().__init__(context, process)
         self.server = server or ContinuousBatchingServer()
+        self.kv_fetch_timeout_s = kv_fetch_timeout_s
+        #: (digest_epoch, migrating) of the last advertised digest.
+        self._digest_stamp = None
         self._command_handlers["infer"] = self._wire_infer
         self._command_handlers["pump"] = self._pump
         _register_unsupported_adapter_commands(self)
@@ -1446,10 +1465,34 @@ class ContinuousReplica(Actor):
         #: Keyed by object identity, not request_id: the client owns
         #: that string and may reuse it across concurrent requests.
         self._stream_sent: Dict[int, int] = {}
+        #: request ids being live-migrated AWAY from this replica: while
+        #: non-empty the prefix digest carries the ``/migrating`` flag and
+        #: the shared lifecycle reads ``migrating``.
+        self._migrating_ids: set = set()
         #: slowest completed requests — ``(total_ms, request_id,
         #: {phase: ms})`` kept sorted descending; surfaces in the EC
         #: share as ``slow_requests`` for the dashboard pane.
         self._slow: List = []
+        # Warm-start fetches in flight: token -> parked DecodeRequest.
+        self._kv_pending: Dict[str, DecodeRequest] = {}
+        self._kv_started: Dict[str, float] = {}
+        self._kv_counter = 0
+        self._kv_topic = f"{self.topic_path}/kv"
+        if self._kv_capable():
+            self.process.add_message_handler(self._on_kv_message,
+                                             self._kv_topic)
+            self.process.event.add_timer_handler(
+                self._kv_advertise, self.KV_ADVERTISE_S)
+
+    def _kv_capable(self) -> bool:
+        return getattr(self.server, "enable_prefix_cache", False) \
+            and hasattr(self.server, "kv_export_payload")
+
+    @property
+    def kv_role(self) -> str:
+        """The digest's role: always ``decode`` on the port (no dedicated
+        prefill replicas yet)."""
+        return "decode"
 
     def _wire_infer(self, request_id, response_topic, payload=None):
         from ..pipeline.codec import decode_swag
@@ -1481,12 +1524,27 @@ class ContinuousReplica(Actor):
             carrier = inputs.get("trace")
             if carrier:
                 request.trace_ctx = str(carrier)
+            kv_source = inputs.get("kv_source")
+            kv_tier_hint = inputs.get("kv_tier_hint")
+            kv_migrate = bool(
+                int(np.asarray(inputs.get("kv_migrate", 0))))
         except Exception:  # noqa: BLE001 - bad request must still respond
             self.logger.exception("%s: malformed infer request %s",
                                   self.name, request_id)
             request.error = "infer_failed"
             self._respond(request)
             return
+        if kv_source and self._kv_capable() \
+                and request.adapter is None:
+            if self._begin_kv_fetch(request, str(kv_source),
+                                    migrate=kv_migrate):
+                return        # parked until import or timeout
+        if kv_tier_hint and request.adapter is None \
+                and hasattr(self.server, "prefetch_promote"):
+            # A router hinted this prompt at a demoted/spilled chain:
+            # start the async promotion now, so the restore overlaps the
+            # request's queue wait.
+            self.server.prefetch_promote(request.prompt)
         self.server.submit(request)
         self._ensure_pumping()
 
@@ -1504,7 +1562,7 @@ class ContinuousReplica(Actor):
                          self.name, self.server.queue_depth,
                          self.server.slots_active)
         updates = {"lifecycle": "retiring"}
-        if not self.server.busy:
+        if not self.server.busy and not self._kv_pending:
             updates["drained"] = 1
         self.share.update(updates)
         if self.ec_producer is not None:
@@ -1515,14 +1573,16 @@ class ContinuousReplica(Actor):
 
     def _wire_migrate_prepare(self, request_id, response_topic,
                               payload=None):
-        """``(migrate_prepare mid reply swag{request_id})`` — a router
-        asks to live-migrate one of our requests away.  Live migration
-        rides the KV transfer, which the port does not have yet: the
-        answer is ``(migrate_ready mid swag{request_id, error})``, with
-        ``migrate_unknown_request`` when the request is not live here
-        and ``migrate_unsupported`` otherwise, as the reference answers
-        for a server without KV transfer.  The request keeps being
-        served."""
+        """``(migrate_prepare mid reply swag{request_id})`` — a router is
+        live-migrating one of our requests away.  Register the request's
+        LIVE chain (prompt + committed tokens) in the prefix index so
+        ``kv_export`` can serve it, mark the request migrating (digest
+        flag + ``migrating`` lifecycle), and answer ``(migrate_ready mid
+        swag{request_id, blocks, tokens})`` — or an error swag the router
+        degrades on (``migrate_unknown_request`` when the request is not
+        live here, ``migrate_unsupported`` for a server without KV
+        transfer, ``migrate_export_failed``).  The request keeps being
+        served: the double-delivery window is the point."""
         from ..pipeline.codec import decode_swag, encode_swag
         mid = str(request_id)
         try:
@@ -1532,13 +1592,42 @@ class ContinuousReplica(Actor):
         request = next(
             (r for r in self.server.live_requests()
              if r.request_id == target_id), None)
-        error = ("migrate_unknown_request" if request is None
-                 else "migrate_unsupported")
+        if request is None:
+            outputs: Dict = {"request_id": target_id,
+                             "error": "migrate_unknown_request"}
+        elif not self._kv_capable() \
+                or not hasattr(self.server, "publish_live_chain"):
+            outputs = {"request_id": target_id,
+                       "error": "migrate_unsupported"}
+        else:
+            try:
+                blocks = int(self.server.publish_live_chain(request))
+            except Exception:  # noqa: BLE001 - degrade to cold resume
+                self.logger.exception(
+                    "%s: publish_live_chain failed for %s",
+                    self.name, target_id)
+                blocks = -1
+            if blocks < 0:
+                outputs = {"request_id": target_id,
+                           "error": "migrate_export_failed"}
+            else:
+                outputs = {"request_id": target_id, "blocks": blocks,
+                           "tokens": len(request.tokens or [])}
+                self._migrating_ids.add(target_id)
+                updates = {}
+                if self.share.get("lifecycle") == "ready":
+                    updates["lifecycle"] = "migrating"
+                # Push the flagged digest NOW: routers must stop scoring
+                # us for new prefix placement before the transfer starts.
+                updates["kv_prefixes"] = self.server.prefix_digest(
+                    role=self.kv_role, migrating=True)
+                self.share.update(updates)
+                if self.ec_producer is not None:
+                    for key, value in updates.items():
+                        self.ec_producer.update(key, value)
         self.process.message.publish(
             str(response_topic),
-            generate("migrate_ready",
-                     [mid, encode_swag({"request_id": target_id,
-                                        "error": error})]))
+            generate("migrate_ready", [mid, encode_swag(outputs)]))
 
     def _ensure_pumping(self):
         if not self._pumping:
@@ -1567,6 +1656,21 @@ class ContinuousReplica(Actor):
                     import os
                     os._exit(13)
                 return
+            if self._migrating_ids:
+                hit = faults.PLAN.check("kill_source_mid_migration",
+                                        key=self.name)
+                if hit is not None:
+                    # Die as the SOURCE of an in-flight migration: the
+                    # same LWT path as kill_replica.
+                    self.logger.warning(
+                        "%s: fault kill_source_mid_migration firing",
+                        self.name)
+                    self._pumping = False
+                    self.process.kill()
+                    if hit.get("hard"):
+                        import os
+                        os._exit(13)
+                    return
         finished = self.server.step()
         self._stream_partials()
         for request in finished:
@@ -1590,6 +1694,14 @@ class ContinuousReplica(Actor):
         cannot merge without shipping every sample."""
         from .serving import serving_telemetry
         updates = serving_telemetry(self.server.stats())
+        if self._kv_capable():
+            # The digest walks every tier: recompute it only when the
+            # server's cache moved or the migrating flag flipped.
+            stamp = (self.server.digest_epoch, bool(self._migrating_ids))
+            if stamp != self._digest_stamp:
+                self._digest_stamp = stamp
+                updates["kv_prefixes"] = self.server.prefix_digest(
+                    role=self.kv_role, migrating=stamp[1])
         hists = self.server.latency_hists
         if hists["ttft"].count:
             updates["ttft_p50_ms"] = round(hists["ttft"].quantile(0.5), 1)
@@ -1618,7 +1730,8 @@ class ContinuousReplica(Actor):
                 updates["last_capture"] = " ".join(
                     f"{entry['trigger']}@{entry['ts']:.0f}"
                     for entry in recent[-3:])
-        if self._retiring and not self.server.busy:
+        if self._retiring and not self.server.busy \
+                and not self._kv_pending:
             # Drain complete: every queued/active request reached a
             # terminal state.  The supervisor watches this key before
             # stopping the process.
@@ -1639,19 +1752,160 @@ class ContinuousReplica(Actor):
             for key, value in changed.items():
                 self.ec_producer.update(key, value)
 
+    # -- distributed KV cache (kvstore subsystem) ------------------- #
+
+    def _kv_advertise(self, *_args):
+        """Slow periodic re-advertise: refreshes the router directory's
+        lease on this replica's prefixes while idle (no pump runs, so
+        :meth:`_share_telemetry`'s diff never fires)."""
+        if not self._kv_capable():
+            return
+        digest = self.server.prefix_digest(
+            role=self.kv_role, migrating=bool(self._migrating_ids))
+        self.share["kv_prefixes"] = digest
+        if self.ec_producer is not None:
+            self.ec_producer.update("kv_prefixes", digest)
+
     def _wire_kv_export(self, request_id, response_topic,
                         payload=None):
-        """``(kv_export id reply swag)`` — a peer's block-transfer RPC.
-        The port has no KV transfer yet, so the answer is the
-        reference's for a server without it: ``(kv_export_response id
-        swag{error: kv_unsupported})``, which the importer treats as a
-        recompute fallback."""
-        from ..pipeline.codec import encode_swag
+        """``(kv_export id reply swag)`` — peer block-transfer RPC:
+        resolve the requested chain segment and answer with the pool
+        rows, or an error the importer treats as a recompute fallback.
+        The gather runs here, on the engine thread."""
+        from ..pipeline.codec import decode_swag, encode_swag
+        started = trace.now()
+        carrier = None
+        outputs = {"error": "kv_unsupported"}
+        if self._kv_capable():
+            try:
+                inputs = decode_swag(payload or {})
+                carrier = inputs.get("trace")
+                keys = [str(k) for k in inputs["kv_keys"]]
+                exported = self.server.kv_export_payload(
+                    keys,
+                    int(np.asarray(inputs.get("kv_start_depth", 0))))
+                if faults.PLAN is not None:
+                    if exported is not None \
+                            and inputs.get("kv_migrate") \
+                            and faults.PLAN.check(
+                                "drop_migration_block",
+                                key=str(request_id)) is not None:
+                        # Ship the migration chain one block short: the
+                        # destination's admission recomputes the tail.
+                        from ..kvstore.transfer import drop_one_block
+                        self.logger.warning(
+                            "%s: fault drop_migration_block firing",
+                            self.name)
+                        exported = drop_one_block(exported)
+                outputs = exported if exported is not None \
+                    else {"error": "kv_prefix_gone"}
+            except Exception:  # noqa: BLE001 - RPC must answer
+                self.logger.exception("%s: kv_export failed",
+                                      self.name)
+                outputs = {"error": "kv_export_failed"}
+        if carrier and "error" not in outputs:
+            # Transfer-source span: the exporter's share of a traced
+            # request's warm start, riding back with the blocks.
+            span = trace.synth_span(
+                "kv_export", str(carrier), self.name, started,
+                trace.now(), attrs={"keys": len(keys)})
+            outputs["trace_spans"] = trace.encode_spans([span])
         self.process.message.publish(
             str(response_topic),
             generate("kv_export_response",
-                     [str(request_id),
-                      encode_swag({"error": "kv_unsupported"})]))
+                     [str(request_id), encode_swag(outputs)]))
+
+    def _begin_kv_fetch(self, request: DecodeRequest, kv_source: str,
+                        migrate: bool = False) -> bool:
+        """Warm start: request the prompt's missing prefix blocks from
+        the owner the router named.  Returns False when there is nothing
+        worth fetching (prompt too short, already cached locally, or the
+        owner is this replica): the caller submits normally.  Otherwise
+        the request PARKS until the import lands or the fallback timer
+        fires; either way it is submitted exactly once."""
+        from ..pipeline.codec import encode_swag
+        if kv_source == self.topic_path:
+            return False
+        keys = self.server.prefix_keys_hex(request.prompt)
+        local = self.server.prefix_local_depth(request.prompt)
+        if not keys or local >= len(keys):
+            return False
+        self._kv_counter += 1
+        token = f"kvf{self._kv_counter}"
+        self._kv_pending[token] = request
+        self._kv_started[token] = time.monotonic()
+        swag = {"kv_keys": keys[local:], "kv_start_depth": local}
+        if migrate:
+            # Marks the export as a live-migration transfer (the
+            # ``drop_migration_block`` fault point keys off it).
+            swag["kv_migrate"] = 1
+        if request.trace_ctx:
+            swag["trace"] = request.trace_ctx
+        self.process.message.publish(
+            f"{kv_source}/in",
+            generate("kv_export",
+                     [token, self._kv_topic, encode_swag(swag)]))
+        self.process.event.add_timer_handler(
+            lambda: self._kv_fetch_timeout(token),
+            self.kv_fetch_timeout_s, once=True)
+        return True
+
+    def _kv_fetch_timeout(self, token: str):
+        """The owner never answered (dead, partitioned, or slow): fall
+        back to plain local prefill, counted in ``kv_transfer_failures``.
+        Runs on the engine thread (a timer)."""
+        request = self._kv_pending.pop(token, None)
+        started = self._kv_started.pop(token, None)
+        if request is None:
+            return                    # the import landed first
+        if started is not None:
+            request.kv_restore_ms = round(
+                (time.monotonic() - started) * 1e3, 3)
+        self.server.kv_transfer_failures += 1
+        self.logger.warning("%s: kv fetch %s timed out — local "
+                            "prefill fallback", self.name, token)
+        self.server.submit(request)
+        self._ensure_pumping()
+
+    def _on_kv_message(self, _topic: str, payload: str):
+        """``(kv_export_response token swag)`` from the owner: import,
+        then submit the parked request (the admission hit walk adopts the
+        imported blocks).  Message handlers run on the engine thread, so
+        the import's host work does too; its rows land in later steps."""
+        from ..pipeline.codec import decode_swag
+        try:
+            command, params = parse(payload)
+        except Exception:  # noqa: BLE001 - not ours to answer
+            return
+        if command != "kv_export_response" or len(params) < 2:
+            return
+        request = self._kv_pending.pop(str(params[0]), None)
+        started = self._kv_started.pop(str(params[0]), None)
+        if request is None:
+            return                    # timed out already; late reply
+        try:
+            outputs = decode_swag(params[1])
+            if "error" in outputs:
+                self.server.kv_transfer_failures += 1
+            else:
+                # Async landing: the keys register behind the RESTORING
+                # sentinel now, the rows land a few blocks a step; the
+                # submit below parks on the hit walk's restore wait until
+                # the chain is whole.
+                self.server.kv_import_payload(
+                    outputs, engine=self.process.event,
+                    async_import=True)
+                remote = outputs.get("trace_spans")
+                if remote:
+                    request.remote_spans = str(remote)
+        except Exception:  # noqa: BLE001 - fall back to local prefill
+            self.logger.exception("%s: kv import failed", self.name)
+            self.server.kv_transfer_failures += 1
+        if started is not None:
+            request.kv_restore_ms = round(
+                (time.monotonic() - started) * 1e3, 3)
+        self.server.submit(request)
+        self._ensure_pumping()
 
     def _wire_cancel(self, request_id, response_topic=None):
         """``(infer_cancel request_id [response_topic])``: the
@@ -1703,6 +1957,16 @@ class ContinuousReplica(Actor):
         # partials always equal the final sequence.
         self._emit_partial(request)
         self._stream_sent.pop(id(request), None)
+        if request.request_id in self._migrating_ids:
+            # The migrated-away request reached a terminal state here
+            # (usually the post-cutover cancel): this replica is no
+            # longer anyone's migration source.
+            self._migrating_ids.discard(request.request_id)
+            if not self._migrating_ids \
+                    and self.share.get("lifecycle") == "migrating":
+                self.share["lifecycle"] = "ready"
+                if self.ec_producer is not None:
+                    self.ec_producer.update("lifecycle", "ready")
         self.share["requests_served"] += 1
         if self.ec_producer is not None:
             self.ec_producer.update("requests_served",

@@ -43,6 +43,26 @@ __all__ = [
 # could be mistaken for a length prefix, quoted string, or dict keyword
 # (trailing ":") on re-parse.
 _NEEDS_CANONICAL = re.compile(r"^\d+:|^['\"]|[\s()]|:$")
+# The same test split up, so that a symbol of many megabytes (a base64 KV
+# payload) is checked at memory speed: the alternation above tries every
+# branch at every position, and even the one character class below costs
+# many times a ``str`` scan per character (``scripts/codec_scan.py`` times
+# both on a KV export message).  An ASCII symbol is searched for each
+# delimiter in turn (the ASCII characters ``\s`` matches, and the
+# parentheses); any other takes the regular expression.
+_LENGTH_PREFIX = re.compile(r"\d+:")
+_DELIMITER = re.compile(r"[\s()]")
+_ASCII_DELIMITERS = "\t\n\x0b\x0c\r\x1c\x1d\x1e\x1f ()"
+
+
+def _needs_canonical(symbol: str) -> bool:
+    """``_NEEDS_CANONICAL.search(symbol)``, computed faster."""
+    if symbol[:1] in ("'", '"') or symbol.endswith(":") \
+            or _LENGTH_PREFIX.match(symbol) is not None:
+        return True
+    if symbol.isascii():
+        return any(c in symbol for c in _ASCII_DELIMITERS)
+    return _DELIMITER.search(symbol) is not None
 
 
 class _Keyword(str):
@@ -66,11 +86,26 @@ def generate(command: str, parameters: Union[Dict, List, Tuple, None] = None) ->
 
 
 def generate_expression(expression: Union[List, Tuple]) -> str:
-    """Serialize a (possibly nested) list into an S-expression string."""
-    parts = []
-    for element in expression:
-        parts.append(_emit(element))
-    return "(" + " ".join(parts) + ")"
+    """Serialize a (possibly nested) list into an S-expression string.
+    The pieces of every level go into one list joined once, so a payload
+    of many megabytes is copied once, not once a level."""
+    pieces: List[str] = []
+    _emit_list(expression, pieces)
+    return "".join(pieces)
+
+
+def _emit_list(expression, pieces: List[str]) -> None:
+    pieces.append("(")
+    for index, element in enumerate(expression):
+        if index:
+            pieces.append(" ")
+        if isinstance(element, dict):
+            _emit_list(_dict_to_items(element), pieces)
+        elif isinstance(element, (list, tuple)):
+            _emit_list(element, pieces)
+        else:
+            pieces.append(_emit(element))
+    pieces.append(")")
 
 
 def _dict_to_items(mapping: Dict) -> List[Any]:
@@ -86,12 +121,9 @@ def _dict_to_items(mapping: Dict) -> List[Any]:
 
 
 def _emit(element: Any) -> str:
+    """One atom (lists and dicts are :func:`_emit_list`'s)."""
     if element is None:
         return "0:"
-    if isinstance(element, dict):
-        return generate_expression(_dict_to_items(element))
-    if isinstance(element, (list, tuple)):
-        return generate_expression(element)
     if isinstance(element, bool):
         return "true" if element else "false"
     if not isinstance(element, str):
@@ -100,7 +132,7 @@ def _emit(element: Any) -> str:
         return '""'
     if isinstance(element, _Keyword):
         return str(element)  # dict keywords stay bare by construction
-    if _NEEDS_CANONICAL.search(element):
+    if _needs_canonical(element):
         return f"{len(element)}:{element}"
     return element
 
@@ -109,6 +141,20 @@ def _emit(element: Any) -> str:
 # Parsing: tokenizer + recursive-descent reader.
 
 _WHITESPACE = " \t\r\n"
+#: What ends a bare symbol, the most frequent first.
+_BARE_ENDS = _WHITESPACE + "()"
+
+
+def _bare_end(payload: str, start: int, n: int) -> int:
+    """Index of the first whitespace or parenthesis at or after
+    ``start`` (``n`` if none): one bounded ``find`` a delimiter, so a
+    symbol of many megabytes is scanned at memory speed."""
+    end = n
+    for c in _BARE_ENDS:
+        found = payload.find(c, start, end)
+        if found >= 0:
+            end = found
+    return end
 
 
 class SExprError(ValueError):
@@ -152,9 +198,7 @@ def _tokenize(payload: str):
                 i = start + length
                 continue
         # Bare symbol: runs until whitespace or paren.
-        j = i
-        while j < n and payload[j] not in _WHITESPACE and payload[j] not in "()":
-            j += 1
+        j = _bare_end(payload, i, n)
         token = payload[i:j]
         if token.endswith(":") and len(token) > 1:
             token = _Keyword(token)

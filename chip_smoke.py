@@ -97,6 +97,26 @@ Phases (any failure exits non-zero):
    servers' own stamps (the responses' *_ms fields, which start at the
    server's submit and so leave out the wire's time) are printed as the
    server layer's, beside phase 4's direct step() run.
+9. The KV tiers and the KV wire (run after phase 8, on phase 4's int8
+   weights), bf16 KV then int8 KV, on phase 4's server shape: (a) a pool
+   of TIER_POOL blocks with a host tier: later waves demote the shared
+   1,024-token prefix's chain, and its re-submission restores it
+   TIER_RATE blocks a step while two other slots decode; (b) a small host
+   tier over a temporary spill directory (removed at the end): the
+   prefix's chain overflows to disk, a fresh server adopts the directory
+   and serves the prefix from disk; (c) replicas A and B on one loopback
+   broker, their engine in its own thread: A serves the prefix, and a
+   fresh B a turn serves it with another tail, with kv_source = A (warm)
+   or without (cold), alternating (KV_TURNS), printing TTFT and, for a
+   warm turn, the export, wire and import ms, the payload bytes and the
+   MB/s; (d) migrate_prepare for a request A streams, answered
+   migrate_ready, and a fresh replica resumes prompt + committed tokens
+   with kv_source = A and kv_migrate.  Every token is held to phase 4's
+   oracle (each wire turn to the first warm turn's tokens), every import
+   must land with no fall-back to local prefill (KV_FETCH_TIMEOUT_S), the
+   restores and adoptions are counted, the five kernels' launches are
+   held to the decode steps and prefill slices, and graph replays go on
+   with no capture after the fence.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -127,6 +147,7 @@ and prints no result.
 """
 
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -2432,17 +2453,19 @@ class ErrorRecords(logging.Handler):
             + (f" ({record.exc_info[1]!r})" if record.exc_info else ""))
 
 
-def warm_wire_server(np, server_cls, request_cls, params, device, config):
+def warm_wire_server(np, server_cls, request_cls, params, device, config,
+                     quantize_kv=False, **kwargs):
     """Phase 8's PagedContinuousServer (8 slots, 4096-row tables of 16-row
-    blocks, prefix cache, 256-token slices, bf16 KV), warmed before any
+    blocks, prefix cache, 256-token slices, bf16 KV unless
+    ``quantize_kv``; ``kwargs`` for phase 9's tiers), warmed before any
     traffic: two short requests one after the other meet both chunk keys
     of the run (2 and 1 steps) twice, so both are captured; then the
     fence drops and any later capture counts."""
     server = server_cls(config_name="llama3_8b", slots=SLOTS,
                         max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
-                        params=params, quantize=True, quantize_kv=False,
+                        params=params, quantize=True, quantize_kv=quantize_kv,
                         block_size=BLOCK, enable_prefix_cache=True,
-                        chunk_prefill_tokens=CHUNK, device=device)
+                        chunk_prefill_tokens=CHUNK, device=device, **kwargs)
     rng = np.random.default_rng(23)
     for index in range(2):
         server.submit(request_cls(f"warm{index}", rng.integers(
@@ -2855,6 +2878,574 @@ def serve_wire(torch, np, llama, weights, kernels, server_cls, request_cls,
 
 
 # --------------------------------------------------------------------------- #
+# Phase 9: the KV tiers and the KV wire
+
+#: Phase 9 (a): the pool (usable blocks), the host tier and the restore
+#: rate.  The shared prefix's request reserves 130 blocks and caches 64;
+#: two distinct prompts fill the pool; a third long one then demotes the
+#: prefix's whole chain (least recently used, leaf first) to the host tier,
+#: and the prefix's re-submission restores it while two slots decode.
+TIER_POOL, TIER_HOST, TIER_RATE = 280, 256, 4
+#: Phase 9 (b): the spill server's pool and its small host tier: two long
+#: prompts after the prefix overflow its whole chain to disk, so a fresh
+#: server over the same directory adopts it.
+SPILL_POOL, SPILL_HOST = 140, 16
+#: Phase 9 (c), (d): how long an importer waits for the owner's export
+#: before it falls back to local prefill.  The reference's 2.0 s need not
+#: cover a 64-block llama3_8b payload (134 MB at bf16) through the codec's
+#: base64; a fall-back fails the phase either way.
+KV_FETCH_TIMEOUT_S = 60.0
+#: Phase 9 (c): the prefix request on a fresh replica B a turn, pulling the
+#: prefix from A ("warm") or prefilling it ("cold"), alternating.
+KV_TURNS = ("warm", "cold", "cold", "warm")
+#: Phase 9 (d): tokens streamed before ``migrate_prepare`` is sent.
+MIGRATE_AFTER = 8
+
+
+class LaunchWindow:
+    """The kernels' launch counts over a stretch of serving: every count
+    set to 0 on entry and read on exit, the width of every prefill slice
+    recorded around the append-prefill core; :meth:`hold` holds them to
+    the decode steps and slices of the stretch (phase 4's formula)."""
+
+    def __init__(self, llama, kernels):
+        self.llama, self.kernels = llama, kernels
+        self.widths, self.launches = [], None
+
+    def __enter__(self):
+        core = self._core = self.llama._prefill_append_core
+        widths = self.widths
+
+        def recorded_core(params, tokens, *args, **kwargs):
+            widths.append(int(tokens.shape[1]))
+            return core(params, tokens, *args, **kwargs)
+        for kernel in self.kernels:
+            kernel.launches = 0
+        self.llama._prefill_append_core = recorded_core
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._prefill_append_core = self._core
+        self.launches = {kernel.__name__: kernel.launches
+                         for kernel in self.kernels}
+        return False
+
+    def hold(self, where, weights, config, steps, slices):
+        if len(self.widths) != slices:
+            fail(f"{where}: {len(self.widths)} prefill slices recorded, the "
+                 f"servers counted {slices}")
+        layers = config.n_layers
+        want = {"append_kv": layers * slices,
+                "chunk_attention": layers * slices,
+                "paged_decode_attention": layers * steps,
+                "write_kv_rows": layers * steps}
+        for name in weights.rules:
+            want[name] = matmul_launches(weights, config, SLOTS, 1, name) \
+                * steps + sum(layer_launches(weights, config, w, name)
+                              for w in self.widths)
+        for name, expected in want.items():
+            if self.launches[name] != expected or expected == 0:
+                fail(f"{where} {name}: {self.launches[name]} launches, "
+                     f"expected {expected} (decode_steps {steps}, slices "
+                     f"{self.widths})")
+        for name, count in self.launches.items():
+            if name not in want and count:
+                fail(f"{where}: the path launched {name} {count} times")
+        return self.launches
+
+
+def phase9_oracle(torch, llama, server_cls, request_cls, params, config,
+                  quantize_kv, device):
+    """Phase 4's oracle of one request: bf16 KV the contiguous batch-1
+    prefill + decode, int8 KV a batch-1 paged run."""
+    if quantize_kv:
+        return lambda request: paged_oracle(
+            torch, llama, server_cls, request_cls, params, config,
+            request.prompt, device)
+    return lambda request: contiguous_oracle(
+        torch, llama, params, config, request.prompt, False, device,
+        rows=PAGED_MAX_SEQ)
+
+
+def kv_block_bytes(config, quantize_kv):
+    """Pool bytes of one 16-row block over every layer: K and V (bf16, or
+    int8 with f32 scale planes)."""
+    rows = BLOCK * config.n_kv_heads
+    per_layer = 2 * rows * config.head_dim * (1 if quantize_kv else 2)
+    if quantize_kv:
+        per_layer += 2 * rows * 4
+    return config.n_layers * per_layer
+
+
+def delta(after, before, key):
+    return after[key] - before[key]
+
+
+def owned_by_tier(np, server, entry, rows):
+    """A host-tier row lies in its arena row, or in memory of its own
+    (an ndarray at the root of its views, never a staging tensor)."""
+    if entry.get("slot") is not None:
+        return rows.base is not None and np.shares_memory(
+            rows, server._host_arena[entry["slot"]])
+    while isinstance(rows.base, np.ndarray):
+        rows = rows.base
+    return rows.base is None
+
+
+def host_memory(torch):
+    """Pinned bytes the caching host allocator has handed out and holds
+    (handed out or cached), where this PyTorch reports them, and the
+    process's resident bytes."""
+    stats = torch.cuda.host_memory_stats() \
+        if hasattr(torch.cuda, "host_memory_stats") else {}
+    with open("/proc/self/statm") as statm:
+        resident = int(statm.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return dict(pinned_active=stats.get("active_bytes.current"),
+                pinned_held=stats.get("allocated_bytes.current"),
+                resident=resident)
+
+
+def serve_tier(torch, np, llama, weights, kernels, server_cls, request_cls,
+               params, quantize_kv, device):
+    """Phase 9 (a): the host tier.  Phase 4's server shape with a pool of
+    TIER_POOL blocks and a host tier of TIER_HOST, warmed and fenced; the
+    shared prefix's request, two distinct prompts (1,800 and 700 tokens),
+    then one that decodes long (64 tokens) and a third long prompt whose
+    reservation demotes the prefix's chain; once that one has its first
+    token the prefix comes back with another tail and its chain restores
+    TIER_RATE blocks a step while both decode.  Every token is held to
+    the oracle, the launches to the steps and slices.  After the
+    demotion burst every host-tier row must lie in the tier's own
+    pageable memory (no view of a pinned staging buffer); the pinned and
+    resident bytes are reported beside the tier's."""
+    from aiko_services_tpu_torch.kvstore.directory import chain_keys
+
+    config = llama.CONFIGS["llama3_8b"]
+    server = warm_wire_server(
+        np, server_cls, request_cls, params, device, config,
+        quantize_kv=quantize_kv, total_blocks=TIER_POOL,
+        host_tier_blocks=TIER_HOST, restore_blocks_per_step=TIER_RATE)
+    before = server.stats()
+    waves = paged_traffic(np, config.vocab_size)
+    shared0, shared1, short, long0 = waves[0]
+    mid = waves[1][4]
+    long1 = np.random.default_rng(31).integers(
+        1, config.vocab_size, 1800).astype(np.int32)
+    prefix_keys = chain_keys(shared0, BLOCK)[:64]
+    requests = []
+
+    def submit(name, prompt, budget):
+        request = request_cls(name, prompt, budget)
+        requests.append(request)
+        server.submit(request)
+        return request
+
+    restore_steps = overlapped = 0
+    torch.cuda.synchronize()
+    memory_before = host_memory(torch)
+    with LaunchWindow(llama, kernels) as window:
+        began = time.monotonic()
+        submit("prefix", shared0, NEW_TOKENS)
+        server.run_until_drained()
+        submit("long0", long0, NEW_TOKENS)
+        submit("mid", mid, NEW_TOKENS)
+        server.run_until_drained()
+        active = submit("active", short, 2 * NEW_TOKENS)
+        heavy = submit("long1", long1, NEW_TOKENS)
+        while heavy.first_token_ts is None:
+            server.step()
+        demoted = sum(key in server._host for key in prefix_keys)
+        if demoted != len(prefix_keys):
+            fail(f"tier: {demoted} of the prefix's {len(prefix_keys)} "
+                 "blocks in the host tier before its re-submission")
+        if any(not owned_by_tier(np, server, entry, rows)
+               for entry in server._host.values()
+               for rows in entry["rows"].values()):
+            fail("tier: a host-tier row is not in the tier's own memory")
+        memory_burst = host_memory(torch)
+        burst_host_bytes = server.kv_host_bytes
+        again = submit("again", shared1, NEW_TOKENS)
+        while server.busy:
+            queued = len(server._restoring)
+            emitted = len(active.tokens) + len(heavy.tokens)
+            server.step()
+            if queued:
+                restore_steps += 1
+                overlapped += len(active.tokens) + len(heavy.tokens) \
+                    > emitted
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+    stats = server.stats()
+    for request in requests:
+        if request.error is not None \
+                or len(request.tokens) != request.max_new_tokens:
+            fail(f"tier: {request.request_id} error {request.error}, "
+                 f"{len(request.tokens)} tokens")
+    steps = delta(stats, before, "decode_steps")
+    launches = window.hold("tier", weights, config, steps,
+                           delta(stats, before, "prefill_dispatches"))
+    restores = delta(stats, before, "kv_restores")
+    if restores != len(prefix_keys) \
+            or delta(stats, before, "prefix_hits_host") != 1:
+        fail(f"tier: {restores} blocks restored, "
+             f"{delta(stats, before, 'prefix_hits_host')} host hits")
+    if restore_steps < len(prefix_keys) // TIER_RATE or not overlapped:
+        fail(f"tier: the restore took {restore_steps} steps, {overlapped} "
+             "of them with decode tokens")
+    if stats["graph_captures_steady_state"] \
+            or not delta(stats, before, "graph_replays"):
+        fail(f"tier: {stats['graph_captures_steady_state']} captures after "
+             f"the fence, {delta(stats, before, 'graph_replays')} replays")
+    balance = server.pool_balance()
+    if balance["free"] + balance["evictable"] + balance["producing"] \
+            != balance["total"] or balance["producing"]:
+        fail(f"tier: pool out of balance after the drain: {balance}")
+    exact, equal, checked, ties = check_requests(
+        torch, requests, phase9_oracle(torch, llama, server_cls, request_cls,
+                                       params, config, quantize_kv, device))
+    ttft = {r.request_id: (r.first_token_ts - r.submitted_ts) * 1e3
+            for r in requests}
+    return dict(
+        requests=len(requests), requests_exact=exact, tokens_checked=checked,
+        tokens_equal=equal, accepted_near_ties=ties, launches=launches,
+        decode_steps=steps, prefill_slices=len(window.widths),
+        demotions=delta(stats, before, "kv_demotions"),
+        restores=restores, restore_steps=restore_steps,
+        restore_steps_with_decode_tokens=overlapped,
+        host_blocks_after=stats["kv_host_blocks"],
+        host_bytes_after=stats["kv_host_bytes"],
+        burst_host_tier_bytes=burst_host_bytes,
+        burst_pinned_active_bytes=memory_burst["pinned_active"],
+        burst_pinned_held_bytes=memory_burst["pinned_held"],
+        pinned_held_bytes_before=memory_before["pinned_held"],
+        burst_resident_growth_bytes=(memory_burst["resident"]
+                                     - memory_before["resident"]),
+        prefix_hits_host=delta(stats, before, "prefix_hits_host"),
+        export_syncs=delta(stats, before, "kv_export_sync_count"),
+        transfer_host_ms=delta(stats, before, "kv_transfer_host_ms"),
+        prefix_ttft_ms=ttft["prefix"], restored_ttft_ms=ttft["again"],
+        run_graph_replays=delta(stats, before, "graph_replays"),
+        graph_captures_steady_state=stats["graph_captures_steady_state"],
+        wall_s=wall)
+
+
+def serve_spill(torch, np, llama, weights, kernels, server_cls, request_cls,
+                params, quantize_kv, device):
+    """Phase 9 (b): the disk tier and a warm restart.  A server of
+    SPILL_POOL blocks with a SPILL_HOST-block host tier over a temporary
+    spill directory serves the shared prefix, then two 1,800-token
+    prompts whose reservations demote its chain through the host tier to
+    disk; a fresh server over the directory adopts it and serves the
+    prefix with another tail from disk.  The directory is removed at the
+    end."""
+    import shutil
+    import tempfile
+
+    config = llama.CONFIGS["llama3_8b"]
+    root = tempfile.mkdtemp(prefix="aiko_spill_")
+
+    def make_server():
+        return server_cls(config_name="llama3_8b", slots=SLOTS,
+                          max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                          params=params, quantize=True,
+                          quantize_kv=quantize_kv, block_size=BLOCK,
+                          enable_prefix_cache=True,
+                          chunk_prefill_tokens=CHUNK,
+                          total_blocks=SPILL_POOL,
+                          host_tier_blocks=SPILL_HOST, spill_dir=root,
+                          device=device)
+
+    waves = paged_traffic(np, config.vocab_size)
+    shared0, shared1, _, long0 = waves[0]
+    long1 = np.random.default_rng(31).integers(
+        1, config.vocab_size, 1800).astype(np.int32)
+    try:
+        torch.cuda.synchronize()
+        with LaunchWindow(llama, kernels) as window:
+            first = make_server()
+            for name, prompt in (("prefix", shared0), ("long0", long0),
+                                 ("long1", long1)):
+                first.submit(request_cls(name, prompt, 4))
+                first.run_until_drained()
+            spilled = first.stats()
+            files = sum(name.endswith(".kvb") for name in os.listdir(root))
+            disk_bytes = sum(os.path.getsize(os.path.join(root, name))
+                             for name in os.listdir(root))
+            del first                   # the restart: the host tier is lost
+            t0 = time.monotonic()
+            second = make_server()
+            adopt_ms = (time.monotonic() - t0) * 1e3
+            adopted = second.stats()
+            again = request_cls("again", shared1, NEW_TOKENS)
+            second.submit(again)
+            second.run_until_drained()
+            torch.cuda.synchronize()
+        stats = second.stats()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if again.error is not None or len(again.tokens) != NEW_TOKENS:
+        fail(f"spill: error {again.error}, {len(again.tokens)} tokens")
+    launches = window.hold(
+        "spill", weights, config,
+        spilled["decode_steps"] + stats["decode_steps"],
+        spilled["prefill_dispatches"] + stats["prefill_dispatches"])
+    if spilled["kv_spills"] < 64 or adopted["kv_adopted_chains"] < 1 \
+            or adopted["kv_disk_blocks"] < 64:
+        fail(f"spill: {spilled['kv_spills']} blocks spilled, "
+             f"{adopted['kv_adopted_chains']} chains and "
+             f"{adopted['kv_disk_blocks']} blocks adopted")
+    if stats["kv_disk_restores"] != 64 or stats["prefix_hits_host"] != 1 \
+            or stats["kv_checksum_failures"]:
+        fail(f"spill: {stats['kv_disk_restores']} disk restores, "
+             f"{stats['prefix_hits_host']} hits, "
+             f"{stats['kv_checksum_failures']} checksum failures")
+    exact, equal, checked, ties = check_requests(
+        torch, [again], phase9_oracle(torch, llama, server_cls, request_cls,
+                                      params, config, quantize_kv, device))
+    return dict(
+        requests_exact=exact, tokens_checked=checked, tokens_equal=equal,
+        accepted_near_ties=ties, launches=launches,
+        demotions=spilled["kv_demotions"], spills=spilled["kv_spills"],
+        spill_files=files, spill_dir_bytes=disk_bytes,
+        adopted_chains=adopted["kv_adopted_chains"],
+        adopted_blocks=adopted["kv_disk_blocks"], adopt_ms=adopt_ms,
+        disk_restores=stats["kv_disk_restores"],
+        restored_ttft_ms=(again.first_token_ts - again.submitted_ts) * 1e3,
+        run_graph_replays=stats["graph_replays"])
+
+
+def serve_kv_wire(torch, np, llama, weights, kernels, server_cls,
+                  request_cls, params, quantize_kv, device):
+    """Phase 9 (c) and (d): paged replicas on one loopback broker, their
+    engine in its own thread, each server warmed and fenced before the
+    engine starts.  A serves the shared prefix.  (c) A fresh replica B a
+    turn (KV_TURNS) serves the prefix with another tail, with
+    ``kv_source`` = A (warm: B pulls A's 64 prefix blocks over the wire)
+    or without (cold).  (d) A streams the prefix with a third tail; after
+    MIGRATE_AFTER tokens ``migrate_prepare`` asks A for it, and a fresh
+    replica takes prompt + the committed tokens with ``kv_source`` = A
+    and ``kv_migrate`` and continues.  Every import must land (no
+    timeout fall-back), every token is held to the oracle (the first warm
+    turn's and the migration's; every other turn's equal to the first
+    warm turn's), the launches to the steps and slices."""
+    import threading
+
+    from aiko_services_tpu_torch.kvstore.directory import shareable_blocks
+    from aiko_services_tpu_torch.orchestration.client import InferClient
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.pipeline.codec import (decode_swag,
+                                                        encode_swag)
+    from aiko_services_tpu_torch.runtime import (EventEngine, Process,
+                                                 actor_args,
+                                                 compose_instance)
+    from aiko_services_tpu_torch.transport import reset_brokers
+    from aiko_services_tpu_torch.utils.sexpr import generate, parse
+
+    config = llama.CONFIGS["llama3_8b"]
+    waves = paged_traffic(np, config.vocab_size)
+    shared0, shared1 = waves[0][:2]
+    moving = waves[1][0]
+    names = ["a"] + [f"b{i}" for i in range(len(KV_TURNS))] + ["m"]
+    servers = {name: warm_wire_server(np, server_cls, request_cls, params,
+                                      device, config,
+                                      quantize_kv=quantize_kv)
+               for name in names}
+    before = {name: server.stats() for name, server in servers.items()}
+    block_bytes = kv_block_bytes(config, quantize_kv)
+
+    errors = ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    reset_brokers()
+    engine = EventEngine()
+    probe = Process(namespace="smoke", hostname="card", pid="0",
+                    engine=engine, broker="kv")
+    replicas, clients = {}, {}
+    for index, name in enumerate(names):
+        process = Process(namespace="smoke", hostname="card",
+                          pid=str(index + 1), engine=engine, broker="kv")
+        replicas[name] = compose_instance(
+            ContinuousReplica, actor_args(f"llama3_8b_{name}"),
+            process=process, server=servers[name],
+            kv_fetch_timeout_s=KV_FETCH_TIMEOUT_S)
+        clients[name] = InferClient(probe, replicas[name].topic_in)
+    source = replicas["a"].topic_path
+    answers, answered = [], threading.Event()
+
+    def on_ready(_topic, payload):
+        command, params_ = parse(payload)
+        if command == "migrate_ready":
+            answers.append(decode_swag(params_[1]))
+            answered.set()
+    probe.add_message_handler(on_ready, "smoke/migrate")
+
+    def send(name, prompt, budget, **kwargs):
+        stamps = {"sent": time.monotonic()}
+
+        def on_partial(_increment):
+            stamps.setdefault("first", time.monotonic())
+        future = clients[name].submit(prompt, max_new_tokens=budget,
+                                      stream=True, on_partial=on_partial,
+                                      **kwargs)
+        return future, stamps
+
+    def wait(name, future):
+        clients[name].wait(future, timeout=WIRE_TIMEOUT_S)
+        if future.error is not None:
+            fail(f"kv wire: {name}'s {future.request_id} answered "
+                 f"{future.error!r} ({errors.records})")
+        return future
+
+    def idle():
+        deadline = time.monotonic() + WIRE_TIMEOUT_S
+        while any(r._pumping or r.server.busy or r._kv_pending
+                  for r in replicas.values()):
+            if time.monotonic() > deadline:
+                fail("kv wire: the replicas did not go idle")
+            time.sleep(0.001)
+
+    turns, thread = [], None
+    torch.cuda.synchronize()
+    try:
+        with LaunchWindow(llama, kernels) as window:
+            thread = engine.run_in_thread()
+            owner, _ = send("a", shared0, NEW_TOKENS)
+            wait("a", owner)
+            idle()
+            for index, kind in enumerate(KV_TURNS):
+                name = f"b{index}"
+                a0, b0 = servers["a"].stats(), servers[name].stats()
+                extra = dict(kv_source=source) if kind == "warm" else {}
+                future, stamps = send(name, shared1, NEW_TOKENS, **extra)
+                wait(name, future)
+                idle()
+                a1, b1 = servers["a"].stats(), servers[name].stats()
+                turn = dict(kind=kind, tokens=future.tokens,
+                            ttft_ms=(stamps["first"] - stamps["sent"]) * 1e3,
+                            total_ms=(time.monotonic() - stamps["sent"])
+                            * 1e3)
+                if kind == "warm":
+                    fetch_ms = float(np.asarray(
+                        future.outputs["kv_restore_ms"]))
+                    export_ms = delta(a1, a0, "kv_transfer_ms")
+                    import_ms = delta(b1, b0, "kv_transfer_ms")
+                    nbytes = delta(b1, b0, "kv_transfer_bytes")
+                    turn.update(
+                        payload_bytes=nbytes, blocks=nbytes / block_bytes,
+                        fetch_ms=fetch_ms, export_ms=export_ms,
+                        import_ms=import_ms,
+                        wire_ms=fetch_ms - export_ms - import_ms,
+                        landing_host_ms=delta(b1, b0,
+                                              "kv_transfer_host_ms"),
+                        mb_per_s=nbytes / 1e6 / (fetch_ms / 1e3),
+                        imports_async=delta(b1, b0, "kv_imports_async"),
+                        remote_hits=delta(b1, b0, "prefix_remote_hits"),
+                        failures=delta(b1, b0, "kv_transfer_failures"))
+                    if (turn["imports_async"], turn["remote_hits"],
+                            turn["failures"], nbytes) \
+                            != (1, 1, 0, 64 * block_bytes):
+                        fail(f"kv wire turn {index}: the import did not land"
+                             f" ({turn})")
+                elif delta(b1, b0, "kv_imports_async") \
+                        or delta(b1, b0, "kv_transfer_failures"):
+                    fail(f"kv wire turn {index} (cold) imported or failed")
+                turns.append(turn)
+            # (d) live migration: A streams, the router's prepare, B resumes.
+            a0, m0 = servers["a"].stats(), servers["m"].stats()
+            source_future, _ = send("a", moving, NEW_TOKENS)
+            deadline = time.monotonic() + WIRE_TIMEOUT_S
+            while len(source_future.partial_tokens) < MIGRATE_AFTER:
+                if time.monotonic() > deadline or source_future.done:
+                    fail("migrate: the source did not stream "
+                         f"{MIGRATE_AFTER} tokens")
+                time.sleep(0.0005)
+            probe.message.publish(replicas["a"].topic_in, generate(
+                "migrate_prepare", ["mig", "smoke/migrate", encode_swag(
+                    {"request_id": source_future.request_id})]))
+            if not answered.wait(WIRE_TIMEOUT_S):
+                fail("migrate: no (migrate_ready ...)")
+            ready = answers[0]
+            if "error" in ready:
+                fail(f"migrate: migrate_ready answered {ready}")
+            committed = int(np.asarray(ready["tokens"]))
+            blocks = int(np.asarray(ready["blocks"]))
+            while len(source_future.partial_tokens) < committed:
+                if time.monotonic() > deadline:
+                    fail("migrate: the committed tokens never streamed")
+                time.sleep(0.0005)
+            kept = list(source_future.partial_tokens[:committed])
+            resumed, _ = send("m", np.concatenate(
+                [moving, np.asarray(kept, np.int32)]),
+                NEW_TOKENS - committed, kv_source=source, kv_migrate=True)
+            wait("m", resumed)
+            wait("a", source_future)
+            idle()
+            engine.terminate()
+            thread.join(WIRE_TIMEOUT_S)
+            torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeHandler(errors)
+        if thread is not None and thread.is_alive():
+            engine.terminate()
+    if thread.is_alive():
+        fail("kv wire: the engine thread did not stop")
+    reset_brokers()
+    if errors.records:
+        fail(f"kv wire: logged failures: {errors.records}")
+    after = {name: server.stats() for name, server in servers.items()}
+    steps = sum(delta(after[n], before[n], "decode_steps") for n in names)
+    slices = sum(delta(after[n], before[n], "prefill_dispatches")
+                 for n in names)
+    launches = window.hold("kv wire", weights, config, steps, slices)
+    for name in names:
+        if after[name]["graph_captures_steady_state"] \
+                or delta(after[name], before[name], "kv_transfer_failures"):
+            fail(f"kv wire: {name} captured after its fence or fell back")
+    m1 = after["m"]
+    migration = dict(
+        committed_tokens=committed, blocks=blocks,
+        imported_blocks=delta(m1, m0, "kv_transfer_bytes") / block_bytes,
+        imports_async=delta(m1, m0, "kv_imports_async"),
+        remote_hits=delta(m1, m0, "prefix_remote_hits"),
+        fetch_ms=float(np.asarray(resumed.outputs["kv_restore_ms"])),
+        export_ms=delta(after["a"], a0, "kv_transfer_ms"))
+    if blocks != shareable_blocks(len(moving) + committed, BLOCK) \
+            or (migration["imported_blocks"], migration["imports_async"],
+                migration["remote_hits"]) != (blocks, 1, 1):
+        fail(f"migrate: {migration}")
+    oracle = phase9_oracle(torch, llama, server_cls, request_cls, params,
+                           config, quantize_kv, device)
+    checked_requests = []
+    for name, prompt, tokens in (
+            ("owner", shared0, owner.tokens),
+            ("warm", shared1, turns[0]["tokens"]),
+            ("migrate_source", moving, source_future.tokens),
+            ("migrate_resumed", moving, kept + resumed.tokens)):
+        request = request_cls(name, prompt, NEW_TOKENS)
+        request.tokens = list(tokens)
+        if len(request.tokens) != NEW_TOKENS:
+            fail(f"kv wire: {name} has {len(request.tokens)} tokens")
+        checked_requests.append(request)
+    exact, equal, checked, ties = check_requests(torch, checked_requests,
+                                                 oracle)
+    for index, turn in enumerate(turns):
+        if turn.pop("tokens") != checked_requests[1].tokens:
+            fail(f"kv wire turn {index} ({turn['kind']}): tokens differ "
+                 "from the first warm turn's")
+    warm = [t for t in turns if t["kind"] == "warm"]
+    cold = [t for t in turns if t["kind"] == "cold"]
+    return dict(
+        requests_exact=exact, tokens_checked=checked, tokens_equal=equal,
+        accepted_near_ties=ties, launches=launches, decode_steps=steps,
+        prefill_slices=slices, kv_fetch_timeout_s=KV_FETCH_TIMEOUT_S,
+        turns=turns, migration=migration,
+        warm_ttft_ms=[t["ttft_ms"] for t in warm],
+        cold_ttft_ms=[t["ttft_ms"] for t in cold],
+        run_graph_replays=sum(delta(after[n], before[n], "graph_replays")
+                              for n in names))
+
+
+# --------------------------------------------------------------------------- #
 # Phase 7: the ring collective matmuls
 
 #: Ranks of the ring on the one card, and llama3_8b's TP-4 MLP shapes:
@@ -3213,6 +3804,53 @@ def main() -> None:
         f"{spread[f'direct_{key}_min']:.1f}-"
         f"{spread[f'direct_{key}_max']:.1f}" for key in WIRE_TURN_KEYS)
         + f"; phase 8 took {time.monotonic() - t0:.1f} s; {smi}")
+
+    # ---- phase 9: the KV tiers and the KV wire (phase 4's weights) ----
+    t0 = time.monotonic()
+    kv_runs = []
+    for quantize_kv in (False, True):
+        kv = "int8" if quantize_kv else "bf16"
+        run = {}
+        for part, fn in (("tier", serve_tier), ("spill", serve_spill),
+                         ("wire", serve_kv_wire)):
+            run[part] = fn(torch, np, llama, w8, paged_kernels,
+                           PagedContinuousServer, DecodeRequest, params,
+                           quantize_kv, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"--- KV tiers and the KV wire (phase 9), llama3_8b int8, {kv} "
+            "KV: " + json.dumps(run))
+        tier, spill, wire9 = run["tier"], run["spill"], run["wire"]
+        log(f"phase 9 (a) host tier, {kv} KV: {tier['demotions']} blocks "
+            f"demoted, {tier['restores']} restored over "
+            f"{tier['restore_steps']} steps "
+            f"({tier['restore_steps_with_decode_tokens']} with decode "
+            f"tokens); TTFT of the prefix cold {tier['prefix_ttft_ms']:.1f} "
+            f"ms, restored {tier['restored_ttft_ms']:.1f} ms; {smi}")
+        log(f"phase 9 (b) spill, {kv} KV: {spill['spills']} blocks spilled "
+            f"({spill['spill_dir_bytes']} bytes in {spill['spill_files']} "
+            f"files), {spill['adopted_blocks']} adopted in "
+            f"{spill['adopt_ms']:.1f} ms, {spill['disk_restores']} restored "
+            f"from disk; TTFT {spill['restored_ttft_ms']:.1f} ms; {smi}")
+        for index, turn in enumerate(wire9["turns"]):
+            log(f"phase 9 (c) turn {index} ({turn['kind']}), {kv} KV: TTFT "
+                f"{turn['ttft_ms']:.1f} ms, send-to-answer "
+                f"{turn['total_ms']:.1f} ms"
+                + (f"; {turn['payload_bytes']} payload bytes "
+                   f"({turn['blocks']:.0f} blocks): export "
+                   f"{turn['export_ms']:.1f} ms, wire {turn['wire_ms']:.1f}"
+                   f" ms, import {turn['import_ms']:.1f} ms, fetch "
+                   f"{turn['fetch_ms']:.1f} ms ({turn['mb_per_s']:.1f} "
+                   f"MB/s), landing {turn['landing_host_ms']:.1f} ms of "
+                   "host" if turn["kind"] == "warm" else "")
+                + f"; {smi}")
+        mig = wire9["migration"]
+        log(f"phase 9 (d) migrate, {kv} KV: migrate_ready after "
+            f"{mig['committed_tokens']} tokens with {mig['blocks']} blocks, "
+            f"{mig['imported_blocks']:.0f} imported, fetch "
+            f"{mig['fetch_ms']:.1f} ms; {smi}")
+        kv_runs.append(run)
+    log(f"phase 9 took {time.monotonic() - t0:.1f} s; {smi}")
 
     # ---- phase 6: int4 weights through every server ----
     del params, draft_1b

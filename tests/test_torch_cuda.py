@@ -1802,3 +1802,230 @@ def test_ring_across_distinct_cards(cuda, kind):
                           torch.bfloat16, 5)
     _close(ring_fn(x, w, mesh), plain_fn(x.float(), w.float(), mesh),
            torch.bfloat16)
+
+
+# --------------------------------------------------------------------------- #
+# The KV tiers and the KV wire on the card
+
+
+def _kv_tier_server(device, quantize_kv, params=None, **kwargs):
+    """A tiny prefix-cached paged server on int8 weights (3 slots, 2-step
+    chunks, a fixed ring depth), a host tier of 32 blocks."""
+    config = llama.CONFIGS["tiny"]
+    if params is None:
+        params = llama.random_quantized_params(config, seed=4, device=device)
+    return PagedContinuousServer(
+        config_name="tiny", slots=3, max_seq=128, chunk_steps=2,
+        params=params, quantize=True, quantize_kv=quantize_kv,
+        block_size=16, chunk_prefill_tokens=16, enable_prefix_cache=True,
+        ring_max=2, host_tier_blocks=32, device=device,
+        **kwargs)
+
+
+def _random_pool_bytes(server, seed):
+    """Random bytes of every pool field (valid bf16 values, int8 codes,
+    positive f32 scales), made on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for layer in server.pool:
+        fields = {}
+        for name, buf in layer.items():
+            if buf.dtype == torch.int8:
+                value = torch.randint(-127, 128, buf.shape, generator=gen,
+                                      dtype=torch.int8)
+            elif name in ("ks", "vs"):
+                value = torch.rand(buf.shape, generator=gen) + 1e-3
+            else:
+                value = torch.randn(buf.shape, generator=gen).to(buf.dtype)
+            fields[name] = value
+        out.append(fields)
+    return out
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_kv_export_on_the_card_equals_the_cpu_export(cuda, quantize_kv):
+    """The same pool bytes and chain on the card and on the CPU: the fused
+    export (one gather a field on the card, one copy into pinned memory,
+    one sync) gives the CPU export's payload byte for byte, and the card's
+    import lands the rows the CPU import lands."""
+    from aiko_services_tpu_torch.kvstore import directory, transfer
+
+    card = _kv_tier_server(cuda, quantize_kv)
+    host = _kv_tier_server("cpu", quantize_kv, params=_cpu_tree(card.params))
+    pool = _random_pool_bytes(card, 11)
+    for server in (card, host):
+        for layer, fields in zip(server.pool, pool):
+            for name, value in fields.items():
+                layer[name].copy_(value)
+    tokens = np.arange(1, 98, dtype=np.int32)        # 6 shareable blocks
+    assert transfer.seed_chain(card, tokens) == \
+        transfer.seed_chain(host, tokens) == 6
+    keys = directory.chain_keys_hex(tokens, 16)
+    syncs = card.kv_export_sync_count
+    got = transfer.export_payload(card, keys, 0)
+    want = transfer.export_payload(host, keys, 0)
+    assert card.kv_export_sync_count == syncs + 1
+    assert list(got) == list(want)
+    for key, value in want.items():
+        if isinstance(value, np.ndarray):
+            assert got[key].dtype == value.dtype
+            assert got[key].tobytes() == value.tobytes(), key
+        else:
+            assert got[key] == value
+    fresh = [_kv_tier_server(device, quantize_kv, params=server.params)
+             for device, server in ((cuda, card), ("cpu", host))]
+    for server in fresh:
+        assert server.kv_import_payload(dict(want)) == 6
+    blocks = [fresh[0]._index[bytes.fromhex(k)] for k in want["kv_keys"]]
+    rows = [transfer.gather_block_rows(server, blocks) for server in fresh]
+    for field, value in rows[1].items():
+        assert rows[0][field].tobytes() == value.tobytes(), field
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {key: _cpu_tree(value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_tree(value) for value in tree)
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_demote_restore_round_trip_leaves_every_pool_byte(cuda, quantize_kv):
+    """Every cached block demoted to the host tier and restored through
+    the landing queue: each chain key's rows come back byte for byte, and
+    no other pool block changes."""
+    from aiko_services_tpu_torch.kvstore import transfer
+
+    server = _kv_tier_server(cuda, quantize_kv, restore_blocks_per_step=3)
+    for layer, fields in zip(server.pool, _random_pool_bytes(server, 12)):
+        for name, value in fields.items():
+            layer[name].copy_(value)
+    tokens = np.arange(1, 114, dtype=np.int32)       # 7 shareable blocks
+    assert transfer.seed_chain(server, tokens) == 7
+    keys = list(server._index)
+    before = {key: transfer.gather_block_rows(server, [server._index[key]])
+              for key in keys}
+    snapshot = [{name: buf.clone() for name, buf in layer.items()}
+                for layer in server.pool]
+    while server._evict_one():
+        pass
+    assert server.kv_demotions == 7 and not server._index
+    shared = []
+    assert server._begin_restore(keys, shared)
+    while server._restoring:
+        server._advance_restores()
+    torch.cuda.synchronize()
+    assert server.kv_restores == 7
+    touched = set()
+    for key in keys:
+        block = server._index[key]
+        touched.add(block)
+        after = transfer.gather_block_rows(server, [block])
+        for field, value in before[key].items():
+            assert after[field].tobytes() == value.tobytes(), field
+    untouched = torch.tensor(sorted(set(range(server.total_blocks + 1))
+                                    - touched), device=cuda)
+    for layer, saved in zip(server.pool, snapshot):
+        for name, buf in layer.items():
+            assert torch.equal(buf[untouched], saved[name][untouched]), name
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_upload_frees_its_pinned_buffer_before_the_copy_lands(
+        cuda, quantize_kv):
+    """The fused upload frees its pinned staging as soon as the copy is
+    queued.  Behind a long wait on the stream, pinned buffers of the same
+    size are allocated and overwritten before the copy runs: the caching
+    host allocator must hand out other blocks until the copy's event has
+    passed, so the pool gets the rows and not the overwrite."""
+    from aiko_services_tpu_torch.kvstore import transfer
+
+    server = _kv_tier_server(cuda, quantize_kv)
+    for layer, fields in zip(server.pool, _random_pool_bytes(server, 13)):
+        for name, value in fields.items():
+            layer[name].copy_(value)
+    blocks = [1, 2, 3, 4, 5, 6]
+    want = {field: rows.copy() for field, rows
+            in transfer.gather_block_rows(server, blocks).items()}
+    ids = torch.tensor(blocks, device=cuda)
+    for layer in server.pool:
+        for buf in layer.values():
+            buf[ids] = 0
+    total = sum(rows.nbytes for rows in want.values())
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)        # ~1 s of device time
+    transfer.scatter_block_rows(server, blocks, want)
+    junk = []
+    for _ in range(8):
+        buffer = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        buffer.fill_(0x7F)
+        junk.append(buffer)
+    assert not torch.cuda.current_stream().query()   # copy still queued
+    torch.cuda.synchronize()
+    got = transfer.gather_block_rows(server, blocks)
+    for field, value in want.items():
+        assert got[field].tobytes() == value.tobytes(), field
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_graphed_decode_on_restored_and_imported_blocks_equals_eager(
+        cuda, quantize_kv):
+    """A restore and an async import write the pool in place (the chunk
+    graphs hold its tensors): after the warm-up fence, a prefix restored
+    from the host tier and one imported from a peer decode through graph
+    replays to the eager server's tokens, bitwise, with the same pool
+    bytes and no capture after the fence; the restored chain decodes as
+    it did before it was demoted."""
+    from aiko_services_tpu_torch import runtime
+
+    owner = _kv_tier_server(cuda, quantize_kv)
+    rng = np.random.default_rng(21)
+    vocab = owner.config.vocab_size
+    restored_prompt = rng.integers(1, vocab, 70).astype(np.int32)
+    imported_prompt = rng.integers(1, vocab, 90).astype(np.int32)
+    other_prompt = rng.integers(1, vocab, 20).astype(np.int32)
+    owner.submit(DecodeRequest("own", imported_prompt, 3))
+    owner.run_until_drained()
+    payload = owner.kv_export_payload(
+        owner.prefix_keys_hex(imported_prompt), 0)
+    eager = _kv_tier_server(cuda, quantize_kv, params=owner.params,
+                            restore_blocks_per_step=2, total_blocks=24)
+    eager._graphs_on = False
+    graphed = _kv_tier_server(cuda, quantize_kv, params=owner.params,
+                              restore_blocks_per_step=2, total_blocks=24)
+    runs = []
+    for server in (eager, graphed):
+        engine = runtime.EventEngine(clock=runtime.VirtualClock())
+        for _ in range(2):
+            _graph_traffic(server, 5)
+        server.graph_ledger.fence()
+        fenced = server.stats()["graph_replays"]
+        first = DecodeRequest("first", restored_prompt, 9)
+        server.submit(first)
+        server.run_until_drained()
+        while server._evict_one():
+            pass
+        assert server.kv_import_payload(dict(payload), engine=engine,
+                                        async_import=True) == 5
+        again = DecodeRequest("again", restored_prompt, 9)
+        imported = DecodeRequest("imported", imported_prompt, 8)
+        other = DecodeRequest("other", other_prompt, 12)
+        for request in (other, again, imported):
+            server.submit(request)
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        assert again.tokens == first.tokens
+        runs.append(([r.tokens for r in (first, again, imported, other)],
+                     dict(server.stats(), replays_after_fence=server.stats()[
+                         "graph_replays"] - fenced)))
+    (want, want_stats), (got, stats) = runs
+    assert got == want
+    assert stats["kv_restores"] == want_stats["kv_restores"] > 0
+    assert stats["kv_imports_async"] == 1 and stats["prefix_remote_hits"] == 1
+    assert stats["prefix_hits_host"] == 1
+    assert stats["replays_after_fence"] > 0
+    assert stats["graph_captures_steady_state"] == 0
+    for want_layer, got_layer in zip(eager.pool, graphed.pool):
+        for key in want_layer:
+            assert torch.equal(got_layer[key], want_layer[key]), key

@@ -350,7 +350,9 @@ def _port_sources():
                       REPO / "scripts" / "torch_kernel_mutants.py",
                       REPO / "scripts" / "attention_variant_lab.py",
                       REPO / "scripts" / "smoke_phase2.py",
-                      REPO / "scripts" / "smoke_wire.py"]
+                      REPO / "scripts" / "smoke_wire.py",
+                      REPO / "scripts" / "smoke_kv.py",
+                      REPO / "scripts" / "codec_scan.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -361,6 +363,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     offenders = []
     sources = _port_sources()
     assert len(sources) > 10
+    for name in ("spill.py", "transfer.py", "directory.py"):
+        assert REPO / "aiko_services_tpu_torch" / "kvstore" / name in sources
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -609,7 +609,6 @@ def test_warm_prefill_ladder_matches_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(host_tier_blocks=4), dict(spill_dir="spill"),
     dict(adapters={"a": {}}),
     dict(replica_mesh=object()), dict(automata={"g": object()}),
     dict(compilation_cache_dir="cache")])
@@ -618,11 +617,3 @@ def test_paged_features_outside_the_slice_raise(option):
         PagedContinuousServer(config_name=CONFIG, slots=1, max_seq=32,
                               device="cpu", **option)
 
-
-def test_kv_wire_methods_raise():
-    server = PagedContinuousServer(config_name=CONFIG, slots=1, max_seq=32,
-                                   device="cpu")
-    for method in (server.prefix_digest, server.kv_export_payload,
-                   server.kv_import_payload):
-        with pytest.raises(NotImplementedError):
-            method()

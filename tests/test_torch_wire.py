@@ -33,6 +33,7 @@ from aiko_services_tpu import transport as jax_transport
 from aiko_services_tpu.models import llama as jax_llama
 from aiko_services_tpu.orchestration import client as jax_client
 from aiko_services_tpu.orchestration import continuous as jax_continuous
+from aiko_services_tpu.orchestration import paged as jax_paged
 from aiko_services_tpu.pipeline import codec as jax_codec
 from aiko_services_tpu.utils import sexpr as jax_sexpr
 from aiko_services_tpu_torch import runtime, transport
@@ -431,41 +432,60 @@ def test_swag_strings_equal_under_hypothesis(swag):
             assert decoded[key] == value
 
 
+_symbols = st.text(alphabet=st.one_of(
+    st.sampled_from(list(" \t\r\n()\x0b\x0c\x1c\x1f\x85\u2028\xa0"
+                         "ab:'\"019N=+/")), st.characters()), max_size=40)
+
+
+@settings(max_examples=400, deadline=None)
+@given(symbol=_symbols)
+def test_symbol_scans_equal_the_regular_expressions(symbol):
+    """The codec's scans for long symbols (a base64 KV payload) answer as
+    the regular expression and the character loop they stand for."""
+    assert sexpr._needs_canonical(symbol) == bool(
+        sexpr._NEEDS_CANONICAL.search(symbol))
+    for start in range(len(symbol) + 1):
+        want = next((i for i in range(start, len(symbol))
+                     if symbol[i] in " \t\r\n()"), len(symbol))
+        assert sexpr._bare_end(symbol, start, len(symbol)) == want
+
+
 # --------------------------------------------------------------------------- #
 # The commands the port answers for what it does not serve yet
 
 
-def _prefix_cached_paged_server(params):
-    return PagedContinuousServer(config_name=CONFIG, slots=2, max_seq=96,
-                                 chunk_steps=2, params=params, device="cpu",
-                                 enable_prefix_cache=True,
-                                 chunk_prefill_tokens=16)
+def _prefix_cached_paged_servers():
+    """A JAX and a port prefix-cached paged server on the same weights."""
+    kwargs = dict(slots=2, max_seq=96, chunk_steps=2,
+                  enable_prefix_cache=True, chunk_prefill_tokens=16,
+                  ring_max=2)
+    jax_server = jax_paged.PagedContinuousServer(config_name=CONFIG, seed=6,
+                                                 **kwargs)
+    params = params_from_numpy(jax.tree.map(np.asarray, jax_server.params),
+                               "cpu")
+    return {"jax": jax_server,
+            "torch": PagedContinuousServer(config_name=CONFIG, params=params,
+                                           device="cpu", **kwargs)}
 
 
-def test_prefix_cached_paged_replica_never_touches_the_kv_wire(
-        monkeypatch):
-    """A prefix-cached paged server behind the port's replica serves
-    requests with a shared prefix (a prefix hit) to the batch-1 oracle's
-    tokens, and answers (kv_export …) with kv_unsupported and
-    (migrate_prepare …) with migrate_unknown_request /
-    migrate_unsupported, as the JAX replica answers for a server without
-    KV transfer, without calling the paged server's three raising KV
-    methods."""
-    jax_server = _servers(slots=2, max_seq=96, chunk_steps=2,
-                          seed=6)["jax"]
-    server = _prefix_cached_paged_server(params_from_numpy(
-        jax.tree.map(np.asarray, jax_server.params), "cpu"))
-    touched = []
-    for name in ("prefix_digest", "kv_export_payload", "kv_import_payload"):
-        monkeypatch.setattr(server, name, lambda *a, _n=name, **k:
-                            touched.append(_n))
+def test_prefix_cached_paged_replica_never_touches_the_kv_wire():
+    """A prefix-cached paged server behind each package's replica: a
+    request whose ``kv_source`` names no live owner falls back to local
+    prefill after ``kv_fetch_timeout_s`` (counted as a transfer failure),
+    a request sharing its prefix hits the cache, and the replica answers
+    ``(kv_export …)`` for an unknown chain with ``kv_prefix_gone`` and
+    ``(migrate_prepare …)`` with ``migrate_ready`` carrying the live
+    request's exportable blocks and committed tokens, or
+    ``migrate_unknown_request``.  The port's answers, tokens and digest
+    equal the JAX replica's; the tokens equal the batch-1 oracle's."""
+    servers = _prefix_cached_paged_servers()
     rng = np.random.default_rng(3)
     prefix = rng.integers(1, 1024, 48).astype(np.int32)
     prompts = [np.concatenate([prefix, rng.integers(1, 1024, n)
                                .astype(np.int32)]) for n in (5, 9)]
     answers = {}
-    for side, target in (("torch", server), ("jax", jax_server)):
-        wire = Wire(side, target, "kv")
+    for side, server in servers.items():
+        wire = Wire(side, server, "kv")
         wire.infer("a", prompts[0], max_new_tokens=6, kv_source="peer/x")
         wire.run(lambda w: w.responses())
         # "b" streams: once its first partial is out it is live, and the
@@ -481,20 +501,27 @@ def test_prefix_cached_paged_replica_never_touches_the_kv_wire(
         wire.publish(gen("migrate_prepare", ["m2", "test/responses",
                                              swag({"request_id": "zz"})]))
         wire.run(lambda w: len(w.responses()) == 2)
+        ready = wire.responses("migrate_ready")
         answers[side] = dict(
             kv=wire.responses("kv_export_response")["k1"],
-            live=wire.responses("migrate_ready")["m1"]["error"],
-            gone=wire.responses("migrate_ready")["m2"]["error"])
-        if side == "torch":
-            for rid, prompt in zip("ab", prompts):
-                assert _tokens(wire.responses()[rid]) == reference_greedy(
-                    server, prompt, 6)
-            assert "kv_prefixes" not in wire.replica.share
-    assert server.prefix_hits >= 1
-    assert touched == []
-    assert answers["torch"] == answers["jax"] == dict(
-        kv={"error": "kv_unsupported"}, live="migrate_unsupported",
-        gone="migrate_unknown_request")
+            live={key: int(np.asarray(value)) if key != "request_id"
+                  else value for key, value in ready["m1"].items()},
+            gone=ready["m2"],
+            tokens={rid: _tokens(out)
+                    for rid, out in wire.responses().items()},
+            digest=wire.replica.share["kv_prefixes"],
+            failures=server.kv_transfer_failures, hits=server.prefix_hits)
+    port = answers["torch"]
+    for rid, prompt in zip("ab", prompts):
+        assert port["tokens"][rid] == reference_greedy(servers["torch"],
+                                                       prompt, 6)
+    assert port == answers["jax"]
+    assert port["kv"] == {"error": "kv_prefix_gone"}
+    assert port["gone"] == {"request_id": "zz",
+                            "error": "migrate_unknown_request"}
+    assert port["live"]["request_id"] == "b" and port["live"]["blocks"] >= 3
+    # The timed-out fetch and the export of an unknown chain.
+    assert port["failures"] == 2 and port["hits"] >= 1
 
 
 @pytest.mark.parametrize("command", ["adapter_load", "adapter_unload"])
