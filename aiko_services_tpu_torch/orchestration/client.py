@@ -4,8 +4,8 @@ The port's copy of ``aiko_services_tpu/orchestration/client.py`` (it has
 no JAX in it); its imports point at the port's own modules.
 
 Every replica kind (:class:`~.serving.ModelReplica`,
-:class:`~.continuous.ContinuousReplica`, and in the JAX package a
-``ReplicaRouter`` front) speaks the same idiom:
+:class:`~.continuous.ContinuousReplica`, and a
+:class:`~.serving.ReplicaRouter` front) speaks the same idiom:
 ``(infer request_id response_topic swag)`` in, ``(infer_response …)``
 out, with optional ``(infer_partial …)`` streaming increments and
 ``(infer_cancel id)``.  :class:`InferClient` packages that idiom so an

@@ -150,6 +150,10 @@ class DecodeRequest:
     #: Encoded spans fetched alongside a remote KV restore (the
     #: source's ``kv_export`` span), merged into the response tree.
     remote_spans: Optional[str] = None
+    #: A live migration's resume: the source's pool rows past the chain's
+    #: last full block (``{"length": rows, "rows": {field: (1, ...)}}``),
+    #: which the paged admission lands instead of recomputing them.
+    kv_tail: Optional[Dict] = None
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -1417,15 +1421,24 @@ class ContinuousReplica(Actor):
     live request's chain for ``(migrate_prepare …)`` and answers
     ``migrate_ready`` with its blocks and tokens, and — when a request
     carries a ``kv_source`` hint — pulls the prefix from the named owner
-    before admission (``kv_migrate`` marks a migration's resume), falling
-    back to plain local prefill if the owner does not answer within
+    before admission (``kv_migrate`` marks a migration's resume, which
+    also pulls the source's rows past the chain's last full block, so it
+    decodes on from the source's exact cache instead of recomputing
+    them), falling back to plain local prefill if the owner does not
+    answer within
     ``kv_fetch_timeout_s`` (counted in ``kv_transfer_failures``).  The
     import lands behind the ``RESTORING`` sentinel a few blocks a step,
     on the engine thread like every other server call.  A server without
     the KV methods answers ``kv_unsupported`` / ``migrate_unsupported``.
     ``kv_tier_hint`` starts the promotion of a demoted or spilled chain
-    at arrival.  Not ported: ``prefill_only`` (dedicated prefill
-    replicas come with the router, queue 1 item 4 of ``ROADMAP.md``).
+    at arrival.
+
+    ``prefill_only=True`` makes this a dedicated PREFILL replica for the
+    router's opt-in disaggregated mode: generation budgets clamp to one
+    token (the admission seed), the cache retains the prompt's blocks,
+    and the digest advertises role ``prefill`` so routers never send it
+    decode traffic.  A request whose payload carries ``prefill_only``
+    gets the same treatment on any replica.
     ``adapter_load`` / ``adapter_unload`` answer ``unsupported_command``
     (the port's servers take no adapters yet), as every other replica
     protocol speaker does."""
@@ -1435,12 +1448,14 @@ class ContinuousReplica(Actor):
     KV_ADVERTISE_S = 5.0
 
     def __init__(self, context, process=None, server=None,
+                 prefill_only: bool = False,
                  kv_fetch_timeout_s: float = 2.0):
         from .serving import (REPLICA_PROTOCOL,
                               _register_unsupported_adapter_commands)
         context.protocol = context.protocol or REPLICA_PROTOCOL
         super().__init__(context, process)
         self.server = server or ContinuousBatchingServer()
+        self.prefill_only = prefill_only
         self.kv_fetch_timeout_s = kv_fetch_timeout_s
         #: (digest_epoch, migrating) of the last advertised digest.
         self._digest_stamp = None
@@ -1490,9 +1505,9 @@ class ContinuousReplica(Actor):
 
     @property
     def kv_role(self) -> str:
-        """The digest's role: always ``decode`` on the port (no dedicated
-        prefill replicas yet)."""
-        return "decode"
+        """The digest's role: ``prefill`` on a dedicated prefill replica,
+        else ``decode``."""
+        return "prefill" if self.prefill_only else "decode"
 
     def _wire_infer(self, request_id, response_topic, payload=None):
         from ..pipeline.codec import decode_swag
@@ -1528,6 +1543,12 @@ class ContinuousReplica(Actor):
             kv_tier_hint = inputs.get("kv_tier_hint")
             kv_migrate = bool(
                 int(np.asarray(inputs.get("kv_migrate", 0))))
+            if self.prefill_only or inputs.get("prefill_only"):
+                # Dedicated prefill: the admission seed IS the one
+                # generated token; the prompt's blocks stay cached
+                # for the decode replica to pull.
+                request.max_new_tokens = 1
+                request.stream = False
         except Exception:  # noqa: BLE001 - bad request must still respond
             self.logger.exception("%s: malformed infer request %s",
                                   self.name, request_id)
@@ -1783,9 +1804,10 @@ class ContinuousReplica(Actor):
                 keys = [str(k) for k in inputs["kv_keys"]]
                 exported = self.server.kv_export_payload(
                     keys,
-                    int(np.asarray(inputs.get("kv_start_depth", 0))))
+                    int(np.asarray(inputs.get("kv_start_depth", 0)))) \
+                    if keys else {}
                 if faults.PLAN is not None:
-                    if exported is not None \
+                    if exported \
                             and inputs.get("kv_migrate") \
                             and faults.PLAN.check(
                                 "drop_migration_block",
@@ -1797,6 +1819,13 @@ class ContinuousReplica(Actor):
                             "%s: fault drop_migration_block firing",
                             self.name)
                         exported = drop_one_block(exported)
+                if exported is not None \
+                        and inputs.get("kv_tail_chain") is not None:
+                    tail = self._migration_tail(inputs["kv_tail_chain"])
+                    if tail is not None:
+                        exported = dict(exported, **tail)
+                    elif not keys:
+                        exported = None
                 outputs = exported if exported is not None \
                     else {"error": "kv_prefix_gone"}
             except Exception:  # noqa: BLE001 - RPC must answer
@@ -1815,6 +1844,24 @@ class ContinuousReplica(Actor):
             generate("kv_export_response",
                      [str(request_id), encode_swag(outputs)]))
 
+    def _migration_tail(self, chain) -> Optional[Dict]:
+        """The tail rows (:meth:`~.paged.PagedContinuousServer
+        .migration_tail_rows`) for a resume whose prompt is ``chain``:
+        from the live request migrating away from here whose prompt plus
+        committed tokens begins with it, or None when none does."""
+        chain = np.asarray(chain, np.int32).reshape(-1)
+        for request in self.server.live_requests():
+            if request.request_id not in self._migrating_ids:
+                continue
+            full = np.concatenate(
+                [np.asarray(request.prompt, np.int32).reshape(-1),
+                 np.asarray(request.tokens or [], np.int32)])
+            if len(full) >= len(chain) \
+                    and np.array_equal(full[:len(chain)], chain):
+                return self.server.migration_tail_rows(request,
+                                                       len(chain) - 1)
+        return None
+
     def _begin_kv_fetch(self, request: DecodeRequest, kv_source: str,
                         migrate: bool = False) -> bool:
         """Warm start: request the prompt's missing prefix blocks from
@@ -1828,7 +1875,10 @@ class ContinuousReplica(Actor):
             return False
         keys = self.server.prefix_keys_hex(request.prompt)
         local = self.server.prefix_local_depth(request.prompt)
-        if not keys or local >= len(keys):
+        # A migration also asks for the chain's tail, however few blocks
+        # it lacks here.
+        tail = migrate and hasattr(self.server, "migration_tail_rows")
+        if not tail and (not keys or local >= len(keys)):
             return False
         self._kv_counter += 1
         token = f"kvf{self._kv_counter}"
@@ -1839,6 +1889,10 @@ class ContinuousReplica(Actor):
             # Marks the export as a live-migration transfer (the
             # ``drop_migration_block`` fault point keys off it).
             swag["kv_migrate"] = 1
+        if tail:
+            # The resume's whole prompt names the live request whose tail
+            # rows the source ships with the blocks.
+            swag["kv_tail_chain"] = np.asarray(request.prompt, np.int32)
         if request.trace_ctx:
             swag["trace"] = request.trace_ctx
         self.process.message.publish(
@@ -1888,13 +1942,17 @@ class ContinuousReplica(Actor):
             if "error" in outputs:
                 self.server.kv_transfer_failures += 1
             else:
+                if hasattr(self.server, "migration_tail_from_payload"):
+                    request.kv_tail = \
+                        self.server.migration_tail_from_payload(outputs)
                 # Async landing: the keys register behind the RESTORING
                 # sentinel now, the rows land a few blocks a step; the
                 # submit below parks on the hit walk's restore wait until
-                # the chain is whole.
-                self.server.kv_import_payload(
-                    outputs, engine=self.process.event,
-                    async_import=True)
+                # the chain is whole.  A tail-only answer has no keys.
+                if len(outputs.get("kv_keys", ())):
+                    self.server.kv_import_payload(
+                        outputs, engine=self.process.event,
+                        async_import=True)
                 remote = outputs.get("trace_spans")
                 if remote:
                     request.remote_spans = str(remote)

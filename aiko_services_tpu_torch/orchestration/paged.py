@@ -312,6 +312,11 @@ class PagedContinuousServer(ContinuousBatchingServer):
         self.kv_checksum_failures = 0
         self.kv_adopted_chains = 0
         self.kv_prefetch_promotions = 0
+        #: Migration resumes admitted on the source's own tail rows, and
+        #: the slots among this wave's admissions that skip their prefill
+        #: for it (:meth:`_adopt_migration_tail`).
+        self.kv_tails_adopted = 0
+        self._resumed: set = set()
         self.spill = None
         if self.spill_dir:
             from ..kvstore.spill import SpillStore
@@ -380,6 +385,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             kv_checksum_failures=self.kv_checksum_failures,
             kv_adopted_chains=self.kv_adopted_chains,
             kv_prefetch_promotions=self.kv_prefetch_promotions,
+            kv_tails_adopted=self.kv_tails_adopted,
             free_blocks=self.free_blocks,
             total_blocks=self.total_blocks,
             evictable_blocks=len(self._evictable),
@@ -1004,6 +1010,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
         row = np.zeros(self.tables.shape[1], np.int32)
         row[:needed] = blocks
         self.tables[slot] = row
+        self._adopt_migration_tail(slot, request, shared, keys, blocks)
         if shared:
             self.prefix_hits += 1
             self.prefix_blocks_reused += len(shared)
@@ -1048,8 +1055,80 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 self._children[parent] = self._children.get(parent, 0) + 1
         return True
 
+    def _adopt_migration_tail(self, slot: int, request, shared, keys,
+                              blocks) -> None:
+        """A live migration's resume carries the source's rows past the
+        chain's last full block (``request.kv_tail``).  When every full
+        block is here too, those rows land in the slot's first private
+        block and the admission skips its prefill: the seed then decodes
+        the chain's last token on exactly the cache the source had, so
+        the resume's stream is the source's bit for bit (a recompute of
+        the tail runs the chunk kernels where the source ran the decode
+        kernels, and rounds differently).  Otherwise the tail recomputes
+        as any admission does."""
+        tail = getattr(request, "kv_tail", None)
+        if tail is None:
+            return
+        request.kv_tail = None
+        prompt_len = int(np.asarray(request.prompt).shape[0])
+        full = self._shareable_blocks(prompt_len)
+        if len(keys) != full or len(shared) != full \
+                or tail["length"] != (prompt_len - 1) % self.block_size:
+            return
+        if tail["length"]:
+            _kvxfer.scatter_block_rows(self, [blocks[full]], tail["rows"])
+        self._resumed.add(slot)
+        self.kv_tails_adopted += 1
+
+    def migration_tail_rows(self, request, rows: int) -> Optional[Dict]:
+        """Live-migration source: the pool rows of ``request``'s chain
+        from its last full block below position ``rows`` up to ``rows``
+        (exclusive), as this server wrote them — ``{"kv_tail_len": n,
+        "kv_tail_<field>": (1, block_size, ...)}`` plus the pool's
+        signature, the field arrays left out when n is 0.  ``rows`` is
+        the resume's prompt length less one; its positions are written
+        once the request committed that many tokens.  None when the
+        request holds no slot here or is still prefilling."""
+        try:
+            slot = self._requests.index(request)
+        except ValueError:
+            return None
+        if slot in self._prefilling:
+            return None
+        length = int(rows) % self.block_size
+        tail: Dict = {"kv_tail_len": length,
+                      "kv_sig": _kvxfer.pool_signature(self),
+                      "kv_block_size": self.block_size}
+        if length:
+            block = self._owned[slot][int(rows) // self.block_size]
+            for field, value in _kvxfer.gather_block_rows(
+                    self, [block]).items():
+                tail[f"kv_tail_{field}"] = value
+        return tail
+
+    def migration_tail_from_payload(self, payload: Dict) -> Optional[Dict]:
+        """The ``request.kv_tail`` of a resume from a source's export
+        answer (:meth:`migration_tail_rows`), or None when the answer
+        holds no tail or one of another pool layout."""
+        if "kv_tail_len" not in payload \
+                or str(payload.get("kv_sig")) != \
+                _kvxfer.pool_signature(self) \
+                or int(np.asarray(payload.get("kv_block_size", -1))) \
+                != self.block_size:
+            return None
+        length = int(np.asarray(payload["kv_tail_len"]))
+        rows = {}
+        if length:
+            for field, *_rest in _kvxfer._field_layout(self):
+                value = payload.get(f"kv_tail_{field}")
+                if value is None:
+                    return None
+                rows[field] = np.asarray(value)
+        return dict(length=length, rows=rows)
+
     def _release_slot(self, slot: int) -> None:
         self.digest_epoch += 1
+        self._resumed.discard(slot)
         for block in self._owned[slot]:
             if self._producing.pop(block, None) == slot:
                 # Cancelled mid-prefill: the block's key points at content
@@ -1116,7 +1195,9 @@ class PagedContinuousServer(ContinuousBatchingServer):
         kv_limit = prompt_padded.shape[1] // block_size
         tables_row = self._tables_row(slot)
         start = n_shared * block_size
-        remaining = kv_limit - n_shared
+        # A migration resume on the source's tail has nothing to prefill.
+        remaining = 0 if slot in self._resumed else kv_limit - n_shared
+        self._resumed.discard(slot)
         while remaining > 0:
             size = 1 << (remaining.bit_length() - 1)
             width = size * block_size
@@ -1140,6 +1221,15 @@ class PagedContinuousServer(ContinuousBatchingServer):
         content lands.  The slot is marked dirty so its table row is
         resident before the first mixed dispatch reads it."""
         self.digest_epoch += 1
+        if slot in self._resumed:
+            # A migration resume on the source's tail: nothing to prefill.
+            self._resumed.discard(slot)
+            self._pending_shared[slot] = 0
+            self._prefilling[slot] = state = dict(
+                request=request, prompt_padded=prompt_padded,
+                prompt_len=prompt_len)
+            self._finish_prefill(slot, state)
+            return
         n_shared = self._pending_shared[slot]
         self._pending_shared[slot] = 0
         n_total = prompt_padded.shape[1] // self.block_size

@@ -212,14 +212,19 @@ class Actor(Service):
                reason: str = ""):
         """Dump a flight capture bundle on a census trigger:
         ``(census [trace_id] [response_topic] [reason])`` →
-        ``(census_response <name> <path|uninstalled|suppressed>)``.
-        Every actor answers, keeping the fleet fan-out one reply per
-        process like ``(capture)``.  The port has no pool auditor yet
-        (``obs/pool_audit.py``), so it answers as the reference does
-        with none installed: the bundle has no ``census`` section.
-        No recorder installed → reply says so; never an error."""
+        ``(census_response <name>
+        <path|uninstalled|suppressed|unsupported>)``.  Every actor
+        answers, keeping the fleet fan-out one reply per process like
+        ``(capture)``.  The port has no pool census yet
+        (``obs/pool_audit.py``): an actor carrying an engine, whose
+        bundle would hold its pool's census, answers ``unsupported``
+        rather than a bundle without one; an actor with none (the
+        router) still dumps its bundle.  No recorder installed → reply
+        says so; never an error."""
         from ..obs import flight
-        if flight.FLIGHT is not None:
+        if getattr(self, "server", None) is not None:
+            result = "unsupported"
+        elif flight.FLIGHT is not None:
             path = flight.FLIGHT.capture(
                 "census", trace_id=str(trace_id) or None,
                 reason=str(reason) or f"(census) on {self.name}")

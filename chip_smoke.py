@@ -117,6 +117,24 @@ Phases (any failure exits non-zero):
    restores and adoptions are counted, the five kernels' launches are
    held to the decode steps and prefill slices, and graph replays go on
    with no capture after the fence.
+10. The fleet (run after phase 9, on phase 4's weights): a Registrar, a
+   ReplicaRouter and two ContinuousReplicas, each over its own phase-8
+   server (warmed and fenced) on the one weight set, one loopback broker
+   and one engine thread, driven by the port's loadgen rigs
+   (tools/loadgen.py): (a) phase 4's 12 requests at FLEET_RATE_HZ,
+   streamed, with prefix_alpha 1.0 then 0.0 (FLEET_TURNS), printing
+   prefix_routed, the fleet's prefix hit rate, the KV hints and the
+   caller's TTFT and tok/s; (b) run_chaos, seed 1 (replica_a killed
+   mid-decode, two partials dropped, a stalled step): zero lost, zero
+   timeouts, one death, a re-dispatch; (c) run_migration_chaos: (migrate
+   replica_a) while requests stream, against a control fleet, printing
+   the cutover ms; (d) (a)'s traffic with replica_a prefill_only and the
+   router disaggregated, each request's TTFT beside (a)'s first turn.
+   Every token of (a), (b) and (d), and of (c)'s control, is held to
+   phase 4's oracle; every final of (c) to its control bit for bit, each
+   migrated request resumed on its source's own tail rows.  Each part's
+   launches are held to its servers' steps and slices, and no server
+   captures after its fence.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -3402,9 +3420,14 @@ def serve_kv_wire(torch, np, llama, weights, kernels, server_cls,
                 or delta(after[name], before[name], "kv_transfer_failures"):
             fail(f"kv wire: {name} captured after its fence or fell back")
     m1 = after["m"]
+    # The resume lands A's rows past the chain's last full block too, one
+    # block's bytes on the wire when there are any.
+    tails = delta(m1, m0, "kv_tails_adopted")
+    tail_blocks = tails if (len(moving) + committed - 1) % BLOCK else 0
     migration = dict(
-        committed_tokens=committed, blocks=blocks,
-        imported_blocks=delta(m1, m0, "kv_transfer_bytes") / block_bytes,
+        committed_tokens=committed, blocks=blocks, tails_adopted=tails,
+        imported_blocks=delta(m1, m0, "kv_transfer_bytes") / block_bytes
+        - tail_blocks,
         imports_async=delta(m1, m0, "kv_imports_async"),
         remote_hits=delta(m1, m0, "prefix_remote_hits"),
         fetch_ms=float(np.asarray(resumed.outputs["kv_restore_ms"])),
@@ -3444,6 +3467,380 @@ def serve_kv_wire(torch, np, llama, weights, kernels, server_cls,
         run_graph_replays=sum(delta(after[n], before[n], "graph_replays")
                               for n in names))
 
+
+# --------------------------------------------------------------------------- #
+# Phase 10: the fleet
+
+#: Phase 10's parts: (a) prefix routing, (b) chaos, (c) live migration,
+#: (d) disaggregated prefill.
+FLEET_PARTS = ("prefix", "chaos", "migration", "disaggregation")
+#: Phase 10 (a): the router's ``prefix_alpha`` a turn, alternating.
+FLEET_TURNS = (1.0, 0.0)
+#: Phase 10 (a), (d): requests a second the load generator sends, open loop:
+#: the shared prefix's producer prefills well inside one gap.
+FLEET_RATE_HZ = 4.0
+#: Phase 10 (c): requests of the migration run and tokens each generates.
+MIGRATE_REQUESTS, MIGRATE_TOKENS = 8, 64
+
+
+def fleet_payloads(np, vocab):
+    """Phase 4's 12 requests in wave order as the load generator's
+    payloads, streamed: (payload_fn, prompts)."""
+    prompts = [prompt for wave in paged_traffic(np, vocab)
+               for prompt in wave]
+
+    def payload_fn(index):
+        return {"tokens": prompts[index], "max_new_tokens": NEW_TOKENS,
+                "stream": 1}
+    return payload_fn, prompts
+
+
+def finals_by_index(report):
+    """The load generator's final tokens by request index
+    (``lg<run>_<index>``)."""
+    return {int(request_id.rsplit("_", 1)[1]): tokens
+            for request_id, tokens in report.final_tokens.items()}
+
+
+def hold_to_oracle(torch, llama, request_cls, params, config, device, label,
+                   prompts, finals, held):
+    """Hold every request's tokens to phase 4's bf16 oracle.  ``held`` maps
+    a prompt's bytes to tokens already held for it; a request with those
+    tokens passes as they did, any other goes through the teacher-forced
+    oracle (near-ties within TIE_GAP accepted) and joins ``held``."""
+    todo = []
+    for index, tokens in sorted(finals.items()):
+        key = prompts[index].tobytes()
+        if held.get(key) == tokens:
+            continue
+        request = request_cls(f"{label}{index}", prompts[index], len(tokens))
+        request.tokens = list(tokens)
+        todo.append((key, request))
+    exact, equal, checked, ties = check_requests(
+        torch, [request for _, request in todo],
+        lambda request: contiguous_oracle(torch, llama, params, config,
+                                          request.prompt, False, device,
+                                          rows=PAGED_MAX_SEQ))
+    for key, request in todo:
+        held.setdefault(key, request.tokens)
+    return dict(requests=len(finals), checked_here=len(todo),
+                tokens_checked_here=checked, accepted_near_ties=ties)
+
+
+def fleet_part(torch, llama, weights, kernels, config, label, servers, rig,
+               killed=()):
+    """Run ``rig(make_server)`` (a loadgen rig) over ``servers``, built and
+    warmed beforehand and handed out in order, with every kernel's count
+    set to 0 just before and read just after: the launches are held to the
+    servers' decode steps and prefill slices (phase 4's formula summed over
+    them), no server captures after its fence, every server that decoded
+    replayed graphs, and nothing is logged at ERROR.  ``killed`` names the
+    replicas the rig's fault plan kills: only their servers may end with
+    dispatched chunks uncollected."""
+    pool = list(servers)
+    named = {}
+
+    def make_server(name):
+        if not pool:
+            fail(f"fleet {label}: the rig asked for more servers than built")
+        named.setdefault(name, []).append(pool[0])
+        return pool.pop(0)
+    before = [server.stats() for server in servers]
+    errors = ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    torch.cuda.synchronize()
+    try:
+        with LaunchWindow(llama, kernels) as window:
+            result = rig(make_server)
+    finally:
+        logging.getLogger().removeHandler(errors)
+    torch.cuda.synchronize()
+    if pool:
+        fail(f"fleet {label}: {len(pool)} servers left unused")
+    if errors.records:
+        fail(f"fleet {label}: logged failures: {errors.records}")
+    after = [server.stats() for server in servers]
+    # A server counts its decode steps when it collects a chunk; a replica
+    # killed mid-decode leaves the chunks it had dispatched uncollected on
+    # its ring, their kernels launched all the same.  Every other server
+    # drained its ring.
+    dead = [server for name in killed for server in named.get(name, ())]
+    if len(dead) != len(killed):
+        fail(f"fleet {label}: no server for the killed {killed}")
+    for index, server in enumerate(servers):
+        if server._ring and not any(server is other for other in dead):
+            fail(f"fleet {label}: server {index} survived with "
+                 f"{len(server._ring)} chunks uncollected")
+    uncollected = sum(int(entry["steps"]) for server in dead
+                      for entry in server._ring)
+    steps = uncollected + sum(delta(a, b, "decode_steps")
+                              for a, b in zip(after, before))
+    slices = sum(delta(a, b, "prefill_dispatches")
+                 for a, b in zip(after, before))
+    launches = window.hold(f"fleet {label}", weights, config, steps, slices)
+    replays = []
+    for index, (a, b) in enumerate(zip(after, before)):
+        if a["graph_captures_steady_state"]:
+            fail(f"fleet {label}: server {index} captured after its fence")
+        if delta(a, b, "decode_steps") and not delta(a, b, "graph_replays"):
+            fail(f"fleet {label}: server {index} decoded without a replay")
+        replays.append(delta(a, b, "graph_replays"))
+    return result, dict(launches=launches, decode_steps=steps,
+                        uncollected_steps=uncollected,
+                        prefill_slices=slices, graph_replays=replays)
+
+
+def fleet_served(report, label, count):
+    """Every one of ``count`` requests answered, none with an error."""
+    if (report.completed, report.errors, report.timeouts) != (count, 0, 0):
+        fail(f"fleet {label}: {report} ({report.error_kinds})")
+
+
+def caller_ttft(report):
+    """TTFT p50 / max on the load generator's clock, and served tok/s."""
+    p50, most = percentiles(report.client_ttfts_ms)
+    return dict(client_ttft_ms_p50=p50, client_ttft_ms_max=most,
+                served_tok_s=report.throughput_tps)
+
+
+def serve_fleet(torch, np, llama, weights, kernels, server_cls, request_cls,
+                params, device, parts=FLEET_PARTS):
+    """Phase 10: the fleet through the port's loadgen rigs — a Registrar, a
+    ReplicaRouter and two ContinuousReplicas, each over its own phase-8
+    server (warmed and fenced, :func:`warm_wire_server`) on one weight set,
+    one loopback broker and one engine thread.  (a) phase 4's traffic in
+    turns of FLEET_TURNS; (b) ``run_chaos`` (seed 1); (c)
+    ``run_migration_chaos`` (a clean migration against its control); (d)
+    disaggregated prefill on (a)'s traffic, beside (a)'s first turn.
+    ``parts`` names the parts to run (FLEET_PARTS).  Every token is held to
+    phase 4's oracle (or to the control, in (c)), the launches of each part
+    to its steps and slices."""
+    from aiko_services_tpu_torch.tools import loadgen
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    config = llama.CONFIGS["llama3_8b"]
+    payload_fn, prompts = fleet_payloads(np, config.vocab_size)
+    held = {}
+
+    def build(count):
+        servers = [warm_wire_server(np, server_cls, request_cls, params,
+                                    device, config) for _ in range(count)]
+        if any(server.params is not params for server in servers):
+            fail("fleet: the servers do not share one weight set")
+        return servers
+
+    def part(label, count, rig, killed=()):
+        servers = build(count)
+        try:
+            return fleet_part(torch, llama, weights, kernels, config, label,
+                              servers, rig, killed=killed)
+        finally:
+            del servers
+            reset_brokers()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    out, colocated = {}, None
+    # (a) prefix routing, in turns.
+    turns = []
+    for index, alpha in enumerate(FLEET_TURNS if "prefix" in parts else ()):
+        report, counts = part(
+            f"(a) turn {index}", 2, lambda make_server: loadgen
+            .run_shared_prefix(n_requests=len(prompts),
+                               rate_hz=FLEET_RATE_HZ,
+                               prefix_routing=alpha > 0,
+                               drain_timeout_s=WIRE_TIMEOUT_S,
+                               payload_fn=payload_fn,
+                               make_server=make_server))
+        fleet_served(report, f"(a) turn {index}", len(prompts))
+        stats = report.server_stats
+        if alpha > 0 and not stats["prefix_routed"]:
+            fail(f"fleet (a) turn {index}: nothing prefix-routed")
+        turn = dict(prefix_alpha=alpha,
+                    prefix_routed=stats["prefix_routed"],
+                    prefix_hit_rate=report.prefix_hit_rate,
+                    kv_tier_hints=stats["kv_tier_hints"],
+                    kv_remote_hints=stats["kv_remote_hints"],
+                    kv_transfer_bytes=report.kv_transfer_bytes,
+                    **caller_ttft(report), **counts)
+        turn["oracle"] = hold_to_oracle(
+            torch, llama, request_cls, params, config, device, "a",
+            prompts, finals_by_index(report), held)
+        turns.append(turn)
+        if index == 0:
+            # The colocated turn (d) sets beside the disaggregated one.
+            colocated = dict(client_ttft_ms=report.client_ttfts_ms,
+                             **caller_ttft(report))
+    if turns:
+        out["prefix_turns"] = turns
+    if "chaos" in parts:
+        out["chaos"] = fleet_chaos(torch, np, llama, request_cls, params,
+                                   config, device, part, held)
+    if "migration" in parts:
+        out["migration"] = fleet_migration(torch, np, llama, request_cls,
+                                           params, config, device, part,
+                                           held)
+    if "disaggregation" in parts:
+        out["disaggregation"] = fleet_disaggregation(
+            torch, llama, request_cls, params, config, device, part,
+            payload_fn, prompts, held, colocated)
+    return out
+
+
+def fleet_chaos(torch, np, llama, request_cls, params, config, device, part,
+                held):
+    """Phase 10 (b): ``run_chaos``'s schedule (seed 1) on the fleet."""
+    from aiko_services_tpu_torch.tools import loadgen
+
+    # (b) chaos: a replica killed mid-decode, partials dropped, a stall.
+    # The rig's payloads with phase 4's budget: replica_a's 7th pump, where
+    # the schedule kills it, then falls mid-decode on 8-slot servers.
+    chaos_fn = loadgen.shared_prefix_payloads(
+        n_conversations=3, turns=4, system_len=32, seed=1,
+        max_new_tokens=NEW_TOKENS)
+    report, counts = part("(b) chaos", 2, lambda make_server: loadgen
+                          .run_chaos(seed=1, n_requests=8, rate_hz=200.0,
+                                     drain_timeout_s=WIRE_TIMEOUT_S,
+                                     payload_fn=chaos_fn,
+                                     make_server=make_server),
+                          killed=("replica_a",))
+    stats = report.server_stats
+    if (report.lost, report.timeouts, stats["replica_deaths_observed"]) \
+            != (0, 0, 1) or stats["redispatches"] < 1 or report.errors:
+        fail(f"fleet (b) chaos: {report} {stats}")
+    chaos_prompts = [np.asarray(chaos_fn(i)["tokens"]) for i in range(8)]
+    return dict(
+        lost=report.lost, timeouts=report.timeouts,
+        completed=report.completed,
+        replica_deaths_observed=stats["replica_deaths_observed"],
+        redispatches=stats["redispatches"],
+        faults_fired=stats["faults_fired"], **counts,
+        oracle=hold_to_oracle(torch, llama, request_cls, params, config,
+                              device, "b", chaos_prompts,
+                              finals_by_index(report), held))
+
+
+def fleet_migration(torch, np, llama, request_cls, params, config, device,
+                    part, held):
+    """Phase 10 (c): router-driven live migration against an unmigrated
+    control, every final equal to the control's bit for bit, the
+    control's held to the oracle."""
+    from aiko_services_tpu_torch.tools import loadgen
+
+    (control, migrated), counts = part(
+        "(c) migration", 4, lambda make_server: loadgen.run_migration_chaos(
+            seed=0, n_requests=MIGRATE_REQUESTS, rate_hz=60.0, phase="none",
+            max_new_tokens=MIGRATE_TOKENS, drain_timeout_s=WIRE_TIMEOUT_S,
+            make_server=make_server))
+    stats = migrated.server_stats
+    for label, report in (("control", control), ("migrated", migrated)):
+        fleet_served(report, f"(c) {label}", MIGRATE_REQUESTS)
+    # Each resume decodes on from its source's own cache (the source ships
+    # the rows past the chain's last full block), so every final, migrated
+    # or not, equals the control's.
+    differ = sorted(request_id for request_id, want
+                    in control.final_tokens.items()
+                    if migrated.final_tokens[request_id] != want)
+    if differ:
+        fail(f"fleet (c): finals differ from the control's for {differ} "
+             f"(migrated: {sorted(stats['on_source_at_migrate'])})")
+    if stats["stream_mismatches"] or stats["migrations_completed"] < 1 \
+            or migrated.duplicate_finals \
+            or stats["kv_tails_adopted"] < stats["migrations_completed"]:
+        fail(f"fleet (c): {stats}")
+    migrate_fn = loadgen._elastic_payloads(
+        seed=0, prompt_len=18, max_new_tokens=MIGRATE_TOKENS, stream=True)
+    prompts = [np.asarray(migrate_fn(i)["tokens"])
+               for i in range(MIGRATE_REQUESTS)]
+    return dict(
+        migrations_started=stats["migrations_started"],
+        migrations_completed=stats["migrations_completed"],
+        migrations_aborted=stats["migrations_aborted"],
+        migration_blocks_streamed=stats["migration_blocks_streamed"],
+        kv_tails_adopted=stats["kv_tails_adopted"],
+        migration_cutover_ms=stats["migration_cutover_ms"],
+        on_source_at_migrate=sorted(stats["on_source_at_migrate"]),
+        finals_equal_to_control=len(control.final_tokens),
+        stream_mismatches=stats["stream_mismatches"], **counts,
+        oracle=hold_to_oracle(torch, llama, request_cls, params, config,
+                              device, "c", prompts,
+                              finals_by_index(control), held))
+
+
+def fleet_disaggregation(torch, llama, request_cls, params, config, device,
+                         part, payload_fn, prompts, held, colocated):
+    """Phase 10 (d): disaggregated prefill on (a)'s traffic, beside (a)'s
+    first turn (colocated) when that ran."""
+    from aiko_services_tpu_torch.tools import loadgen
+
+    report, counts = part(
+        "(d) disaggregated", 2, lambda make_server: loadgen
+        .run_shared_prefix(n_requests=len(prompts), rate_hz=FLEET_RATE_HZ,
+                           disaggregate=True, drain_timeout_s=WIRE_TIMEOUT_S,
+                           payload_fn=payload_fn, make_server=make_server))
+    fleet_served(report, "(d) disaggregated", len(prompts))
+    stats = report.server_stats
+    if len(report.client_ttfts_ms) != len(prompts) \
+            or not stats["prefix_remote_hits"]:
+        fail(f"fleet (d): {len(report.client_ttfts_ms)} TTFTs, "
+             f"{stats['prefix_remote_hits']} pulls of the prefill "
+             "replica's blocks")
+    return dict(
+        colocated=colocated,
+        disaggregated=dict(
+            client_ttft_ms=report.client_ttfts_ms,
+            kv_transfer_bytes=report.kv_transfer_bytes,
+            kv_remote_hints=stats["kv_remote_hints"],
+            prefix_remote_hits=stats["prefix_remote_hits"],
+            **caller_ttft(report), **counts,
+            oracle=hold_to_oracle(torch, llama, request_cls, params, config,
+                                  device, "d", prompts,
+                                  finals_by_index(report), held)))
+
+
+def print_fleet(fleet, smi):
+    """Phase 10's lines: each part's figures, the card's name and power
+    limit on each."""
+    for index, turn in enumerate(fleet.get("prefix_turns", ())):
+        log(f"phase 10 (a) turn {index} (prefix_alpha "
+            f"{turn['prefix_alpha']}): prefix_routed "
+            f"{turn['prefix_routed']}, fleet prefix hit rate "
+            f"{turn['prefix_hit_rate']:.3f}, kv_tier_hints "
+            f"{turn['kv_tier_hints']}, kv_remote_hints "
+            f"{turn['kv_remote_hints']}; caller's TTFT p50 "
+            f"{turn['client_ttft_ms_p50']:.1f} ms, max "
+            f"{turn['client_ttft_ms_max']:.1f} ms; served "
+            f"{turn['served_tok_s']:.1f} tok/s; {smi}")
+    chaos = fleet.get("chaos")
+    if chaos:
+        log(f"phase 10 (b) chaos (seed 1): {chaos['completed']} of 8 "
+            f"completed, lost {chaos['lost']}, timeouts {chaos['timeouts']}, "
+            f"deaths observed {chaos['replica_deaths_observed']}, "
+            f"redispatches {chaos['redispatches']}, faults fired "
+            f"{chaos['faults_fired']}; {smi}")
+    mig = fleet.get("migration")
+    if mig:
+        log(f"phase 10 (c) migration: {mig['migrations_completed']} of "
+            f"{mig['migrations_started']} completed, migration_cutover_ms "
+            f"{mig['migration_cutover_ms']}; finals bit-exact against the "
+            f"control: {mig['finals_equal_to_control']} of "
+            f"{MIGRATE_REQUESTS} (migrated: "
+            f"{', '.join(mig['on_source_at_migrate'])}; resumed on the "
+            f"source's tail rows: {mig['kv_tails_adopted']}); "
+            f"{mig['stream_mismatches']} stream mismatches; {smi}")
+    both = fleet.get("disaggregation")
+    if both:
+        apart = both["disaggregated"]
+        colocated = both["colocated"] or dict(
+            client_ttft_ms=[math.nan] * len(apart["client_ttft_ms"]),
+            client_ttft_ms_p50=math.nan)
+        log("phase 10 (d) caller's TTFT ms a request, colocated (turn (a) "
+            "0) | disaggregated: " + ", ".join(
+                f"{c:.1f} | {d:.1f}" for c, d in zip(
+                    colocated["client_ttft_ms"], apart["client_ttft_ms"]))
+            + f"; p50 {colocated['client_ttft_ms_p50']:.1f} | "
+            f"{apart['client_ttft_ms_p50']:.1f}; pulled "
+            f"{apart['kv_transfer_bytes']} bytes; {smi}")
 
 # --------------------------------------------------------------------------- #
 # Phase 7: the ring collective matmuls
@@ -3847,10 +4244,20 @@ def main() -> None:
         mig = wire9["migration"]
         log(f"phase 9 (d) migrate, {kv} KV: migrate_ready after "
             f"{mig['committed_tokens']} tokens with {mig['blocks']} blocks, "
-            f"{mig['imported_blocks']:.0f} imported, fetch "
-            f"{mig['fetch_ms']:.1f} ms; {smi}")
+            f"{mig['imported_blocks']:.0f} imported, resumed on A's tail "
+            f"rows {mig['tails_adopted']}, fetch {mig['fetch_ms']:.1f} ms; "
+            f"{smi}")
         kv_runs.append(run)
     log(f"phase 9 took {time.monotonic() - t0:.1f} s; {smi}")
+
+    # ---- phase 10: the fleet (phase 4's weights) ----
+    t0 = time.monotonic()
+    fleet = serve_fleet(torch, np, llama, w8, paged_kernels,
+                        PagedContinuousServer, DecodeRequest, params, device)
+    log("--- the fleet (phase 10: Registrar, ReplicaRouter, two "
+        "ContinuousReplicas), llama3_8b int8, bf16 KV: " + json.dumps(fleet))
+    print_fleet(fleet, smi)
+    log(f"phase 10 took {time.monotonic() - t0:.1f} s; {smi}")
 
     # ---- phase 6: int4 weights through every server ----
     del params, draft_1b

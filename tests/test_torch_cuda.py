@@ -2029,3 +2029,140 @@ def test_graphed_decode_on_restored_and_imported_blocks_equals_eager(
     for want_layer, got_layer in zip(eager.pool, graphed.pool):
         for key in want_layer:
             assert torch.equal(got_layer[key], want_layer[key]), key
+
+
+def _card_fleet(cuda, params):
+    """Two ContinuousReplicas of llama3_8b_2l on the card, each over its own
+    paged int8 server sharing ``params``, a Registrar and a ReplicaRouter on
+    one loopback broker, driven by a virtual clock from this thread (every
+    server call runs here, as on an engine thread)."""
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.orchestration.serving import ReplicaRouter
+    from aiko_services_tpu_torch.registry import Registrar
+    from aiko_services_tpu_torch.runtime import (EventEngine, Process,
+                                                 VirtualClock, actor_args,
+                                                 compose_instance)
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    reset_brokers()
+    engine = EventEngine(clock=VirtualClock())
+    processes = {}
+
+    def process(pid):
+        processes[pid] = Process(namespace="card", hostname="h", pid=str(pid),
+                                 engine=engine, broker="card_fleet")
+        return processes[pid]
+    Registrar(process=process(1))
+    engine.advance(4.0)
+    servers, replicas = [], []
+    for index in range(2):
+        servers.append(_graph_server(cuda, "paged", False, 8, "8b",
+                                     params=params))
+        replicas.append(compose_instance(
+            ContinuousReplica, actor_args(f"fleet{index}"),
+            process=process(2 + index), server=servers[-1]))
+    router = compose_instance(ReplicaRouter, actor_args("router"),
+                              process=process(9))
+    engine.drain()
+    assert router.share["replicas"] == 2
+    return engine, processes, servers, replicas, router
+
+
+def _drive(engine, done, steps=200_000):
+    for _ in range(steps):
+        engine.advance(0.001)
+        if done():
+            return
+    raise AssertionError("the fleet did not answer")
+
+
+def test_fleet_replicas_share_weights_and_equal_a_direct_server(
+        cuda, llama3_8b_2l):
+    """Two replicas of one config on cuda:0 over one weight set, reached
+    through the router: requests queued before the first pump spread
+    round-robin, every token is bitwise the token a single direct server
+    gives for the same submissions, and both replicas replay graphed
+    greedy chunks."""
+    from aiko_services_tpu_torch.orchestration.client import InferClient
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    direct = _graph_server(cuda, "paged", False, 8, "8b")
+    engine, processes, servers, replicas, router = _card_fleet(
+        cuda, direct.params)
+    assert all(s.params is direct.params for s in servers)
+    rng = np.random.default_rng(21)
+    specs = [(5, 9), (40, 4), (3, 12), (33, 7), (12, 3), (21, 8)]
+    prompts = [rng.integers(1, direct.config.vocab_size, plen)
+               .astype(np.int32) for plen, _ in specs]
+    client = InferClient(processes[9], f"{router.topic_path}/in")
+    futures = [client.submit(prompt, max_new_tokens=new, stream=i % 2 == 0)
+               for i, (prompt, (_, new)) in enumerate(zip(prompts, specs))]
+    try:
+        _drive(engine, lambda: all(f.done for f in futures))
+    finally:
+        reset_brokers()
+    assert [f.error for f in futures] == [None] * len(futures)
+    held = {replica.topic_path: [] for replica in replicas}
+    for index, future in enumerate(futures):
+        held[router._routed[future.request_id]].append(index)
+    assert [len(indices) for indices in held.values()] == [3, 3]
+    for indices in held.values():
+        requests = [DecodeRequest(f"r{i}", prompts[i], specs[i][1])
+                    for i in indices]
+        for request in requests:
+            direct.submit(request)
+        direct.run_until_drained()
+        for index, request in zip(indices, requests):
+            assert futures[index].tokens == request.tokens, index
+            if index % 2 == 0:
+                assert futures[index].partial_tokens == request.tokens
+    for server in servers:
+        assert server.stats()["graph_replays"] > 0
+    assert router._inflight == {}
+
+
+def test_fleet_chaos_kill_redispatches_with_survivor_tokens_unchanged(
+        cuda, llama3_8b_2l):
+    """The replica holding a streaming request dies mid-stream: the router
+    re-dispatches it to the survivor, which serves it from the prompt; the
+    client gets every token once, and both the survivor's own request and
+    the re-dispatched one are bitwise the direct server's tokens."""
+    from aiko_services_tpu_torch.orchestration.client import InferClient
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    direct = _graph_server(cuda, "paged", False, 8, "8b")
+    engine, processes, servers, replicas, router = _card_fleet(
+        cuda, direct.params)
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(1, direct.config.vocab_size, plen)
+               .astype(np.int32) for plen in (19, 27)]
+    client = InferClient(processes[9], f"{router.topic_path}/in")
+    increments = []
+    victim = client.submit(prompts[0], max_new_tokens=24, stream=True,
+                           on_partial=increments.append)
+    keeper = client.submit(prompts[1], max_new_tokens=6)
+    try:
+        _drive(engine, lambda: keeper.done and victim.partial_tokens)
+        holder = router._routed[victim.request_id]
+        assert holder != router._routed[keeper.request_id]
+        assert not victim.done
+        pid = next(pid for pid, p in processes.items()
+                   if holder.startswith(f"{p.topic_path_process}/"))
+        processes[pid].kill()
+        _drive(engine, lambda: victim.done)
+    finally:
+        reset_brokers()
+    assert (victim.error, keeper.error) == (None, None)
+    assert router.counters["replica_deaths_observed"] == 1
+    assert router.counters["redispatches"] == 1
+    for prompt, new, future in ((prompts[1], 6, keeper),
+                                (prompts[0], 24, victim)):
+        request = DecodeRequest("d", prompt, new)
+        direct.submit(request)
+        direct.run_until_drained()
+        assert future.tokens == request.tokens
+    assert [t for inc in increments for t in inc] == victim.tokens
+    survivor = next(s for s, r in zip(servers, replicas)
+                    if r.topic_path != holder)
+    assert survivor.stats()["graph_replays"] > 0

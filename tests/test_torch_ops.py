@@ -352,6 +352,7 @@ def _port_sources():
                       REPO / "scripts" / "smoke_phase2.py",
                       REPO / "scripts" / "smoke_wire.py",
                       REPO / "scripts" / "smoke_kv.py",
+                      REPO / "scripts" / "smoke_fleet.py",
                       REPO / "scripts" / "codec_scan.py"]
 
 
@@ -365,6 +366,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(sources) > 10
     for name in ("spill.py", "transfer.py", "directory.py"):
         assert REPO / "aiko_services_tpu_torch" / "kvstore" / name in sources
+    for name in ("registry/registrar.py", "registry/services_cache.py",
+                 "orchestration/migration.py", "tools/loadgen.py"):
+        assert REPO / "aiko_services_tpu_torch" / name in sources
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -543,7 +543,7 @@ def test_adapter_commands_answer_with_an_error(command):
 def test_operator_commands_answer():
     """(metrics) names the server's counters and latency histograms in
     Prometheus text; (profile) answers unsupported (no device profiler
-    yet); (census) answers uninstalled with no flight recorder."""
+    yet); (census) answers unsupported (no pool census yet)."""
     server = _servers(slots=1, max_seq=32, chunk_steps=2)["torch"]
     wire = Wire("torch", server, "ops")
     wire.infer("m", np.arange(1, 6, dtype=np.int32), max_new_tokens=3)
@@ -565,7 +565,7 @@ def test_operator_commands_answer():
     assert f"aiko_latency_ttft_ms_count{{{label}}} 1" \
         in got["metrics_response"]
     assert got["profile_response"] == "unsupported"
-    assert got["census_response"] == "uninstalled"
+    assert got["census_response"] == "unsupported"
 
 
 def test_retire_drains_and_advertises():
