@@ -1,8 +1,6 @@
 """The port's copy of the actor runtime (``aiko_services_tpu/runtime/``):
-the event engine, faults, leases, contexts, services, processes and
-actors.  The reference's remote proxies (``proxy.py``) and service
-categories (``category.py``) are not ported: nothing on the wire needs
-them yet."""
+the event engine, faults, leases, contexts, services, processes, actors,
+remote proxies and service categories."""
 
 from .event import EventEngine, VirtualClock, event
 from .faults import FaultPlan, plan_from_spec
@@ -19,3 +17,4 @@ from .service import (
 )
 from .process import Process, default_process, set_default_process
 from .actor import Actor, ActorMessage, Mailbox
+from .proxy import get_actor_proxy, make_remote_proxy, get_public_methods

@@ -1,18 +1,24 @@
 """Serving load generator and the fleet rigs: drive replicas over the
 wire, report tails.
 
-The port's copy of the parts of ``aiko_services_tpu/tools/loadgen.py``
-that drive a fleet of the port's servers: :class:`LoadGenerator` and
-:class:`LoadReport`, the shared-prefix and elastic payloads, the fleet
-aggregation helpers, the fault schedules, and three in-process rigs —
-:func:`run_shared_prefix` (prefix-aware routing), :func:`run_chaos`
-(zero lost requests under a replica kill) and :func:`run_migration_chaos`
-(drain-free live migration, bit-exact against a control run).  Each rig
-stands up a Registrar, two :class:`~..orchestration.continuous
-.ContinuousReplica` s and a :class:`~..orchestration.serving
-.ReplicaRouter` on one loopback broker and one engine thread, and builds
-its servers through ``make_server(name)`` or, without one, as
-``PagedContinuousServer(config_name, params=params, device=device, …)``
+The port's copy of ``aiko_services_tpu/tools/loadgen.py``:
+:class:`LoadGenerator` and :class:`LoadReport`, the shared-prefix,
+elastic and long-tail payloads, the diurnal trace, the fleet aggregation
+helpers, the fault schedules, the in-process rigs and the CLI
+(:func:`main`).  The rigs: :func:`run_shared_prefix` (prefix-aware
+routing), :func:`run_chaos` (zero lost requests under a replica kill),
+:func:`run_migration_chaos` (drain-free live migration, bit-exact against
+a control run), :func:`run_elastic` / :func:`run_elastic_chaos` /
+:func:`run_rolling_upgrade` (a fleet owned by the
+:class:`~..orchestration.autoscaler.FleetAutoscaler`), :func:`run_longtail`
+(the host tier's capacity A/B) and :func:`run_restart` /
+:func:`run_restart_ab` (a warm restart from the spill directory against a
+cold one).  Each stands up a Registrar, its
+:class:`~..orchestration.continuous.ContinuousReplica` s and a
+:class:`~..orchestration.serving.ReplicaRouter` on one loopback broker and
+one engine thread, and builds its servers through ``make_server(name)``
+(:func:`run_restart`: ``make_server(name, spill_dir)``) or, without one,
+as ``PagedContinuousServer(config_name, params=params, device=device, …)``
 — the card unless the caller passes ``device="cpu"``.
 
     generator = LoadGenerator(process, target_topic="ns/h/1/0/in",
@@ -23,8 +29,10 @@ its servers through ``make_server(name)`` or, without one, as
 Open-loop: requests are posted on schedule regardless of completions
 (late responses still count; missing ones surface as ``timeouts``).
 
-Not ported yet, each with the module it needs: the elastic, restart,
-long-tail, multi-tenant, speculative and structured rigs and the CLI.
+Not ported yet, each with the module it needs (:data:`UNPORTED_MODES`):
+the multi-tenant rig (``models/lora.py``), the speculative A/B
+(``speculative_generate``), the structured rig (``models/constrained.py``)
+and :func:`run_compile_cache_ab` (the kernel build cache).
 """
 
 from __future__ import annotations
@@ -44,8 +52,12 @@ from ..pipeline.codec import encode_swag
 from ..utils.sexpr import generate, parse
 
 __all__ = ["LoadGenerator", "LoadReport", "PHASES", "chaos_schedule",
-           "fleet", "fleet_latency", "migration_chaos_schedule",
-           "run_chaos", "run_migration_chaos", "run_shared_prefix",
+           "diurnal_trace", "elastic_chaos_schedule", "fleet",
+           "fleet_latency", "longtail_payloads", "main",
+           "migration_chaos_schedule", "run_chaos", "run_compile_cache_ab",
+           "run_elastic", "run_elastic_chaos", "run_longtail",
+           "run_migration_chaos", "run_restart", "run_restart_ab",
+           "run_rolling_upgrade", "run_shared_prefix",
            "shared_prefix_payloads"]
 
 #: Per-phase latency keys the replicas stamp on responses, in report
@@ -1151,3 +1163,976 @@ def run_migration_chaos(seed: int = 0, n_requests: int = 10,
     control = one_run(migrate=False)
     migrated = one_run(migrate=True)
     return control, migrated
+
+
+def longtail_payloads(n_prefixes: int = 8, prefix_len: int = 96,
+                      tail_len: int = 8, max_new_tokens: int = 4,
+                      vocab: int = 1024, seed: int = 0,
+                      stream: bool = True) -> Callable[[int], Dict]:
+    """Long-tail prefix workload: ``n_prefixes`` DISTINCT shared
+    prefixes visited round-robin, each request re-sending its prefix
+    plus ``tail_len`` fresh tokens.  The reuse distance is therefore
+    ``n_prefixes`` requests — size the prefix working set
+    (``n_prefixes × prefix_len/block_size`` blocks) past the device pool
+    and a pool-only cache thrashes (every hit evicted before its
+    reuse), while a host tier holds the whole tail and serves it back
+    through restores.  Deterministic from ``seed`` (the JAX package's
+    payloads, token for token)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    prefixes = [rng.randint(1, vocab, size=prefix_len).astype(np.int32)
+                for _ in range(n_prefixes)]
+
+    def payload_fn(index: int) -> Dict:
+        which = index % n_prefixes
+        tail = np.asarray(
+            [1 + (7919 * (index + 1) + 31 * position) % (vocab - 1)
+             for position in range(tail_len)], np.int32)
+        payload = {"tokens": np.concatenate([prefixes[which], tail]),
+                   "max_new_tokens": max_new_tokens}
+        if stream:
+            payload["stream"] = 1
+        return payload
+
+    return payload_fn
+
+
+def _longtail_max_seq(prefix_len: int, tail_len: int) -> int:
+    """The rigs' ``max_seq``: the prompt plus 8 new tokens, rounded up
+    to 16 rows."""
+    return ((prefix_len + tail_len + 8 + 15) // 16) * 16
+
+
+def run_longtail(n_requests: int = 36, rate_hz: float = 25.0,
+                 n_prefixes: int = 6, prefix_len: int = 384,
+                 tail_len: int = 8,
+                 total_blocks: int = 52,
+                 host_tier_blocks: int = 160,
+                 restore_blocks_per_step: int = 24,
+                 chunk_prefill_tokens: int = 64,
+                 warmup_requests: int = 12,
+                 drain_timeout_s: float = 180.0,
+                 seed: int = 0,
+                 spill_dir: Optional[str] = None,
+                 spill_blocks: int = 1024,
+                 make_server: Optional[Callable] = None,
+                 config_name: str = "tiny", params=None,
+                 device=None) -> LoadReport:
+    """Capacity A/B rig for the tiered KV cache: ONE paged replica
+    whose device pool (``total_blocks``) is deliberately smaller than
+    the longtail workload's prefix working set, behind a prefix-aware
+    router.  ``host_tier_blocks=0`` is the pool-only baseline — same
+    pool, same workload, eviction deletes.  The tier-on run must beat
+    it on ``prefix_hit_rate``; the report's ``prefix_hit_rate_host``
+    says how many of the hits only existed because demotion preserved
+    them.
+
+    Default sizing makes restore beat recompute in STEPS: a 384-token
+    prefix is 24 blocks, so a miss re-prefills 6 chunks of
+    ``chunk_prefill_tokens`` = 64 while a host hit defers one step,
+    lands the whole chain in one batched scatter
+    (``restore_blocks_per_step=24``) and prefills only the tail.
+
+    ``spill_dir`` enables the disk spill tier under the host tier:
+    host overflow demotes to disk instead of purging, and the report's
+    ``kv_spills`` / ``kv_disk_restores`` counters say how much of the
+    working set only survived on disk.  ``make_server(name)`` builds the
+    replica's server; without one it is a ``PagedContinuousServer`` of
+    ``config_name`` on ``params`` and ``device`` with this sizing."""
+    make_server = _server_factory(
+        make_server, config_name, params, device, slots=2,
+        max_seq=_longtail_max_seq(prefix_len, tail_len), chunk_steps=4,
+        seed=0, enable_prefix_cache=True, total_blocks=total_blocks,
+        host_tier_blocks=host_tier_blocks,
+        restore_blocks_per_step=restore_blocks_per_step,
+        chunk_prefill_tokens=chunk_prefill_tokens, spill_dir=spill_dir,
+        spill_blocks=spill_blocks, max_queue=256, watchdog_s=10.0)
+    with fleet("longtail", make_server, names=("replica_a",)) as rig:
+        router, servers = rig.router, list(rig.servers.values())
+        generator = LoadGenerator(
+            rig.make_process(9), f"{router.topic_path}/in",
+            payload_fn=longtail_payloads(
+                n_prefixes=n_prefixes, prefix_len=prefix_len,
+                tail_len=tail_len, seed=seed),
+            rate_hz=rate_hz)
+        if warmup_requests:
+            # The same payload sequence both arms see in the measured
+            # run brings each arm to ITS steady state (tier-on: working
+            # set demoted to host; tier-off: pool thrashed), so the A/B
+            # measures serving, not first touch.
+            generator.run(warmup_requests, drain_timeout_s=drain_timeout_s)
+        report = generator.run(n_requests, drain_timeout_s=drain_timeout_s)
+        generator.close()
+        totals = _fleet_kv_stats(servers)
+        _attach_kv_rates(report, totals)
+        _attach_pool_census(report, servers)
+        report.fleet_latency_ms = fleet_latency(servers)
+        report.final_tokens = dict(generator.final_tokens)
+        report.server_stats = dict(router.counters, **totals)
+        return report
+
+
+def run_restart(n_requests: int = 12, rate_hz: float = 40.0,
+                n_prefixes: int = 3, prefix_len: int = 192,
+                tail_len: int = 8,
+                total_blocks: int = 20,
+                restore_blocks_per_step: int = 16,
+                chunk_prefill_tokens: int = 64,
+                warmup_requests: int = 6,
+                recovery_batch: int = 4,
+                hit_rate_floor: float = 0.34,
+                drain_timeout_s: float = 180.0,
+                seed: int = 0,
+                spill_dir: Optional[str] = None,
+                spill_blocks: int = 1024,
+                adopt: bool = True,
+                make_server: Optional[Callable] = None,
+                config_name: str = "tiny", params=None,
+                device=None) -> LoadReport:
+    """Warm-replica-restart rig (loadgen ``--restart-replica``): ONE
+    paged replica with ``host_tier_blocks=0`` and a disk spill
+    directory, so every demotion lands straight on disk — the durable
+    working set.  After a warmup phase that spills the longtail
+    prefixes, the replica's PROCESS is killed (the LWT fires, the
+    router sees it leave) and a fresh replica is composed on the same
+    broker.  ``adopt=True`` hands the respawn the same ``spill_dir``
+    (warm restart: the constructor's scan re-adopts every intact chain
+    and advertises it); ``adopt=False`` is the cold-restart A/B
+    baseline — same death, same respawn, same spill CONFIG (an empty
+    sibling directory, so both arms pay the durability tax on
+    eviction), but the pre-crash state is lost.  Adoption is the only
+    variable.
+
+    ``make_server(name, spill_dir)`` builds a server over ``spill_dir``
+    (the directory is the rig's to choose, so the factory takes it);
+    without one it is a ``PagedContinuousServer`` of ``config_name`` on
+    ``params`` and ``device`` with this sizing.
+
+    The measured phase runs in ``recovery_batch``-request sub-batches;
+    per batch the rig computes the respawned replica's prefix hit rate
+    from counter deltas and stamps ``restart_recovery_ms`` — time from
+    respawn to the END of the first batch at or above
+    ``hit_rate_floor`` — into ``report.server_stats`` (beside the
+    per-batch ``restart_hit_rates`` curve, ``None`` recovery when the
+    floor is never reached).  :func:`run_restart_ab` asserts the two
+    arms' greedy outputs are bit-exact."""
+    from ..orchestration.continuous import ContinuousReplica
+    from ..runtime import actor_args, compose_instance
+
+    if spill_dir is None:
+        raise ValueError("run_restart needs a spill_dir — the rig "
+                         "exists to measure spill adoption")
+    if make_server is None:
+        def make_server(_name: str, directory: str):
+            from ..orchestration.paged import PagedContinuousServer
+            return PagedContinuousServer(
+                config_name=config_name, params=params, device=device,
+                slots=2, max_seq=_longtail_max_seq(prefix_len, tail_len),
+                chunk_steps=4, seed=0, enable_prefix_cache=True,
+                total_blocks=total_blocks, host_tier_blocks=0,
+                restore_blocks_per_step=restore_blocks_per_step,
+                chunk_prefill_tokens=chunk_prefill_tokens,
+                spill_dir=directory, spill_blocks=spill_blocks,
+                max_queue=256, watchdog_s=10.0)
+
+    with fleet("restart", lambda name: make_server(name, spill_dir),
+               names=("replica_a",)) as rig:
+        router = rig.router
+        server_a = rig.servers["replica_a"]
+        payloads = longtail_payloads(
+            n_prefixes=n_prefixes, prefix_len=prefix_len,
+            tail_len=tail_len, seed=seed)
+        generator = LoadGenerator(
+            rig.make_process(9), f"{router.topic_path}/in",
+            payload_fn=payloads, rate_hz=rate_hz)
+        sent_total = 0
+        if warmup_requests:
+            generator.run(warmup_requests, drain_timeout_s=drain_timeout_s)
+            sent_total += warmup_requests
+        spilled = int(server_a.stats().get("kv_spills", 0))
+
+        # --- the restart: CRASH the only replica (LWT fires, the
+        # registrar evicts it), then respawn it fresh.  The warmup wave
+        # has drained, so no server call is in flight on the engine
+        # thread: the new server is built here, on the caller's thread,
+        # with nothing it could race (a CUDA graph capture fails if
+        # another thread does CUDA work meanwhile). ---
+        rig.replicas["replica_a"].process.kill()
+        _wait_for(lambda: router.share["replicas"] == 0, 30,
+                  "restart rig: dead replica leaving the fleet")
+        server_b = make_server("replica_b", spill_dir if adopt
+                               else spill_dir + "-cold")
+        respawned_at = time.time()
+        compose_instance(ContinuousReplica, actor_args("replica_b"),
+                         process=rig.make_process(4), server=server_b)
+        _wait_for(lambda: router.share["replicas"] == 1, 30,
+                  "restart rig: respawn discovery")
+
+        # --- measured phase: sub-batched so the hit-rate RECOVERY curve
+        # is observable, payload index offset so batches keep walking
+        # the same longtail instead of replaying batch one ---
+        batches: List[LoadReport] = []
+        final_tokens: Dict[str, List[int]] = {}
+        hit_rates: List[float] = []
+        recovery_ms: Optional[float] = None
+        remaining = n_requests
+        while remaining > 0:
+            batch_n = min(recovery_batch, remaining)
+            before = server_b.stats()
+            generator.payload_fn = \
+                lambda i, base=sent_total: payloads(base + i)
+            batch = generator.run(batch_n, drain_timeout_s=drain_timeout_s)
+            for request_id, tokens in generator.final_tokens.items():
+                final_tokens[f"r{sent_total}_{request_id}"] = tokens
+            after = server_b.stats()
+            hits = int(after["prefix_hits"]) - int(before["prefix_hits"])
+            lookups = hits + (int(after["prefix_misses"])
+                              - int(before["prefix_misses"]))
+            rate = hits / lookups if lookups else 0.0
+            hit_rates.append(round(rate, 4))
+            if recovery_ms is None and rate >= hit_rate_floor:
+                recovery_ms = round((time.time() - respawned_at) * 1000.0,
+                                    1)
+            batches.append(batch)
+            sent_total += batch_n
+            remaining -= batch_n
+        generator.close()
+        report = LoadReport(
+            sent=sum(b.sent for b in batches),
+            completed=sum(b.completed for b in batches),
+            errors=sum(b.errors for b in batches),
+            timeouts=sum(b.timeouts for b in batches),
+            elapsed_s=sum(b.elapsed_s for b in batches),
+            latencies_ms=[v for b in batches for v in b.latencies_ms],
+            tokens_total=sum(b.tokens_total for b in batches),
+            ttfts_ms=[v for b in batches for v in b.ttfts_ms],
+            duplicate_finals=sum(b.duplicate_finals for b in batches),
+            client_ttfts_ms=[v for b in batches
+                             for v in b.client_ttfts_ms])
+        for batch in batches:
+            for phase, values in batch.phase_ms.items():
+                report.phase_ms.setdefault(phase, []).extend(values)
+            for kind, count in batch.error_kinds.items():
+                report.error_kinds[kind] = \
+                    report.error_kinds.get(kind, 0) + count
+        report.final_tokens = final_tokens
+        totals = _fleet_kv_stats([server_b])
+        _attach_kv_rates(report, totals)
+        report.fleet_latency_ms = fleet_latency([server_b])
+        report.server_stats = dict(
+            router.counters, **totals,
+            warmup_spills=spilled,
+            restart_recovery_ms=recovery_ms,
+            restart_hit_rates=hit_rates)
+        return report
+
+
+def run_restart_ab(n_requests: int = 18, rate_hz: float = 25.0,
+                   seed: int = 0,
+                   drain_timeout_s: float = 180.0,
+                   **kwargs) -> Tuple[LoadReport, LoadReport]:
+    """Warm-restart A/B gate: the SAME seeded longtail sequence through
+    :func:`run_restart` twice — cold (respawn spills to an empty
+    sibling directory) then warm (respawn adopts the dead replica's) —
+    each arm rooted in its own fresh temporary directory so the warmup
+    phases are identical.  Asserts the greedy outputs are BIT-EXACT
+    request for request (a restored block may never change a token),
+    then returns ``(cold, warm)``; the caller checks warm beats cold on
+    measured-phase hit rate (and reads mean TTFT)."""
+    import tempfile
+
+    reports = []
+    for adopt in (False, True):
+        with tempfile.TemporaryDirectory(prefix="kvspill-ab-") as root:
+            reports.append(run_restart(
+                n_requests=n_requests, rate_hz=rate_hz, seed=seed,
+                drain_timeout_s=drain_timeout_s,
+                spill_dir=os.path.join(root, "spill"),
+                adopt=adopt, **kwargs))
+    cold, warm = reports
+    both = set(cold.final_tokens) & set(warm.final_tokens)
+    mismatched = [request_id for request_id in sorted(both)
+                  if cold.final_tokens[request_id]
+                  != warm.final_tokens[request_id]]
+    if mismatched:
+        raise AssertionError(
+            f"restart A/B not bit-exact (seed={seed}): "
+            f"{len(mismatched)}/{len(both)} requests diverged, first "
+            f"{mismatched[0]}")
+    if not both:
+        raise AssertionError(
+            "restart A/B compared zero requests — the gate proved "
+            "nothing")
+    return cold, warm
+
+
+def run_compile_cache_ab(*_args, **_kwargs):
+    """The JAX package's persistent-compilation-cache A/B.  Its port
+    needs a kernel build cache that a fresh engine reuses (``ROADMAP.md``
+    queue 1 item 8), which the port does not have yet."""
+    raise NotImplementedError(
+        "run_compile_cache_ab needs the kernel build cache (ROADMAP.md "
+        "queue 1 item 8), which is not ported yet")
+
+
+def diurnal_trace(duration_s: float, base_hz: float = 2.0,
+                  peak_hz: float = 12.0, period_s: float = 8.0,
+                  burst_hz: float = 0.0, burst_every_s: float = 0.0,
+                  burst_len_s: float = 1.0,
+                  seed: int = 0) -> List[float]:
+    """Seeded diurnal arrival schedule: send offsets (seconds) for a
+    sinusoidal base rate — ``base_hz`` in the valley, ``peak_hz`` at
+    the crest, period ``period_s`` — with optional Poisson-arriving
+    bursts (``burst_hz`` extra for ``burst_len_s``, mean gap
+    ``burst_every_s``).  Arrivals are a non-homogeneous Poisson
+    process generated by thinning, fully deterministic per ``seed`` —
+    the workload shape an autoscaler must track (valleys are where a
+    static peak-sized fleet wastes replicas; bursts are what hysteresis
+    must not overreact to).  Feed to :meth:`LoadGenerator.run_trace`."""
+    import math
+    import random
+
+    rng = random.Random(seed)
+    bursts: List[Tuple[float, float]] = []
+    if burst_hz > 0 and burst_every_s > 0:
+        t = rng.expovariate(1.0 / burst_every_s)
+        while t < duration_s:
+            bursts.append((t, t + burst_len_s))
+            t += burst_len_s + rng.expovariate(1.0 / burst_every_s)
+
+    def rate_at(t: float) -> float:
+        wave = 0.5 * (1.0 - math.cos(2.0 * math.pi * t / period_s))
+        rate = base_hz + (peak_hz - base_hz) * wave
+        if any(start <= t < end for start, end in bursts):
+            rate += burst_hz
+        return rate
+
+    rate_max = max(base_hz, peak_hz) + burst_hz
+    times: List[float] = []
+    t = 0.0
+    while True:
+        t += rng.expovariate(rate_max)
+        if t >= duration_s:
+            return times
+        if rng.random() * rate_max < rate_at(t):
+            times.append(t)
+
+
+def elastic_chaos_schedule(seed: int):
+    """The seeded fault schedule gating elastic scale-down: during a
+    scripted ``scale_target`` 3→2 scale-down (victim: the idlest
+    replica — lexicographically ``decode1`` in the early-run valley),
+    ``decode3`` is killed outright, its replacement's first spawn
+    attempt fails, and the retry is slow-started.  The invariant: the
+    fleet still converges to the target with zero lost and zero
+    double-delivered requests.  The rig installs this plan AFTER its
+    warmup phase, so ``nth`` counts start with the measured run (the
+    JAX package's schedule, rule for rule)."""
+    from ..runtime import faults
+    return (
+        faults.FaultPlan(seed=seed)
+        # In-process kill (no hard=1: os._exit would take the whole
+        # rig); pump count puts it mid-load, after the scale-down.
+        .add("kill_replica", nth=6 + seed % 5, match="decode3")
+        # The post-kill REPLACEMENT spawn fails outright (bootstrap
+        # spawns happened before the plan was installed).
+        .add("fail_spawn", nth=1, match="decode3")
+        # The retry after the failed replacement announces late
+        # (pending-spawn accounting covers the gap — no spawn storm).
+        .add("slow_start", nth=1, match="decode3", ms=300))
+
+
+def run_elastic(duration_s: float = 10.0, seed: int = 0,
+                base_hz: float = 2.0, peak_hz: float = 12.0,
+                period_s: float = 8.0, burst_hz: float = 0.0,
+                burst_every_s: float = 0.0, burst_len_s: float = 1.0,
+                slo_ttft_ms: float = 500.0,
+                static_replicas: Optional[int] = None,
+                policy=None, stream: bool = False,
+                max_new_tokens: int = 4,
+                drain_timeout_s: float = 90.0,
+                fault_plan=None,
+                scale_script: Tuple[Tuple[float, int], ...] = (),
+                command_script: Tuple[Tuple[float, str], ...] = (),
+                converge_s: float = 0.0,
+                warmup: int = 0,
+                make_server: Optional[Callable] = None,
+                config_name: str = "tiny", params=None,
+                device=None) -> LoadReport:
+    """In-process ELASTIC serving rig: a :class:`~..orchestration
+    .autoscaler.FleetAutoscaler` owns the replica fleet (its spawner
+    builds a ContinuousReplica over ``make_server(slot)``; its
+    terminator kills the replica's Process so the Registrar LWT path
+    runs for real) behind a ReplicaRouter, driven by a
+    :func:`diurnal_trace` schedule, on one loopback broker and one
+    engine thread (:func:`fleet`).
+
+    ``static_replicas=N`` instead pins a fixed N-replica fleet with no
+    autoscaler — the A/B baseline: the autoscaled fleet must beat the
+    static PEAK-sized fleet on ``goodput_per_replica`` over a diurnal
+    day.
+
+    ``scale_script`` is a sequence of ``(delay_s, target)`` operator
+    ``(scale_target …)`` commands fired mid-run (the chaos gate's
+    scripted scale-down); ``command_script`` fires arbitrary raw
+    operator s-exprs at the autoscaler (e.g. ``(rolling_upgrade)``
+    for the zero-downtime upgrade rig); ``fault_plan`` installs a
+    :mod:`~..runtime.faults` plan for the run; ``converge_s`` waits
+    after the load for the fleet to settle (live == target, nothing
+    pending or draining) and records ``converged`` in
+    ``server_stats``.
+
+    ``warmup`` sends that many throwaway requests BEFORE the measured
+    run (and before the fault plan installs), so the first steps'
+    graph captures do not smear the scale/fault timeline.
+
+    Without ``make_server`` each replica serves a
+    ``PagedContinuousServer`` of ``config_name`` on ``params`` and
+    ``device`` (the card unless ``device="cpu"``).  The report carries
+    the final tokens and, in ``server_stats``, the autoscaler's
+    counters, the router's migration counters, ``kv_tails_adopted``, the
+    steady-state captures summed over every server built and
+    ``fleet_events``: each spawn, stop and operator command with its
+    seconds from the measured run's start."""
+    from ..orchestration.autoscaler import AutoscalerPolicy, FleetAutoscaler
+    from ..orchestration.continuous import ContinuousReplica
+    from ..runtime import actor_args, compose_instance, faults
+
+    make_server = _server_factory(
+        make_server, config_name, params, device, slots=2, chunk_steps=4,
+        seed=0, enable_prefix_cache=True, max_queue=256, watchdog_s=5.0)
+    #: every server built for the run (static and spawned), in order.
+    servers: List = []
+    #: slot -> the Process of its latest replica.
+    processes: Dict[str, object] = {}
+    #: (seconds from the measured run's start, event, slot or command):
+    #: the fleet's spawns, stops and operator commands, in order.
+    events: List[Tuple[float, str, str]] = []
+    began = [0.0]
+
+    def note(event: str, what: str) -> None:
+        events.append((time.time(), event, what))
+
+    def build(name: str):
+        server = make_server(name)
+        servers.append(server)
+        return server
+
+    names = [f"static{index + 1}" for index in range(static_replicas or 0)]
+    timers: List[threading.Timer] = []
+    try:
+        with fleet("elastic", build, names=names,
+                   kv_transfer=True) as rig:
+            router = rig.router
+            pids = iter(range(100, 10 ** 6))
+
+            def spawner(slot: str, _role: str):
+                # The autoscaler calls this from its tick timer, ON the
+                # engine thread — the thread every server call runs on.
+                # The new server is built there, so no step of another
+                # server (and no CUDA graph capture, which fails if
+                # another thread does CUDA work meanwhile) can run
+                # beside its construction.  The tick stalls for the
+                # build; a caller that cannot afford that hands
+                # ``make_server`` servers built beforehand.
+                note("spawn", slot)
+                process = rig.make_process(next(pids))
+                compose_instance(ContinuousReplica, actor_args(slot),
+                                 process=process, server=build(slot))
+                processes[slot] = process
+
+            def terminator(slot: str, _mode: str):
+                # Non-graceful: the LWT (absent) fires, exactly the
+                # eviction path a dead OS process takes.  On the engine
+                # thread, as the kill_replica fault does it: a loopback
+                # disconnect only queues messages.
+                process = processes.get(slot)
+                if process is not None:
+                    note("stop", slot)
+                    process.terminate(graceful=False)
+
+            autoscaler = None
+            if static_replicas is not None:
+                expected = static_replicas
+            else:
+                if policy is None:
+                    policy = AutoscalerPolicy(
+                        target=1, max_replicas=3, ttft_slo_ms=slo_ttft_ms,
+                        breach_windows=2, clear_windows=8,
+                        cooldown_s=2.0, spawn_timeout_s=60.0,
+                        drain_timeout_s=15.0)
+                expected = policy.initial_targets().get("decode", 1)
+                autoscaler = compose_instance(
+                    FleetAutoscaler, actor_args("autoscaler"),
+                    process=rig.make_process(8), spawner=spawner,
+                    terminator=terminator, policy=policy, tick_s=0.25)
+            _wait_for(lambda: router.share["replicas"] >= expected, 90,
+                      f"elastic rig: router discovery of {expected} "
+                      "replicas")
+            generator = LoadGenerator(
+                rig.make_process(9), f"{router.topic_path}/in",
+                payload_fn=_elastic_payloads(
+                    seed=seed, max_new_tokens=max_new_tokens,
+                    stream=stream),
+                rate_hz=0)
+            if warmup:
+                # Throwaway burst; spacing gives P2C a chance to touch
+                # every replica.
+                generator.run_trace([0.1 * i for i in range(warmup)],
+                                    drain_timeout_s=30.0)
+            if fault_plan is not None:
+                faults.install(fault_plan)
+            commands = [(delay_s, f"(scale_target {target})")
+                        for delay_s, target in scale_script]
+            commands += list(command_script)
+
+            def fire(command: str) -> None:
+                note("command", command)
+                autoscaler.process.message.publish(
+                    f"{autoscaler.topic_path}/in", command)
+            began[0] = time.time()
+            for delay_s, command in (commands if autoscaler is not None
+                                     else ()):
+                timer = threading.Timer(delay_s, fire, args=(command,))
+                timer.daemon = True
+                timer.start()
+                timers.append(timer)
+            times = diurnal_trace(
+                duration_s, base_hz=base_hz, peak_hz=peak_hz,
+                period_s=period_s, burst_hz=burst_hz,
+                burst_every_s=burst_every_s, burst_len_s=burst_len_s,
+                seed=seed)
+            replica_seconds_0 = (
+                float(autoscaler.share["replica_seconds"])
+                if autoscaler is not None else 0.0)
+            report = generator.run_trace(times,
+                                         drain_timeout_s=drain_timeout_s)
+            generator.close()
+            report.slo_ttft_ms = slo_ttft_ms
+            report.final_tokens = dict(generator.final_tokens)
+            # Stream-consistency audit: for every streamed request the
+            # concatenated partials must equal the final token sequence
+            # — a drain/kill/re-dispatch that re-streams or drops a
+            # token shows up here as a mismatch.
+            stream_mismatches = sum(
+                1 for request_id, partials
+                in generator.partial_tokens.items()
+                if request_id in generator.final_tokens
+                and partials != generator.final_tokens[request_id])
+            fleet_stats = dict(
+                kv_tails_adopted=sum(getattr(server, "kv_tails_adopted", 0)
+                                     for server in servers),
+                graph_captures_steady_state=sum(
+                    server.graph_ledger.steady_captures
+                    for server in servers),
+                servers_built=len(servers),
+                fleet_events=[(round(at - began[0], 3), event, what)
+                              for at, event, what in events])
+            if autoscaler is not None:
+                converged = None
+                if converge_s:
+                    want = sum(autoscaler.state.targets.values())
+
+                    def settled():
+                        return (autoscaler.share["replicas_live"] == want
+                                and autoscaler.share["replicas_pending"]
+                                == 0
+                                and autoscaler.share["replicas_draining"]
+                                == 0)
+
+                    deadline = time.time() + converge_s
+                    while not settled() and time.time() < deadline:
+                        time.sleep(0.05)
+                    converged = settled()
+                report.replica_seconds = (
+                    float(autoscaler.share["replica_seconds"])
+                    - replica_seconds_0)
+                report.server_stats = dict(
+                    autoscaler.stats(),
+                    router_shed=router.counters["shed"],
+                    redispatches=router.counters["redispatches"],
+                    migrations_started=router.counters[
+                        "migrations_started"],
+                    migrations_completed=router.counters[
+                        "migrations_completed"],
+                    migrations_aborted=router.counters[
+                        "migrations_aborted"],
+                    migration_cutover_ms=list(router.migration.cutover_ms),
+                    stream_mismatches=stream_mismatches,
+                    faults_fired=(len(fault_plan.fired)
+                                  if fault_plan is not None else 0),
+                    **fleet_stats)
+                if converged is not None:
+                    report.server_stats["converged"] = converged
+            else:
+                report.replica_seconds = static_replicas * report.elapsed_s
+                report.server_stats = dict(
+                    replicas_live=router.share["replicas"],
+                    router_shed=router.counters["shed"],
+                    redispatches=router.counters["redispatches"],
+                    stream_mismatches=stream_mismatches, **fleet_stats)
+            report.fleet_latency_ms = fleet_latency(servers)
+            return report
+    finally:
+        for timer in timers:
+            timer.cancel()
+        if fault_plan is not None:
+            faults.uninstall()
+
+
+def run_elastic_chaos(seed: int = 0, duration_s: float = 8.0,
+                      **kwargs) -> LoadReport:
+    """The chaos gate for elastic scale-down: a 3-replica autoscaled
+    fleet under streaming load gets a scripted ``scale_target 2``
+    (graceful drain) while :func:`elastic_chaos_schedule` kills a
+    NON-draining replica and fails its replacement's first spawn.  The
+    run must converge to the target with ``lost == 0`` and
+    ``duplicate_finals == 0`` — the hard invariant of the drain
+    design.  SLO-driven scaling is frozen (huge windows) so only the
+    scripted scale-in and self-healing move the fleet."""
+    from ..orchestration.autoscaler import AutoscalerPolicy
+
+    policy = AutoscalerPolicy(
+        target=3, min_replicas=1, max_replicas=4,
+        breach_windows=10 ** 6, clear_windows=10 ** 6,
+        cooldown_s=3600.0, spawn_timeout_s=60.0,
+        drain_timeout_s=10.0, backoff_base_s=0.5,
+        crash_loop_threshold=3, crash_loop_window_s=60.0)
+    kwargs.setdefault("scale_script", ((max(0.6, duration_s * 0.1), 2),))
+    kwargs.setdefault("converge_s", 30.0)
+    kwargs.setdefault("stream", True)
+    kwargs.setdefault("warmup", 6)
+    return run_elastic(duration_s=duration_s, seed=seed, policy=policy,
+                       fault_plan=elastic_chaos_schedule(seed), **kwargs)
+
+
+def run_rolling_upgrade(duration_s: float = 10.0, seed: int = 0,
+                        replicas: int = 4,
+                        drain_based: bool = False,
+                        **kwargs) -> LoadReport:
+    """Zero-downtime rolling upgrade goodput trace: a ``replicas``-
+    strong autoscaled fleet under streaming diurnal load receives a
+    mid-run ``(rolling_upgrade)`` — every replica is replaced one at a
+    time with its in-flight population LIVE-MIGRATED onto the
+    successor.  ``drain_based=True`` is the A/B control: the same
+    replacement loop but each predecessor drains its tail instead of
+    migrating it (``policy.migrate_drains`` off)."""
+    from ..orchestration.autoscaler import AutoscalerPolicy
+
+    policy = AutoscalerPolicy(
+        target=replicas, min_replicas=1, max_replicas=replicas + 2,
+        breach_windows=10 ** 6, clear_windows=10 ** 6,
+        cooldown_s=3600.0, spawn_timeout_s=60.0,
+        drain_timeout_s=20.0,
+        migrate_drains=not drain_based)
+    kwargs.setdefault("command_script",
+                      ((max(0.6, duration_s * 0.15), "(rolling_upgrade)"),))
+    kwargs.setdefault("converge_s", 60.0)
+    kwargs.setdefault("stream", True)
+    kwargs.setdefault("warmup", 6)
+    # Dense enough that every replica holds live streams at any
+    # instant: each handoff then really carries an in-flight
+    # population instead of landing in a gap between requests.
+    kwargs.setdefault("base_hz", 8.0)
+    kwargs.setdefault("peak_hz", 12.0)
+    kwargs.setdefault("max_new_tokens", 48)
+    return run_elastic(duration_s=duration_s, seed=seed, policy=policy,
+                       **kwargs)
+
+
+#: CLI modes of the JAX package's load generator that the port does not
+#: run yet, each with what it needs.
+UNPORTED_MODES = {
+    "multitenant": "models/lora.py (the LoRA adapters and their pages)",
+    "structured": "models/constrained.py (the token automata and "
+                  "constrained_generate)",
+    "spec_k": "speculative_generate (models/speculative.py)",
+}
+
+
+def _unported(mode: str) -> None:
+    raise NotImplementedError(
+        f"loadgen {mode} needs {UNPORTED_MODES[mode]}, which is not "
+        "ported yet")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m aiko_services_tpu_torch.tools.loadgen --chaos`` (seeded
+    fault schedule; exit 1 if any request was lost or hung),
+    ``--elastic-chaos``, ``--migrate-mid-stream``, ``--rolling-upgrade``,
+    ``--restart-replica`` or ``--workload shared_prefix|diurnal|
+    longtail``.  Every rig serves ``tiny`` with random weights from the
+    seed on the card, or on the CPU with ``--device cpu``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Serving load generator of the port (chaos mode: "
+                    "seeded fault-injection run asserting zero lost "
+                    "requests; workloads through the router)")
+    parser.add_argument("--device", default=None,
+                        help="torch device of every server (default: the "
+                             "card; 'cpu' to run without one)")
+    parser.add_argument("--chaos", action="store_true",
+                        help="run the seeded fault schedule against "
+                             "an in-process 2-replica rig")
+    parser.add_argument("--elastic-chaos", action="store_true",
+                        help="run the elastic scale-down chaos gate "
+                             "(drain + kill-during-drain + failed "
+                             "replacement spawn; exit 1 unless zero "
+                             "lost/duplicated and converged)")
+    parser.add_argument("--migrate-mid-stream", action="store_true",
+                        help="live-migration chaos gate; exit 1 unless "
+                             "zero lost/duplicated/mismatched and "
+                             "bit-exact vs the unmigrated control")
+    parser.add_argument("--migration-phase", default="none",
+                        choices=["none", "transfer", "cutover", "source"],
+                        help="--migrate-mid-stream: which migration phase "
+                             "the seeded fault hits")
+    parser.add_argument("--rolling-upgrade", action="store_true",
+                        help="zero-downtime rolling upgrade trace: replace "
+                             "every replica one at a time with live "
+                             "migration, vs the drain-based control")
+    parser.add_argument("--workload",
+                        choices=["shared_prefix", "diurnal", "longtail",
+                                 "structured", "multitenant"],
+                        help="named workload profile (in-process rig)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--requests", type=int, default=40)
+    parser.add_argument("--rate-hz", type=float, default=100.0)
+    parser.add_argument("--duration", type=float, default=12.0,
+                        help="diurnal/elastic: run length (seconds)")
+    parser.add_argument("--base-hz", type=float, default=2.0,
+                        help="diurnal: valley request rate")
+    parser.add_argument("--peak-hz", type=float, default=12.0,
+                        help="diurnal: crest request rate")
+    parser.add_argument("--period", type=float, default=8.0,
+                        help="diurnal: sinusoid period (seconds)")
+    parser.add_argument("--slo-ttft-ms", type=float, default=500.0,
+                        help="diurnal: TTFT SLO goodput is judged against")
+    parser.add_argument("--static-replicas", type=int, default=None,
+                        help="diurnal: pin a fixed fleet (A/B baseline) "
+                             "instead of autoscaling")
+    parser.add_argument("--conversations", type=int, default=3,
+                        help="shared_prefix: interleaved conversations")
+    parser.add_argument("--turns", type=int, default=4,
+                        help="shared_prefix: turns per conversation")
+    parser.add_argument("--system-len", type=int, default=48,
+                        help="shared_prefix: shared system prompt tokens")
+    parser.add_argument("--no-prefix-routing", action="store_true",
+                        help="shared_prefix: disable prefix-aware scoring "
+                             "(A/B baseline)")
+    parser.add_argument("--prefixes", type=int, default=6,
+                        help="longtail: distinct shared prefixes")
+    parser.add_argument("--prefix-len", type=int, default=384,
+                        help="longtail: tokens per shared prefix")
+    parser.add_argument("--hbm-blocks", type=int, default=52,
+                        help="longtail: device pool size in blocks "
+                             "(deliberately smaller than the prefix "
+                             "working set)")
+    parser.add_argument("--host-blocks", type=int, default=160,
+                        help="longtail: host tier capacity in blocks "
+                             "(0 = tier off, the A/B baseline)")
+    parser.add_argument("--tier-off", action="store_true",
+                        help="longtail: shorthand for --host-blocks 0")
+    parser.add_argument("--disk-blocks", type=int, default=0,
+                        help="longtail: disk spill tier capacity in blocks "
+                             "under a fresh temporary directory (0 = no "
+                             "spill tier)")
+    parser.add_argument("--restart-replica", action="store_true",
+                        help="warm-restart chaos A/B: kill the only "
+                             "replica mid-run and respawn it cold vs "
+                             "spill-adopting; exit 1 unless greedy outputs "
+                             "are bit-exact and the warm arm beats cold "
+                             "on hit rate")
+    parser.add_argument("--spec-k", type=int, default=0,
+                        help="speculative A/B gate (not ported yet)")
+    args = parser.parse_args(argv)
+    if args.workload in ("structured", "multitenant"):
+        _unported(args.workload)
+    if args.spec_k:
+        _unported("spec_k")
+    serving = dict(device=args.device)
+    if args.migrate_mid_stream:
+        control, migrated = run_migration_chaos(
+            seed=args.seed,
+            n_requests=args.requests if args.requests != 40 else 10,
+            rate_hz=args.rate_hz, phase=args.migration_phase, **serving)
+        print("control: ", control)
+        print("migrated:", migrated)
+        stats = migrated.server_stats
+        print(f"router counters: {stats}")
+        both = set(control.final_tokens) & set(migrated.final_tokens)
+        mismatched = [request_id for request_id in both
+                      if control.final_tokens[request_id]
+                      != migrated.final_tokens[request_id]]
+        ok = (not migrated.lost and not migrated.timeouts
+              and not migrated.duplicate_finals
+              and not stats.get("stream_mismatches")
+              and stats.get("migrations_started", 0) > 0
+              and not mismatched and both)
+        if not ok:
+            print(f"MIGRATION CHAOS FAIL (seed={args.seed}, "
+                  f"phase={args.migration_phase}): {migrated.lost} lost, "
+                  f"{migrated.timeouts} hung, {migrated.duplicate_finals} "
+                  f"duplicated, {stats.get('stream_mismatches')} stream "
+                  f"mismatches, {len(mismatched)} diverged vs control")
+            return 1
+        print(f"MIGRATION CHAOS OK (seed={args.seed}, "
+              f"phase={args.migration_phase}): "
+              f"{stats.get('migrations_completed')} migrated / "
+              f"{stats.get('migrations_aborted')} aborted, "
+              f"{len(stats.get('migration_cutover_ms', []))} cutovers, "
+              "bit-exact vs control")
+        return 0
+    if args.rolling_upgrade:
+        migrated = run_rolling_upgrade(duration_s=args.duration,
+                                       seed=args.seed, **serving)
+        drained = run_rolling_upgrade(duration_s=args.duration,
+                                      seed=args.seed, drain_based=True,
+                                      **serving)
+        for label, report in (("live-migrated", migrated),
+                              ("drain-based ", drained)):
+            stats = report.server_stats
+            print(f"{label}: goodput={report.goodput_rps:.2f} req/s, "
+                  f"upgrades={stats.get('upgrades_completed')}, "
+                  f"migrations={stats.get('migrations_completed')}, "
+                  f"lost={report.lost}")
+        stats = migrated.server_stats
+        ok = (not migrated.lost and not migrated.timeouts
+              and not migrated.duplicate_finals
+              and not stats.get("stream_mismatches")
+              and stats.get("upgrades_completed", 0) > 0
+              and stats.get("converged"))
+        if not ok:
+            print(f"ROLLING UPGRADE FAIL (seed={args.seed}): "
+                  f"{migrated.lost} lost, {migrated.timeouts} hung, "
+                  f"{migrated.duplicate_finals} duplicated, "
+                  f"converged={stats.get('converged')}")
+            return 1
+        print(f"ROLLING UPGRADE OK (seed={args.seed}): fleet replaced "
+              "with zero lost/duplicated tokens")
+        return 0
+    if args.elastic_chaos:
+        report = run_elastic_chaos(seed=args.seed, duration_s=args.duration,
+                                   base_hz=args.base_hz,
+                                   peak_hz=args.peak_hz,
+                                   period_s=args.period, **serving)
+        print(report)
+        print(f"autoscaler: {report.server_stats}")
+        ok = (not report.lost and not report.timeouts
+              and not report.duplicate_finals
+              and not report.server_stats.get("stream_mismatches")
+              and report.server_stats.get("converged"))
+        if not ok:
+            print(f"ELASTIC CHAOS FAIL (seed={args.seed}): "
+                  f"{report.lost} lost, {report.timeouts} hung, "
+                  f"{report.duplicate_finals} duplicated, "
+                  f"{report.server_stats.get('stream_mismatches')} stream "
+                  f"mismatches, "
+                  f"converged={report.server_stats.get('converged')}")
+            return 1
+        print(f"ELASTIC CHAOS OK (seed={args.seed}): drain + kill + "
+              "failed respawn, nothing lost, fleet converged")
+        return 0
+    if args.workload == "diurnal":
+        report = run_elastic(duration_s=args.duration, seed=args.seed,
+                             base_hz=args.base_hz, peak_hz=args.peak_hz,
+                             period_s=args.period,
+                             slo_ttft_ms=args.slo_ttft_ms,
+                             static_replicas=args.static_replicas,
+                             **serving)
+        print(report)
+        print(f"fleet: {report.server_stats}")
+        print(f"goodput {report.goodput_rps:.2f} req/s over avg "
+              f"{report.avg_replicas:.2f} replicas = "
+              f"{report.goodput_per_replica:.2f} req/s/replica")
+        return 1 if (report.lost or report.timeouts) else 0
+    if args.restart_replica:
+        cold, warm = run_restart_ab(
+            n_requests=args.requests if args.requests != 40 else 18,
+            seed=args.seed, **serving)
+        for label, report in (("cold", cold), ("warm", warm)):
+            stats = report.server_stats or {}
+            mean_ttft = (statistics.fmean(report.ttfts_ms)
+                         if report.ttfts_ms else 0.0)
+            print(f"{label}: hit_rate={report.prefix_hit_rate}, "
+                  f"mean TTFT={mean_ttft:.1f}ms, "
+                  f"recovery={stats.get('restart_recovery_ms')}ms, "
+                  f"batch hit rates={stats.get('restart_hit_rates')}, "
+                  f"adopted={stats.get('kv_adopted_chains')}, "
+                  f"disk restores={stats.get('kv_disk_restores')}")
+        ok = (not cold.lost and not warm.lost
+              and not cold.timeouts and not warm.timeouts
+              and (warm.prefix_hit_rate or 0.0)
+              > (cold.prefix_hit_rate or 0.0))
+        if not ok:
+            print(f"RESTART A/B FAIL (seed={args.seed}): warm must beat "
+                  "cold on hit rate with zero lost")
+            return 1
+        print(f"RESTART A/B OK (seed={args.seed}): bit-exact, warm restart "
+              "adopted the spill tier")
+        return 0
+    if args.workload == "longtail":
+        import tempfile
+
+        host_blocks = 0 if args.tier_off else args.host_blocks
+        with contextlib.ExitStack() as stack:
+            spill_dir = None
+            if args.disk_blocks:
+                spill_dir = os.path.join(stack.enter_context(
+                    tempfile.TemporaryDirectory(prefix="kvspill-")),
+                    "spill")
+            report = run_longtail(
+                n_requests=args.requests, rate_hz=args.rate_hz,
+                n_prefixes=args.prefixes, prefix_len=args.prefix_len,
+                total_blocks=args.hbm_blocks,
+                host_tier_blocks=host_blocks, seed=args.seed,
+                spill_dir=spill_dir,
+                spill_blocks=args.disk_blocks or 1024, **serving)
+        print(report)
+        print(report.phase_table())
+        print(f"fleet counters: {report.server_stats}")
+        mean_ttft = (statistics.fmean(report.ttfts_ms)
+                     if report.ttfts_ms else 0.0)
+        print(f"longtail ({args.prefixes} prefixes x {args.prefix_len} "
+              f"tok over {args.hbm_blocks} device blocks, host tier "
+              f"{host_blocks} blocks, disk tier {args.disk_blocks} "
+              f"blocks): prefix_hit_rate={report.prefix_hit_rate}, "
+              f"host share={report.prefix_hit_rate_host}, "
+              f"mean TTFT={mean_ttft:.1f}ms")
+        return 1 if (report.lost or report.timeouts) else 0
+    if args.workload == "shared_prefix":
+        report = run_shared_prefix(
+            n_requests=args.requests, rate_hz=args.rate_hz,
+            prefix_routing=not args.no_prefix_routing,
+            payload_fn=shared_prefix_payloads(
+                n_conversations=args.conversations, turns=args.turns,
+                system_len=args.system_len, seed=args.seed), **serving)
+        print(report)
+        print(report.phase_table())
+        if report.fleet_latency_ms:
+            print(f"fleet latency (merged histograms): "
+                  f"{report.fleet_latency_ms}")
+        print(f"fleet counters: {report.server_stats}")
+        return 1 if (report.lost or report.timeouts) else 0
+    if not args.chaos:
+        parser.error("API runs use LoadGenerator directly; the CLI wires "
+                     "--chaos, --elastic-chaos, --migrate-mid-stream, "
+                     "--rolling-upgrade, --restart-replica and --workload")
+    report = run_chaos(seed=args.seed, n_requests=args.requests,
+                       rate_hz=args.rate_hz, **serving)
+    print(report)
+    print(report.phase_table())
+    print(f"router counters: {report.server_stats}")
+    if report.lost or report.timeouts:
+        print(f"CHAOS FAIL (seed={args.seed}): {report.lost} lost, "
+              f"{report.timeouts} hung")
+        return 1
+    print(f"CHAOS OK (seed={args.seed}): {report.sent}/{report.sent} "
+          "requests terminal under kill + drop + stall schedule")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -87,7 +87,7 @@ Phases (any failure exits non-zero):
    warm-up fence, the launches exact, the (metrics) scrape naming the
    server's counters, the replica idle with requests_served 13.  The
    same traffic also runs driven by step() on the caller's thread, on a
-   server warmed the same way: six turns, wire and direct alternating
+   server warmed the same way: four turns, wire and direct alternating
    (WIRE_TURNS), each on a fresh server, every wire turn with every
    check but the oracle (the first one only).  End to end it prints
    what the caller sees on its own clock, each turn and the spread over
@@ -135,6 +135,30 @@ Phases (any failure exits non-zero):
    migrated request resumed on its source's own tail rows.  Each part's
    launches are held to its servers' steps and slices, and no server
    captures after its fence.
+11. The elastic fleet (run after phase 10, on phase 4's weights): the
+   FleetAutoscaler owns the replicas behind a Registrar and a
+   ReplicaRouter, each replica over its own phase-8 server (warmed and
+   fenced) on the one weight set, one loopback broker and one engine
+   thread, driven by the port's loadgen rigs: (a) run_elastic_chaos, seed
+   0 (three replicas, a scripted scale_target 2 drains decode1, decode3
+   killed mid-decode, its replacement's first spawn failed and the retry
+   slow-started): lost 0, timeouts 0, no duplicated final or stream
+   mismatch, converged to the target, drains completed, spawn failures,
+   slow starts and deaths observed; (b) run_rolling_upgrade with two
+   replicas in UPGRADE_TURNS (live migration, drain): both replicas
+   replaced a turn, a migration started in every migrating turn and each
+   completed one resumed on its source's tail rows, every migrated final
+   bit-exact against the drain turns'; (c) run_restart_ab in
+   RESTART_TURNS pairs: the only replica killed after its warm-up and
+   respawned cold and warm (adopting its spill directory), the arms
+   bit-exact, warm adopting chains and restoring from disk, cold adopting
+   none, no checksum failed, warm's hit rate above cold's, the respawn
+   warmed and fenced as it is built.  Every final of (a), of (b)'s drain
+   turns and of (c)'s cold arms is held to phase 4's oracle; each part's
+   launches to its servers' steps and slices; no server captures after
+   its fence.  Prints
+   the drain and respawn times, the upgrade's wall time and goodput a
+   turn, TTFT mean and p50 an arm, and the peak device memory.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -1614,6 +1638,11 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
 #: eager, graphed), of the eager window under cProfile, and of each
 #: profiled or event-timed window.
 TURN_STEPS, TRACE_STEPS = 12, 8
+#: The eager path's window under torch.profiler: its CPU-op records make
+#: the trace's processing most of a steady window's seconds (on the H100,
+#: 3.4 s of a paged 8-slot window's 8.9 at 8 steps), so it traces half as
+#: many steps as the graphed path's.
+EAGER_TRACE_STEPS = 4
 
 
 def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
@@ -1628,8 +1657,8 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     under cProfile (the host's top functions by own time are printed; the
     K/V write's microseconds a call, llama's ``_cache_write_rows`` /
     ``_paged_write_rows``) and one under torch.profiler, host ops and
-    kernels for TRACE_STEPS (the card's kernel time per step, by kernel;
-    busy share = kernel time per step over the unprofiled eager step;
+    kernels for EAGER_TRACE_STEPS (the card's kernel time per step, by
+    kernel; busy share = kernel time per step over the unprofiled eager step;
     kernels a step;
     the weight matmul's device time per step; ``aten::index_put_`` ops a
     step, which must stay under one a layer: the decode write launches
@@ -1654,6 +1683,7 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    window_began = time.monotonic()
     server = make_server()
     graphs = hasattr(server, "graph_ledger")
     label = (f"{weights.label} weights, {slots} slots, "
@@ -1720,7 +1750,8 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
         launched = weights.matmul.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, steps = window(TRACE_STEPS, graphed)
+            _, steps = window(TRACE_STEPS if graphed else EAGER_TRACE_STEPS,
+                              graphed)
         launched = weights.matmul.launches - launched
         averages = prof.key_averages()
         kernels = [event for event in averages
@@ -1826,7 +1857,8 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
         graphed_matmul_device_ms_per_step=graphed["matmul_ms"],
         graph_captures=stats["graph_captures"],
         graph_replays=stats["graph_replays"],
-        graph_captures_steady_state=stats["graph_captures_steady_state"])
+        graph_captures_steady_state=stats["graph_captures_steady_state"],
+        steady_window_s=round(time.monotonic() - window_began, 1))
     profiled = (f"{graphed['device_ms']:.3f} ms of kernels a step "
                 f"(profiler), busy {result['graphed_busy']:.3f}, "
                 f"{per_replay:g} kernels a replay of {CHUNK_STEPS} steps"
@@ -1843,7 +1875,8 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
         + (f"{eager['device_ms']:.3f} ms of kernels, busy "
            f"{result['eager_busy']:.3f}, {eager['kernels_per_step']:g} "
            "kernels a step" if eager["device_ms"] else
-           "device ms not measured"))
+           "device ms not measured")
+        + f"; the window took {result['steady_window_s']} s")
     if graphed["device_ms"]:
         for line in graphed["averages"].table(
                 sort_by="self_device_time_total", row_limit=6,
@@ -2475,19 +2508,25 @@ def warm_wire_server(np, server_cls, request_cls, params, device, config,
                      quantize_kv=False, **kwargs):
     """Phase 8's PagedContinuousServer (8 slots, 4096-row tables of 16-row
     blocks, prefix cache, 256-token slices, bf16 KV unless
-    ``quantize_kv``; ``kwargs`` for phase 9's tiers), warmed before any
-    traffic: two short requests one after the other meet both chunk keys
-    of the run (2 and 1 steps) twice, so both are captured; then the
-    fence drops and any later capture counts."""
+    ``quantize_kv``; ``kwargs`` for phase 9's tiers), warmed and fenced
+    before any traffic (:func:`warm_and_fence`)."""
     server = server_cls(config_name="llama3_8b", slots=SLOTS,
                         max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
                         params=params, quantize=True, quantize_kv=quantize_kv,
                         block_size=BLOCK, enable_prefix_cache=True,
                         chunk_prefill_tokens=CHUNK, device=device, **kwargs)
+    return warm_and_fence(np, server, request_cls, config, 100)
+
+
+def warm_and_fence(np, server, request_cls, config, prompt_len):
+    """Warm ``server`` before any traffic: two short requests of
+    ``prompt_len`` tokens, one after the other, meet both chunk keys of
+    the run (2 and 1 steps) twice, so both are captured; then the fence
+    drops and any later capture counts."""
     rng = np.random.default_rng(23)
     for index in range(2):
         server.submit(request_cls(f"warm{index}", rng.integers(
-            1, config.vocab_size, 100).astype(np.int32), 5))
+            1, config.vocab_size, prompt_len).astype(np.int32), 5))
         server.run_until_drained()
     server.graph_ledger.fence()
     return server
@@ -2830,8 +2869,8 @@ def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
 
 #: Phase 8's turns, in order, each on a fresh server warmed the same way:
 #: the wire and its direct twin alternate, so the wire's end-to-end cost
-#: is read against the spread between turns of one kind.
-WIRE_TURNS = ("wire", "direct", "direct", "wire", "wire", "direct")
+#: is read against the spread between turns of one kind (a pair of each).
+WIRE_TURNS = ("wire", "direct", "direct", "wire")
 #: What each turn reports in the phase's spread, all from the caller's
 #: clock except the wire's own time a request.
 WIRE_TURN_KEYS = ("served_tok_s", "client_ttft_ms_p50", "client_ttft_ms_max",
@@ -3502,50 +3541,95 @@ def finals_by_index(report):
             for request_id, tokens in report.final_tokens.items()}
 
 
-def hold_to_oracle(torch, llama, request_cls, params, config, device, label,
-                   prompts, finals, held):
-    """Hold every request's tokens to phase 4's bf16 oracle.  ``held`` maps
-    a prompt's bytes to tokens already held for it; a request with those
-    tokens passes as they did, any other goes through the teacher-forced
-    oracle (near-ties within TIE_GAP accepted) and joins ``held``."""
-    todo = []
-    for index, tokens in sorted(finals.items()):
-        key = prompts[index].tobytes()
-        if held.get(key) == tokens:
+def served_pairs(prompts, finals):
+    """(prompt, tokens) of every final, from the prompts by request index
+    and the finals by request index."""
+    return [(prompts[index], tokens)
+            for index, tokens in sorted(finals.items())]
+
+
+def hold_to_oracle(torch, np, llama, params, config, device, label, pairs,
+                   held):
+    """Hold served (prompt, tokens) pairs to phase 4's bf16 contiguous
+    oracle.  ``held`` is the set of (prompt bytes, tokens) already held: a
+    pair in it passes as it did, the distinct others join it once held.
+    Those of one prompt length and one budget are prefilled together in
+    one ``prefill`` and decoded teacher-forced on their served tokens by
+    ``decode_step`` (near-ties within TIE_GAP accepted, as
+    :func:`check_request`).  The rigs' prompts mostly share a length, so
+    one batch holds a whole part for the decode steps of one request."""
+    groups, todo = {}, set()
+    for prompt, tokens in pairs:
+        prompt = np.asarray(prompt, np.int32)
+        key = (prompt.tobytes(), tuple(tokens))
+        if key in held or key in todo:
             continue
-        request = request_cls(f"{label}{index}", prompts[index], len(tokens))
-        request.tokens = list(tokens)
-        todo.append((key, request))
-    exact, equal, checked, ties = check_requests(
-        torch, [request for _, request in todo],
-        lambda request: contiguous_oracle(torch, llama, params, config,
-                                          request.prompt, False, device,
-                                          rows=PAGED_MAX_SEQ))
-    for key, request in todo:
-        held.setdefault(key, request.tokens)
-    return dict(requests=len(finals), checked_here=len(todo),
-                tokens_checked_here=checked, accepted_near_ties=ties)
+        todo.add(key)
+        groups.setdefault((len(prompt), len(tokens)), []).append(
+            (prompt, list(tokens)))
+    checked, equal, ties = 0, 0, []
+    for (length, new), group in sorted(groups.items()):
+        prompts = torch.as_tensor(np.stack([p for p, _ in group]),
+                                  device=device)
+        served = torch.as_tensor([t for _, t in group], dtype=torch.int64,
+                                 device=device)
+        rows = -(-(length + new) // BLOCK) * BLOCK
+        cache = llama.init_cache(config, len(group), rows, device=device)
+        logits, cache = llama.prefill(params, prompts, cache, config)
+        logits = logits[:, -1]
+        for index in range(new):
+            want = served[:, index]
+            best = logits.argmax(-1)
+            gaps = (logits.gather(1, best[:, None])
+                    - logits.gather(1, want[:, None]))[:, 0].tolist()
+            for row, (hit, gap) in enumerate(zip((best == want).tolist(),
+                                                 gaps)):
+                if hit:
+                    equal += 1
+                elif gap > TIE_GAP:
+                    fail(f"{label}: request {row} of {len(group)} (prompt "
+                         f"{length}): token {index} is {int(want[row])}, "
+                         f"oracle {int(best[row])}, logit gap {gap:.4f} > "
+                         f"{TIE_GAP}")
+                else:
+                    ties.append((row, index, round(gap, 4)))
+            checked += len(group)
+            if index + 1 < new:
+                out, cache = llama.decode_step(
+                    params, want[:, None].to(torch.int32), cache,
+                    length + index, config)
+                logits = out[:, -1]
+    held |= todo
+    return dict(requests=len(pairs), checked_here=len(todo),
+                tokens_checked_here=checked, tokens_equal=equal,
+                accepted_near_ties=ties)
 
 
 def fleet_part(torch, llama, weights, kernels, config, label, servers, rig,
-               killed=()):
+               killed=(), build=None):
     """Run ``rig(make_server)`` (a loadgen rig) over ``servers``, built and
-    warmed beforehand and handed out in order, with every kernel's count
-    set to 0 just before and read just after: the launches are held to the
+    warmed beforehand and handed out in order (then, if the rig asks for
+    more, ``build(name, *args)``'s), with every kernel's count set to 0
+    just before and read just after: the launches are held to the handed
     servers' decode steps and prefill slices (phase 4's formula summed over
     them), no server captures after its fence, every server that decoded
     replayed graphs, and nothing is logged at ERROR.  ``killed`` names the
-    replicas the rig's fault plan kills: only their servers may end with
-    dispatched chunks uncollected."""
+    replicas the rig's fault plan kills: only the first server handed to
+    each may end with dispatched chunks uncollected."""
     pool = list(servers)
-    named = {}
+    named, handed = {}, []
 
-    def make_server(name):
-        if not pool:
+    def make_server(name, *args):
+        if pool:
+            server = pool.pop(0)
+        elif build is not None:
+            server = build(name, *args)
+        else:
             fail(f"fleet {label}: the rig asked for more servers than built")
-        named.setdefault(name, []).append(pool[0])
-        return pool.pop(0)
-    before = [server.stats() for server in servers]
+        named.setdefault(name, []).append(server)
+        handed.append(server)
+        return server
+    before = {id(server): server.stats() for server in servers}
     errors = ErrorRecords()
     logging.getLogger().addHandler(errors)
     torch.cuda.synchronize()
@@ -3559,15 +3643,18 @@ def fleet_part(torch, llama, weights, kernels, config, label, servers, rig,
         fail(f"fleet {label}: {len(pool)} servers left unused")
     if errors.records:
         fail(f"fleet {label}: logged failures: {errors.records}")
-    after = [server.stats() for server in servers]
+    after = [server.stats() for server in handed]
+    zero = {key: 0 for key in ("decode_steps", "prefill_dispatches",
+                               "graph_captures", "graph_replays")}
+    before = [before.get(id(server), zero) for server in handed]
     # A server counts its decode steps when it collects a chunk; a replica
     # killed mid-decode leaves the chunks it had dispatched uncollected on
     # its ring, their kernels launched all the same.  Every other server
     # drained its ring.
-    dead = [server for name in killed for server in named.get(name, ())]
+    dead = [named[name][0] for name in killed if name in named]
     if len(dead) != len(killed):
         fail(f"fleet {label}: no server for the killed {killed}")
-    for index, server in enumerate(servers):
+    for index, server in enumerate(handed):
         if server._ring and not any(server is other for other in dead):
             fail(f"fleet {label}: server {index} survived with "
                  f"{len(server._ring)} chunks uncollected")
@@ -3578,16 +3665,18 @@ def fleet_part(torch, llama, weights, kernels, config, label, servers, rig,
     slices = sum(delta(a, b, "prefill_dispatches")
                  for a, b in zip(after, before))
     launches = window.hold(f"fleet {label}", weights, config, steps, slices)
-    replays = []
+    captures, replays = [], []
     for index, (a, b) in enumerate(zip(after, before)):
         if a["graph_captures_steady_state"]:
             fail(f"fleet {label}: server {index} captured after its fence")
         if delta(a, b, "decode_steps") and not delta(a, b, "graph_replays"):
             fail(f"fleet {label}: server {index} decoded without a replay")
+        captures.append(delta(a, b, "graph_captures"))
         replays.append(delta(a, b, "graph_replays"))
     return result, dict(launches=launches, decode_steps=steps,
                         uncollected_steps=uncollected,
-                        prefill_slices=slices, graph_replays=replays)
+                        prefill_slices=slices, graph_captures=captures,
+                        graph_replays=replays, servers_handed=len(handed))
 
 
 def fleet_served(report, label, count):
@@ -3620,7 +3709,7 @@ def serve_fleet(torch, np, llama, weights, kernels, server_cls, request_cls,
 
     config = llama.CONFIGS["llama3_8b"]
     payload_fn, prompts = fleet_payloads(np, config.vocab_size)
-    held = {}
+    held = set()
 
     def build(count):
         servers = [warm_wire_server(np, server_cls, request_cls, params,
@@ -3664,8 +3753,8 @@ def serve_fleet(torch, np, llama, weights, kernels, server_cls, request_cls,
                     kv_transfer_bytes=report.kv_transfer_bytes,
                     **caller_ttft(report), **counts)
         turn["oracle"] = hold_to_oracle(
-            torch, llama, request_cls, params, config, device, "a",
-            prompts, finals_by_index(report), held)
+            torch, np, llama, params, config, device, "a",
+            served_pairs(prompts, finals_by_index(report)), held)
         turns.append(turn)
         if index == 0:
             # The colocated turn (d) sets beside the disaggregated one.
@@ -3674,21 +3763,19 @@ def serve_fleet(torch, np, llama, weights, kernels, server_cls, request_cls,
     if turns:
         out["prefix_turns"] = turns
     if "chaos" in parts:
-        out["chaos"] = fleet_chaos(torch, np, llama, request_cls, params,
-                                   config, device, part, held)
+        out["chaos"] = fleet_chaos(torch, np, llama, params, config, device,
+                                   part, held)
     if "migration" in parts:
-        out["migration"] = fleet_migration(torch, np, llama, request_cls,
-                                           params, config, device, part,
-                                           held)
+        out["migration"] = fleet_migration(torch, np, llama, params, config,
+                                           device, part, held)
     if "disaggregation" in parts:
         out["disaggregation"] = fleet_disaggregation(
-            torch, llama, request_cls, params, config, device, part,
-            payload_fn, prompts, held, colocated)
+            torch, np, llama, params, config, device, part, payload_fn,
+            prompts, held, colocated)
     return out
 
 
-def fleet_chaos(torch, np, llama, request_cls, params, config, device, part,
-                held):
+def fleet_chaos(torch, np, llama, params, config, device, part, held):
     """Phase 10 (b): ``run_chaos``'s schedule (seed 1) on the fleet."""
     from aiko_services_tpu_torch.tools import loadgen
 
@@ -3715,13 +3802,12 @@ def fleet_chaos(torch, np, llama, request_cls, params, config, device, part,
         replica_deaths_observed=stats["replica_deaths_observed"],
         redispatches=stats["redispatches"],
         faults_fired=stats["faults_fired"], **counts,
-        oracle=hold_to_oracle(torch, llama, request_cls, params, config,
-                              device, "b", chaos_prompts,
-                              finals_by_index(report), held))
+        oracle=hold_to_oracle(
+            torch, np, llama, params, config, device, "b",
+            served_pairs(chaos_prompts, finals_by_index(report)), held))
 
 
-def fleet_migration(torch, np, llama, request_cls, params, config, device,
-                    part, held):
+def fleet_migration(torch, np, llama, params, config, device, part, held):
     """Phase 10 (c): router-driven live migration against an unmigrated
     control, every final equal to the control's bit for bit, the
     control's held to the oracle."""
@@ -3762,13 +3848,13 @@ def fleet_migration(torch, np, llama, request_cls, params, config, device,
         on_source_at_migrate=sorted(stats["on_source_at_migrate"]),
         finals_equal_to_control=len(control.final_tokens),
         stream_mismatches=stats["stream_mismatches"], **counts,
-        oracle=hold_to_oracle(torch, llama, request_cls, params, config,
-                              device, "c", prompts,
-                              finals_by_index(control), held))
+        oracle=hold_to_oracle(
+            torch, np, llama, params, config, device, "c",
+            served_pairs(prompts, finals_by_index(control)), held))
 
 
-def fleet_disaggregation(torch, llama, request_cls, params, config, device,
-                         part, payload_fn, prompts, held, colocated):
+def fleet_disaggregation(torch, np, llama, params, config, device, part,
+                         payload_fn, prompts, held, colocated):
     """Phase 10 (d): disaggregated prefill on (a)'s traffic, beside (a)'s
     first turn (colocated) when that ran."""
     from aiko_services_tpu_torch.tools import loadgen
@@ -3793,9 +3879,9 @@ def fleet_disaggregation(torch, llama, request_cls, params, config, device,
             kv_remote_hints=stats["kv_remote_hints"],
             prefix_remote_hits=stats["prefix_remote_hits"],
             **caller_ttft(report), **counts,
-            oracle=hold_to_oracle(torch, llama, request_cls, params, config,
-                                  device, "d", prompts,
-                                  finals_by_index(report), held)))
+            oracle=hold_to_oracle(
+                torch, np, llama, params, config, device, "d",
+                served_pairs(prompts, finals_by_index(report)), held)))
 
 
 def print_fleet(fleet, smi):
@@ -3841,6 +3927,362 @@ def print_fleet(fleet, smi):
             + f"; p50 {colocated['client_ttft_ms_p50']:.1f} | "
             f"{apart['client_ttft_ms_p50']:.1f}; pulled "
             f"{apart['kv_transfer_bytes']} bytes; {smi}")
+
+# --------------------------------------------------------------------------- #
+# Phase 11: the elastic fleet
+
+#: Phase 11's parts: (a) elastic chaos, (b) rolling upgrade, (c) restart.
+ELASTIC_PARTS = ("chaos", "upgrade", "restart")
+#: Phase 11 (a): the diurnal trace's seconds, and the servers built for it:
+#: three replicas and the killed one's replacement.
+ELASTIC_DURATION_S, ELASTIC_SERVERS = 6.0, 4
+#: Phase 11 (b): the rolling upgrade's turns (live migration or drain),
+#: its trace's seconds and tokens a request; two replicas and their two
+#: successors a turn.
+UPGRADE_TURNS = ("migrate", "drain", "drain", "migrate")
+UPGRADE_DURATION_S, UPGRADE_TOKENS, UPGRADE_SERVERS = 4.0, 48, 4
+#: Phase 11 (c): run_restart_ab's pairs (a cold then a warm arm each) and
+#: the rig's sizing at llama3_8b: three 96-token prefixes with 8-token
+#: tails visited round robin by RESTART_REQUESTS 4-token requests (after
+#: 6 of warm-up) over a pool of 10 blocks, so the prefixes' 18 blocks do
+#: not fit and every demotion spills to disk; 64-token slices, 16 blocks
+#: restored a step.  (The rig's defaults, 192-token prefixes over 20
+#: blocks, spill 2 MiB blocks twice as often: 31 s a pair on the card.)
+RESTART_TURNS, RESTART_REQUESTS = 2, 12
+RESTART_PREFIX, RESTART_TAIL = 96, 8
+RESTART_POOL, RESTART_SLICE, RESTART_RATE = 10, 64, 16
+
+
+def elastic_prompts(np, count):
+    """The elastic rigs' prompts by request index (seed 0)."""
+    from aiko_services_tpu_torch.tools import loadgen
+    payload_fn = loadgen._elastic_payloads(seed=0)
+    return [np.asarray(payload_fn(index)["tokens"]) for index in range(count)]
+
+
+def fleet_times(stats, kind):
+    """Seconds of the rig's ``fleet_events`` of one kind, by slot."""
+    return {what: at for at, event, what in stats["fleet_events"]
+            if event == kind}
+
+
+def serve_elastic(torch, np, llama, weights, kernels, server_cls,
+                  request_cls, params, device, parts=ELASTIC_PARTS):
+    """Phase 11: the elastic fleet through the port's loadgen rigs — a
+    Registrar, a ReplicaRouter and the FleetAutoscaler that owns the
+    replicas, each over its own phase-8 server (warmed and fenced,
+    :func:`warm_wire_server`) on one weight set, on one loopback broker and
+    one engine thread.  (a) ``run_elastic_chaos`` (seed 0); (b)
+    ``run_rolling_upgrade`` with two replicas in UPGRADE_TURNS, every
+    migrated final against the drain turns' and those held to the oracle;
+    (c) ``run_restart_ab`` in RESTART_TURNS pairs, on servers the rig
+    builds over its spill directories.  The registrar's primary search is
+    cut to 50 ms for the phase (nothing contests it).  ``parts`` names the
+    parts to run (ELASTIC_PARTS)."""
+    from aiko_services_tpu_torch.registry import registrar
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    config = llama.CONFIGS["llama3_8b"]
+    search = registrar.PRIMARY_SEARCH_TIMEOUT
+    registrar.PRIMARY_SEARCH_TIMEOUT = 0.05
+    torch.cuda.reset_peak_memory_stats()
+
+    def part(label, count, rig, **kwargs):
+        servers = [warm_wire_server(np, server_cls, request_cls, params,
+                                    device, config) for _ in range(count)]
+        if any(server.params is not params for server in servers):
+            fail("elastic: the servers do not share one weight set")
+        try:
+            began = time.monotonic()
+            result, counts = fleet_part(torch, llama, weights, kernels,
+                                        config, label, servers, rig,
+                                        **kwargs)
+            counts["seconds"] = round(time.monotonic() - began, 1)
+            counts["peak_gb"] = round(
+                torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+            return result, counts
+        finally:
+            del servers
+            reset_brokers()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    out = {}
+    try:
+        if "chaos" in parts:
+            out["chaos"] = elastic_chaos(torch, np, llama, params, config,
+                                         device, part)
+        if "upgrade" in parts:
+            out["upgrade"] = elastic_upgrade(torch, np, llama, params,
+                                             config, device, part)
+        if "restart" in parts:
+            out["restart"] = elastic_restart(torch, np, llama, server_cls,
+                                             request_cls, params, config,
+                                             device, part)
+    finally:
+        registrar.PRIMARY_SEARCH_TIMEOUT = search
+    out["peak_gb"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    return out
+
+
+def elastic_chaos(torch, np, llama, params, config, device, part):
+    """Phase 11 (a): ``run_elastic_chaos`` (seed 0) — three replicas, a
+    scripted ``scale_target 2`` (decode1 drained), decode3 killed
+    mid-decode, its replacement's first spawn failed and the retry
+    slow-started.  Every final is held to phase 4's oracle."""
+    from aiko_services_tpu_torch.tools import loadgen
+
+    report, counts = part(
+        "(11a) elastic chaos", ELASTIC_SERVERS,
+        lambda make_server: loadgen.run_elastic_chaos(
+            seed=0, duration_s=ELASTIC_DURATION_S,
+            make_server=make_server),
+        killed=("decode3",))
+    stats = report.server_stats
+    gates = dict(lost=report.lost == 0, timeouts=report.timeouts == 0,
+                 errors=report.errors == 0,
+                 duplicate_finals=report.duplicate_finals == 0,
+                 stream_mismatches=stats["stream_mismatches"] == 0,
+                 converged=stats["converged"] is True,
+                 drain_completed=stats["drain_completed"] >= 1,
+                 spawn_failures=stats["spawn_failures"] >= 1,
+                 slow_starts=stats["slow_starts"] >= 1,
+                 deaths_observed=stats["deaths_observed"] >= 2,
+                 replicas_live=stats["replicas_live"]
+                 == sum(stats["targets"].values()))
+    if not all(gates.values()):
+        fail(f"elastic (11a): {report} {stats} {gates}")
+    stops, spawns = fleet_times(stats, "stop"), fleet_times(stats, "spawn")
+    commands = fleet_times(stats, "command")
+    # The drain: the scripted scale_target to decode1's stop once drained;
+    # the respawn: decode3's last spawn (the slow-started retry) — both on
+    # the rig's clock from the measured run's start.
+    drain_s = stops.get("decode1", math.nan) \
+        - commands.get("(scale_target 2)", math.nan)
+    return dict(
+        sent=report.sent, completed=report.completed, lost=report.lost,
+        timeouts=report.timeouts, duplicate_finals=report.duplicate_finals,
+        **{key: stats[key] for key in (
+            "spawns", "respawns", "spawn_failures", "slow_starts", "drains",
+            "drain_completed", "deaths_observed", "quarantines",
+            "replicas_live", "redispatches", "faults_fired",
+            "replica_seconds", "stream_mismatches", "converged",
+            "fleet_events")},
+        targets=stats["targets"], drain_s=round(drain_s, 3),
+        respawn_at_s=spawns.get("decode3"), **caller_ttft(report),
+        ttft_ms_p50=report.ttft_p50_ms, goodput_rps=report.goodput_rps,
+        **counts, oracle=hold_to_oracle(
+            torch, np, llama, params, config, device, "11a", served_pairs(
+                elastic_prompts(np, report.sent), finals_by_index(report)),
+            set()))
+
+
+def elastic_upgrade(torch, np, llama, params, config, device, part):
+    """Phase 11 (b): ``run_rolling_upgrade`` with two replicas, a turn each
+    of UPGRADE_TURNS.  Every migrating turn completes both upgrades and
+    starts a migration, each completed one resumed on its source's tail
+    rows; nothing is lost or duplicated.  The drain turns migrate nothing:
+    they are the control, their finals held to the oracle, and every final
+    of a migrating turn equals theirs bit for bit."""
+    from aiko_services_tpu_torch.tools import loadgen
+
+    turns, control = [], {}
+    for index, kind in enumerate(UPGRADE_TURNS):
+        label = f"(11b) upgrade turn {index} ({kind})"
+        report, counts = part(
+            label, UPGRADE_SERVERS,
+            lambda make_server, kind=kind: loadgen.run_rolling_upgrade(
+                duration_s=UPGRADE_DURATION_S, seed=0, replicas=2,
+                drain_based=kind == "drain",
+                max_new_tokens=UPGRADE_TOKENS, make_server=make_server))
+        stats = report.server_stats
+        gates = dict(lost=report.lost == 0, timeouts=report.timeouts == 0,
+                     errors=report.errors == 0,
+                     duplicate_finals=report.duplicate_finals == 0,
+                     stream_mismatches=stats["stream_mismatches"] == 0,
+                     converged=bool(stats["converged"]),
+                     upgrades=stats["upgrades_completed"] >= 2)
+        if kind == "migrate":
+            gates.update(
+                started=stats["migrations_started"] >= 1,
+                tails=stats["kv_tails_adopted"]
+                >= stats["migrations_completed"])
+        else:
+            gates.update(none=stats["migrations_started"] == 0)
+            for request_id, tokens in report.final_tokens.items():
+                if control.setdefault(request_id, tokens) != tokens:
+                    fail(f"{label}: {request_id} differs between drain "
+                         "turns")
+        if not all(gates.values()):
+            fail(f"{label}: {report} {stats} {gates}")
+        commands = fleet_times(stats, "command")
+        stops = fleet_times(stats, "stop")
+        began = commands.get("(rolling_upgrade)", math.nan)
+        turns.append(dict(
+            kind=kind, sent=report.sent, completed=report.completed,
+            lost=report.lost, duplicate_finals=report.duplicate_finals,
+            upgrades_completed=stats["upgrades_completed"],
+            migrations_started=stats["migrations_started"],
+            migrations_completed=stats["migrations_completed"],
+            migrations_aborted=stats["migrations_aborted"],
+            kv_tails_adopted=stats["kv_tails_adopted"],
+            migration_cutover_ms=stats["migration_cutover_ms"],
+            # From the (rolling_upgrade) command to the last predecessor's
+            # stop, on the rig's clock.
+            upgrade_wall_s=round(max(stops.values(), default=math.nan)
+                                 - began, 3),
+            goodput_rps=report.goodput_rps, **caller_ttft(report),
+            fleet_events=stats["fleet_events"], finals=report.final_tokens,
+            **counts))
+    for turn in turns:
+        finals = turn.pop("finals")
+        if turn["kind"] == "migrate" and control:
+            differ = sorted(rid for rid, tokens in finals.items()
+                            if control.get(rid) != tokens)
+            if differ or set(finals) != set(control):
+                fail(f"elastic (11b): migrated finals differ from the "
+                     f"drain turns' for {differ or 'the request set'}")
+            turn["finals_equal_to_control"] = len(finals)
+    oracle = None
+    if control:
+        finals = {int(request_id.rsplit("_", 1)[1]): tokens
+                  for request_id, tokens in control.items()}
+        oracle = hold_to_oracle(
+            torch, np, llama, params, config, device, "11b", served_pairs(
+                elastic_prompts(np, max(finals) + 1), finals), set())
+    return dict(turns=turns, control_oracle=oracle)
+
+
+def elastic_restart(torch, np, llama, server_cls, request_cls, params,
+                    config, device, part):
+    """Phase 11 (c): ``run_restart_ab`` in RESTART_TURNS pairs — the only
+    replica killed after its warm-up, respawned cold (an empty spill
+    directory) and warm (adopting the dead replica's).  The rig holds the
+    arms bit-exact; here warm adopts chains and restores from disk, cold
+    adopts none, no checksum fails, warm's hit rate beats cold's, and the
+    cold finals are held to the oracle.  The respawn is warmed and fenced
+    as it is built (:func:`warm_and_fence`, on prompts shorter than a
+    block, so nothing of the warm-up is cached, spilled or looked up), so
+    its measured TTFTs hold no capture and a capture in them fails the
+    part.  The first replica serves only the rig's warm-up wave, where it
+    captures, and is not fenced: warming it beforehand would put chains
+    of its own into the directory the warm arm adopts."""
+    from aiko_services_tpu_torch.tools import loadgen
+
+    max_seq = -(-(RESTART_PREFIX + RESTART_TAIL + 8) // BLOCK) * BLOCK
+
+    def build(name, spill_dir):
+        server = server_cls(
+            config_name="llama3_8b", slots=SLOTS, max_seq=max_seq,
+            chunk_steps=CHUNK_STEPS, params=params, quantize=True,
+            block_size=BLOCK, enable_prefix_cache=True,
+            chunk_prefill_tokens=RESTART_SLICE, total_blocks=RESTART_POOL,
+            host_tier_blocks=0, restore_blocks_per_step=RESTART_RATE,
+            spill_dir=spill_dir, max_queue=256, watchdog_s=10.0,
+            device=device)
+        if name == "replica_a":
+            return server
+        return warm_and_fence(np, server, request_cls, config, BLOCK - 4)
+
+    payloads = loadgen.longtail_payloads(
+        n_prefixes=3, prefix_len=RESTART_PREFIX, tail_len=RESTART_TAIL,
+        seed=0)
+    turns, held = [], set()
+    for index in range(RESTART_TURNS):
+        label = f"(11c) restart pair {index}"
+        (cold, warm), counts = part(
+            label, 0, lambda make_server: loadgen.run_restart_ab(
+                n_requests=RESTART_REQUESTS, seed=0,
+                prefix_len=RESTART_PREFIX, tail_len=RESTART_TAIL,
+                make_server=make_server), build=build)
+        for arm, report in (("cold", cold), ("warm", warm)):
+            if report.lost or report.timeouts or report.errors:
+                fail(f"{label} {arm}: {report}")
+        ws, cs = warm.server_stats, cold.server_stats
+        gates = dict(adopted=ws["kv_adopted_chains"] > 0,
+                     restored=ws["kv_disk_restores"] > 0,
+                     cold_adopted=cs["kv_adopted_chains"] == 0,
+                     checksums=ws["kv_checksum_failures"] == 0
+                     and cs["kv_checksum_failures"] == 0,
+                     hit_rate=(warm.prefix_hit_rate or 0.0)
+                     > (cold.prefix_hit_rate or 0.0))
+        if not all(gates.values()):
+            fail(f"{label}: {gates} cold {cs} warm {ws}")
+        turn = dict(finals_equal=len(cold.final_tokens), **counts)
+        for arm, report in (("cold", cold), ("warm", warm)):
+            stats = report.server_stats
+            turn[arm] = dict(
+                prefix_hit_rate=report.prefix_hit_rate,
+                ttft_ms_mean=float(np.mean(report.ttfts_ms)),
+                ttft_ms_p50=report.ttft_p50_ms,
+                client_ttft_ms_mean=float(np.mean(report.client_ttfts_ms)),
+                client_ttft_ms_p50=float(np.median(report.client_ttfts_ms)),
+                **{key: stats[key] for key in (
+                    "kv_adopted_chains", "kv_disk_restores", "kv_spills",
+                    "warmup_spills", "restart_recovery_ms",
+                    "restart_hit_rates", "kv_checksum_failures")})
+        # The rig names a request r<offset>_lg<run>_<index>: its payload
+        # is the offset's plus the index's.
+        turn["oracle"] = hold_to_oracle(
+            torch, np, llama, params, config, device, "11c", [
+                (payloads(int(rid[1:].split("_", 1)[0])
+                          + int(rid.rsplit("_", 1)[1]))["tokens"], tokens)
+                for rid, tokens in cold.final_tokens.items()], held)
+        turns.append(turn)
+    return dict(turns=turns)
+
+
+def print_elastic(elastic, smi):
+    """Phase 11's lines: each part's figures, the card's name and power
+    limit on each."""
+    chaos = elastic.get("chaos")
+    if chaos:
+        log(f"phase 11 (a) elastic chaos (seed 0): {chaos['completed']} of "
+            f"{chaos['sent']} completed, lost {chaos['lost']}, timeouts "
+            f"{chaos['timeouts']}, duplicated {chaos['duplicate_finals']}; "
+            f"spawns {chaos['spawns']}, respawns {chaos['respawns']}, spawn "
+            f"failures {chaos['spawn_failures']}, slow starts "
+            f"{chaos['slow_starts']}, drains completed "
+            f"{chaos['drain_completed']} (scale_target to decode1's stop "
+            f"{chaos['drain_s']:.3f} s), deaths {chaos['deaths_observed']}, "
+            f"decode3 respawned at {chaos['respawn_at_s']} s, replicas live "
+            f"{chaos['replicas_live']} of {chaos['targets']}; caller's TTFT "
+            f"p50 {chaos['client_ttft_ms_p50']:.1f} ms, max "
+            f"{chaos['client_ttft_ms_max']:.1f} ms; {chaos['seconds']} s; "
+            f"{smi}")
+    upgrade = elastic.get("upgrade")
+    for index, turn in enumerate(upgrade["turns"] if upgrade else ()):
+        log(f"phase 11 (b) upgrade turn {index} ({turn['kind']}): "
+            f"{turn['completed']} of {turn['sent']} completed, lost "
+            f"{turn['lost']}; upgrades {turn['upgrades_completed']}, "
+            f"migrations {turn['migrations_completed']} of "
+            f"{turn['migrations_started']} (on tail rows "
+            f"{turn['kv_tails_adopted']}), cutover ms "
+            f"{turn['migration_cutover_ms']}; upgrade wall "
+            f"{turn['upgrade_wall_s']:.3f} s, goodput "
+            f"{turn['goodput_rps']:.2f} req/s, caller's TTFT p50 "
+            f"{turn['client_ttft_ms_p50']:.1f} ms"
+            + (f"; finals bit-exact against the drain turns: "
+               f"{turn['finals_equal_to_control']}"
+               if "finals_equal_to_control" in turn else "")
+            + f"; {turn['seconds']} s; {smi}")
+    restart = elastic.get("restart")
+    for index, turn in enumerate(restart["turns"] if restart else ()):
+        cold, warm = turn["cold"], turn["warm"]
+        log(f"phase 11 (c) restart pair {index}: hit rate cold "
+            f"{cold['prefix_hit_rate']:.3f}, warm "
+            f"{warm['prefix_hit_rate']:.3f}; TTFT mean / p50 ms (server) "
+            f"cold {cold['ttft_ms_mean']:.1f} / {cold['ttft_ms_p50']:.1f}, "
+            f"warm {warm['ttft_ms_mean']:.1f} / {warm['ttft_ms_p50']:.1f}; "
+            f"caller's cold {cold['client_ttft_ms_mean']:.1f} / "
+            f"{cold['client_ttft_ms_p50']:.1f}, warm "
+            f"{warm['client_ttft_ms_mean']:.1f} / "
+            f"{warm['client_ttft_ms_p50']:.1f}; warm adopted "
+            f"{warm['kv_adopted_chains']} chains, {warm['kv_disk_restores']}"
+            f" disk restores; arms bit-exact over {turn['finals_equal']} "
+            f"requests; {turn['seconds']} s; {smi}")
+    log(f"phase 11 peak device memory {elastic['peak_gb']} GiB; {smi}")
+
 
 # --------------------------------------------------------------------------- #
 # Phase 7: the ring collective matmuls
@@ -4031,6 +4473,7 @@ def main() -> None:
                 log(f"  {source}: {line.strip()}")
 
     # ---- phase 2: kernels against their plain versions ----
+    t0 = time.monotonic()
     config = llama.CONFIGS["llama3_8b"]
     int8_rows, int8_worst, int8_step = check_int8_matmul(torch, quant,
                                                          device, config)
@@ -4103,6 +4546,7 @@ def main() -> None:
     verify_rows, verify_worst, verify_main = check_chunk_verify(
         torch, pp, llama, device)
     print_rows("chunk_attention at the verify shape", verify_rows)
+    log(f"phase 2 took {time.monotonic() - t0:.1f} s")
 
     # ---- phase 3: serving ----
     t0 = time.monotonic()
@@ -4127,8 +4571,10 @@ def main() -> None:
                        device)
     log("--- serving llama3_8b int8 at 64 slots, bf16 KV: "
         + json.dumps(wide8))
+    log(f"phase 3 took {time.monotonic() - t0:.1f} s")
 
     # ---- phase 4: the paged server ----
+    t0 = time.monotonic()
     paged_kernels = kernels + (pp.append_kv, pp.chunk_attention)
     paged_runs = []
     for quantize_kv in (False, True):
@@ -4144,6 +4590,7 @@ def main() -> None:
                                     params, device)
     log("--- steady decode, llama3_8b int8 through the paged server at 64 "
         "slots, bf16 KV: " + json.dumps(paged_wide8))
+    log(f"phase 4 took {time.monotonic() - t0:.1f} s")
 
     # ---- phase 5: speculative decoding on the paged server ----
     spec_kernels = paged_kernels + (pp.append_kv_ragged,)
@@ -4163,6 +4610,7 @@ def main() -> None:
                 f"{run['kv']} KV: " + json.dumps(run))
             spec_runs.append(run)
     spec_main = spec_runs[0]["launches"]
+    log(f"phase 5 took {time.monotonic() - t0:.1f} s")
 
     # ---- phase 8: the wire (phase 4's weights, run before phase 6 frees
     # them) ----
@@ -4259,6 +4707,16 @@ def main() -> None:
     print_fleet(fleet, smi)
     log(f"phase 10 took {time.monotonic() - t0:.1f} s; {smi}")
 
+    # ---- phase 11: the elastic fleet (phase 4's weights) ----
+    t0 = time.monotonic()
+    elastic = serve_elastic(torch, np, llama, w8, paged_kernels,
+                            PagedContinuousServer, DecodeRequest, params,
+                            device)
+    log("--- the elastic fleet (phase 11: FleetAutoscaler, Registrar, "
+        "ReplicaRouter), llama3_8b int8, bf16 KV: " + json.dumps(elastic))
+    print_elastic(elastic, smi)
+    log(f"phase 11 took {time.monotonic() - t0:.1f} s; {smi}")
+
     # ---- phase 6: int4 weights through every server ----
     del params, draft_1b
     torch.cuda.empty_cache()
@@ -4324,6 +4782,7 @@ def main() -> None:
                      device, "paired", params4, short=True)
     log("--- speculative serving (paired int4 draft), llama3_8b int4, bf16 "
         "KV: " + json.dumps(run))
+    log(f"phase 6 took {time.monotonic() - t0:.1f} s")
     verify_m, resync_m = SLOTS * (SPEC_K + 1), SLOTS * SPEC_K
     if not {verify_m, resync_m} <= set(run["int4_kernel_rows"]):
         fail(f"spec int4: the verify (m={verify_m}) or the resync "
@@ -4341,8 +4800,10 @@ def main() -> None:
     # ---- phase 7: the ring collective matmuls, 4 ranks on the card ----
     del params4
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
     ring_rows, ring_launches, ring_copies = check_ring(torch, parallel,
                                                        device)
+    log(f"phase 7 took {time.monotonic() - t0:.1f} s")
     print_rows(f"ring collective matmuls ([cuda:0] * R; kernel_ms: one whole "
                f"call, all ranks' streams joined; library_ms: torch.mm of "
                f"the global operands); the main path's call: step launches "

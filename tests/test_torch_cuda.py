@@ -2166,3 +2166,92 @@ def test_fleet_chaos_kill_redispatches_with_survivor_tokens_unchanged(
     survivor = next(s for s, r in zip(servers, replicas)
                     if r.topic_path != holder)
     assert survivor.stats()["graph_replays"] > 0
+
+
+def test_elastic_fleet_respawns_a_killed_replica_bitwise_a_direct_server(
+        cuda, llama3_8b_2l):
+    """Two llama3_8b_2l replicas on one weight set owned by the port's
+    FleetAutoscaler (its spawner builds each server on the engine thread,
+    here the test's, driving a virtual clock): the replica holding a
+    streaming request is killed mid-stream, the router re-dispatches the
+    request, the autoscaler respawns the slot after its backoff, and a
+    second wave lands on the respawned fleet.  Every final is bitwise what
+    a direct server gives the same request alone."""
+    from aiko_services_tpu_torch.orchestration.autoscaler import (
+        AutoscalerPolicy, FleetAutoscaler)
+    from aiko_services_tpu_torch.orchestration.client import InferClient
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.orchestration.serving import ReplicaRouter
+    from aiko_services_tpu_torch.registry import Registrar
+    from aiko_services_tpu_torch.runtime import (EventEngine, Process,
+                                                 VirtualClock, actor_args,
+                                                 compose_instance)
+    from aiko_services_tpu_torch.transport import reset_brokers
+
+    direct = _graph_server(cuda, "paged", False, 8, "8b")
+    reset_brokers()
+    engine = EventEngine(clock=VirtualClock())
+    processes, built = {}, []
+
+    def process(pid):
+        processes[pid] = Process(namespace="card", hostname="h", pid=str(pid),
+                                 engine=engine, broker="card_elastic")
+        return processes[pid]
+    pids = iter(range(100, 200))
+    slot_pid = {}
+
+    def spawner(slot, _role):
+        built.append(_graph_server(cuda, "paged", False, 8, "8b",
+                                   params=direct.params))
+        slot_pid[slot] = next(pids)
+        compose_instance(ContinuousReplica, actor_args(slot),
+                         process=process(slot_pid[slot]), server=built[-1])
+
+    Registrar(process=process(1))
+    engine.advance(4.0)
+    router = compose_instance(ReplicaRouter, actor_args("router"),
+                              process=process(9))
+    policy = AutoscalerPolicy(
+        target=2, max_replicas=3, breach_windows=10 ** 6,
+        clear_windows=10 ** 6, cooldown_s=3600.0, spawn_timeout_s=60.0,
+        backoff_base_s=0.5)
+    scaler = compose_instance(
+        FleetAutoscaler, actor_args("autoscaler"), process=process(8),
+        spawner=spawner,
+        terminator=lambda slot, _mode: processes[slot_pid[slot]].kill(),
+        policy=policy, tick_s=0.25)
+    _drive(engine, lambda: router.share["replicas"] == 2)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, direct.config.vocab_size, plen)
+               .astype(np.int32) for plen in (19, 27, 8, 40, 13)]
+    news = (24, 6, 9, 5, 7)
+    client = InferClient(processes[9], f"{router.topic_path}/in")
+    try:
+        first = [client.submit(prompts[i], max_new_tokens=news[i],
+                               stream=i == 0) for i in range(2)]
+        victim = first[0]
+        _drive(engine, lambda: victim.partial_tokens)
+        holder = router._routed[victim.request_id]
+        slot = next(s for s, pid in slot_pid.items()
+                    if holder.startswith(f"{processes[pid].topic_path_process}/"))
+        processes[slot_pid[slot]].kill()
+        _drive(engine, lambda: all(f.done for f in first)
+               and scaler.counters["respawns"] == 1
+               and router.share["replicas"] == 2)
+        second = [client.submit(prompts[i], max_new_tokens=news[i])
+                  for i in range(2, 5)]
+        _drive(engine, lambda: all(f.done for f in second))
+    finally:
+        reset_brokers()
+    futures = first + second
+    assert [f.error for f in futures] == [None] * len(futures)
+    assert scaler.counters["deaths_observed"] == 1
+    assert (scaler.counters["spawns"], len(built)) == (2, 3)
+    assert router.counters["redispatches"] >= 1
+    for prompt, new, future in zip(prompts, news, futures):
+        request = DecodeRequest("d", prompt, new)
+        direct.submit(request)
+        direct.run_until_drained()
+        assert future.tokens == request.tokens
+    assert built[-1].stats()["graph_replays"] > 0

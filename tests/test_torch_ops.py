@@ -353,6 +353,7 @@ def _port_sources():
                       REPO / "scripts" / "smoke_wire.py",
                       REPO / "scripts" / "smoke_kv.py",
                       REPO / "scripts" / "smoke_fleet.py",
+                      REPO / "scripts" / "smoke_elastic.py",
                       REPO / "scripts" / "codec_scan.py"]
 
 
@@ -367,7 +368,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("spill.py", "transfer.py", "directory.py"):
         assert REPO / "aiko_services_tpu_torch" / "kvstore" / name in sources
     for name in ("registry/registrar.py", "registry/services_cache.py",
-                 "orchestration/migration.py", "tools/loadgen.py"):
+                 "orchestration/migration.py", "tools/loadgen.py",
+                 "orchestration/autoscaler.py", "orchestration/lifecycle.py",
+                 "orchestration/process_manager.py", "runtime/proxy.py",
+                 "runtime/category.py"):
         assert REPO / "aiko_services_tpu_torch" / name in sources
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
