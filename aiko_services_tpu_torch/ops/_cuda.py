@@ -62,8 +62,14 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_write_kv_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _L, _L, _I, _I, _I, _P],
-    "aiko_ring_ag_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "aiko_ring_rs_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_ring_ag_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_ring_rs_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    # No stream: a rank's split scratch, and what the two steps above take
+    # for these arguments (written into the last, an int[3]).
+    "aiko_ring_scratch_floats": [_I],
+    "aiko_ring_ag_plan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "aiko_ring_rs_plan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "aiko_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                              _I, _P],
@@ -157,7 +163,8 @@ def library() -> ctypes.CDLL:
 
 
 def entry(name: str):
-    """The bound C entry ``name`` (its last argument is the stream)."""
+    """The bound C entry ``name`` (its last argument is the stream, but
+    for the ring's scratch and plan queries)."""
     return getattr(library(), name)
 
 

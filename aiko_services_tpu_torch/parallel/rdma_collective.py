@@ -40,11 +40,27 @@ Where the protocol can go wrong on the card, and what guards it:
 - **In-kernel peer stores with spin-wait flags** are out of scope: on one
   card a rank's CTAs could spin while another rank's CTAs are not
   resident, a deadlock.  That design waits for the four-card path.
+- **The decode path's split scratch.**  Its K split's f32 partials and
+  arrival counters (:func:`step_scratch`) belong to one rank, kept beside
+  its streams and recorded on its compute stream with the slots: the
+  ranks of one card run at once on their own streams, so a per-device
+  scratch (``_cuda.scratch``) would be raced.
+
+The step kernel takes one of four paths (:data:`STEP_PATHS`): TMA +
+``wgmma`` tiles at prefill shapes (bf16, m > 64), the weight streamed with
+a K split at decode shapes (bf16, m <= 64), ``mma.sync`` on tiles loaded
+element by element where a size or pointer is not aligned for TMA, and f32
+FMAs.  The kernel alone holds the rule, the tile sizes and the K split;
+the host gives each rank its share of the SMs and a scratch the kernel
+sizes, and :func:`step_plan` asks the kernel what a step takes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import collections
+import ctypes
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -56,7 +72,8 @@ from .mesh import Mesh
 
 __all__ = ["rdma_allgather_matmul", "rdma_matmul_reducescatter",
            "rdma_allgather_matmul_sharded",
-           "rdma_matmul_reducescatter_sharded"]
+           "rdma_matmul_reducescatter_sharded", "STEP_PATHS",
+           "StepScratch", "step_scratch", "launch_step", "step_plan"]
 
 #: A test hook: called as ``before_step(rank, step)`` with the rank's
 #: compute stream current, just before its step kernel is enqueued (the
@@ -78,6 +95,97 @@ def _streams(device: torch.device, rank: int):
     return _STREAMS[key]
 
 
+#: The paths of ``csrc/ring_matmul.cu``'s ``matmul()``, indexed by the code
+#: its ``aiko_ring_*_plan`` queries return.
+STEP_PATHS = ("f32", "mma_sync", "stream", "wgmma")
+
+
+class StepScratch(NamedTuple):
+    """A rank's share of its card's SMs (``ctas``), over which the
+    streamed-weight path splits K, and the split's scratch: f32 partials
+    and int32 arrival counters (zero; each launch leaves them zero)."""
+    ctas: int
+    partials: torch.Tensor
+    arrivals: torch.Tensor
+
+
+#: (device, rank) -> that rank's split scratch, grown as a call needs it.
+#: Only the rank's compute stream (``_streams``, the same key) runs its
+#: steps, in order, so a call reuses it with no zero-fill ahead of the
+#: ring; ranks never share one.
+_SCRATCH: Dict[Tuple[torch.device, int], StepScratch] = {}
+
+
+def step_scratch(device: torch.device, ctas: int,
+                 rank: Optional[int] = None) -> StepScratch:
+    """The split scratch of a rank with ``ctas`` SMs of ``device``, sized
+    by the kernel (``aiko_ring_scratch_floats``) to hold any step's split:
+    rank ``rank``'s own (kept for its later calls), or a new one when
+    ``rank`` is None."""
+    kept = _SCRATCH.get((device, rank)) if rank is not None else None
+    if kept is not None and kept.ctas >= ctas:
+        return kept._replace(ctas=ctas)
+    floats = _cuda.entry("aiko_ring_scratch_floats")(ctas)
+    scratch = StepScratch(
+        ctas, torch.empty(floats, dtype=torch.float32, device=device),
+        torch.zeros(ctas, dtype=torch.int32, device=device))
+    if rank is not None:
+        _SCRATCH[(device, rank)] = scratch
+    return scratch
+
+
+#: SMs of each card the ring has run on.
+_SMS: Dict[torch.device, int] = {}
+
+
+def _ctas(device: torch.device, sharing: int) -> int:
+    """A rank's share of ``device``'s SMs when ``sharing`` ranks run on it
+    at once."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device) \
+            .multi_processor_count
+    return max(1, _SMS[device] // sharing)
+
+
+def _step_args(kind: str, a: torch.Tensor, w: torch.Tensor,
+               target: torch.Tensor, index: int) -> tuple:
+    """The step entries' arguments from ``a`` through the column or row
+    offset: all-gather, block ``a`` into rows ``index * m_local ..`` of
+    ``target``; reduce-scatter, ``a @`` w's column slice ``index`` into the
+    f32 ``target``."""
+    if kind == "ag":
+        m_local, k = a.shape
+        return (m_local, k, w.shape[1], index * m_local)
+    m, k_local = a.shape
+    n_local = target.shape[1]
+    return (m, k_local, w.shape[1], n_local, index * n_local)
+
+
+def launch_step(kind: str, a: torch.Tensor, w: torch.Tensor,
+                target: torch.Tensor, index: int,
+                scratch: StepScratch) -> None:
+    """Enqueue one step's product (:func:`_step_args`) on the current
+    stream of ``a``'s card, K split over ``scratch``'s share of the SMs."""
+    _cuda.launch(f"aiko_ring_{kind}_step", a.device, a.data_ptr(),
+                 w.data_ptr(), target.data_ptr(), scratch.partials.data_ptr(),
+                 scratch.arrivals.data_ptr(),
+                 *_step_args(kind, a, w, target, index), scratch.ctas,
+                 _cuda.DTYPE_CODES[a.dtype])
+
+
+def step_plan(kind: str, a: torch.Tensor, w: torch.Tensor,
+              target: torch.Tensor, index: int,
+              ctas: int) -> Tuple[str, int, int]:
+    """(path, K slices, rows a slice) that the kernel takes for
+    :func:`launch_step`'s arguments with ``ctas`` SMs: its own answer."""
+    plan = (ctypes.c_int * 3)()
+    _cuda.entry(f"aiko_ring_{kind}_plan")(
+        a.data_ptr(), w.data_ptr(), target.data_ptr(),
+        *_step_args(kind, a, w, target, index), ctas,
+        _cuda.DTYPE_CODES[a.dtype], ctypes.addressof(plan))
+    return STEP_PATHS[plan[0]], plan[1], plan[2]
+
+
 def _ring_on_card(kind: str, wrapper, x_shards: Sequence[torch.Tensor],
                   w_shards: Sequence[torch.Tensor],
                   before_step: BeforeStep) -> List[torch.Tensor]:
@@ -90,10 +198,15 @@ def _ring_on_card(kind: str, wrapper, x_shards: Sequence[torch.Tensor],
         if not tensor.is_contiguous():
             raise ValueError(f"{wrapper.__name__}: shard of shape "
                              f"{tuple(tensor.shape)} is not contiguous")
-    code = _cuda.DTYPE_CODES[dtype]
     devices = [x.device for x in x_shards]
     callers = {d: torch.cuda.current_stream(d) for d in devices}
     buffers = _buffers(kind, x_shards, w_shards)
+    sharing = collections.Counter(devices)
+    scratch = [step_scratch(d, _ctas(d, sharing[d]), r)
+               for r, d in enumerate(devices)]
+    for r, split in enumerate(scratch):
+        buffers[("partials", r, 0)] = split.partials
+        buffers[("arrivals", r, 0)] = split.arrivals
     streams = [_streams(d, r) for r, d in enumerate(devices)]
     for (name, r, _), tensor in buffers.items():
         users = {streams[r][0]}
@@ -125,20 +238,9 @@ def _ring_on_card(kind: str, wrapper, x_shards: Sequence[torch.Tensor],
             elif op.kind == "product":
                 if before_step is not None:
                     before_step(op.rank, op.step)
-                target = buffers[op.writes[0]]
-                if kind == "ag":
-                    m_local, k = x.shape
-                    _cuda.launch("aiko_ring_ag_step", device,
-                                 buffers[op.reads[0]].data_ptr(),
-                                 w.data_ptr(), target.data_ptr(), m_local, k,
-                                 w.shape[1], op.index * m_local, code)
-                else:
-                    m, k_local = x.shape
-                    n_local = target.shape[1]
-                    _cuda.launch("aiko_ring_rs_step", device, x.data_ptr(),
-                                 w.data_ptr(), target.data_ptr(), m, k_local,
-                                 w.shape[1], n_local, op.index * n_local,
-                                 code)
+                launch_step(kind, buffers[op.reads[0]] if kind == "ag"
+                            else x, w, buffers[op.writes[0]], op.index,
+                            scratch[op.rank])
                 wrapper.launches += 1
             else:                                        # "add"
                 acc = buffers[op.reads[0]]

@@ -238,19 +238,27 @@ def log(message: str) -> None:
 # --------------------------------------------------------------------------- #
 # Timing and bounds
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int, sleep_cycles: int = 100_000_000,
+              timing=None) -> float:
     """Card time of one call of ``fn``: CUDA events around ``reps`` calls
-    queued behind a 50 ms device-side sleep, so the kernels run back to
-    back and the host's launch path (slower than the smaller kernels)
-    adds no gaps to the window."""
+    queued behind a device-side sleep (~50 ms at the card's clock by
+    default), so the kernels run back to back and the host's launch path
+    (slower than the smaller kernels) adds no gaps to the window.  With a
+    dict ``timing``, also the host's enqueue ms a call (``host_ms``) and
+    whether the sleep ended before the enqueue did (``host_bound``: the
+    window then measured the host)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)          # ~50 ms at the card's clock
+    torch.cuda._sleep(sleep_cycles)
     start.record()
+    began = time.perf_counter()
     for _ in range(reps):
         fn()
+    if timing is not None:
+        timing["host_ms"] = (time.perf_counter() - began) * 1e3 / reps
+        timing["host_bound"] = start.query()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -1448,10 +1456,16 @@ def print_rows(title, rows):
     log(f"--- {title}")
     for row in rows:
         library = row.get("library_ms")
+        floor = f"  floor_ms {row['floor_ms']:.4f}" if "floor_ms" in row \
+            else ""
+        if "host_ms" in row:
+            floor += f"  host_ms {row['host_ms']:.3f}"
+        kernel = "not measured (host-bound)" if row.get("host_bound") \
+            else f"{row['ms']:.4f}"
         log(f"  {row['shape']}: max_abs_err {row['err']:.3g} (err/tol "
-            f"{row['ratio']:.3f})  kernel_ms {row['ms']:.4f}  plain_ms "
+            f"{row['ratio']:.3f})  kernel_ms {kernel}  plain_ms "
             f"{row['plain_ms']:.4f}  bound_ms {row['bound_ms']:.4f} "
-            f"({row['bound_by']})  library_ms "
+            f"({row['bound_by']}){floor}  library_ms "
             f"{'n/a' if library is None else f'{library:.4f}'}")
 
 
@@ -4304,6 +4318,13 @@ RING_CASES = [
 ]
 #: f32 ring outputs against the f32 plain version: summation order only.
 RING_F32_TOL = 1e-4
+#: The path csrc/ring_matmul.cu's matmul() must take for the steps of the
+#: main path's calls (RING_CASES[:4]): TMA + wgmma tiles at m = 2048, the
+#: streamed weight with its K split at m = 64.
+RING_STEP_PATHS = ("wgmma", "wgmma", "stream", "stream")
+#: A whole call's window sleeps ~0.2 s: ten R = 8 calls take ~50 ms of
+#: host enqueue, which outlasts the default sleep.
+RING_SLEEP_CYCLES = 400_000_000
 
 
 def ring_operands(torch, device, m, k, n, dtype, seed):
@@ -4334,10 +4355,16 @@ def check_ring(torch, parallel, device):
     a second call bit-equal to the first; a slowed rank (rank 1 sleeps on
     its compute stream before its step-1 kernel) still right; and the
     whole call's time (per-rank entry points on pre-cut shards, CUDA
-    events on the caller's stream, which every rank's streams join), the
-    plain version's, the bound (the work of all ranks: each global
-    operand read once, 2 m K N operations) and one ``torch.mm`` of the
-    global operands as the library yardstick."""
+    events on the caller's stream, which every rank's streams join, ten
+    calls behind a ~0.2 s sleep after a window that warms the allocator;
+    the host's enqueue ms a call beside it; a window whose sleep ended
+    before the enqueue did is not measured, and fails the smoke on a main
+    path shape), the plain version's, the
+    bound (the work of all ranks: each global operand read once, 2 m K N
+    operations), for the all-gather the floor its schedule sets (every
+    rank reads its w shard at each of its R steps), and one ``torch.mm``
+    of the global operands as the library yardstick.  Then each step
+    kernel of the main path alone (:func:`check_ring_steps`)."""
     rc, cm = parallel.rdma_collective, parallel.collective_matmul
     fns = {"ag": (rc.rdma_allgather_matmul_sharded, rc.rdma_allgather_matmul,
                   cm.allgather_matmul_sharded, cm.allgather_matmul, 0, 1),
@@ -4396,15 +4423,34 @@ def check_ring(torch, parallel, device):
         devices = ring_mesh.ring("tp")
         xs = cm.shard(x, x_dim, devices)
         ws = cm.shard(w, w_dim, devices)
-        ms = device_ms(torch, lambda: per_rank(xs, ws), 10)
+        # The first window sizes the caching allocator for ten calls in
+        # flight (fresh blocks are slow host work); the second is timed.
+        timing = {}
+        for _ in range(2):
+            ms = device_ms(torch, lambda: per_rank(xs, ws), 10,
+                           RING_SLEEP_CYCLES, timing)
+        if timing["host_bound"]:
+            # The sleep ended before the host had enqueued the window: it
+            # timed the host, not the card.
+            if index < 4:
+                fail(f"ring {kind} {label} m={m}: the timed window was "
+                     f"host-bound ({timing['host_ms']:.3f} ms of enqueue a "
+                     "call)")
+            ms = float("nan")
         plain_ms = device_ms(torch, lambda: plain(xs, ws), 3)
         library_ms = device_ms(torch, lambda: torch.mm(x, w), 10)
         elem = x.element_size()
         b_ms, b_by = bound(elem * (m * k + k * n + m * n), 2 * m * k * n)
-        rows.append(dict(shape=f"{kind} {label} R={ranks} m={m} K={k} N={n} "
-                               f"{dtype}", kind=kind, err=err, ratio=ratio,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=library_ms))
+        row = dict(shape=f"{kind} {label} R={ranks} m={m} K={k} N={n} "
+                         f"{dtype}", kind=kind, err=err, ratio=ratio, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_ms, **timing)
+        if kind == "ag":
+            # The schedule reads every rank's w shard at each of its R
+            # steps: R^2 shard reads a call, whatever the step kernel.
+            row["floor_ms"] = max(b_ms, ranks * k * n * elem
+                                  / HBM_BYTES_PER_S * 1e3)
+        rows.append(row)
     # A slowed rank: the copies must wait for it (the capacity events).
     for kind in ("ag", "rs"):
         x, w = ring_operands(torch, device, 256, 512, 512, torch.bfloat16, 7)
@@ -4423,7 +4469,87 @@ def check_ring(torch, parallel, device):
                          ratio=ratio, ms=float("nan"), plain_ms=float("nan"),
                          bound_ms=float("nan"), bound_by="-",
                          library_ms=None))
-    return rows, launches, copies
+    return rows + check_ring_steps(torch, rc, device), launches, copies
+
+
+def print_ring_rows(rows, launches, copies):
+    print_rows(f"ring collective matmuls ([cuda:0] * R; kernel_ms: one whole "
+               f"call, all ranks' streams joined, or for a step row one step "
+               f"kernel alone; library_ms: torch.mm of the global operands, "
+               f"or of the step's); the main path's call: step launches "
+               f"{launches}, copies {copies}", rows)
+
+
+def check_ring_steps(torch, rc, device):
+    """The step kernel alone at each step shape of the main path's calls
+    (RING_CASES[:4] on one rank of RING_RANKS, at step index 1, whose
+    rows or columns start past 0), on the caller's stream with a rank's
+    share of the SMs, as the ring gives it: the path and K split
+    ``matmul()`` takes (the kernel's answer, held to RING_STEP_PATHS), the
+    output against the step's plain version (``torch.mm`` in f32;
+    ``ring_compare``, so the reduce-scatter's f32 output is held to
+    RING_F32_TOL), its time, bound and one ``torch.mm`` of the same step
+    operands as the yardstick.  Apart from the whole call's, these rows
+    leave out the protocol (events, copies, the reduce-scatter's adds)."""
+    rows = []
+    ctas = rc._ctas(device, RING_RANKS)
+    for (kind, label, _, m, k, n, dtype), want_path in zip(RING_CASES,
+                                                           RING_STEP_PATHS):
+        gen = torch.Generator(device=device).manual_seed(m + k)
+        dt = getattr(torch, dtype)
+        if kind == "ag":
+            m_step, k_step, cols = m // RING_RANKS, k, n // RING_RANKS
+            target = torch.empty((m, cols), dtype=dt, device=device)
+        else:
+            m_step, k_step, cols = m, k // RING_RANKS, n
+            target = torch.empty((m, n // RING_RANKS), dtype=torch.float32,
+                                 device=device)
+        a = torch.randn((m_step, k_step), generator=gen, device=device).to(dt)
+        w = (torch.randn((k_step, cols), generator=gen, device=device)
+             * k_step ** -0.5).to(dt)
+        index = 1
+        n_step = target.shape[1]
+        if kind == "ag":
+            out = target[index * m_step:(index + 1) * m_step]
+            w_step = w
+        else:
+            out = target
+            w_step = w[:, index * n_step:(index + 1) * n_step]
+        path, splits, slice_rows = rc.step_plan(kind, a, w, target,
+                                                index, ctas)
+        if path != want_path:
+            fail(f"ring {kind} {label} m={m}: the step took {path}; the "
+                 f"main path needs {want_path}")
+        scratch = rc.step_scratch(device, ctas)
+
+        def kernel():
+            rc.launch_step(kind, a, w, target, index, scratch)
+
+        def plain():
+            return torch.mm(a.float(), w_step.float())
+
+        kernel()
+        err, ratio = ring_compare(torch, out, plain())
+        if not ratio <= 1.0:
+            fail(f"ring {kind} {label} m={m} step: max abs err {err}, "
+                 f"err/tol {ratio}")
+        elem = a.element_size()
+        b_ms, b_by = bound(elem * (m_step * k_step + k_step * n_step)
+                           + target.element_size() * m_step * n_step,
+                           2 * m_step * k_step * n_step)
+        rows.append(dict(
+            shape=f"{kind} {label} m={m} step on one stream: {m_step} x "
+                  f"{k_step} x {n_step}" + (f" of a {cols}-wide w"
+                                           if kind == "rs" else "")
+                  + f", path {path}"
+                  + (f", K split {splits} x {slice_rows}" if splits > 1
+                     else ""),
+            kind=kind, path=path, err=err, ratio=ratio,
+            ms=device_ms(torch, kernel, 20),
+            plain_ms=device_ms(torch, plain, 5), bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=device_ms(torch, lambda: torch.mm(a, w_step), 20)))
+    return rows
 
 
 def main() -> None:
@@ -4804,10 +4930,7 @@ def main() -> None:
     ring_rows, ring_launches, ring_copies = check_ring(torch, parallel,
                                                        device)
     log(f"phase 7 took {time.monotonic() - t0:.1f} s")
-    print_rows(f"ring collective matmuls ([cuda:0] * R; kernel_ms: one whole "
-               f"call, all ranks' streams joined; library_ms: torch.mm of "
-               f"the global operands); the main path's call: step launches "
-               f"{ring_launches}, copies {ring_copies}", ring_rows)
+    print_ring_rows(ring_rows, ring_launches, ring_copies)
     ring_main = {kind: next(r for r in ring_rows if r["kind"] == kind)
                  for kind in ("ag", "rs")}
 

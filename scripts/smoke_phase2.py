@@ -6,14 +6,15 @@ tolerances and timings) and prints the smoke's rows; a failed case is
 reported and the run goes on to every case.  Exits non-zero if any case
 failed.
 
-    python3 scripts/smoke_phase2.py [chunk] [verify] [int4] [int8] [kv]
+    python3 scripts/smoke_phase2.py [chunk] [verify] [int4] [int8] [kv] [ring]
 
-Without names it runs all five: chunk attention at every admission
+Without names it runs all six: chunk attention at every admission
 slice, chunk attention at the verify shape, int4_matmul at every
 projection and m (with the m-tiled instance and the step sums),
-int8_matmul at every projection and m (with the 8-slot step's sum), and
+int8_matmul at every projection and m (with the 8-slot step's sum),
 the KV writer's three modes (append_kv, append_kv_ragged and the decode
-write write_kv_rows, each byte-equal to its plain version).
+write write_kv_rows, each byte-equal to its plain version), and phase 7
+(the ring collective matmuls, with each main-path step kernel alone).
 Needs an NVIDIA card and nvcc.
 """
 
@@ -22,7 +23,7 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-CHECKS = ("chunk", "verify", "int4", "int8", "kv")
+CHECKS = ("chunk", "verify", "int4", "int8", "kv", "ring")
 
 
 def main() -> None:
@@ -35,6 +36,7 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     import chip_smoke
+    from aiko_services_tpu_torch import parallel
     from aiko_services_tpu_torch.models import llama
     from aiko_services_tpu_torch.ops import _cuda, quant
     from aiko_services_tpu_torch.ops import paged_prefill as pp
@@ -68,6 +70,9 @@ def main() -> None:
                 ("write_kv_rows", chip_smoke.check_write_kv_rows)):
             rows, _ = check(torch, pp, llama, device)
             chip_smoke.print_rows(title, rows)
+    if "ring" in names:
+        chip_smoke.print_ring_rows(*chip_smoke.check_ring(torch, parallel,
+                                                          device))
     for message in failures:
         print(f"FAIL: {message}")
     sys.exit(1 if failures else 0)

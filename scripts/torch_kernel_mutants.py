@@ -26,8 +26,10 @@ seven bits), scales each column with its neighbour's scale, drops a tile's
 last K slice from the split merge (weight_stream.cuh), or swaps k rows k
 and k + 1 in its A fragments; the ring
 all-gather step writes each block one row block too low, the ring
-reduce-scatter drops the last step's partial, and the ring's copies skip
-the capacity wait.  Each copy is built and held to the same checks the
+reduce-scatter drops the last step's partial, the ring's copies skip
+the capacity wait, the ring step's TMA + wgmma path reads w (its B
+operand) from the next stage of its ring, and its streamed-weight path's
+last K slice never reaches the split merge.  Each copy is built and held to the same checks the
 working tree passes: ``chip_smoke.py``'s phase 2 for that kernel (at the
 llama3_8b shapes; phase 7 for the ring) and the kernel's tests in
 ``tests/test_torch_cuda.py``.
@@ -177,6 +179,15 @@ MUTANTS = {
         RING, "const size_t out_offset = (size_t)out_row0 * n_local;",
         "const size_t out_offset =\n"
         "      (size_t)(out_row0 ? out_row0 - m_local : 0) * n_local;"),
+    "ring_wgmma_b_stage": (
+        RING, "aiko::make_desc(b_stage(st) + kk * 16 * 128, kBoxBytes,",
+        "aiko::make_desc(b_stage((st + 1) % kStages) + kk * 16 * 128, "
+        "kBoxBytes,"),
+    "ring_merge_drops_slice": (
+        RING, "  __syncthreads();\n  if (splits > 1 &&\n",
+        "  __syncthreads();\n  if (split == splits - 1 && splits > 1) {\n"
+        "    for (int i = tid; i < MR * kNT; i += kThreads) red[i] = 0.f;\n"
+        "    __syncthreads();\n  }\n  if (splits > 1 &&\n"),
     "rs_drop_last_partial": (
         RING_HOST, "if len(op.reads) == 2:",
         "if len(op.reads) == 2 and op.writes[0][0] != \"out\":"),

@@ -1699,7 +1699,12 @@ def test_spec_server_on_the_card_holds_the_oracle(cuda, quantize_kv):
 
 #: (kind, ranks, m, k, n, dtype): the JAX tests' shapes (ragged: n_local 3,
 #: 5, 2), llama3_8b's TP-4 MLP shapes at m = 2048 and 64 (w_gate all-gather,
-#: w_down reduce-scatter), and odd sizes that leave every tile edge ragged.
+#: w_down reduce-scatter), odd sizes that leave every tile edge ragged, and
+#: the edges of the step kernel's paths (csrc/ring_matmul.cu): a step of 64
+#: rows (the streamed weight) beside one of 65 (TMA + wgmma tiles); partial
+#: 128 x 256 tiles, a partial 64-row K stage and a partial last K slice;
+#: reduce-scatter slices past column 0 that are not a multiple of the
+#: 256-column tile; an aligned shape beside an unaligned one of its size.
 RING_CASES = [
     ("ag", 8, 16, 32, 24, torch.float32),
     ("rs", 8, 8, 64, 40, torch.float32),
@@ -1713,6 +1718,16 @@ RING_CASES = [
     ("rs", 3, 130, 264, 390, torch.bfloat16),
     ("ag", 2, 130, 96, 66, torch.float32),
     ("rs", 1, 40, 48, 24, torch.bfloat16),
+    ("ag", 4, 256, 256, 1024, torch.bfloat16),       # step m 64: stream
+    ("ag", 4, 260, 256, 1024, torch.bfloat16),       # step m 65: wgmma
+    ("rs", 4, 64, 8192, 1024, torch.bfloat16),       # stream, 8 K slices
+    ("rs", 4, 65, 8192, 1024, torch.bfloat16),       # wgmma
+    ("ag", 2, 400, 200, 400, torch.bfloat16),        # wgmma, all partial
+    ("rs", 4, 200, 1056, 800, torch.bfloat16),       # wgmma, col0 200..
+    ("ag", 4, 160, 520, 544, torch.bfloat16),        # stream, slices 320, 200
+    ("rs", 2, 48, 2000, 528, torch.bfloat16),        # stream, col0 264
+    ("ag", 2, 192, 256, 192, torch.bfloat16),        # wgmma
+    ("ag", 2, 192, 252, 192, torch.bfloat16),        # the same, K % 8: mma.sync
 ]
 
 RINGS = {"ag": (rdma_collective.rdma_allgather_matmul_sharded,
@@ -1774,6 +1789,88 @@ def test_ring_holds_against_a_slowed_rank(cuda, kind, monkeypatch):
             dataclasses.replace(op, capacity=()) for op in schedule(ranks)])
     raced = ring_fn(x, w, mesh, before_step=slow)
     assert not torch.allclose(raced.float(), want, rtol=2e-2, atol=2e-2)
+
+
+def _ring_plan(kind, xs, ws, m, n):
+    """(path, K slices, rows a slice) that the kernel takes for rank 0's
+    step 1 of a bf16 ring call on the shards ``xs``, ``ws`` of one card."""
+    ranks = len(xs)
+    dtype = torch.bfloat16 if kind == "ag" else torch.float32
+    target = torch.empty((m, n // ranks), dtype=dtype, device=xs[0].device)
+    return rdma_collective.step_plan(
+        kind, xs[0], ws[0], target, 1,
+        rdma_collective._ctas(xs[0].device, ranks))
+
+
+@pytest.mark.parametrize("kind", ["ag", "rs"])
+def test_ring_split_scratch_is_each_ranks_own(cuda, kind):
+    """The streamed-weight path's K split on four ranks of one card at
+    once, then the same call with rank 1 sleeping ~50 ms before its step-1
+    kernel (so the others run ahead): both bit-equal to the first call.
+    Each rank's partials and arrival counters are its own; one scratch
+    shared by the ranks' streams would mix their slices."""
+    ranks = 4
+    m, k, n = (256, 4096, 4096) if kind == "ag" else (64, 8192, 2048)
+    ring_fn, plain_fn, _ = RINGS[kind]
+    mesh = make_mesh([cuda] * ranks, tp=ranks)
+    x, w = _ring_operands(cuda, kind, m, k, n, torch.bfloat16, 31)
+    x_dim, w_dim = (0, 1) if kind == "ag" else (1, 0)
+    devices = mesh.ring("tp")
+    path, splits, _ = _ring_plan(kind,
+                                 collective_matmul.shard(x, x_dim, devices),
+                                 collective_matmul.shard(w, w_dim, devices),
+                                 m, n)
+    assert path == "stream" and splits > 1
+    first = ring_fn(x, w, mesh)
+    scratch = [rdma_collective.step_scratch(cuda, 1, r) for r in range(ranks)]
+    assert len({s.partials.data_ptr() for s in scratch}) == ranks
+    assert len({s.arrivals.data_ptr() for s in scratch}) == ranks
+    _close(first, plain_fn(x.float(), w.float(), mesh), torch.bfloat16)
+    assert torch.equal(ring_fn(x, w, mesh), first)
+
+    def slow(rank, step):
+        if (rank, step) == (1, 1):
+            torch.cuda._sleep(100_000_000)
+
+    assert torch.equal(ring_fn(x, w, mesh, before_step=slow), first)
+
+
+def _misaligned(tensor):
+    """A contiguous copy of ``tensor`` one element past a 16-byte
+    boundary."""
+    flat = torch.empty(tensor.numel() + 1, dtype=tensor.dtype,
+                       device=tensor.device)
+    view = flat[1:].view(tensor.shape)
+    view.copy_(tensor)
+    return view
+
+
+@pytest.mark.parametrize("kind,m,aligned_path", [
+    ("ag", 192, "wgmma"), ("ag", 64, "stream"),
+    ("rs", 96, "wgmma"), ("rs", 48, "stream")])
+def test_ring_misaligned_shards_take_the_unaligned_path(cuda, kind, m,
+                                                        aligned_path):
+    """The same shapes from aligned shards and from shards one element
+    off a 16-byte boundary: the kernel takes a TMA path for the first and
+    the element-loading mma.sync path for the second (its own answer),
+    and both are right."""
+    ranks, k, n = 2, 512, 192
+    _, plain_fn, _ = RINGS[kind]
+    per_rank = {"ag": rdma_collective.rdma_allgather_matmul,
+                "rs": rdma_collective.rdma_matmul_reducescatter}[kind]
+    mesh = make_mesh([cuda] * ranks, tp=ranks)
+    x, w = _ring_operands(cuda, kind, m, k, n, torch.bfloat16, m + 5)
+    want = plain_fn(x.float(), w.float(), mesh)
+    devices = mesh.ring("tp")
+    x_dim, w_dim = (0, 1) if kind == "ag" else (1, 0)
+    xs = collective_matmul.shard(x, x_dim, devices)
+    ws = collective_matmul.shard(w, w_dim, devices)
+    for shards, path in (((xs, ws), aligned_path),
+                         (([_misaligned(t) for t in xs],
+                           [_misaligned(t) for t in ws]), "mma_sync")):
+        assert _ring_plan(kind, *shards, m, n)[0] == path
+        got = collective_matmul.unshard(per_rank(*shards), 1, cuda)
+        _close(got, want, torch.bfloat16)
 
 
 def test_ring_raises_on_what_the_kernels_do_not_take(cuda):

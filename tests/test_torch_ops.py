@@ -22,7 +22,8 @@ from aiko_services_tpu.ops import attention as jax_attention
 from aiko_services_tpu.ops import paged_attention as jax_paged
 from aiko_services_tpu.ops import quant as jax_quant
 from aiko_services_tpu_torch.models.bridge import tensor_from_numpy
-from aiko_services_tpu_torch.ops import attention, paged_attention, quant
+from aiko_services_tpu_torch.ops import (_cuda, attention, paged_attention,
+                                         quant)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -341,6 +342,44 @@ def test_every_kernel_wrapper_counts_its_launches():
 
 
 # --------------------------------------------------------------------------- #
+# the C interface
+
+
+def _c_declarations():
+    """name -> argument types of every ``extern "C" int`` entry in
+    ``csrc/*.cu``, each as the ctypes type :mod:`ops._cuda` binds it
+    with: a pointer of any kind ``c_void_p``."""
+    import ctypes
+    import re
+    types = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "long long": ctypes.c_longlong}
+    found = {}
+    csrc = REPO / "aiko_services_tpu_torch" / "csrc"
+    for path in sorted(csrc.glob("*.cu")):
+        text = path.read_text()
+        for match in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            args = []
+            for arg in match.group(2).split(","):
+                kind = " ".join(arg.split()[:-1]).replace("const ", "")
+                args.append(ctypes.c_void_p if "*" in arg
+                            else types[kind])
+            found[match.group(1)] = args
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_cuda.SIGNATURES))
+def test_bound_signature_is_the_c_declaration(name):
+    """The ctypes signature each C entry is bound with has the argument
+    types of its declaration in csrc/, in order (a mismatch shows only as
+    a wrong launch on the card)."""
+    assert _cuda.SIGNATURES[name] == _c_declarations()[name]
+
+
+def test_every_c_entry_is_bound():
+    assert set(_c_declarations()) == set(_cuda.SIGNATURES)
+
+
+# --------------------------------------------------------------------------- #
 # import guard
 
 
@@ -354,7 +393,8 @@ def _port_sources():
                       REPO / "scripts" / "smoke_kv.py",
                       REPO / "scripts" / "smoke_fleet.py",
                       REPO / "scripts" / "smoke_elastic.py",
-                      REPO / "scripts" / "codec_scan.py"]
+                      REPO / "scripts" / "codec_scan.py",
+                      REPO / "scripts" / "ring_step_lab.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
