@@ -18,8 +18,19 @@ KV writer's row mode) and ``paged_decode_attention`` in every decode step
 (contiguous caches feed both as a degenerate pool), ``append_kv`` +
 ``chunk_attention`` in paged admission (:func:`prefill_append_paged`,
 :func:`serve_chunk_mixed`), and ``append_kv_ragged`` + ``chunk_attention``
-in the speculative verify (:func:`verify_chunk_paged`).  Each takes its
-plain version only on CPU tensors.
+in the speculative verify (:func:`verify_chunk_paged`) and in the chunked
+forwards over a contiguous cache (:func:`prefill_chunk`,
+:func:`verify_chunk_ragged`; the cache seen as a degenerate pool again).
+Each takes its plain version only on CPU tensors; on the card a contiguous
+cache whose row count has no block view (:func:`~..ops.paged_attention.
+contiguous_block_size` 0) raises, and the entry points that size their
+own caches round them up (:func:`~..ops.paged_attention.contiguous_rows`).
+A rolling cache (a ring of ``sliding_window`` rows, each with its stored
+position) is read by the plain masked attention on every device, as in
+the JAX package: its rows are not in position order, so no block view of
+it exists for attention.  Its decode write is ``write_kv_rows``'s all the
+same, row ``pos % window`` of a pool of ``batch`` blocks of ``window``
+rows.
 
 JAX donates caches to its jitted programs; here caches are updated IN
 PLACE (each write function mutates and returns the same per-layer dict),
@@ -45,12 +56,12 @@ from ..device import resolve_device
 from ..ops import _cuda
 from ..ops.attention import flash_attention
 from ..ops.paged_attention import (cached_gqa_attention,
-                                   contiguous_block_size,
+                                   contiguous_block_size, contiguous_rows,
                                    paged_decode_attention)
 from ..ops.paged_prefill import (DecodeRows, KVLayer, _gathered_view,
                                  _kv_quantize_rows, _pool_sources,
-                                 _write_rows_reference,
-                                 paged_prefill_attention,
+                                 _write_rows_reference, append_kv_ragged,
+                                 chunk_attention, paged_prefill_attention,
                                  paged_verify_attention, write_decode_rows)
 from ..ops.quant import (_unpack_int4, int4_matmul, int8_matmul,
                          is_quantized, is_quantized_int4, quantize_tree)
@@ -63,7 +74,9 @@ __all__ = ["LlamaConfig", "CONFIGS", "init_params", "quantize_params",
            "apply_rope", "init_paged_cache", "decode_chunk_paged",
            "serve_chunk_paged", "prefill_append_paged",
            "serve_chunk_mixed", "paged_insert_prefix", "paged_scatter_blocks",
-           "paged_gather_blocks", "verify_chunk_paged", "sampling_probs"]
+           "paged_gather_blocks", "verify_chunk_paged", "sampling_probs",
+           "prefill_chunk", "verify_chunk_ragged", "decode_chunk_ragged",
+           "sample_tokens_with_logits", "complete"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -427,14 +440,29 @@ def init_cache(config: LlamaConfig, batch: int,
                max_seq: Optional[int] = None, quantize_kv: bool = False,
                rolling: bool = False, device=None) -> List[Dict]:
     """KV cache: one dict per layer.  ``quantize_kv`` stores K/V as int8
-    with per-(token, kv-head) f32 scales."""
+    with per-(token, kv-head) f32 scales.  ``rolling`` (needs
+    ``config.sliding_window``) keeps only the last ``window`` rows in a
+    ring, row ``pos % window``, each row's absolute position stored in
+    ``"pos"`` (-1 = never written) for the mask, so sliding-window decode
+    memory is O(window).  The single-token decode paths take any layout;
+    :func:`prefill_chunk` rejects a rolling cache for chunks longer than
+    one token and :func:`verify_chunk_ragged` / :func:`decode_chunk_ragged`
+    reject it, as the JAX package does."""
     if rolling:
-        raise NotImplementedError("rolling (ring-buffer) caches are not "
-                                  "ported yet")
-    rows = max_seq or config.max_seq_len
-    return _kv_layer_buffers(
+        if not config.sliding_window:
+            raise ValueError("rolling cache requires sliding_window")
+        rows = config.sliding_window
+    else:
+        rows = max_seq or config.max_seq_len
+    device = resolve_device(device)
+    cache = _kv_layer_buffers(
         config, (batch, rows, config.n_kv_heads, config.head_dim),
-        quantize_kv, resolve_device(device))
+        quantize_kv, device)
+    if rolling:
+        for layer in cache:
+            layer["pos"] = torch.full((batch, rows), -1, dtype=torch.int32,
+                                      device=device)
+    return cache
 
 
 def _kv_layer_buffers(config: LlamaConfig, shape, quantize_kv: bool,
@@ -466,8 +494,21 @@ _kv_quantize = _kv_quantize_rows
 
 def _cache_write_slab(cache_layer, k, v, start_index: int):
     """Write a contiguous (batch, K, kv, hd) slab at ``start_index``, in
-    place."""
+    place.  Rolling layout: only the last ``window`` slab rows can
+    survive, so just those land at ``pos % window`` with their absolute
+    positions."""
     seq = k.shape[1]
+    if "pos" in cache_layer:
+        window = cache_layer["pos"].shape[1]
+        effective = min(seq, window)
+        positions = int(start_index) + _iota(seq, k.device)[-effective:]
+        rows = positions % window
+        for key, src in _pool_sources(cache_layer, k[:, -effective:],
+                                      v[:, -effective:]).items():
+            buf = cache_layer[key]
+            buf[:, rows] = src.to(buf.dtype)
+        cache_layer["pos"][:, rows] = positions.to(torch.int32)
+        return cache_layer
     for key, src in _pool_sources(cache_layer, k, v).items():
         buf = cache_layer[key]
         buf[:, start_index:start_index + seq] = src.to(buf.dtype)
@@ -478,8 +519,35 @@ def _cache_write_rows(cache_layer, k, v, rows: DecodeRows):
     """Write one (batch, 1, kv, hd) row per batch element at the step's
     positions, in place: :func:`write_kv_rows` on the cache viewed as a
     pool of ``batch`` blocks of ``max_seq`` rows (``rows`` from
-    :func:`_cache_rows`: a position past the cache writes its last row)."""
+    :func:`_cache_rows`: a position past the cache writes its last row).
+    A rolling cache is a pool of ``batch`` blocks of ``window`` rows too:
+    its K/V land by the same writer at row ``pos % window``, and the
+    stored positions by a small index write."""
+    if "pos" in cache_layer:
+        window = cache_layer["pos"].shape[1]
+        ring = DecodeRows(rows.tables, rows.positions % window)
+        write_decode_rows(k, v, {key: buf for key, buf in cache_layer.items()
+                                 if key != "pos"}, ring)
+        cache_layer["pos"][_iota(k.shape[0], k.device),
+                           ring.positions.to(torch.int64)] = rows.positions
+        return cache_layer
     return write_decode_rows(k, v, cache_layer, rows)
+
+
+def _cache_write_ragged_slab(cache_layer, k, v, starts):
+    """Write a (batch, K, kv, hd) slab at PER-ROW ``starts`` (batch,), in
+    place: the plain write of :func:`verify_chunk_ragged`.  A start whose
+    slab would pass the cache's end is moved back to fit, as the JAX
+    package's ``dynamic_update_slice`` does.  Contiguous layouts only."""
+    batch, K = k.shape[:2]
+    max_seq = cache_layer["k"].shape[1]
+    starts = starts.to(torch.int64).clamp(0, max_seq - K)
+    rows = starts[:, None] + _iota(K, k.device)[None, :]
+    slots = _iota(batch, k.device)[:, None]
+    for key, src in _pool_sources(cache_layer, k, v).items():
+        buf = cache_layer[key]
+        buf[slots, rows] = src.to(buf.dtype)
+    return cache_layer
 
 
 def _cache_rows(positions) -> DecodeRows:
@@ -520,26 +588,46 @@ def _decode_attention_contiguous(q_g, cache_layer, positions, hd, window):
     """Single-token ragged decode attention over a CONTIGUOUS cache: on a
     CUDA tensor, the paged decode kernel over the cache viewed as a
     degenerate block pool (a free reshape, iota block tables; ``q_g``
-    contiguous); elsewhere, or when ``max_seq`` has no usable block size,
-    the plain :func:`cached_gqa_attention` (the JAX package's dispatch
-    rule)."""
-    max_seq = cache_layer["k"].shape[1]
-    block_size = contiguous_block_size(max_seq)
-    if q_g.device.type != "cuda" or not block_size:
+    contiguous); on the CPU the plain :func:`cached_gqa_attention` (the
+    JAX package's dispatch rule).  Rolling caches always take the plain
+    attention: ring rows need the stored-position mask."""
+    pool, tables = _degenerate_pool(cache_layer, q_g.device)
+    if pool is None:
         return cached_gqa_attention(q_g, cache_layer, positions[:, None],
                                     hd, window=window)
-    batch = q_g.shape[0]
-    blocks_per_row = max_seq // block_size
-    tables = _iota(batch * blocks_per_row, q_g.device, torch.int32) \
-        .reshape(batch, blocks_per_row)
-    pool = {key: buf.reshape((batch * blocks_per_row, block_size)
-                             + tuple(buf.shape[2:]))
-            for key, buf in cache_layer.items()}
     out = paged_decode_attention(
         q_g[:, 0], pool["k"], pool["v"], tables,
         positions.to(torch.int32), ks=pool.get("ks"), vs=pool.get("vs"),
         window=window)
     return out[:, None]
+
+
+def _degenerate_pool(cache_layer, device):
+    """A contiguous ``(batch, max_seq, ...)`` cache layer as a block pool
+    for the kernels: ``(pool, tables)``, the pool a free reshape to
+    ``(batch * max_seq / bs, bs, ...)`` and the tables iota int32 ``(batch,
+    max_seq / bs)`` (slot ``b`` owns blocks ``b * max_seq / bs`` on); or
+    ``(None, None)`` where the kernels do not run: off the card, or on a
+    rolling cache.  On the card a ``max_seq`` with no usable block size
+    (:func:`contiguous_block_size`) raises: the kernels launch or the call
+    fails, never the plain path in their place."""
+    if device.type != "cuda" or "pos" in cache_layer:
+        return None, None
+    max_seq = cache_layer["k"].shape[1]
+    block_size = contiguous_block_size(max_seq)
+    if not block_size:
+        raise ValueError(
+            f"a contiguous cache of {max_seq} rows has no block view for "
+            "the attention kernels (its row count needs a power-of-two "
+            "factor of 16 or more): size it with contiguous_rows()")
+    batch = cache_layer["k"].shape[0]
+    blocks_per_row = max_seq // block_size
+    tables = _iota(batch * blocks_per_row, device, torch.int32) \
+        .reshape(batch, blocks_per_row)
+    pool = {key: buf.reshape((batch * blocks_per_row, block_size)
+                             + tuple(buf.shape[2:]))
+            for key, buf in cache_layer.items()}
+    return pool, tables
 
 
 def _attention_decode_ragged(layer, config, x, rope, cache_layer,
@@ -585,6 +673,122 @@ def decode_step(params, token, cache, cache_index: int,
     positions = torch.full((token.shape[0],), int(cache_index),
                            dtype=torch.int32, device=token.device)
     return _decode_core_ragged(params, token, cache, positions, config)
+
+
+# --------------------------------------------------------------------------- #
+# Chunked forwards over an existing contiguous cache
+
+def _chunk_attention_contiguous(q_g, k, v, cache_layer, starts, chunk_lens,
+                                positions_b, write_plain, hd, window):
+    """A chunk's K/V write and attention over a CONTIGUOUS cache: on a
+    CUDA tensor, ``append_kv_ragged`` then ``chunk_attention`` over the
+    cache viewed as a degenerate block pool (:func:`_degenerate_pool`),
+    each row from its own start, a row with ``chunk_len`` 0 writing
+    nothing (a ``max_seq`` with no block size raises there); on the CPU
+    or a rolling cache ``write_plain(cache_layer, k, v)`` then the plain
+    :func:`cached_gqa_attention`, as the JAX package computes it."""
+    pool, tables = _degenerate_pool(cache_layer, q_g.device)
+    if pool is None:
+        write_plain(cache_layer, k, v)
+        return cached_gqa_attention(q_g, cache_layer, positions_b, hd,
+                                    window=window)
+    append_kv_ragged(k.contiguous(), v.contiguous(), pool, tables, starts,
+                     chunk_lens)
+    return chunk_attention(q_g, pool, tables, starts, chunk_lens,
+                           window=window)
+
+
+def _chunk_forward(params, tokens, cache, starts, active, write_plain,
+                   config: LlamaConfig):
+    """The ONE transformer stack for chunked forwards over an existing
+    contiguous cache: :func:`prefill_chunk` (one start for every row) and
+    :func:`verify_chunk_ragged` (per-row starts) differ only in their
+    positions and their plain K/V write.  ``tokens`` (batch, K) sit at
+    ``starts (batch,) + [0, K)``; rows not ``active`` get ``chunk_len`` 0
+    on the kernels' route.  Returns (logits (batch, K, vocab) f32, cache
+    updated in place)."""
+    batch, K = tokens.shape
+    h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    device = tokens.device
+    starts = starts.to(torch.int32)
+    positions_b = starts.to(torch.int64)[:, None] + _iota(K, device)[None, :]
+    chunk_lens = torch.where(active, K, 0).to(torch.int32)
+    rope = _rope_tables(config, positions_b)
+    x = _embed_lookup(params, tokens, config.dtype)
+    for layer, cache_layer in zip(params["layers"], cache):
+        q, k, v = _qkv(layer, config, x, rope)
+        out = _chunk_attention_contiguous(
+            q.reshape(batch, K, kv, h // kv, hd).contiguous(), k, v,
+            cache_layer, starts, chunk_lens, positions_b, write_plain, hd,
+            config.sliding_window)
+        x = x + _matmul(out.reshape(batch, K, h * hd),
+                        layer["wo"]).to(x.dtype)
+        x = _mlp_block(layer, config, x)
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    return _matmul(x, params["lm_head"]).to(torch.float32), cache
+
+
+@torch.no_grad()
+def prefill_chunk(params, tokens, cache, start_index: int,
+                  config: LlamaConfig):
+    """Chunked prefill: run ``tokens (batch, K)`` at absolute positions
+    ``start_index + [0, K)``, extending an EXISTING cache prefix.  Returns
+    (logits (batch, K, vocab) f32 at every position, cache).  Attention
+    masks by absolute position, so stale rows past the chunk are never
+    attended.  Uses: chunked admission into a contiguous server's bucket,
+    and the speculative verify of :func:`~.speculative.
+    speculative_generate`.
+
+    Rolling caches are rejected for K > 1: the slab lands before the
+    attention runs, so ring rows still inside earlier chunk queries'
+    windows would be overwritten.  Feed them K = 1 chunks."""
+    _dense_only(config)
+    batch, K = tokens.shape
+    if cache and "pos" in cache[0] and K > 1:
+        raise ValueError(
+            "prefill_chunk does not support rolling caches with chunk "
+            "length > 1: the pre-attention slab write can evict ring "
+            "rows still inside earlier chunk queries' sliding windows "
+            "(silently wrong logits); feed K=1 chunks instead")
+    start = int(start_index)
+    starts = torch.full((batch,), start, dtype=torch.int32,
+                        device=tokens.device)
+    active = torch.ones((batch,), dtype=torch.bool, device=tokens.device)
+    return _chunk_forward(
+        params, tokens, cache, starts, active,
+        lambda cache_layer, k, v: _cache_write_slab(cache_layer, k, v,
+                                                    start),
+        config)
+
+
+@torch.no_grad()
+def verify_chunk_ragged(params, tokens, cache, positions, active,
+                        config: LlamaConfig):
+    """Teacher-forced scoring of K given tokens per slot, every row at its
+    OWN absolute start position: the speculative verify of the contiguous
+    serving layout, :func:`prefill_chunk`'s per-row twin.  ``tokens``
+    (batch, K) int32, ``positions`` (batch,) the absolute position of
+    ``tokens[:, 0]``.  Returns (logits (batch, K, vocab) f32, where
+    ``logits[:, j]`` predicts position ``positions + j + 1``, and the cache
+    with each active slot's K rows written).
+
+    An inactive slot's rows are garbage-tolerant: the plain path writes
+    its slab at row 0 of its own slot, as the JAX package does (admission
+    rewrites ``[0, padded)`` before the slot decodes), and the kernels'
+    route writes nothing for it (``chunk_len`` 0).  Its logits are garbage
+    the acceptance mask discards.  Stale rows past a rejected proposal
+    are unattendable until rewritten."""
+    _dense_only(config)
+    if cache and "pos" in cache[0]:
+        raise ValueError(
+            "verify_chunk_ragged does not support rolling caches")
+    starts = torch.where(active, positions.to(torch.int32),
+                         torch.zeros_like(positions, dtype=torch.int32))
+    return _chunk_forward(
+        params, tokens, cache, starts, active,
+        lambda cache_layer, k, v: _cache_write_ragged_slab(cache_layer, k,
+                                                           v, starts),
+        config)
 
 
 # --------------------------------------------------------------------------- #
@@ -678,6 +882,28 @@ def generate_tokens(params, first_token, cache, start_index: int,
         return torch.zeros((token.shape[0], 0), dtype=torch.int32,
                            device=token.device), cache
     return torch.stack(out, dim=1), cache
+
+
+@torch.no_grad()
+def sample_tokens_with_logits(params, first_token, cache, start_index: int,
+                              num_steps: int, config: LlamaConfig,
+                              temperature, generator):
+    """Sampled decode that ALSO returns each step's logits row: the
+    standalone speculative draft's primitive (the acceptance math
+    rebuilds the proposal distribution from the rows).  Each token is
+    drawn at ``temperature`` from ``generator``.  Returns (tokens (batch,
+    steps) int32, logits (batch, steps, vocab) f32, cache)."""
+    token = first_token.to(torch.int32)
+    tokens, rows = [], []
+    for step in range(num_steps):
+        logits, cache = decode_step(params, token, cache,
+                                    start_index + step, config)
+        row = logits[:, -1].to(torch.float32)
+        next_token = sample_logits(row, generator, temperature)
+        token = next_token[:, None]
+        tokens.append(next_token)
+        rows.append(row)
+    return torch.stack(tokens, dim=1), torch.stack(rows, dim=1), cache
 
 
 # --------------------------------------------------------------------------- #
@@ -976,18 +1202,14 @@ def serve_chunk_paged(params, state, pool, num_steps: int,
                        state, pool, num_steps, eos_id, sampled, generator)
 
 
-@torch.no_grad()
-def decode_chunk_paged(params, tokens, pool, tables, positions, active,
-                       num_steps: int, config: LlamaConfig,
-                       temperatures=None, top_ps=None, generator=None,
-                       return_logits: bool = False):
-    """``num_steps`` paged decode steps for every slot, no EOS and no
-    budget (the JAX package's paged oracle, and the speculative draft's
-    proposer).  Inactive slots write scratch block 0 and do not advance.
-    Returns (tokens_out (slots, num_steps), last token (slots, 1),
-    positions, pool); ``return_logits=True`` inserts each step's
-    next-token logits (slots, num_steps, vocab) after ``tokens_out``, for
-    the sampled acceptance of a draft's proposals."""
+def _chunk_scan(step_core, tokens, cache, positions, active, num_steps: int,
+                temperatures, top_ps, generator, return_logits: bool):
+    """``num_steps`` decode steps for every slot with no EOS and no budget,
+    over either layout's ``step_core`` (:func:`_serve_scan` with a budget
+    that never runs out): per-slot greedy or sampled picks, inactive slots
+    frozen.  Returns (tokens_out (slots, num_steps), last token (slots,
+    1), positions, cache), with each step's next-token logits (slots,
+    num_steps, vocab) after ``tokens_out`` when ``return_logits``."""
     slots, device = tokens.shape[0], tokens.device
     sampled = temperatures is not None
     state = dict(
@@ -1000,13 +1222,63 @@ def decode_chunk_paged(params, tokens, pool, tables, positions, active,
         tops=(top_ps if top_ps is not None else
               torch.ones((slots,), dtype=torch.float32, device=device)))
     step_logits = [] if return_logits else None
-    tokens_out, _, state, pool = _serve_scan(
-        _paged_step_core(params, tables, pool, config), state, pool,
-        num_steps, -1, sampled, generator, step_logits=step_logits)
+    tokens_out, _, state, cache = _serve_scan(
+        step_core, state, cache, num_steps, -1, sampled, generator,
+        step_logits=step_logits)
     if return_logits:
         return (tokens_out, torch.stack(step_logits, dim=1), state["token"],
-                state["positions"], pool)
-    return tokens_out, state["token"], state["positions"], pool
+                state["positions"], cache)
+    return tokens_out, state["token"], state["positions"], cache
+
+
+@torch.no_grad()
+def decode_chunk_ragged(params, tokens, cache, positions, active,
+                        num_steps: int, config: LlamaConfig,
+                        temperatures=None, top_ps=None, generator=None,
+                        return_logits: bool = False):
+    """``num_steps`` decode steps for a slot batch on a contiguous cache,
+    each row at its own position with an ``active`` flag (the contiguous
+    speculative draft's proposer, and the continuous-batching oracle).
+    Inactive rows write their K/V into the scratch row ``max_seq - 1``
+    (the decode write's clamp rule past the end) and do not advance.
+    ``temperatures`` / ``top_ps`` (slots,) sample per row from
+    ``generator`` (a row at temperature 0 stays exactly greedy); None is
+    the greedy program.  Returns (tokens_out (slots, num_steps), last
+    token (slots, 1), positions, cache); ``return_logits=True`` inserts
+    each step's next-token logits (slots, num_steps, vocab) after
+    ``tokens_out``.  Not for rolling caches: the scratch row is a live
+    ring row there."""
+    if "pos" in cache[0]:
+        raise ValueError(
+            "decode_chunk_ragged does not support rolling caches: the "
+            "inactive-slot scratch row would land on a live ring row")
+    max_seq = cache[0]["k"].shape[1]
+
+    def step_core(token, cache, positions, active_now):
+        write_pos = torch.where(active, positions,
+                                torch.full_like(positions, max_seq - 1))
+        return _decode_core_ragged(params, token, cache, write_pos, config)
+
+    return _chunk_scan(step_core, tokens, cache, positions, active,
+                       num_steps, temperatures, top_ps, generator,
+                       return_logits)
+
+
+@torch.no_grad()
+def decode_chunk_paged(params, tokens, pool, tables, positions, active,
+                       num_steps: int, config: LlamaConfig,
+                       temperatures=None, top_ps=None, generator=None,
+                       return_logits: bool = False):
+    """``num_steps`` paged decode steps for every slot, no EOS and no
+    budget (the JAX package's paged oracle, and the speculative draft's
+    proposer).  Inactive slots write scratch block 0 and do not advance.
+    Returns (tokens_out (slots, num_steps), last token (slots, 1),
+    positions, pool); ``return_logits=True`` inserts each step's
+    next-token logits (slots, num_steps, vocab) after ``tokens_out``, for
+    the sampled acceptance of a draft's proposals."""
+    return _chunk_scan(_paged_step_core(params, tables, pool, config),
+                       tokens, pool, positions, active, num_steps,
+                       temperatures, top_ps, generator, return_logits)
 
 
 @torch.no_grad()
@@ -1182,3 +1454,60 @@ def verify_chunk_paged(params, tokens, pool, tables, positions, active,
     _dense_only(config)
     return _verify_append_core(params, tokens, pool, tables, positions,
                                active, config, kv_limit=kv_limit)
+
+
+# --------------------------------------------------------------------------- #
+# End-to-end completion
+
+@torch.no_grad()
+def complete(params, prompt_tokens, config: LlamaConfig,
+             max_new_tokens: int = 32, temperature: float = 0.0,
+             generator=None, top_k: int = 0, top_p=None,
+             eos_token: Optional[int] = None, quantize_kv: bool = False):
+    """Convenience end-to-end completion: :func:`prefill` + one
+    :func:`generate_tokens` loop on a contiguous cache of ``prompt_len +
+    max_new_tokens`` rows rounded up by :func:`~..ops.paged_attention.
+    contiguous_rows` (the rows past them are masked), on the device the
+    params live on.
+
+    ``prompt_tokens`` (batch, prompt_len) int -> (batch, <= max_new) numpy
+    int32 array of generated ids (prompt excluded), truncated at the first
+    ``eos_token`` per row and padded with it to the longest row when one
+    is given.  A sampled completion (``temperature > 0``) draws from
+    ``generator`` (seeded 0 on the params' device when None).  The API
+    the chat elements and the golden-completion tests use; serving paths
+    keep the explicit prefill / decode calls."""
+    import numpy as np
+    device = params["final_norm"].device
+    tokens = torch.as_tensor(np.asarray(prompt_tokens, np.int32),
+                             device=device)
+    batch, prompt_len = tokens.shape
+    cache = init_cache(config, batch,
+                       contiguous_rows(prompt_len + max_new_tokens),
+                       quantize_kv=quantize_kv, device=device)
+    logits, cache = prefill(params, tokens, cache, config)
+    last = logits[:, -1]
+    if temperature and temperature > 0:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        first = sample_logits(last, generator, temperature, top_k=top_k,
+                              top_p=top_p)[:, None]
+    else:
+        first = last.argmax(dim=-1).to(torch.int32)[:, None]
+    generated, _ = generate_tokens(
+        params, first, cache, prompt_len, max_new_tokens - 1, config,
+        temperature=temperature, generator=generator, top_k=top_k,
+        top_p=top_p)
+    out = np.concatenate([first.cpu().numpy(), generated.cpu().numpy()],
+                         axis=1).astype(np.int32)
+    if eos_token is not None:
+        rows = []
+        for row in out:
+            hits = np.nonzero(row == eos_token)[0]
+            rows.append(row[:hits[0]] if hits.size else row)
+        width = max((len(r) for r in rows), default=0)
+        padded = np.full((len(rows), width), eos_token, out.dtype)
+        for i, row in enumerate(rows):
+            padded[i, :len(row)] = row
+        return padded
+    return out

@@ -1,13 +1,17 @@
 """Speculative decoding's device-side pieces: acceptance, commit and the
 proposers' helpers.
 
-Port of the serving half of ``aiko_services_tpu/models/speculative.py``.
-A proposer (a draft model, or the slot's own history through
+Port of ``aiko_services_tpu/models/speculative.py``.  In the servers a
+proposer (a draft model, or the slot's own history through
 :func:`ngram_propose`) fills each live slot's ``k``-token window, ONE
-target verify pass scores it (:func:`~.llama.verify_chunk_paged`), an
-acceptance function picks each slot's committed prefix, and
+target verify pass scores it (:func:`~.llama.verify_chunk_paged` on the
+paged layout, :func:`~.llama.verify_chunk_ragged` on the contiguous one),
+an acceptance function picks each slot's committed prefix, and
 :func:`spec_commit` applies EOS and budget caps and advances the resident
-serving state, with no logits leaving the device.
+serving state, with no logits leaving the device.  The standalone batch-1
+loops :func:`speculative_generate` (greedy) and
+:func:`speculative_generate_sampled` run the same protocol on contiguous
+caches, verifying with :func:`~.llama.prefill_chunk`.
 
 Greedy acceptance is an exact argmax match, so greedy output is identical
 to target-only greedy decode.  Sampled acceptance is modified rejection
@@ -20,26 +24,28 @@ Rejected proposals leave stale KV rows past the committed position.
 Attention masks by ABSOLUTE position and every row is rewritten before it
 first becomes attendable, so stale rows are unreachable.
 
-The standalone ``speculative_generate*`` loops and the grammar overlay
-``merge_forced`` are not ported yet.
+The grammar overlay ``merge_forced`` (the constrained decoder's forced
+tokens in a spec round, ``models/constrained.py``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.paged_attention import contiguous_rows
 from . import llama
 
-__all__ = ["SpecStats", "mrs_accept_batch", "greedy_accept_batch",
+__all__ = ["speculative_generate", "speculative_generate_sampled",
+           "SpecStats", "mrs_accept_batch", "greedy_accept_batch",
            "spec_commit", "ngram_propose", "delta_draft_logits"]
 
 
 class SpecStats:
-    """Acceptance accounting of a speculative server."""
+    """Acceptance accounting of a speculative server or generate call."""
 
     def __init__(self):
         self.target_passes = 0
@@ -270,3 +276,199 @@ def delta_draft_logits(proposals, vocab: int):
     residual ``max(0, p - delta * p)`` renormalized), so sampled slots
     compose with self-drafting through :func:`mrs_accept_batch`."""
     return F.one_hot(proposals.long(), vocab).to(torch.float32) * 1e4
+
+
+# --------------------------------------------------------------------------- #
+# The standalone batch-1 loops
+
+def _setup(target_params, draft_params, prompt, num_new, target_config,
+           draft_config, k, max_seq):
+    """Shared entry checks and prefill of both loops, on the device the
+    target's params live on: returns (prompt_len, max_seq, target logits,
+    target cache, draft cache).  The caches hold ``max_seq`` rows rounded
+    up by :func:`~..ops.paged_attention.contiguous_rows` (the rows past
+    ``max_seq`` are never reached), so that their chunked forwards and
+    decode keep to the kernels on the card."""
+    if target_config.vocab_size != draft_config.vocab_size:
+        raise ValueError("draft and target must share a vocabulary")
+    device = target_params["final_norm"].device
+    prompt = torch.as_tensor(np.asarray(prompt, np.int32),
+                             device=device)[None, :]
+    prompt_len = prompt.shape[1]
+    max_seq = max_seq or min(target_config.max_seq_len,
+                             draft_config.max_seq_len)
+    if prompt_len + num_new + k + 1 > max_seq:
+        raise ValueError(
+            f"prompt {prompt_len} + {num_new} new + {k + 1} speculation "
+            f"overrun max_seq {max_seq}")
+    rows = contiguous_rows(max_seq)
+    target_cache = llama.init_cache(target_config, 1, rows, device=device)
+    draft_cache = llama.init_cache(draft_config, 1, rows, device=device)
+    target_logits, target_cache = llama.prefill(
+        target_params, prompt, target_cache, target_config)
+    _, draft_cache = llama.prefill(draft_params, prompt, draft_cache,
+                                   draft_config)
+    return prompt_len, max_seq, target_logits, target_cache, draft_cache
+
+
+def _resync_draft(draft_params, draft_cache, new_tokens, k, pos,
+                  draft_config):
+    """Re-sync the draft's cache with the committed tokens.  The draft
+    wrote K/V for its INPUTS ``[last@pos, d_1..d_{k-1}@pos+1..]``; the next
+    round feeds the new ``last`` at ``pos + len(new_tokens)``, so
+    ``new_tokens[:-1]`` needs its rows at ``pos + 1`` on (idempotent
+    rewrites on a partial accept; ``d_k``'s row on a full one).  A fixed
+    k-wide window, zero-padded: one shape, and the pad rows land where
+    later rounds rewrite them before they become attendable.  Exactness
+    never depends on this, only acceptance does."""
+    if len(new_tokens) <= 1:
+        return draft_cache
+    resync_tokens = new_tokens[:-1] + [0] * (k - (len(new_tokens) - 1))
+    device = draft_cache[0]["k"].device
+    resync = torch.as_tensor([resync_tokens], dtype=torch.int32,
+                             device=device)
+    _, draft_cache = llama.prefill_chunk(draft_params, resync, draft_cache,
+                                         pos + 1, draft_config)
+    return draft_cache
+
+
+def speculative_generate(target_params, draft_params, prompt,
+                         num_new: int, target_config, draft_config,
+                         k: int = 4, max_seq: Optional[int] = None
+                         ) -> Tuple[np.ndarray, SpecStats]:
+    """Greedy speculative decode of one prompt: the draft proposes ``k``
+    tokens (:func:`~.llama.generate_tokens`), the target scores ``[last,
+    d_1..d_k]`` in ONE :func:`~.llama.prefill_chunk` pass, the longest
+    prefix matching the target's argmax is kept plus the target's own next
+    token.  The output is identical to target-only greedy decode.
+
+    ``prompt`` (prompt_len,) int; both caches hold ``max_seq`` rows
+    (default the smaller model's ``max_seq_len``; rounded up to a multiple
+    of 128) on the target params' device.  Returns (tokens (num_new,)
+    int64, stats)."""
+    prompt_len, max_seq, target_logits, target_cache, draft_cache = \
+        _setup(target_params, draft_params, prompt, num_new,
+               target_config, draft_config, k, max_seq)
+    device = target_logits.device
+    stats = SpecStats()
+    committed = [int(target_logits[0, -1].argmax())]
+    stats.target_passes += 1          # the prefill pass produced token 1
+    pos = prompt_len                  # the position of committed[-1]
+    while len(committed) < num_new:
+        last = torch.as_tensor([[committed[-1]]], dtype=torch.int32,
+                               device=device)
+        proposals, draft_cache = llama.generate_tokens(
+            draft_params, last, draft_cache, pos, k, draft_config)
+        proposals_host = [int(t) for t in proposals[0].tolist()]
+        stats.drafted += k
+        # logits[j] predicts position pos + j + 1.
+        chunk = torch.as_tensor([[committed[-1]] + proposals_host],
+                                dtype=torch.int32, device=device)
+        logits, target_cache = llama.prefill_chunk(
+            target_params, chunk, target_cache, pos, target_config)
+        stats.target_passes += 1
+        greedy = logits[0].argmax(dim=-1).tolist()        # (k+1,)
+        accepted = 0
+        while accepted < k and proposals_host[accepted] == greedy[accepted]:
+            accepted += 1
+        stats.accepted += accepted
+        # The accepted drafts and the target's own next token (the
+        # correction on a mismatch, a free bonus token on a full accept).
+        new_tokens = proposals_host[:accepted] + [int(greedy[accepted])]
+        committed.extend(new_tokens)
+        draft_cache = _resync_draft(draft_params, draft_cache, new_tokens,
+                                    k, pos, draft_config)
+        pos += len(new_tokens)
+    return np.asarray(committed[:num_new], np.int64), stats
+
+
+def _softmax64(logits, temperature):
+    z = np.asarray(logits, np.float64) / max(temperature, 1e-6)
+    z -= z.max()
+    e = np.exp(z)
+    return e / e.sum()
+
+
+def _speculative_step(p_probs, q_probs, proposal, rng):
+    """One modified-rejection-sampling step (Leviathan et al.): accept the
+    draft's ``proposal`` with probability ``min(1, p/q)``, else sample the
+    residual ``max(0, p - q)`` renormalized.  With ``proposal ~ q_probs``
+    the returned token is distributed exactly as ``p_probs``.  ``rng`` a
+    numpy ``Generator``.  Returns (token, accepted)."""
+    ratio = p_probs[proposal] / max(q_probs[proposal], 1e-30)
+    if rng.random() < min(1.0, ratio):
+        return int(proposal), True
+    residual = np.maximum(p_probs - q_probs, 0.0)
+    total = residual.sum()
+    if total <= 0.0:                 # p == q: the residual is empty
+        return int(rng.choice(len(p_probs), p=p_probs)), False
+    return int(rng.choice(len(residual), p=residual / total)), False
+
+
+def speculative_generate_sampled(target_params, draft_params, prompt,
+                                 num_new: int, target_config,
+                                 draft_config, k: int = 4,
+                                 temperature: float = 1.0, seed: int = 0,
+                                 max_seq: Optional[int] = None
+                                 ) -> Tuple[np.ndarray, SpecStats]:
+    """SAMPLED speculative decode at ``temperature``: each committed token
+    is distributed as target-only sampling at that temperature (modified
+    rejection sampling; a full-accept round earns a bonus token from the
+    target's own distribution).  The draft samples on the device from a
+    ``torch.Generator`` seeded ``seed`` (:func:`~.llama.
+    sample_tokens_with_logits`); acceptance runs on the host in f64 from a
+    numpy generator seeded ``seed``, so ``q`` matches the draft's f32
+    sampler to f32 rounding.  ``temperature <= 0`` is the greedy
+    :func:`speculative_generate`.  Batch 1.  Returns (tokens (num_new,)
+    int64, stats)."""
+    if temperature <= 0:
+        return speculative_generate(target_params, draft_params, prompt,
+                                    num_new, target_config, draft_config,
+                                    k=k, max_seq=max_seq)
+    rng = np.random.default_rng(seed)
+    prompt_len, max_seq, target_logits, target_cache, draft_cache = \
+        _setup(target_params, draft_params, prompt, num_new,
+               target_config, draft_config, k, max_seq)
+    device = target_logits.device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    stats = SpecStats()
+    first_probs = _softmax64(target_logits[0, -1].cpu().numpy(),
+                             temperature)
+    committed = [int(rng.choice(len(first_probs), p=first_probs))]
+    stats.target_passes += 1
+    pos = prompt_len
+    while len(committed) < num_new:
+        last = torch.as_tensor([[committed[-1]]], dtype=torch.int32,
+                               device=device)
+        proposal_arr, draft_rows, draft_cache = \
+            llama.sample_tokens_with_logits(
+                draft_params, last, draft_cache, pos, k, draft_config,
+                temperature, generator)
+        proposals = [int(t) for t in proposal_arr[0].tolist()]
+        rows_host = draft_rows[0].cpu().numpy()              # (k, vocab)
+        q_dists = [_softmax64(rows_host[j], temperature) for j in range(k)]
+        stats.drafted += k
+        chunk = torch.as_tensor([[committed[-1]] + proposals],
+                                dtype=torch.int32, device=device)
+        logits, target_cache = llama.prefill_chunk(
+            target_params, chunk, target_cache, pos, target_config)
+        stats.target_passes += 1
+        target_host = logits[0].cpu().numpy()             # (k+1, vocab)
+        new_tokens = []
+        for j in range(k):
+            p = _softmax64(target_host[j], temperature)
+            tok, accepted = _speculative_step(p, q_dists[j], proposals[j],
+                                              rng)
+            new_tokens.append(tok)
+            if not accepted:
+                break                 # the residual sample corrects it
+            stats.accepted += 1
+        else:
+            # Full accept: a bonus token from the target's own distribution.
+            p = _softmax64(target_host[k], temperature)
+            new_tokens.append(int(rng.choice(len(p), p=p)))
+        committed.extend(new_tokens)
+        draft_cache = _resync_draft(draft_params, draft_cache, new_tokens,
+                                    k, pos, draft_config)
+        pos += len(new_tokens)
+    return np.asarray(committed[:num_new], np.int64), stats

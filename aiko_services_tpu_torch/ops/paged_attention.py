@@ -22,7 +22,7 @@ from .attention import NEG_INF
 
 __all__ = ["paged_decode_attention", "paged_decode_reference",
            "paged_decode_split_reference", "cached_gqa_attention",
-           "contiguous_block_size", "decode_split_keys"]
+           "contiguous_block_size", "contiguous_rows", "decode_split_keys"]
 
 #: Maximum pool block size the degenerate contiguous view uses.
 CONTIGUOUS_BLOCK_CAP = 128
@@ -37,14 +37,24 @@ DEQUANT_BLOCK_CAP = 512
 
 def contiguous_block_size(max_seq: int) -> int:
     """Block size for viewing a contiguous ``(batch, max_seq, kv, hd)``
-    cache as a degenerate block pool, or 0 when no usable size exists
-    (the caller then takes :func:`cached_gqa_attention`).  Largest power
-    of two dividing ``max_seq``, capped at :data:`CONTIGUOUS_BLOCK_CAP`,
-    at least 16."""
+    cache as a degenerate block pool, or 0 when no usable size exists (a
+    CPU caller then takes :func:`cached_gqa_attention`; on the card the
+    kernels' paths raise: size such caches with :func:`contiguous_rows`).
+    Largest power of two dividing ``max_seq``, capped at
+    :data:`CONTIGUOUS_BLOCK_CAP`, at least 16."""
     if max_seq <= 0:
         return 0
     bs = min(max_seq & -max_seq, CONTIGUOUS_BLOCK_CAP)
     return bs if bs >= 16 else 0
+
+
+def contiguous_rows(rows: int) -> int:
+    """``rows`` rounded up to a multiple of :data:`CONTIGUOUS_BLOCK_CAP`:
+    the row count an entry point that sizes its own contiguous cache
+    allocates, so that the cache has the kernels' 128-row block view.
+    Rows past the ones asked for are masked by position, so they change
+    no result."""
+    return -(-int(rows) // CONTIGUOUS_BLOCK_CAP) * CONTIGUOUS_BLOCK_CAP
 
 
 def decode_split_keys(block_size: int) -> int:
@@ -115,7 +125,9 @@ def cached_gqa_attention(q, cache_layer, query_positions, hd,
     """Masked GQA attention over a KV cache: the oracle of the decode
     kernel and the CPU decode path.  ``q`` (batch, Q, kv, group, hd);
     ``query_positions`` (batch, Q) absolute positions; key row ``s`` is
-    attended iff ``s <= position`` (and within ``window`` of it).
+    attended iff ``s <= position`` (and within ``window`` of it).  A
+    rolling cache (a ``"pos"`` entry: each row's absolute position, -1
+    where never written) masks by the stored positions instead.
 
     Int8 KV: per-(token, head) scales factor out of the q.k contraction
     (they multiply the score) and into the softmax weights on the value
@@ -127,9 +139,16 @@ def cached_gqa_attention(q, cache_layer, query_positions, hd,
     else:
         s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
                          k_cache.to(torch.float32)) * hd ** -0.5
-    key_pos = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
     positions = query_positions.to(torch.int64)[:, :, None]
-    mask = key_pos <= positions
+    if "pos" in cache_layer:
+        # Rolling layout: each row stores its ABSOLUTE position (-1 = never
+        # written), so ring wraparound needs no special casing.
+        key_pos = cache_layer["pos"].to(torch.int64)[:, None, :]
+        mask = (key_pos >= 0) & (key_pos <= positions)
+    else:
+        key_pos = torch.arange(k_cache.shape[1],
+                               device=q.device)[None, None, :]
+        mask = key_pos <= positions
     if window is not None:
         mask &= key_pos > positions - window
     s = torch.where(mask[:, None, None, :, :], s,

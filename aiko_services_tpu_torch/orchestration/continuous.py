@@ -11,7 +11,10 @@ its lifetime.
   landing each sub-batch's KV rows in its slots with one batched copy.
   The slot is seeded with the LAST prompt token at ``prompt_len - 1``:
   the first decode step rewrites that row with identical values and
-  emits the first generated token.
+  emits the first generated token.  With ``chunk_prefill_tokens`` a
+  longer prompt is admitted a chunk a step
+  (:func:`~..models.llama.prefill_chunk`) into a private batch-1 bucket
+  cache, which is sealed into the slot's rows when the prompt is in.
 * Decode: :func:`~..models.llama.serve_chunk_ragged` runs ``steps``
   device-resident steps for ALL slots: per-slot state (token tail,
   positions, active, remaining budget, sampling controls) lives on the
@@ -38,9 +41,13 @@ its lifetime.
   :class:`~.spec_control.SpecController`) picks each slot's committed
   prefix, and :func:`~..models.speculative.spec_commit` advances the
   resident state.  Rounds ride the same ring as chunks.  The verify,
-  the draft's cache and the rollback accounting are layout hooks that
-  only the paged server supplies (``_spec_verify``, ``_draft_propose``,
-  ``_draft_resync``, ``_prefill_draft_rows``, ``_note_spec_rollback``).
+  the draft's cache and the rollback accounting are layout hooks
+  (``_spec_verify``, ``_draft_propose``, ``_draft_resync``,
+  ``_prefill_draft_rows``, ``_note_spec_rollback``): here the verify is
+  :func:`~..models.llama.verify_chunk_ragged` on the slot rows and the
+  draft decodes against its own ``(slots, max_seq)`` cache
+  (:func:`~..models.llama.decode_chunk_ragged`); the paged server has its
+  own.
 
 Greedy decode through this path matches per-request ``prefill`` +
 ``generate_tokens`` output whatever the admission order, with or without
@@ -48,9 +55,9 @@ speculation.
 
 Layout hooks (``_init_layout``, ``_attention_blocks``, ``_reserve_slot``,
 ``_release_slot``, ``_prefill_and_insert``, ``_begin_chunked_prefill``,
-``_advance_prefills``, ``_finish_prefill``, ``_serve_chunk``) are where the
-paged server (:mod:`.paged`) plugs in its block pool, as in the JAX
-package.
+``_advance_prefills``, ``_finish_prefill``, ``_serve_chunk`` and the
+speculation hooks above) are where the paged server (:mod:`.paged`) plugs
+in its block pool, as in the JAX package.
 
 Robustness as in the reference: a bounded queue sheds with
 ``error="overloaded"`` and a retry-after hint; deadlines reject at
@@ -69,12 +76,10 @@ wire: ``(infer …)`` in, ``(infer_partial …)`` / ``(infer_response …)``
 out (:mod:`~..runtime`, :mod:`~..transport`, :mod:`.client`).
 
 Left out so far (they raise ``NotImplementedError``): meshes, LoRA
-adapters, grammars, speculation and chunked prefill on the contiguous
-layout (they need ``llama.verify_chunk_ragged`` and ``llama.prefill_chunk``;
-the paged server has its own), the compilation cache and the legacy
-full-mirror upload; the on-demand device profiler.  On the wire, the KV
-transfer (``kv_export``, warm starts from a ``kv_source``) and live
-migration answer as the reference does for a server without them.
+adapters, grammars and the compilation cache; the on-demand device
+profiler.  On the wire, the KV transfer (``kv_export``, warm starts from a
+``kv_source``) and live migration answer as the reference does for a
+server without them.
 """
 
 from __future__ import annotations
@@ -166,10 +171,6 @@ def _bucket(n: int, minimum: int = 16) -> int:
 class ContinuousBatchingServer:
     """Slot-based continuous batching around a Llama-family model."""
 
-    #: Whether this layout supplies the speculation hooks (the paged
-    #: server does).
-    SPECULATION = False
-
     def __init__(self, config_name: str = "tiny", slots: int = 4,
                  max_seq: Optional[int] = None, chunk_steps: int = 8,
                  quantize: bool = False, eos_id: Optional[int] = None,
@@ -186,15 +187,6 @@ class ContinuousBatchingServer:
                  compilation_cache_dir: Optional[str] = None,
                  compact_upload: bool = True,
                  ring_max: Optional[int] = None, device=None):
-        speculation = (draft_config_name is not None
-                       or draft_params is not None or draft_quantize
-                       or draft_mode != "auto" or spec_ladder is not None
-                       or spec_adaptive)
-        if speculation and not self.SPECULATION:
-            raise NotImplementedError(
-                "speculative decoding runs on the paged server "
-                "(PagedContinuousServer); the contiguous layout's verify "
-                "(llama.verify_chunk_ragged) is not ported yet")
         unsupported = {
             "mesh": mesh is not None,
             "replica_mesh": replica_mesh is not None,
@@ -203,7 +195,6 @@ class ContinuousBatchingServer:
             "automata (grammar-constrained decoding, "
             "models/constrained.py)": bool(automata),
             "compilation_cache_dir": compilation_cache_dir is not None,
-            "compact_upload=False": not compact_upload,
         }
         named = [name for name, given in unsupported.items() if given]
         if named:
@@ -226,6 +217,9 @@ class ContinuousBatchingServer:
         self.max_seq = max_seq or self.config.max_seq_len
         self.chunk_steps = chunk_steps
         self.lookahead = max(1, int(lookahead))
+        #: Dirty-row uploads as compact row scatters (the default), or the
+        #: legacy full-mirror masked merge (``compact_upload=False``).
+        self.compact_upload = bool(compact_upload)
         self.eos_id = eos_id
         self.quantize_kv = quantize_kv
         self._bucket_minimum = 16
@@ -239,7 +233,7 @@ class ContinuousBatchingServer:
         #: slot -> in-progress chunked admission state.
         self._prefilling: Dict[int, Dict] = {}
         # The paired draft of model-mode speculation: its KV lives in the
-        # layout's draft pool (_init_layout), prefilled at admission.
+        # layout's draft cache (_init_layout), prefilled at admission.
         self._draft = None
         if draft_config_name is not None:
             draft_config = llama.CONFIGS[draft_config_name]
@@ -351,14 +345,25 @@ class ContinuousBatchingServer:
     # ---- layout hooks (the paged server overrides these) ---------------- #
 
     def _init_layout(self) -> None:
-        """The contiguous layout reserves ``slots x max_seq`` rows."""
-        if self.chunk_prefill_tokens:
-            raise NotImplementedError(
-                "not ported yet: chunk_prefill_tokens on the contiguous "
-                "layout (llama.prefill_chunk); the paged server supports it")
+        """The contiguous layout reserves ``slots x max_seq`` rows; a
+        paired draft gets its own ``(slots, max_seq)`` cache (bf16, as the
+        JAX package's), written at the target's positions.  On the card
+        ``max_seq`` needs a block view (:func:`contiguous_block_size`):
+        the attention kernels read the cache through it."""
+        if self.device.type == "cuda" \
+                and not contiguous_block_size(self.max_seq):
+            raise ValueError(
+                f"max_seq {self.max_seq} has no block view for the "
+                "attention kernels: on the card it needs a power-of-two "
+                "factor of 16 or more (a multiple of 128 keeps 128-row "
+                "blocks)")
         self.cache = llama.init_cache(self.config, self.slots, self.max_seq,
                                       quantize_kv=self.quantize_kv,
                                       device=self.device)
+        if self._draft is not None:
+            self._draft["cache"] = llama.init_cache(
+                self._draft["config"], self.slots, self.max_seq,
+                device=self.device)
 
     def _graph_cache(self):
         """``(KV buffers, paged)`` the chunk graph decodes into."""
@@ -371,10 +376,9 @@ class ContinuousBatchingServer:
         return block_size, -(-self.max_seq // block_size)
 
     def _decode_attention_path(self) -> str:
-        """The kernel on the card when the cache has a block view, else
-        the plain path."""
-        return ("kernel" if self.device.type == "cuda"
-                and contiguous_block_size(self.max_seq) else "reference")
+        """The kernel on the card (:meth:`_init_layout` has checked the
+        block view), the plain path on the CPU."""
+        return "kernel" if self.device.type == "cuda" else "reference"
 
     def _reserve_slot(self, slot: int, padded: int, request) -> bool:
         """Capacity hook: the contiguous layout always has room (the slot
@@ -386,12 +390,35 @@ class ContinuousBatchingServer:
 
     def _begin_chunked_prefill(self, slot: int, request, prompt_padded,
                                prompt_len: int) -> None:
-        """Open a chunked admission for ``slot`` (paged layout only)."""
-        raise NotImplementedError("chunked prefill on the contiguous layout")
+        """Open a chunked admission for ``slot``: the contiguous layout
+        prefills into a private batch-1 bucket cache, which
+        :meth:`_advance_prefills` seals into the slot's rows once the
+        prompt is in."""
+        self._prefilling[slot] = dict(
+            request=request, prompt_padded=prompt_padded,
+            prompt_len=prompt_len, start=0,
+            bucket=llama.init_cache(self.config, 1, prompt_padded.shape[1],
+                                    quantize_kv=self.quantize_kv,
+                                    device=self.device))
 
     def _advance_prefills(self) -> None:
-        """Run the next slice of every chunked admission (paged layout;
-        the contiguous layout never has one in flight)."""
+        """Run ONE prefill chunk for every chunked admission; a slot whose
+        chunks now cover its prompt has its bucket sealed into the slot's
+        rows and turns decode-active.  Rows past ``prompt_len`` stay as
+        unattendable as the whole-bucket path's pad rows."""
+        for slot in list(self._prefilling):
+            state = self._prefilling[slot]
+            start = state["start"]
+            padded = state["prompt_padded"].shape[1]
+            size = min(self.chunk_prefill_tokens, padded - start)
+            chunk = state["prompt_padded"][:, start:start + size]
+            llama.prefill_chunk(self.params, self._upload(chunk),
+                                state["bucket"], start, self.config)
+            state["start"] = start + size
+            self._note_prefill(size)
+            if state["start"] >= state["prompt_len"]:
+                self._insert_slots(state["bucket"], [slot], padded)
+                self._finish_prefill(slot, state)
 
     def _finish_prefill(self, slot: int, state: Dict) -> None:
         """A chunked admission's prompt is in: the slot turns decode-
@@ -491,6 +518,9 @@ class ContinuousBatchingServer:
         sampling = self._dirty_sampling & ~structural
         if not (structural.any() or sampling.any()):
             return
+        if not self.compact_upload:
+            self._merge_dirty(structural | sampling)
+            return
         if self._graphs_on:
             self._adopt_static()
             scatter = llama.scatter_state_rows_
@@ -518,6 +548,39 @@ class ContinuousBatchingServer:
         self.counters["state_uploads"] += 1
         self.counters["dirty_rows_uploaded"] += len(rows) \
             + len(sampling_rows)
+
+    def _merge_dirty(self, mask: np.ndarray) -> None:
+        """The legacy full-mirror upload (``compact_upload=False``): every
+        leaf of the host mirrors goes up whole, dirty rows holding the
+        mirror's values and the rest zeros, and a masked ``where`` keeps
+        the device's values outside ``mask``.  It has no per-leaf mask, so
+        :meth:`update_sampling` settles the ring before marking a row
+        here.  With graphs on, the merge lands in the static buffers in
+        place."""
+        if steplog.RECORDER is not None:
+            steplog.RECORDER.record("state_upload",
+                                    rows=int(mask.sum()))
+        if self._graphs_on:
+            self._adopt_static()
+        rows = np.nonzero(mask)[0]
+        mask_d = self._upload(mask.copy())
+        merged = {}
+        for key, value in self._host_state().items():
+            snapshot = np.zeros_like(value)
+            snapshot[rows] = value[rows]
+            dev = self._state[key]
+            keep = mask_d.reshape((-1,) + (1,) * (dev.dim() - 1))
+            merged[key] = torch.where(keep, self._upload(snapshot)
+                                      .to(dev.dtype), dev)
+        if self._graphs_on:
+            for key, value in merged.items():
+                self._state[key].copy_(value)
+        else:
+            self._state = dict(self._state, **merged)
+        self._dirty[:] = False
+        self._dirty_sampling[:] = False
+        self.counters["state_uploads"] += 1
+        self.counters["dirty_rows_uploaded"] += len(rows)
 
     def _adopt_static(self) -> None:
         """Make the static buffers hold the resident state: after an eager
@@ -738,16 +801,33 @@ class ContinuousBatchingServer:
                     self.config)
                 self._insert_slots(bucket_cache, slots, padded)
                 self._note_prefill(len(sub) * padded)
+                if self._draft is not None:
+                    # The draft needs the same committed history: its
+                    # prompt KV lands in its own slot rows alongside.
+                    self._prefill_draft_rows(slots, prompts)
 
     def _insert_slots(self, bucket_cache, slots: List[int],
-                      padded: int) -> None:
+                      padded: int, cache=None) -> None:
         """Land a (k, padded, ...) prefilled bucket batch in the k slot
-        rows (in place; rows past each prompt hold pad garbage that the
-        decode step making them attendable rewrites)."""
+        rows of ``cache`` (the server's; the draft's for its prompts), in
+        place; rows past each prompt hold pad garbage that the decode step
+        making them attendable rewrites."""
         slot_rows = self._upload(np.asarray(slots, np.int64))
-        for cache_layer, filled in zip(self.cache, bucket_cache):
+        for cache_layer, filled in zip(cache or self.cache, bucket_cache):
             for key, dst in cache_layer.items():
                 dst[slot_rows, :padded] = filled[key].to(dst.dtype)
+
+    def _prefill_draft_rows(self, slots_list, prompts) -> None:
+        """Land the draft's prompt KV for ``slots_list`` in its own slot
+        rows, batched: the draft has no prefix cache and no chunking, so it
+        always prefills the whole padded prompts in one call."""
+        draft = self._draft
+        padded = prompts.shape[1]
+        bucket = llama.init_cache(draft["config"], len(slots_list), padded,
+                                  device=self.device)
+        _, bucket = llama.prefill(draft["params"], self._upload(prompts),
+                                  bucket, draft["config"])
+        self._insert_slots(bucket, slots_list, padded, cache=draft["cache"])
 
     def _note_prefill(self, tokens: int) -> None:
         if self._serve_started is None:
@@ -816,8 +896,17 @@ class ContinuousBatchingServer:
             if top_p is not None:
                 request.top_p = float(top_p)
                 self._top_ps[slot] = float(top_p)
-            if max_new_tokens is None:
+            if max_new_tokens is None and self.compact_upload:
+                # Chunks may be in flight for the slot: ride the
+                # sampling-leaf scatter, never the progress leaves.
                 self._dirty_sampling[slot] = True
+            elif max_new_tokens is None:
+                # The legacy full-mirror merge has no per-leaf mask: settle
+                # the ring so the mirrors are exact first.
+                self._drain_ring()
+                if self._requests[slot] is not request:
+                    return True     # finished while settling
+                self._dirty[slot] = True
             self._any_sampled = bool((self._temperatures > 0).any())
             if steplog.RECORDER is not None:
                 steplog.RECORDER.record(
@@ -1112,6 +1201,54 @@ class ContinuousBatchingServer:
                                     if caps_host is not None else None))
         return True
 
+    def _draft_propose(self, st, k: int, sampled: bool):
+        """The paired draft proposes ``k`` tokens a slot:
+        :func:`~..models.llama.decode_chunk_ragged` against the draft's own
+        ``(slots, max_seq)`` cache from the resident state.  Returns
+        ``(proposals (slots, k), draft logits (slots, k, vocab) or None)``;
+        the logits only for sampled acceptance."""
+        draft = self._draft
+        if sampled:
+            proposals, draft_logits, _, _, draft["cache"] = \
+                llama.decode_chunk_ragged(
+                    draft["params"], st["token"], draft["cache"],
+                    st["positions"], st["active"], k, draft["config"],
+                    temperatures=st["temps"], top_ps=st["tops"],
+                    generator=self._generator, return_logits=True)
+            return proposals, draft_logits
+        proposals, _, _, draft["cache"] = llama.decode_chunk_ragged(
+            draft["params"], st["token"], draft["cache"], st["positions"],
+            st["active"], k, draft["config"])
+        return proposals, None
+
+    def _draft_resync(self, st, resync, prev_positions, prev_active) -> None:
+        """Replay the committed window minus its last token through the
+        draft from ``positions + 1`` (zero-padded; idempotent rewrites,
+        the pad rows stale until rewritten), so its cache matches the
+        target's history before the next round."""
+        draft = self._draft
+        _, draft["cache"] = llama.verify_chunk_ragged(
+            draft["params"], resync, draft["cache"], prev_positions + 1,
+            prev_active, draft["config"])
+
+    def _spec_verify(self, st, chunk):
+        """Score the (slots, k+1) window against the slot rows, every row
+        at its own position (:func:`~..models.llama.verify_chunk_ragged`:
+        on the card, ``append_kv_ragged`` + ``chunk_attention`` over the
+        cache as a degenerate block pool); returns the logits for the
+        acceptance kernel."""
+        logits, self.cache = llama.verify_chunk_ragged(
+            self.params, chunk, self.cache, st["positions"], st["active"],
+            self.config)
+        return logits
+
+    def _note_spec_rollback(self, slot: int, advance: int,
+                            width: int) -> None:
+        """Account the KV a round wrote past the committed frontier
+        (``advance`` of ``width`` window rows kept): nothing to count on
+        the contiguous layout, whose slot rows are reserved whole (the
+        paged server counts rolled-back blocks)."""
+
     def _note_spec_round(self, entry) -> None:
         """SpecStats of one consumed round: drafted proposals (the caps the
         round ran under, or k per lane live at dispatch) and accepted
@@ -1347,9 +1484,9 @@ class ContinuousBatchingServer:
         IDLE engine (no live slot, empty ring), so the first adaptive round
         of each width finds the card's libraries and allocator warm.  Each
         rung's proposer, verify, acceptance and commit run against the
-        all-inactive resident state: inactive rows write nothing in the
-        verify (the draft's decode writes scratch block 0) and the commit
-        is a masked no-op.  ``sampled=True`` runs the sampled variants.
+        all-inactive resident state: inactive rows write only scratch or
+        garbage-tolerant rows in the verify and the draft's decode, and the
+        commit is a masked no-op.  ``sampled=True`` runs the sampled variants.
         Returns the rungs run."""
         if self._spec is None:
             return 0

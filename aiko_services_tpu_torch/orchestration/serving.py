@@ -27,8 +27,9 @@ The port's copy of ``aiko_services_tpu/orchestration/serving.py``:
   ``unsupported``: the device-profile bracket and the pool census are
   not ported yet).
 - The operator telemetry projection (:data:`TELEMETRY_KEYS`,
-  :func:`serving_telemetry`) and the ``ModelReplica`` factory
-  :func:`make_llama_infer` on the port's ``llama``.
+  :func:`serving_telemetry`) and the ``ModelReplica`` factories
+  :func:`make_llama_infer` and :func:`make_speculative_infer` on the
+  port's ``llama`` and ``speculative``.
 
 Payloads are swag-codec dicts (numpy arrays travel as typed tags), so
 token tensors cross process boundaries losslessly.
@@ -1429,7 +1430,9 @@ def make_llama_infer(config_name: str = "tiny", quantize: bool = False,
     """Build a ModelReplica ``infer`` callable running the flagship
     Llama-architecture model: ``{"tokens": (batch, prompt)}`` →
     ``{"tokens_out": (batch, prompt+new)}`` (greedy: a batch-1 or
-    batched ``prefill`` + ``generate_tokens`` on a contiguous cache).
+    batched ``prefill`` + ``generate_tokens`` on a contiguous cache of
+    the request's rows rounded up by :func:`~..ops.paged_attention.
+    contiguous_rows`).
 
     ``params``: the weights to serve (a test passes bridged weights);
     without them, random weights from ``seed`` under the named config
@@ -1441,6 +1444,7 @@ def make_llama_infer(config_name: str = "tiny", quantize: bool = False,
 
     from ..device import resolve_device
     from ..models import llama
+    from ..ops.paged_attention import contiguous_rows
 
     if checkpoint:
         raise NotImplementedError(
@@ -1458,7 +1462,8 @@ def make_llama_infer(config_name: str = "tiny", quantize: bool = False,
         if isinstance(request, dict):
             return request
         tokens, prompt_len, new = request
-        cache = llama.init_cache(config, tokens.shape[0], prompt_len + new,
+        cache = llama.init_cache(config, tokens.shape[0],
+                                 contiguous_rows(prompt_len + new),
                                  quantize_kv=quantize_kv, device=device)
         logits, cache = llama.prefill(params, tokens, cache, config)
         first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
@@ -1471,15 +1476,71 @@ def make_llama_infer(config_name: str = "tiny", quantize: bool = False,
     return infer
 
 
-def make_speculative_infer(*_args, **_kwargs) -> Callable:
-    """The JAX package's standalone speculative ``infer`` factory.  It
-    needs ``speculative_generate`` (``models/speculative.py``), which is
-    not ported yet; the paged server's speculation
-    (``PagedContinuousServer(draft_config_name=…)``) serves the same
-    exactness through a :class:`~.continuous.ContinuousReplica`."""
-    raise NotImplementedError(
-        "make_speculative_infer needs speculative_generate "
-        "(models/speculative.py), which is not ported yet")
+def make_speculative_infer(target_config="small", draft_config="tiny",
+                           quantize: bool = False,
+                           max_new_tokens: int = 16, k: int = 4,
+                           seed: int = 0, draft_seed: int = 1,
+                           target_params=None, draft_params=None,
+                           device=None) -> Callable:
+    """Build a ModelReplica ``infer`` callable running GREEDY speculative
+    decoding (:func:`~..models.speculative.speculative_generate`): a draft
+    model proposes ``k`` tokens and the target verifies them in one
+    chunked-prefill pass, so the output is identical to target-only greedy
+    decode and a router may mix speculative and plain replicas freely.
+
+    ``target_config`` / ``draft_config``: ``CONFIGS`` names or
+    :class:`~..models.llama.LlamaConfig` instances sharing a vocabulary.
+    Weights: ``target_params`` / ``draft_params`` when given (a test passes
+    bridged ones), else random from ``seed`` / ``draft_seed`` on
+    ``device`` (the target int8 when ``quantize``).  ``device``: the card
+    unless the caller names another.  Batch-1 requests only: speculation
+    serves the low-batch latency regime, a ContinuousReplica the
+    throughput one.  The answer carries ``tokens_out`` (prompt + new),
+    ``acceptance_rate`` and ``tokens_per_target_pass``."""
+    from ..device import resolve_device
+    from ..models import llama
+    from ..models.speculative import speculative_generate
+
+    def resolve(config):
+        return (llama.CONFIGS[config] if isinstance(config, str)
+                else config)
+    target_cfg = resolve(target_config)
+    draft_cfg = resolve(draft_config)
+    if target_cfg.vocab_size != draft_cfg.vocab_size:
+        raise ValueError("draft and target must share a vocabulary")
+    device = resolve_device(device)
+    if target_params is None:
+        target_params = llama.init_params(target_cfg, seed=seed,
+                                          device=device)
+        if quantize:
+            target_params = llama.quantize_params(target_params)
+    if draft_params is None:
+        draft_params = llama.init_params(draft_cfg, seed=draft_seed,
+                                         device=device)
+
+    def infer(inputs: Dict) -> Dict:
+        prompt = np.asarray(inputs["tokens"], np.int32).reshape(-1)
+        new = int(np.asarray(inputs.get("max_new_tokens",
+                                        max_new_tokens)))
+        # speculative_generate bounds by BOTH models' max_seq_len (the
+        # draft runs the same positions).
+        max_seq = min(target_cfg.max_seq_len, draft_cfg.max_seq_len)
+        budget = max_seq - len(prompt) - k - 1
+        if budget <= 0:
+            return {"error": f"prompt_len {len(prompt)} too long for "
+                             f"max_seq {max_seq} with k={k} "
+                             "speculation"}
+        new = min(new, budget)
+        generated, stats = speculative_generate(
+            target_params, draft_params, prompt, new, target_cfg,
+            draft_cfg, k=k)
+        return {"tokens_out": np.concatenate(
+                    [prompt, np.asarray(generated, np.int32)])[None],
+                "acceptance_rate": np.float32(stats.acceptance_rate),
+                "tokens_per_target_pass": np.float32(
+                    stats.tokens_per_target_pass)}
+
+    return infer
 
 
 def make_constrained_infer(*_args, **_kwargs) -> Callable:

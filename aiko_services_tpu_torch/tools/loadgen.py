@@ -30,9 +30,9 @@ Open-loop: requests are posted on schedule regardless of completions
 (late responses still count; missing ones surface as ``timeouts``).
 
 Not ported yet, each with the module it needs (:data:`UNPORTED_MODES`):
-the multi-tenant rig (``models/lora.py``), the speculative A/B
-(``speculative_generate``), the structured rig (``models/constrained.py``)
-and :func:`run_compile_cache_ab` (the kernel build cache).
+the multi-tenant rig (``models/lora.py``), the structured rig
+(``models/constrained.py``) and :func:`run_compile_cache_ab` (the kernel
+build cache).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ __all__ = ["LoadGenerator", "LoadReport", "PHASES", "chaos_schedule",
            "migration_chaos_schedule", "run_chaos", "run_compile_cache_ab",
            "run_elastic", "run_elastic_chaos", "run_longtail",
            "run_migration_chaos", "run_restart", "run_restart_ab",
-           "run_rolling_upgrade", "run_shared_prefix",
+           "run_rolling_upgrade", "run_shared_prefix", "run_spec_ab",
            "shared_prefix_payloads"]
 
 #: Per-phase latency keys the replicas stamp on responses, in report
@@ -771,19 +771,73 @@ def _wait_for(predicate, timeout_s: float, what: str) -> None:
 
 
 def _server_factory(make_server, config_name: str, params, device,
-                    **defaults) -> Callable[[str], object]:
+                    spec_k: int = 0, **defaults) -> Callable[[str], object]:
     """``make_server`` itself, or a factory of ``PagedContinuousServer``
     s on ``params`` (random weights from the seed when None) and
-    ``device`` with the rig's ``defaults``."""
-    if make_server is not None:
+    ``device`` with the rig's ``defaults``.  ``spec_k`` > 0 gives every
+    server a ``spec_k``-token paired draft (:func:`_enable_paired_draft`;
+    a caller's ``make_server`` must build servers with a draft)."""
+    if make_server is None:
+        def make_server(_name: str):
+            from ..orchestration.paged import PagedContinuousServer
+            return PagedContinuousServer(
+                config_name=config_name, params=params, device=device,
+                draft_config_name=config_name if spec_k else None,
+                spec_k=spec_k or 4, **defaults)
+    if not spec_k:
         return make_server
 
-    def build(_name: str):
-        from ..orchestration.paged import PagedContinuousServer
-        return PagedContinuousServer(config_name=config_name,
-                                     params=params, device=device,
-                                     **defaults)
-    return build
+    def build_paired(name: str):
+        server = make_server(name)
+        _enable_paired_draft(server, spec_k)
+        return server
+    return build_paired
+
+
+def _fleet_spec_stats(servers) -> Optional[Dict]:
+    """The replicas' speculative counters summed (None when no replica
+    runs a draft).  Rates are recomputed from the summed raw counts:
+    averaging per-replica rates would weight idle replicas equally."""
+    totals: Dict[str, float] = {}
+    modes: set = set()
+    k_effs: list = []
+    for server in servers:
+        stats = server.stats()
+        if "spec_rounds" not in stats:
+            continue
+        for key in ("spec_rounds", "spec_proposed", "spec_accepted",
+                    "spec_rollback_blocks", "spec_jump_forward_tokens",
+                    "spec_ngram_hits"):
+            totals[key] = totals.get(key, 0) + int(stats.get(key, 0))
+        modes.add(str(stats.get("spec_draft_mode", "model")))
+        k_eff = stats.get("spec_k_effective", "-")
+        if k_eff not in (None, "-"):
+            k_effs.append(str(k_eff))
+    if not totals:
+        return None
+    totals["spec_draft_mode"] = "|".join(sorted(modes))
+    totals["spec_k_effective"] = ";".join(k_effs) if k_effs else "-"
+    proposed = totals["spec_proposed"]
+    rounds = totals["spec_rounds"]
+    totals["spec_acceptance_rate"] = round(
+        totals["spec_accepted"] / proposed, 4) if proposed else 0.0
+    totals["spec_tokens_per_target_pass"] = round(
+        (totals["spec_accepted"] + rounds) / rounds, 4) \
+        if rounds else 0.0
+    return totals
+
+
+def _enable_paired_draft(server, spec_k: int) -> None:
+    """Alias the target weights in as the draft (the "paired toy"): an
+    identical draft gives the HIGH-acceptance regime, multi-token commits
+    every round, while greedy outputs stay bitwise the plain server's by
+    the verify's construction (what the A/B asserts).  ``spec_k`` is the
+    server's own, set when it was built."""
+    if server._draft is None:
+        raise ValueError(f"a {spec_k}-token paired draft needs a server "
+                         "built with a draft (draft_config_name=)")
+    server._draft["params"] = server.params
+    server._draft["config"] = server.config
 
 
 @contextlib.contextmanager
@@ -851,7 +905,7 @@ def run_shared_prefix(n_requests: int = 24, rate_hz: float = 50.0,
                       payload_fn: Optional[Callable[[int], Dict]] = None,
                       make_server: Optional[Callable] = None,
                       config_name: str = "tiny", params=None,
-                      device=None) -> LoadReport:
+                      device=None, spec_k: int = 0) -> LoadReport:
     """In-process 2-replica PAGED serving rig (prefix caches on) driven
     through a ReplicaRouter with KV transfer on, by ``payload_fn`` or
     :func:`shared_prefix_payloads` (three conversations of four turns on
@@ -863,10 +917,13 @@ def run_shared_prefix(n_requests: int = 24, rate_hz: float = 50.0,
     on ``replica_b`` from the pulled blocks.  The report carries
     ``prefix_hit_rate``, ``kv_transfer_bytes``, histogram-merged
     ``fleet_latency_ms``, the final tokens and the caller-clock TTFTs
-    (``client_ttfts_ms``)."""
+    (``client_ttfts_ms``).  ``spec_k`` > 0 serves with a paired draft
+    (:func:`_server_factory`); the report then carries the fleet's
+    ``spec_stats`` and the requests' ``spec_accept_hist``."""
     make_server = _server_factory(
-        make_server, config_name, params, device, slots=2, chunk_steps=4,
-        seed=0, enable_prefix_cache=True, max_queue=256, watchdog_s=5.0)
+        make_server, config_name, params, device, spec_k=spec_k, slots=2,
+        chunk_steps=4, seed=0, enable_prefix_cache=True, max_queue=256,
+        watchdog_s=5.0)
     with fleet("sharedpfx", make_server,
                replica_kwargs={"replica_a": dict(prefill_only=disaggregate)},
                prefix_alpha=1.0 if prefix_routing else 0.0,
@@ -891,6 +948,8 @@ def run_shared_prefix(n_requests: int = 24, rate_hz: float = 50.0,
         _attach_pool_census(report, servers)
         report.fleet_latency_ms = fleet_latency(servers)
         report.final_tokens = dict(generator.final_tokens)
+        report.spec_stats = _fleet_spec_stats(servers)
+        report.spec_accept_hist = dict(generator.spec_accept_hist)
         report.server_stats = dict(
             router.counters, **totals,
             kv_directory_size=router.share.get("kv_directory_size", 0))
@@ -929,7 +988,7 @@ def run_chaos(seed: int = 0, n_requests: int = 40,
               payload_fn: Optional[Callable[[int], Dict]] = None,
               make_server: Optional[Callable] = None,
               config_name: str = "tiny", params=None,
-              device=None) -> LoadReport:
+              device=None, spec_k: int = 0) -> LoadReport:
     """Run an in-process 2-replica serving rig (loopback broker, real
     event engine, Registrar + router) under :func:`chaos_schedule` and
     return the LoadReport.  The invariant a chaos run checks:
@@ -953,12 +1012,17 @@ def run_chaos(seed: int = 0, n_requests: int = 40,
     replica dying mid-decode and re-dispatching its work may never cost
     the fleet a new capture.  The report carries the warmup/steady split
     (``warmup_s``, ``warmup_captures``, ``captures_steady_state``,
-    ``steady_tokens_per_sec``)."""
+    ``steady_tokens_per_sec``).
+
+    ``spec_k`` > 0 serves with a paired draft, so a replica dies
+    mid-speculation-round: greedy determinism and the idempotent replay
+    must hold through rejected-tail rollbacks as through plain decode."""
     from ..runtime import faults
 
     make_server = _server_factory(
-        make_server, config_name, params, device, slots=2, chunk_steps=4,
-        seed=0, enable_prefix_cache=True, max_queue=256, watchdog_s=5.0)
+        make_server, config_name, params, device, spec_k=spec_k, slots=2,
+        chunk_steps=4, seed=0, enable_prefix_cache=True, max_queue=256,
+        watchdog_s=5.0)
     warmup_began = time.time()
     # The fault plan arms AFTER the warmup wave when gating captures —
     # warmup pumps must not consume the schedule's nth counters, or
@@ -1002,6 +1066,8 @@ def run_chaos(seed: int = 0, n_requests: int = 40,
             _attach_kv_rates(report, totals)
             report.final_tokens = dict(generator.final_tokens)
             report.fleet_latency_ms = fleet_latency(servers)
+            report.spec_stats = _fleet_spec_stats(servers)
+            report.spec_accept_hist = dict(generator.spec_accept_hist)
             report.server_stats = dict(
                 router.counters, **totals,
                 replicas_live=router.share["replicas"],
@@ -1841,13 +1907,58 @@ def run_rolling_upgrade(duration_s: float = 10.0, seed: int = 0,
                        **kwargs)
 
 
+def run_spec_ab(spec_k: int = 4, n_requests: int = 24,
+                rate_hz: float = 50.0, seed: int = 0, chaos: bool = False,
+                drain_timeout_s: float = 90.0, config_name: str = "tiny",
+                params=None, device=None) -> Tuple[LoadReport, LoadReport]:
+    """A/B gate for speculative decoding on the serving path: the SAME
+    seeded payload sequence through the same 2-replica paged rig, once
+    plain and once with a ``spec_k``-token paired draft, asserting the
+    greedy outputs BIT-EXACT request for request.  ``chaos=True`` runs
+    both sides under :func:`chaos_schedule`: a replica dying mid-round
+    must re-dispatch idempotently (zero lost, zero duplicated finals) and
+    still match the plain side token for token, which rules out
+    half-committed speculative state leaking across the replay.  Returns
+    ``(base_report, spec_report)``; the spec report carries the fleet's
+    ``spec_stats`` and the requests' ``spec_accept_hist``."""
+    serving = dict(rate_hz=rate_hz, drain_timeout_s=drain_timeout_s,
+                   config_name=config_name, params=params, device=device)
+    if chaos:
+        base = run_chaos(seed=seed, n_requests=n_requests, **serving)
+        spec = run_chaos(seed=seed, n_requests=n_requests, spec_k=spec_k,
+                         **serving)
+    else:
+        payloads = dict(n_conversations=3, turns=4, system_len=48,
+                        seed=seed)
+        base = run_shared_prefix(
+            n_requests=n_requests,
+            payload_fn=shared_prefix_payloads(**payloads), **serving)
+        spec = run_shared_prefix(
+            n_requests=n_requests,
+            payload_fn=shared_prefix_payloads(**payloads), spec_k=spec_k,
+            **serving)
+    both = set(base.final_tokens) & set(spec.final_tokens)
+    mismatched = [request_id for request_id in sorted(both)
+                  if base.final_tokens[request_id]
+                  != spec.final_tokens[request_id]]
+    if mismatched:
+        raise AssertionError(
+            f"spec A/B not bit-exact (spec_k={spec_k}, seed={seed}): "
+            f"{len(mismatched)}/{len(both)} requests diverged, first "
+            f"{mismatched[0]}")
+    if not both:
+        raise AssertionError(
+            "spec A/B compared zero requests: both runs completed "
+            "disjoint id sets, the gate proved nothing")
+    return base, spec
+
+
 #: CLI modes of the JAX package's load generator that the port does not
 #: run yet, each with what it needs.
 UNPORTED_MODES = {
     "multitenant": "models/lora.py (the LoRA adapters and their pages)",
     "structured": "models/constrained.py (the token automata and "
                   "constrained_generate)",
-    "spec_k": "speculative_generate (models/speculative.py)",
 }
 
 
@@ -1861,8 +1972,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     """``python -m aiko_services_tpu_torch.tools.loadgen --chaos`` (seeded
     fault schedule; exit 1 if any request was lost or hung),
     ``--elastic-chaos``, ``--migrate-mid-stream``, ``--rolling-upgrade``,
-    ``--restart-replica`` or ``--workload shared_prefix|diurnal|
-    longtail``.  Every rig serves ``tiny`` with random weights from the
+    ``--restart-replica``, ``--spec-k K`` (the speculative A/B, under
+    the chaos schedule with ``--chaos``) or ``--workload shared_prefix|
+    diurnal|longtail``.  Every rig serves ``tiny`` with random weights from the
     seed on the card, or on the CPU with ``--device cpu``."""
     import argparse
 
@@ -1946,13 +2058,44 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "are bit-exact and the warm arm beats cold "
                              "on hit rate")
     parser.add_argument("--spec-k", type=int, default=0,
-                        help="speculative A/B gate (not ported yet)")
+                        help="speculative A/B gate: run the seeded "
+                             "payload sequence plain AND with a "
+                             "k-token paired draft, assert BIT-EXACT "
+                             "outputs, report acceptance histograms "
+                             "(with --chaos: under the fault schedule)")
     args = parser.parse_args(argv)
     if args.workload in ("structured", "multitenant"):
         _unported(args.workload)
-    if args.spec_k:
-        _unported("spec_k")
     serving = dict(device=args.device)
+    if args.spec_k:
+        base, spec = run_spec_ab(
+            spec_k=args.spec_k, n_requests=args.requests,
+            rate_hz=args.rate_hz, seed=args.seed, chaos=args.chaos,
+            **serving)
+        print("base:", base)
+        print("spec:", spec)
+        print(f"fleet spec counters: {spec.spec_stats}")
+        lengths = sorted(len(hist) for hist
+                         in spec.spec_accept_hist.values())
+        accepted = [count for hist in spec.spec_accept_hist.values()
+                    for count in hist]
+        mean_accept = statistics.fmean(accepted) if accepted else 0.0
+        print(f"accept histograms: {len(lengths)} requests, "
+              f"rounds/request p50="
+              f"{lengths[len(lengths) // 2] if lengths else 0}, "
+              f"mean accepted/round={mean_accept:.2f}")
+        if args.chaos and (spec.lost or spec.timeouts
+                           or spec.duplicate_finals):
+            print(f"SPEC CHAOS FAIL (seed={args.seed}): "
+                  f"{spec.lost} lost, {spec.timeouts} hung, "
+                  f"{spec.duplicate_finals} duplicated")
+            return 1
+        mode = "chaos" if args.chaos else "shared_prefix"
+        print(f"SPEC A/B OK (k={args.spec_k}, {mode}, "
+              f"seed={args.seed}): bit-exact, "
+              f"tokens/target-pass="
+              f"{(spec.spec_stats or {}).get('spec_tokens_per_target_pass')}")
+        return 0
     if args.migrate_mid_stream:
         control, migrated = run_migration_chaos(
             seed=args.seed,

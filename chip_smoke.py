@@ -27,7 +27,9 @@ Phases (any failure exits non-zero):
    write_kv_rows, once a layer a step).  The greedy steady chunks serve
    through captured CUDA graphs (llama.ChunkGraph, the servers' default
    on the card; a replay counts the launches its capture made, so the
-   counts stay exact), and the run must replay some.  Then a full-batch
+   counts stay exact), and the run must replay some.  Then, after the
+   bf16-KV run (the int8-KV runs of phases 3, 4 and 6 have none, to make
+   room for phase 12), a full-batch
    steady decode window (steady_decode): once the steady chunk is
    captured the capture ledger's fence drops, and the same server decodes
    in turns with its graphs on and off, timed bare; the eager path under
@@ -46,14 +48,15 @@ Phases (any failure exits non-zero):
    to a batch-1 oracle (bf16: contiguous prefill + decode; int8: a
    batch-1 paged run with the prefix cache off), launches of every kernel
    held to the decode steps and prefill slices, prefix hits > 0, the pool
-   balanced after the drain, then phase 3's steady decode window at
-   positions ~1,025-1,120; then that window at 64 slots (512-row tables,
+   balanced after the drain, then (bf16 KV) phase 3's steady decode
+   window at positions ~1,025-1,120; then that window at 64 slots (512-row tables,
    bf16 KV, 128-token prompts).
-5. Speculative serving: phase 4's server with spec_k = 4, bf16 then int8
-   KV, a paired draft (the target as its own draft), an int8 1b draft
-   under the adaptive controller and n-gram self-drafting, every greedy
-   token held to phase 4's oracle and the verify's launches held to the
-   spec rounds; then the paired steady window.
+5. Speculative serving: phase 4's server with spec_k = 4 (SPEC_RUNS):
+   bf16 KV with a paired draft (the target as its own draft), an int8 1b
+   draft under the adaptive controller and n-gram self-drafting, then the
+   paired draft with int8 KV, every greedy token held to phase 4's oracle
+   and the verify's launches held to the spec rounds; the bf16-KV paired
+   run with its steady window.
 6. int4 weights: llama3_8b with random int4 weights built on the card
    (int8 embedding), through the contiguous server (phase 3's traffic
    and steady window, then 64 slots at the JAX bench's int4 shape:
@@ -87,9 +90,10 @@ Phases (any failure exits non-zero):
    warm-up fence, the launches exact, the (metrics) scrape naming the
    server's counters, the replica idle with requests_served 13.  The
    same traffic also runs driven by step() on the caller's thread, on a
-   server warmed the same way: four turns, wire and direct alternating
-   (WIRE_TURNS), each on a fresh server, every wire turn with every
-   check but the oracle (the first one only).  End to end it prints
+   server warmed the same way: a wire turn, then a direct one
+   (WIRE_TURNS; scripts/smoke_wire.py runs a pair of each, alternating),
+   each on a fresh server, every wire turn with every check but the
+   oracle (the first one only).  End to end it prints
    what the caller sees on its own clock, each turn and the spread over
    turns: TTFT p50 / max over the four requests that stream,
    send-to-answer p50 / max over the 12 that finish, served tok/s, and
@@ -107,7 +111,7 @@ Phases (any failure exits non-zero):
    and serves the prefix from disk; (c) replicas A and B on one loopback
    broker, their engine in its own thread: A serves the prefix, and a
    fresh B a turn serves it with another tail, with kv_source = A (warm)
-   or without (cold), alternating (KV_TURNS), printing TTFT and, for a
+   or without (cold) (KV_TURNS), printing TTFT and, for a
    warm turn, the export, wire and import ms, the payload bytes and the
    MB/s; (d) migrate_prepare for a request A streams, answered
    migrate_ready, and a fresh replica resumes prompt + committed tokens
@@ -160,6 +164,33 @@ Phases (any failure exits non-zero):
    the drain and respawn times, the upgrade's wall time and goodput a
    turn, TTFT mean and p50 an arm, and the peak device memory.
 
+12. The contiguous layout's residue and the standalone loops (run after
+   phase 5, on phase 4's int8 weights and phase 5's int8 1b draft): a
+   route check first, the chunked forwards' append_kv_ragged +
+   chunk_attention on a contiguous cache seen as a degenerate block pool
+   (CONTIG_CASES: verify windows across block edges with an inactive slot
+   that must write nothing, an admission chunk, the standalone verify and
+   resync) byte- and tolerance-equal to the plain path; (a)
+   ContinuousBatchingServer at phase 3's shape and traffic with spec_k = 4
+   (CONTIG_RUNS: a paired draft with 256-token chunked admission, a paired
+   draft with int8 KV, the 1b draft under the adaptive controller with
+   int8 KV, n-gram), every greedy token held to phase 3's oracle,
+   chunk_attention and append_kv_ragged launches held to (verify passes +
+   prefill chunks) x 32 + resyncs x the draft's layers, the paired draft
+   above one token a target pass; (b) speculative_generate (1b draft, a
+   256-token prompt, 128 tokens, 512-row caches) held to the oracle and
+   beside complete(), itself equal to prefill + generate_tokens, the
+   sampled loop at 0.8 in the vocabulary and at 0 (given an unaligned
+   max_seq of 511) the greedy loop, launches held to the prefill_chunk
+   calls, and complete() at an unaligned 289 rows (rounded up to 384)
+   launching the decode kernels once a layer a step; (c) mistral_7b (window
+   4,096, int8 weights built on the card and freed) at batch 2, a
+   4,352-token prompt, 32 greedy tokens on a rolling cache (the plain
+   masked decode attention, by layout; the decode write kernel on the ring)
+   held to a plain 4,384-row cache (the decode kernel with the window), and
+   both caches' memory.
+   Prints each part's seconds.
+
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
 its library call.  It also holds int4_matmul (both numerics: scale after
@@ -197,6 +228,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
@@ -1472,6 +1504,12 @@ def print_rows(title, rows):
 # --------------------------------------------------------------------------- #
 # Phase 3: serving
 
+def np_bytes(array) -> bytes:
+    """The bytes of a prompt (any integer array) as int32."""
+    import numpy as np
+    return np.asarray(array, np.int32).tobytes()
+
+
 def contiguous_oracle(torch, llama, params, config, prompt, quantize_kv,
                       device, rows=MAX_SEQ):
     """Batch-1 ``prefill`` + ``decode_step`` on a contiguous cache of
@@ -1515,12 +1553,28 @@ def check_request(torch, request, first_logits, step):
     return equal, ties
 
 
-def check_requests(torch, requests, oracle):
+#: A served token sequence already held to its batch-1 oracle: (oracle
+#: key, prompt bytes, tokens) -> (tokens equal, near-ties).  The same
+#: prompt serving the same tokens on the same weights and cache walks the
+#: oracle the same way, so phases that serve one traffic on one weight set
+#: (phases 3 and 12) check it once.
+CHECKED = {}
+
+
+def check_requests(torch, requests, oracle, memo=None):
     """``oracle(request)`` -> (first logits, step) for every request:
-    (requests exactly equal, tokens equal, tokens checked, near-ties)."""
+    (requests exactly equal, tokens equal, tokens checked, near-ties).
+    ``memo`` names the oracle (weights, KV dtype, cache rows): a request
+    whose prompt and tokens it has held before is not walked again."""
     exact, equal, checked, ties = 0, 0, 0, []
     for request in requests:
-        same, near = check_request(torch, request, *oracle(request))
+        key = (memo, np_bytes(request.prompt), tuple(request.tokens))
+        result = CHECKED.get(key) if memo is not None else None
+        if result is None:
+            result = check_request(torch, request, *oracle(request))
+            if memo is not None:
+                CHECKED[key] = result
+        same, near = result
         exact += not near and same == len(request.tokens)
         equal += same
         checked += len(request.tokens)
@@ -1625,12 +1679,12 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
     exact, equal, checked, ties = check_requests(
         torch, requests, lambda request: contiguous_oracle(
             torch, llama, params, config, request.prompt, quantize_kv,
-            device))
+            device), memo=("contiguous", id(params), quantize_kv, MAX_SEQ))
 
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
     generated = sum(len(r.tokens) for r in requests)
-    steady = steady_decode(
+    steady = {} if quantize_kv else steady_decode(
         torch, np, weights, lambda: server_cls(
             config_name="llama3_8b", slots=SLOTS, max_seq=MAX_SEQ,
             chunk_steps=CHUNK_STEPS, params=params, quantize=True,
@@ -2160,8 +2214,9 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
     totals = sorted((r.finished_ts - r.submitted_ts) * 1e3
                     for r in requests)
     mixed = stats["prefill_slices_mixed"]
-    steady = steady_decode(torch, np, weights, make_server, request_cls,
-                           quantize_kv, config, prompt_len=1023)
+    steady = {} if quantize_kv else steady_decode(
+        torch, np, weights, make_server, request_cls, quantize_kv, config,
+        prompt_len=1023)
     return dict(weights=weights.label, kv="int8" if quantize_kv else "bf16",
                 server="paged",
                 requests=len(requests), requests_exact=exact,
@@ -2253,6 +2308,14 @@ def spec_traffic(np, vocab, kind):
                 [(shared[1], 0.0)]]
     return [[(shared[0], 0.0)] + [(p, 0.0) for p in distinct[:5]],
             [(shared[1], 0.0)] + [(p, 0.0) for p in distinct[5:]]]
+
+
+#: Phase 5's runs: (draft mode, int8 KV).  The int8-KV adaptive and n-gram
+#: runs were cut to make room for phase 12, whose (a) runs the same
+#: proposers on the contiguous layout (the 1b adaptive and the n-gram at
+#: bf16 KV, the paired draft at int8 KV).
+SPEC_RUNS = (("paired", False), ("adaptive", False), ("ngram", False),
+             ("paired", True))
 
 
 def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
@@ -2402,7 +2465,7 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
                    "spec_acceptance_rate", "spec_tokens_per_target_pass",
                    "spec_rollback_blocks", "spec_k_effective",
                    "spec_ngram_hits", "prefix_hits", "decode_steps")})
-    if mode == "paired" and not short:
+    if mode == "paired" and not short and not quantize_kv:
         run.update(steady_spec(torch, np, make_server, request_cls, config,
                                quantize_kv))
         run["phase4_plain_steady_step_ms"] = steady_plain
@@ -2882,9 +2945,12 @@ def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
 
 
 #: Phase 8's turns, in order, each on a fresh server warmed the same way:
-#: the wire and its direct twin alternate, so the wire's end-to-end cost
-#: is read against the spread between turns of one kind (a pair of each).
-WIRE_TURNS = ("wire", "direct", "direct", "wire")
+#: the wire, then its direct twin (one of each, to make room for phase 12).
+#: ``scripts/smoke_wire.py`` runs WIRE_TURN_PAIRS, a pair of each kind,
+#: alternating, so that the wire's end-to-end cost is read against the
+#: spread between turns of one kind.
+WIRE_TURNS = ("wire", "direct")
+WIRE_TURN_PAIRS = ("wire", "direct", "direct", "wire")
 #: What each turn reports in the phase's spread, all from the caller's
 #: clock except the wire's own time a request.
 WIRE_TURN_KEYS = ("served_tok_s", "client_ttft_ms_p50", "client_ttft_ms_max",
@@ -2892,8 +2958,8 @@ WIRE_TURN_KEYS = ("served_tok_s", "client_ttft_ms_p50", "client_ttft_ms_max",
 
 
 def serve_wire(torch, np, llama, weights, kernels, server_cls, request_cls,
-               params, device):
-    """Phase 8: :data:`WIRE_TURNS` turns of phase 4's traffic, through the
+               params, device, turn_kinds=WIRE_TURNS):
+    """Phase 8: the ``turn_kinds`` turns of phase 4's traffic, through the
     wire (:func:`serve_wire_turn`) and by ``step()`` on the caller's
     thread (:func:`serve_direct_twin`).  Every wire turn makes every
     check; the first one's greedy tokens are held to phase 4's bf16
@@ -2904,7 +2970,7 @@ def serve_wire(torch, np, llama, weights, kernels, server_cls, request_cls,
 
     config = llama.CONFIGS["llama3_8b"]
     first, twin, turns, wire_tokens = None, None, [], None
-    for kind in WIRE_TURNS:
+    for kind in turn_kinds:
         if kind == "wire":
             run, served, cancel_request = serve_wire_turn(
                 torch, np, llama, weights, kernels, server_cls, request_cls,
@@ -2967,8 +3033,9 @@ SPILL_POOL, SPILL_HOST = 140, 16
 #: base64; a fall-back fails the phase either way.
 KV_FETCH_TIMEOUT_S = 60.0
 #: Phase 9 (c): the prefix request on a fresh replica B a turn, pulling the
-#: prefix from A ("warm") or prefilling it ("cold"), alternating.
-KV_TURNS = ("warm", "cold", "cold", "warm")
+#: prefix from A ("warm") or prefilling it ("cold"): one of each, to make
+#: room for phase 12.
+KV_TURNS = ("warm", "cold")
 #: Phase 9 (d): tokens streamed before ``migrate_prepare`` is sent.
 MIGRATE_AFTER = 8
 
@@ -4299,6 +4366,595 @@ def print_elastic(elastic, smi):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 12: the contiguous layout's residue and the standalone loops
+
+#: Phase 12 (b): one prompt through the standalone loops on caches of
+#: STANDALONE_MAX_SEQ rows (128-row blocks: the chunked forwards keep to
+#: the kernels; a row count with no power-of-two block of 16 or more
+#: would take the plain path).
+STANDALONE_MAX_SEQ, STANDALONE_PROMPT, STANDALONE_NEW = 512, 256, 128
+#: Phase 12 (b)'s sampled loop: its temperature, and the tokens of its
+#: temperature-0 run (the greedy loop's first tokens).
+STANDALONE_TEMP, STANDALONE_ZERO_NEW = 0.8, 32
+#: Phase 12 (b)'s unaligned sizes: the temperature-0 run's max_seq, and
+#: complete()'s new tokens (prompt + new = 289 rows).  Both caches round
+#: up to the greedy runs' row counts (512 and 384), so their tokens are
+#: the greedy runs' first ones exactly.
+STANDALONE_UNALIGNED_MAX_SEQ = STANDALONE_MAX_SEQ - 1
+STANDALONE_UNALIGNED_NEW = STANDALONE_ZERO_NEW + 1
+#: Phase 12 (c): mistral_7b (window 4,096) at batch 2, a prompt past the
+#: window, greedy steps on a rolling cache and on a plain cache of
+#: prompt + steps rows.
+ROLLING_BATCH, ROLLING_PROMPT, ROLLING_STEPS = 2, 4352, 32
+#: Phase 12 (a)'s runs: (draft, int8 KV, chunk_prefill_tokens).
+CONTIG_RUNS = (("paired", False, CHUNK), ("paired", True, 0),
+               ("adaptive", True, 0), ("ngram", False, 0))
+#: Phase 12's route check: (label, slots, rows a slot, window width,
+#: starts, inactive rows) at the shapes its runs give the chunked
+#: forwards on the degenerate pool (128-row blocks): (a)'s verify (8 x
+#: 1,024, k + 1 = 5; starts across block edges, one slot inactive) and its
+#: 256-token admission chunk into a batch-1 1,024-row bucket, (b)'s verify
+#: and the draft's resync (k = 4) on 512 rows.
+CONTIG_CASES = (
+    ("verify", SLOTS, MAX_SEQ, SPEC_K + 1,
+     (0, 120, 126, 127, 128, 500, 40, 1018), (6,)),
+    ("prefill chunk", 1, MAX_SEQ, CHUNK, (256,), ()),
+    ("standalone verify", 1, STANDALONE_MAX_SEQ, SPEC_K + 1, (300,), ()),
+    ("standalone resync", 1, STANDALONE_MAX_SEQ, SPEC_K, (381,), ()))
+
+
+def check_contiguous_chunk(torch, llama, device):
+    """Phase 12's route check: a chunked forward's K/V write and attention
+    over a contiguous cache seen as a degenerate block pool
+    (``llama._chunk_attention_contiguous``: one ``append_kv_ragged`` and
+    one ``chunk_attention`` launch), 32 query heads over 8 kv heads of
+    128, bf16 and int8 KV, at every CONTIG_CASES shape, against the plain
+    version on the same inputs (the ragged slab write, then
+    ``cached_gqa_attention`` in f32): the cache bytes equal to the plain
+    write's, an inactive slot's rows untouched, the active rows' outputs
+    within tolerance.  Library: SDPA with a boolean mask over the cache
+    (bf16)."""
+    import torch.nn.functional as F
+
+    from aiko_services_tpu_torch.ops import paged_prefill as pp
+    from aiko_services_tpu_torch.ops.paged_attention import (
+        cached_gqa_attention)
+    gen = torch.Generator(device=device).manual_seed(12)
+    config = dataclasses.replace(llama.CONFIGS["llama3_8b"], n_layers=1)
+    kv, group, hd = config.n_kv_heads, config.n_heads // config.n_kv_heads, \
+        config.head_dim
+    rows, worst = [], 0.0
+
+    def plain_route(*_):
+        fail("phase 12 route check: the chunk took the plain path on the "
+             "card")
+    for quant_kv in (False, True):
+        for label, slots, max_seq, T, starts, idle in CONTIG_CASES:
+            cache = llama.init_cache(config, slots, max_seq,
+                                     quantize_kv=quant_kv, device=device)[0]
+            for key, src in llama._pool_sources(
+                    cache, torch.randn(cache["k"].shape, generator=gen,
+                                       device=device),
+                    torch.randn(cache["k"].shape, generator=gen,
+                                device=device)).items():
+                cache[key].copy_(src)
+            active = torch.tensor([s not in idle for s in range(slots)],
+                                  device=device)
+            starts_t = torch.where(active, torch.tensor(
+                starts, dtype=torch.int32, device=device), 0) \
+                .to(torch.int32)
+            lens = torch.where(active, T, 0).to(torch.int32)
+            positions = starts_t.long()[:, None] \
+                + torch.arange(T, device=device)[None, :]
+            q = torch.randn((slots, T, kv, group, hd), generator=gen,
+                            device=device).to(torch.bfloat16)
+            k_new = torch.randn((slots, T, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            v_new = torch.randn((slots, T, kv, hd), generator=gen,
+                                device=device).to(torch.bfloat16)
+            plant_division_ties(torch, k_new[:, 0, 0])
+            got = {key: buf.clone() for key, buf in cache.items()}
+            before = (pp.append_kv_ragged.launches,
+                      pp.chunk_attention.launches)
+
+            def route():
+                return llama._chunk_attention_contiguous(
+                    q, k_new, v_new, got, starts_t, lens, positions,
+                    plain_route, hd, None)
+            out = route()
+            if (pp.append_kv_ragged.launches - before[0],
+                    pp.chunk_attention.launches - before[1]) != (1, 1):
+                fail(f"phase 12 route check {label}: not one launch of each "
+                     "kernel")
+            want = {key: buf.clone() for key, buf in cache.items()}
+            live = torch.nonzero(active)[:, 0]
+            sub = {key: buf[live] for key, buf in want.items()}
+            llama._cache_write_ragged_slab(sub, k_new[live], v_new[live],
+                                           starts_t[live])
+            for key in want:
+                want[key][live] = sub[key]
+            torch.cuda.synchronize()
+            where = f"phase 12 route check {label} int8={quant_kv}"
+            for key in got:
+                if not torch.equal(got[key], want[key]):
+                    fail(f"{where}: cache {key} differs from the plain "
+                         "write (or an inactive slot's rows changed)")
+            plain_cache = want if quant_kv else {
+                key: buf.float() for key, buf in want.items()}
+            expect = cached_gqa_attention(q.float(), plain_cache, positions,
+                                          hd)
+            err, ratio = compare(out[live], expect[live])
+            if not ratio <= 1.0:
+                fail(f"{where}: max abs err {err}, err/tol {ratio}")
+            worst = max(worst, ratio)
+            ms = device_ms(torch, route, 20)
+            scratch = {key: buf.clone() for key, buf in cache.items()}
+
+            def plain():
+                llama._cache_write_ragged_slab(scratch, k_new, v_new,
+                                               starts_t)
+                return cached_gqa_attention(q, scratch, positions, hd)
+            plain_ms = device_ms(torch, plain, 3)
+            library_ms = None
+            if not quant_kv:
+                q_s = q.reshape(slots, T, kv * group, hd).transpose(1, 2)
+                k_s = got["k"].transpose(1, 2)
+                v_s = got["v"].transpose(1, 2)
+                mask = (torch.arange(max_seq, device=device)[None, None, :]
+                        <= positions[..., None])[:, None]
+                library_ms = device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q_s, k_s, v_s, attn_mask=mask, enable_gqa=True), 20)
+            live_n = int(live.numel())
+            keys = sum(int(starts_t[s]) + T for s in live.tolist())
+            pairs = sum(_chunk_pairs(int(starts_t[s]), T, None)[0]
+                        for s in live.tolist())
+            elem = 1 if quant_kv else 2
+            moved = (keys * kv * hd * elem * 2
+                     + (keys * kv * 4 * 2 if quant_kv else 0)
+                     + 2 * live_n * T * kv * group * hd * 2
+                     + 2 * live_n * T * kv * hd * (2 + elem))
+            b_ms, b_by = bound(moved, 4 * hd * kv * group * pairs)
+            rows.append(dict(
+                shape=f"{label}: {slots} x {max_seq} rows, T={T} at "
+                      f"{list(starts)}{' inactive ' + str(list(idle)) if idle else ''}"
+                      f" h=32 kv=8 hd=128 bs=128 int8={quant_kv}",
+                err=err, ratio=ratio, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+            del cache, got, want, scratch
+    return rows, worst
+
+
+def contig_prompts(np, vocab):
+    """Phase 3's ten prompts (PROMPTS), drawn as phase 3 draws them."""
+    rng = np.random.default_rng(7)
+    rng.integers(1, vocab, 100)                 # phase 3's warm-up prompt
+    return [rng.integers(1, vocab, plen).astype(np.int32)
+            for plen in PROMPTS]
+
+
+def serve_contig(torch, np, llama, kernels, server_cls, request_cls, params,
+                 draft_1b, device, mode, quantize_kv, chunk):
+    """Phase 12 (a): ContinuousBatchingServer at phase 3's shape (8 slots,
+    1,024 rows) with spec_k = 4 and phase 3's traffic in its three waves:
+    ``mode`` "paired" (the target as its own draft), "adaptive" (the int8
+    1b draft, spec_adaptive) or "ngram"; ``chunk`` > 0 admits prompts past
+    it a chunk a step (prefill_chunk).  Every greedy token is held to
+    phase 3's batch-1 oracle (teacher-forced past a near-tie), and the
+    launches of ``chunk_attention`` and ``append_kv_ragged`` exactly to
+    (verify passes + prefill chunks) x 32 layers + draft resyncs x the
+    draft's layers."""
+    config = llama.CONFIGS["llama3_8b"]
+    draft_name = {"paired": "llama3_8b", "adaptive": "1b"}.get(mode)
+    kwargs = dict(config_name="llama3_8b", slots=SLOTS, max_seq=MAX_SEQ,
+                  chunk_steps=CHUNK_STEPS, params=params, quantize=True,
+                  quantize_kv=quantize_kv, chunk_prefill_tokens=chunk,
+                  spec_k=SPEC_K, device=device)
+    if mode == "ngram":
+        kwargs["draft_mode"] = "ngram"
+    else:
+        kwargs.update(draft_config_name=draft_name,
+                      draft_params=params if mode == "paired" else draft_1b,
+                      spec_adaptive=mode == "adaptive")
+    server = server_cls(**kwargs)
+    server.warm_spec_ladder()          # each rung once on the idle engine
+    requests = [request_cls(f"c{i}", prompt, NEW_TOKENS) for i, prompt
+                in enumerate(contig_prompts(np, config.vocab_size))]
+    chunks, prefill_chunk = [], llama.prefill_chunk
+
+    def recorded_chunk(params, tokens, *args, **kw):
+        chunks.append(int(tokens.shape[1]))
+        return prefill_chunk(params, tokens, *args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    llama.prefill_chunk = recorded_chunk
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        for batch in (requests[:5], requests[5:8], requests[8:]):
+            for request in batch:
+                server.submit(request)
+            for _ in range(3):
+                server.step()
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama.prefill_chunk = prefill_chunk
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = server.stats()
+    where = f"phase 12 (a) {mode}, int8 KV {quantize_kv}"
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS:
+            fail(f"{where} request {request.request_id}: error "
+                 f"{request.error}, {len(request.tokens)} tokens")
+    rounds, layers = stats["spec_rounds"], config.n_layers
+    draft_layers = llama.CONFIGS[draft_name].n_layers if draft_name else 0
+    expected_chunks = sum(-(-len(r.prompt) // chunk) for r in requests
+                          if chunk and len(r.prompt) > chunk)
+    if rounds <= 0 or len(chunks) != expected_chunks:
+        fail(f"{where}: {rounds} rounds, {len(chunks)} prefill chunks "
+             f"(expected {expected_chunks})")
+    want = layers * (rounds + len(chunks)) + draft_layers * rounds
+    for name in ("chunk_attention", "append_kv_ragged"):
+        if launches[name] != want:
+            fail(f"{where}: {name} {launches[name]} launches, expected "
+                 f"{want} (rounds {rounds}, prefill chunks {len(chunks)}, "
+                 f"draft layers {draft_layers})")
+    used = ("int8_matmul", "flash_attention") + (() if mode == "ngram" else (
+        "paged_decode_attention", "write_kv_rows"))
+    for name in used:
+        if not launches[name]:
+            fail(f"{where}: {name} was never launched")
+    if launches["append_kv"]:
+        fail(f"{where}: the aligned writer launched {launches['append_kv']} "
+             "times (the contiguous chunks take the ragged one)")
+    if mode == "paired" and not stats["spec_tokens_per_target_pass"] > 1.0:
+        fail(f"{where}: {stats['spec_tokens_per_target_pass']} tokens per "
+             "target pass")
+    if not peak_gb < 80:
+        fail(f"{where}: peak device memory {peak_gb:.2f} GB")
+    exact, equal, checked, ties = check_requests(
+        torch, requests, lambda request: contiguous_oracle(
+            torch, llama, params, config, request.prompt, quantize_kv,
+            device), memo=("contiguous", id(params), quantize_kv, MAX_SEQ))
+    ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
+                   for r in requests)
+    return dict(mode=mode, draft=draft_name or "ngram",
+                kv="int8" if quantize_kv else "bf16",
+                chunk_prefill_tokens=chunk, requests=len(requests),
+                requests_exact=exact, tokens_checked=checked,
+                tokens_equal=equal, accepted_near_ties=ties,
+                launches=launches, prefill_chunks=len(chunks),
+                wall_s=wall, served_tok_s=len(requests) * NEW_TOKENS / wall,
+                ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
+                peak_gb=peak_gb,
+                **{key: stats[key] for key in (
+                    "spec_rounds", "spec_proposed", "spec_accepted",
+                    "spec_acceptance_rate", "spec_tokens_per_target_pass",
+                    "spec_k_effective", "spec_ngram_hits",
+                    "decode_steps")})
+
+
+def serve_standalone(torch, np, llama, speculative, kernels, params,
+                     draft_1b, device):
+    """Phase 12 (b): the standalone batch-1 loops, llama3_8b int8 with the
+    int8 1b draft, k = 4, one 256-token prompt, 128 new tokens, caches of
+    512 rows.  ``speculative_generate``'s tokens are set beside
+    ``complete()``'s greedy tokens, which must equal ``prefill`` +
+    ``generate_tokens`` on the same 384-row cache bit for bit (the oracle's
+    argmax chain); where they part, the speculative tokens are held to the
+    batch-1 oracle, teacher-forced past a near-tie; ``chunk_attention`` and
+    ``append_kv_ragged`` launch once a layer of every ``prefill_chunk``
+    call (the verify on the target, the resync on the draft), and the
+    verifies are the target passes after the prefill.  The sampled loop at
+    STANDALONE_TEMP gives 128 tokens in the vocabulary; at temperature 0,
+    given the unaligned max_seq STANDALONE_UNALIGNED_MAX_SEQ (its caches
+    round up to 512 rows), its first STANDALONE_ZERO_NEW tokens are the
+    greedy loop's, with the chunk kernels launched once a layer of each of
+    its ``prefill_chunk`` calls.  ``complete()`` at the unaligned 256 +
+    STANDALONE_UNALIGNED_NEW rows (rounded up to 384) gives the 128-token
+    completion's first tokens and launches the decode attention and write
+    kernels once a layer a step."""
+    config, draft_config = llama.CONFIGS["llama3_8b"], llama.CONFIGS["1b"]
+    kernels_by_name = {kernel.__name__: kernel for kernel in kernels}
+    prompt = np.random.default_rng(31).integers(
+        1, config.vocab_size, STANDALONE_PROMPT).astype(np.int32)
+    calls, prefill_chunk = [], llama.prefill_chunk
+
+    def recorded_chunk(params, tokens, cache, start, config):
+        calls.append(config.n_layers)
+        return prefill_chunk(params, tokens, cache, start, config)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        began = time.monotonic()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.monotonic() - began) * 1e3
+    where = "phase 12 (b)"
+    llama.prefill_chunk = recorded_chunk
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        (tokens, stats), greedy_ms = timed(
+            lambda: speculative.speculative_generate(
+                params, draft_1b, prompt, STANDALONE_NEW, config,
+                draft_config, k=SPEC_K, max_seq=STANDALONE_MAX_SEQ))
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+        greedy_calls = list(calls)
+        (sampled, sampled_stats), sampled_ms = timed(
+            lambda: speculative.speculative_generate_sampled(
+                params, draft_1b, prompt, STANDALONE_NEW, config,
+                draft_config, k=SPEC_K, temperature=STANDALONE_TEMP,
+                seed=0, max_seq=STANDALONE_MAX_SEQ))
+        del calls[:]
+        for kernel in kernels:
+            kernel.launches = 0
+        zero, _ = speculative.speculative_generate_sampled(
+            params, draft_1b, prompt, STANDALONE_ZERO_NEW, config,
+            draft_config, k=SPEC_K, temperature=0.0,
+            max_seq=STANDALONE_UNALIGNED_MAX_SEQ)
+        zero_launches = {kernel.__name__: kernel.launches
+                         for kernel in kernels}
+        zero_calls = list(calls)
+    finally:
+        llama.prefill_chunk = prefill_chunk
+    for name in ("chunk_attention", "append_kv_ragged"):
+        if not zero_calls or zero_launches[name] != sum(zero_calls):
+            fail(f"{where}: max_seq {STANDALONE_UNALIGNED_MAX_SEQ}: {name} "
+                 f"{zero_launches[name]} launches, expected "
+                 f"{sum(zero_calls)} (prefill_chunk calls {zero_calls})")
+    for name in ("chunk_attention", "append_kv_ragged"):
+        if launches[name] != sum(greedy_calls):
+            fail(f"{where}: {name} {launches[name]} launches, expected "
+                 f"{sum(greedy_calls)} (prefill_chunk calls {greedy_calls})")
+    verifies = greedy_calls.count(config.n_layers)
+    if verifies != stats.target_passes - 1:
+        fail(f"{where}: {verifies} verifies for {stats.target_passes} "
+             "target passes")
+    for name in ("int8_matmul", "flash_attention", "paged_decode_attention",
+                 "write_kv_rows"):
+        if not launches[name]:
+            fail(f"{where}: {name} was never launched")
+    if launches["append_kv"]:
+        fail(f"{where}: the aligned writer launched {launches['append_kv']} "
+             "times")
+    if len(tokens) != STANDALONE_NEW or len(sampled) != STANDALONE_NEW \
+            or not all(0 <= t < config.vocab_size for t in sampled):
+        fail(f"{where}: {len(tokens)} greedy tokens, {len(sampled)} sampled "
+             f"(max {int(max(sampled))})")
+    if zero.tolist() != tokens[:STANDALONE_ZERO_NEW].tolist():
+        fail(f"{where}: the sampled loop at temperature 0 is not the greedy "
+             "loop")
+    completed, complete_ms = timed(lambda: llama.complete(
+        params, prompt[None], config, max_new_tokens=STANDALONE_NEW))
+    cache = llama.init_cache(config, 1, STANDALONE_PROMPT + STANDALONE_NEW,
+                             device=device)
+    logits, cache = llama.prefill(
+        params, torch.as_tensor(prompt, device=device)[None], cache, config)
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    rest, _ = llama.generate_tokens(params, first, cache, STANDALONE_PROMPT,
+                                    STANDALONE_NEW - 1, config)
+    reference = [int(first[0, 0])] + rest[0].tolist()
+    if completed[0].tolist() != reference:
+        fail(f"{where}: complete() differs from prefill + generate_tokens")
+    for kernel in kernels:
+        kernel.launches = 0
+    unaligned = llama.complete(params, prompt[None], config,
+                               max_new_tokens=STANDALONE_UNALIGNED_NEW)
+    rows = STANDALONE_PROMPT + STANDALONE_UNALIGNED_NEW
+    steps = (STANDALONE_UNALIGNED_NEW - 1) * config.n_layers
+    for name in ("paged_decode_attention", "write_kv_rows"):
+        if kernels_by_name[name].launches != steps:
+            fail(f"{where}: complete() at {rows} rows: {name} "
+                 f"{kernels_by_name[name].launches} launches, expected "
+                 f"{steps}")
+    if unaligned[0].tolist() != reference[:STANDALONE_UNALIGNED_NEW]:
+        fail(f"{where}: complete() at {rows} rows differs from the "
+             f"{STANDALONE_PROMPT + STANDALONE_NEW}-row completion")
+    served = [int(t) for t in tokens]
+    agree = next((i for i, (a, b) in enumerate(zip(served, reference))
+                  if a != b), STANDALONE_NEW)
+    equal, ties = agree, []
+    if agree < STANDALONE_NEW:
+        # Past complete()'s argmax chain, the teacher-forced oracle.
+        request = types.SimpleNamespace(request_id="standalone",
+                                        prompt=prompt, tokens=served)
+        equal, ties = check_request(torch, request, *contiguous_oracle(
+            torch, llama, params, config, prompt, False, device,
+            rows=STANDALONE_MAX_SEQ))
+    return dict(prompt=STANDALONE_PROMPT, new=STANDALONE_NEW,
+                max_seq=STANDALONE_MAX_SEQ, draft="1b",
+                tokens_equal_oracle=equal, accepted_near_ties=ties,
+                leading_tokens_equal_complete=agree, launches=launches,
+                prefill_chunk_calls=len(greedy_calls), verifies=verifies,
+                unaligned_max_seq=STANDALONE_UNALIGNED_MAX_SEQ,
+                unaligned_prefill_chunk_calls=len(zero_calls),
+                unaligned_complete_rows=rows,
+                greedy_ms=greedy_ms, greedy_target_passes=stats.target_passes,
+                greedy_acceptance=stats.acceptance_rate,
+                greedy_tokens_per_target_pass=stats.tokens_per_target_pass,
+                sampled_ms=sampled_ms,
+                sampled_target_passes=sampled_stats.target_passes,
+                sampled_acceptance=sampled_stats.acceptance_rate,
+                sampled_tokens_per_target_pass=(
+                    sampled_stats.tokens_per_target_pass),
+                complete_ms=complete_ms)
+
+
+def serve_rolling(torch, np, llama, kernels, device):
+    """Phase 12 (c): mistral_7b (window 4,096) with random int8 weights
+    built on the card, batch 2, a 4,352-token prompt, 32 greedy tokens, on
+    a rolling cache (4,096 rows; its decode takes the plain masked
+    attention by layout, no decode attention kernel launches, and writes
+    its rows by the decode write kernel, row ``pos % 4,096``) and on a
+    plain cache of 4,384 rows (the paged decode kernel
+    with window 4,096).  The rolling run's tokens are held to the plain
+    run's, and where a row differs, to a batch-1 oracle on the plain layout
+    teacher-forced past a near-tie.  The weights are freed at the end."""
+    config = llama.CONFIGS["mistral_7b"]
+    began = time.monotonic()
+    params = llama.random_quantized_params(config, seed=2, device=device)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - began
+    rng = np.random.default_rng(41)
+    prompts = rng.integers(1, config.vocab_size, (
+        ROLLING_BATCH, ROLLING_PROMPT)).astype(np.int32)
+    rows = ROLLING_PROMPT + ROLLING_STEPS
+    runs = {}
+    for layout in ("rolling", "plain"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        cache = llama.init_cache(config, ROLLING_BATCH, rows,
+                                 rolling=layout == "rolling", device=device)
+        logits, cache = llama.prefill(
+            params, torch.as_tensor(prompts, device=device), cache, config)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_began = time.monotonic()
+        rest, cache = llama.generate_tokens(params, first, cache,
+                                            ROLLING_PROMPT,
+                                            ROLLING_STEPS - 1, config)
+        torch.cuda.synchronize()
+        runs[layout] = dict(
+            tokens=torch.cat([first, rest], dim=1).tolist(),
+            wall_s=time.monotonic() - began,
+            decode_step_ms=(time.monotonic() - decode_began) * 1e3
+            / (ROLLING_STEPS - 1),
+            cache_rows=int(cache[0]["k"].shape[1]),
+            cache_gb=sum(buf.numel() * buf.element_size()
+                         for layer in cache for buf in layer.values()) / 1e9,
+            peak_gb_over_weights=(torch.cuda.max_memory_allocated()
+                                  - base) / 1e9,
+            launches={kernel.__name__: kernel.launches
+                      for kernel in kernels})
+        del cache, logits
+    rolling, plain = runs["rolling"], runs["plain"]
+    layers, steps = config.n_layers, ROLLING_STEPS - 1
+    want = {"rolling": dict(flash_attention=layers, paged_decode_attention=0,
+                            write_kv_rows=layers * steps),
+            "plain": dict(flash_attention=layers,
+                          paged_decode_attention=layers * steps,
+                          write_kv_rows=layers * steps)}
+    for layout, run in runs.items():
+        for name, expected in want[layout].items():
+            if run["launches"][name] != expected:
+                fail(f"phase 12 (c) {layout}: {name} {run['launches'][name]}"
+                     f" launches, expected {expected}")
+        if not run["launches"]["int8_matmul"]:
+            fail(f"phase 12 (c) {layout}: int8_matmul was never launched")
+    checked, equal, ties = 0, 0, []
+    for row in range(ROLLING_BATCH):
+        tokens = rolling["tokens"][row]
+        checked += len(tokens)
+        if tokens == plain["tokens"][row]:
+            equal += len(tokens)
+            continue
+        request = types.SimpleNamespace(request_id=f"rolling{row}",
+                                        prompt=prompts[row], tokens=tokens)
+        same, near = check_request(torch, request, *contiguous_oracle(
+            torch, llama, params, config, prompts[row], False, device,
+            rows=rows))
+        equal += same
+        ties += [(row, index, gap) for index, gap in near]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config="mistral_7b", window=config.sliding_window,
+                batch=ROLLING_BATCH, prompt=ROLLING_PROMPT,
+                steps=ROLLING_STEPS, weights_build_s=build_s,
+                tokens_checked=checked, tokens_equal=equal,
+                accepted_near_ties=ties,
+                **{f"{layout}_{key}": value for layout, run in runs.items()
+                   for key, value in run.items() if key != "tokens"})
+
+
+def serve_contiguous_phase(torch, np, llama, speculative, kernels,
+                           server_cls, request_cls, params, draft_1b, device,
+                           parts=("route", "servers", "standalone",
+                                  "rolling")):
+    """Phase 12, the parts named in ``parts``: the route check, then (a)
+    CONTIG_RUNS, (b) the standalone loops, (c) rolling caches.  Returns
+    ``{part: result}`` with each part's seconds."""
+    out = {}
+    for part in parts:
+        began = time.monotonic()
+        if part == "route":
+            out[part] = check_contiguous_chunk(torch, llama, device)
+        elif part == "servers":
+            out[part] = [serve_contig(torch, np, llama, kernels, server_cls,
+                                      request_cls, params, draft_1b, device,
+                                      mode, quantize_kv, chunk)
+                         for mode, quantize_kv, chunk in CONTIG_RUNS]
+        elif part == "standalone":
+            out[part] = serve_standalone(torch, np, llama, speculative,
+                                         kernels, params, draft_1b, device)
+        else:
+            out[part] = serve_rolling(torch, np, llama, kernels, device)
+        out[f"{part}_s"] = time.monotonic() - began
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_contiguous_phase(phase, smi):
+    """One line a run of phase 12, each with the card's name and power
+    limit."""
+    if "route" in phase:
+        rows, worst = phase["route"]
+        print_rows("phase 12 route check: append_kv_ragged + chunk_attention"
+                   " on the degenerate pool (cache bytes equal to the plain "
+                   "write's)", rows)
+        log(f"phase 12 route check worst err/tol {worst:.3f}; "
+            f"{phase['route_s']:.1f} s; {smi}")
+    for run in phase.get("servers", ()):
+        log(f"--- phase 12 (a) contiguous speculation ({run['mode']}), "
+            f"llama3_8b int8, {run['kv']} KV: " + json.dumps(run))
+        log(f"phase 12 (a) {run['mode']}, {run['kv']} KV, chunk "
+            f"{run['chunk_prefill_tokens']}: {run['spec_rounds']} spec "
+            f"rounds, acceptance {run['spec_acceptance_rate']:.4f}, "
+            f"{run['spec_tokens_per_target_pass']:.4f} tokens a target "
+            f"pass, TTFT p50 {run['ttft_ms_p50']:.1f} ms, "
+            f"{run['served_tok_s']:.1f} tok/s, {run['tokens_equal']} of "
+            f"{run['tokens_checked']} tokens the oracle's argmax; {smi}")
+    if "standalone" in phase:
+        run = phase["standalone"]
+        log("--- phase 12 (b) the standalone loops, llama3_8b int8, 1b "
+            "draft: " + json.dumps(run))
+        log(f"phase 12 (b): speculative_generate {run['greedy_ms']:.1f} ms "
+            f"({run['greedy_tokens_per_target_pass']:.4f} tokens a target "
+            f"pass), speculative_generate_sampled at {STANDALONE_TEMP} "
+            f"{run['sampled_ms']:.1f} ms "
+            f"({run['sampled_tokens_per_target_pass']:.4f}), complete() "
+            f"{run['complete_ms']:.1f} ms, {STANDALONE_NEW} tokens each; "
+            f"{smi}")
+    if "rolling" in phase:
+        run = phase["rolling"]
+        log("--- phase 12 (c) rolling cache, mistral_7b int8: "
+            + json.dumps(run))
+        log(f"phase 12 (c): rolling cache {run['rolling_cache_gb']:.3f} GB "
+            f"(peak {run['rolling_peak_gb_over_weights']:.3f} GB over the "
+            f"weights), plain {run['plain_cache_gb']:.3f} GB (peak "
+            f"{run['plain_peak_gb_over_weights']:.3f} GB); an eager decode "
+            f"step (batch 2) {run['rolling_decode_step_ms']:.2f} ms on the "
+            f"rolling cache (plain attention), "
+            f"{run['plain_decode_step_ms']:.2f} ms on the plain one (the "
+            f"decode kernel); "
+            f"{run['tokens_equal']} of {run['tokens_checked']} tokens "
+            f"equal; {smi}")
+    log("phase 12 parts: " + ", ".join(
+        f"{key[:-2]} {value:.1f} s" for key, value in phase.items()
+        if key.endswith("_s")) + f"; {smi}")
+
+
+# --------------------------------------------------------------------------- #
 # Phase 7: the ring collective matmuls
 
 #: Ranks of the ring on the one card, and llama3_8b's TP-4 MLP shapes:
@@ -4567,7 +5223,7 @@ def main() -> None:
     import numpy as np
 
     from aiko_services_tpu_torch import parallel
-    from aiko_services_tpu_torch.models import llama
+    from aiko_services_tpu_torch.models import llama, speculative
     from aiko_services_tpu_torch.ops import (_cuda, attention,
                                              paged_attention, quant)
     from aiko_services_tpu_torch.ops import paged_prefill as pp
@@ -4725,18 +5381,27 @@ def main() -> None:
                                              device=device)
     log(f"1b int8 draft params on the card in {time.monotonic() - t0:.1f} s")
     spec_runs = []
-    for index, quantize_kv in enumerate((False, True)):
-        for mode, draft in (("paired", params), ("adaptive", draft_1b),
-                            ("ngram", None)):
-            run = serve_spec(torch, np, llama, quant, w8, spec_kernels,
-                             PagedContinuousServer, DecodeRequest, params,
-                             quantize_kv, device, mode, draft,
-                             paged_runs[index]["steady_step_ms"])
-            log(f"--- speculative serving ({mode}), llama3_8b int8, "
-                f"{run['kv']} KV: " + json.dumps(run))
-            spec_runs.append(run)
+    for mode, quantize_kv in SPEC_RUNS:
+        draft = {"paired": params, "adaptive": draft_1b}.get(mode)
+        run = serve_spec(torch, np, llama, quant, w8, spec_kernels,
+                         PagedContinuousServer, DecodeRequest, params,
+                         quantize_kv, device, mode, draft,
+                         paged_runs[0]["steady_step_ms"])
+        log(f"--- speculative serving ({mode}), llama3_8b int8, "
+            f"{run['kv']} KV: " + json.dumps(run))
+        spec_runs.append(run)
     spec_main = spec_runs[0]["launches"]
     log(f"phase 5 took {time.monotonic() - t0:.1f} s")
+
+    # ---- phase 12: the contiguous layout's residue and the standalone
+    # loops (phase 4's weights, phase 5's draft) ----
+    t0 = time.monotonic()
+    contig = serve_contiguous_phase(
+        torch, np, llama, speculative, kernels + (
+            pp.append_kv, pp.chunk_attention, pp.append_kv_ragged),
+        ContinuousBatchingServer, DecodeRequest, params, draft_1b, device)
+    print_contiguous_phase(contig, smi)
+    log(f"phase 12 took {time.monotonic() - t0:.1f} s; {smi}")
 
     # ---- phase 8: the wire (phase 4's weights, run before phase 6 frees
     # them) ----
@@ -4936,15 +5601,12 @@ def main() -> None:
 
     print_steady_cells([
         ("contiguous int8, 8 slots, bf16 KV", runs[0]),
-        ("contiguous int8, 8 slots, int8 KV", runs[1]),
         ("contiguous int8, 64 slots, bf16 KV", wide8),
         ("paged int8, 8 slots, bf16 KV", paged_runs[0]),
-        ("paged int8, 8 slots, int8 KV", paged_runs[1]),
         ("paged int8, 64 slots, bf16 KV", paged_wide8),
         ("contiguous int4, 8 slots, bf16 KV", int4_run),
         ("contiguous int4, 64 slots, bf16 KV", wide_run),
         ("paged int4, 8 slots, bf16 KV", paged4_runs[0]),
-        ("paged int4, 8 slots, int8 KV", paged4_runs[1]),
         ("paged int4, 64 slots, bf16 KV", paged_wide4)])
     main_run = runs[0]["launches"]
     # int8_matmul's time is the path's: device time of its launches per

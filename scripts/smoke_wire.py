@@ -5,7 +5,8 @@ llama3_8b with random int8 weights from the smoke's seed, then phase 8
 as the smoke runs it (phase 4's traffic through InferClient ->
 ContinuousReplica -> PagedContinuousServer, every check of the smoke's,
 in turns with the same traffic by step() on a server warmed the same
-way); prints each turn's caller-side numbers and their spread.
+way, here a pair of each kind, alternating: WIRE_TURN_PAIRS); prints each
+turn's caller-side numbers and their spread.
 ``--direct`` also runs phase 4's direct step() run of the same traffic
 first (bf16 KV, with its steady window).  Exits non-zero on any
 failure.
@@ -59,7 +60,8 @@ def main() -> None:
             DecodeRequest, params, False, device)))
     wire = chip_smoke.serve_wire(torch, np, llama, weights, kernels,
                                  PagedContinuousServer, DecodeRequest,
-                                 params, device)
+                                 params, device,
+                                 turn_kinds=chip_smoke.WIRE_TURN_PAIRS)
     print("--- serving llama3_8b int8 through the wire, bf16 KV: "
           + json.dumps(wire), flush=True)
     for index, turn in enumerate(wire["turns"]):

@@ -29,9 +29,13 @@ all-gather step writes each block one row block too low, the ring
 reduce-scatter drops the last step's partial, the ring's copies skip
 the capacity wait, the ring step's TMA + wgmma path reads w (its B
 operand) from the next stage of its ring, and its streamed-weight path's
-last K slice never reaches the split merge.  Each copy is built and held to the same checks the
-working tree passes: ``chip_smoke.py``'s phase 2 for that kernel (at the
-llama3_8b shapes; phase 7 for the ring) and the kernel's tests in
+last K slice never reaches the split merge; the contiguous cache's route
+to the chunk kernels (``models/llama.py``) leaves an inactive slot's
+``chunk_len`` at the window's width (it writes its rows), or hands the
+kernels iota block tables shifted by one block.  Each copy is built and
+held to the same checks the working tree passes: ``chip_smoke.py``'s phase
+2 for that kernel (at the llama3_8b shapes; phase 7 for the ring, phase
+12's route check for the contiguous route) and the kernel's tests in
 ``tests/test_torch_cuda.py``.
 A mutant that passes either means a tolerance too loose to see the bug.
 
@@ -61,6 +65,7 @@ INT8 = "aiko_services_tpu_torch/csrc/int8_matmul.cu"
 WSTREAM = "aiko_services_tpu_torch/csrc/weight_stream.cuh"
 RING = "aiko_services_tpu_torch/csrc/ring_matmul.cu"
 RING_HOST = "aiko_services_tpu_torch/parallel/rdma_collective.py"
+LLAMA = "aiko_services_tpu_torch/models/llama.py"
 #: name -> (source, text replaced, replacement)
 MUTANTS = {
     "flash_drop_tile": (
@@ -194,13 +199,26 @@ MUTANTS = {
     "ring_no_capacity_wait": (
         RING_HOST, "for event in op.waits + op.capacity:",
         "for event in op.waits:"),
+    "contig_inactive_writes": (
+        LLAMA, "append_kv_ragged(k.contiguous(), v.contiguous(), pool, "
+        "tables, starts,\n                     chunk_lens)",
+        "append_kv_ragged(k.contiguous(), v.contiguous(), pool, "
+        "tables, starts,\n                     torch.full_like(chunk_lens, "
+        "k.shape[1]))"),
+    "contig_tables_shifted": (
+        LLAMA, "tables = _iota(batch * blocks_per_row, device, torch.int32) "
+        "\\\n        .reshape(batch, blocks_per_row)",
+        "tables = ((_iota(batch * blocks_per_row, device, torch.int32) + 1)"
+        "\n              % (batch * blocks_per_row)).reshape(batch, "
+        "blocks_per_row)"),
 }
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
              "chunk": "chunk_attention", "ragged": "ragged",
              "kvwrite": "append or write_kv", "int4": "int4",
              "int8": "int8",
-             "ag": "ring", "rs": "ring", "ring": "ring"}
+             "ag": "ring", "rs": "ring", "ring": "ring",
+             "contig": "degenerate"}
 
 
 def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
@@ -256,6 +274,8 @@ def phase2(name: str) -> bool:
     elif kind in ("ag", "rs", "ring"):
         rows, _, _ = chip_smoke.check_ring(torch, parallel, device)
         worst = max(row["ratio"] for row in rows)
+    elif kind == "contig":
+        rows, worst = chip_smoke.check_contiguous_chunk(torch, llama, device)
     elif kind in ("ragged", "kvwrite"):
         # Byte-equality checks: the rows' max abs error is the measure.
         rows, _ = chip_smoke.check_append_ragged(torch, paged_prefill, llama,
@@ -270,7 +290,7 @@ def phase2(name: str) -> bool:
         rows, worst, _ = chip_smoke.check_chunk(torch, paged_prefill, llama,
                                                 device)
     measure = "max abs err" if kind in ("ragged", "kvwrite") else "err/tol"
-    phase = "7" if kind in ("ag", "rs", "ring") else "2"
+    phase = {"ag": "7", "rs": "7", "ring": "7", "contig": "12"}.get(kind, "2")
     print(f"{name}: smoke phase {phase} reported {len(failures)} failures over "
           f"{len(rows)} cases, worst {measure} {worst:.3f}")
     for row in rows:

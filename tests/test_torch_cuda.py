@@ -1278,12 +1278,14 @@ def test_graphed_chunks_equal_eager_chunks(cuda, llama3_8b_2l, layout,
         assert stats["spec_rounds"] > 0
 
 
+@pytest.mark.parametrize("quantize_kv", [False, True])
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
-def test_no_capture_after_warm_up(cuda, layout):
+def test_no_capture_after_warm_up(cuda, layout, quantize_kv):
     """Two staggered runs (a key met once is warmed up by its eager chunk
     and captured at its second), the fence, then the same traffic again:
-    every chunk of the last run replays a graph captured before it."""
-    server = _graph_server(cuda, layout, False, 8, "narrow")
+    every chunk of the last run replays a graph captured before it, at
+    either KV dtype."""
+    server = _graph_server(cuda, layout, quantize_kv, 8, "narrow")
     for _ in range(2):
         _graph_traffic(server, 5)
     warm = server.stats()
@@ -1295,6 +1297,38 @@ def test_no_capture_after_warm_up(cuda, layout):
     assert stats["graph_captures_steady_state"] == 0
     assert stats["graph_captures"] == warm["graph_captures"]
     assert stats["graph_replays"] > warm["graph_replays"]
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_eager_decode_writes_without_index_put(cuda, llama3_8b_2l, layout,
+                                               quantize_kv):
+    """Steady eager decode (graphs off, three slots decoding, no
+    admission) at either KV dtype: a window of steps issues fewer
+    ``aten::index_put_`` (the profiler's host-side records) than one a
+    layer a step, so the decode step's K/V write is ``write_kv_rows``, not
+    an eager scatter (2 a layer a step at bf16 KV, 4 at int8 KV)."""
+    from torch.profiler import ProfilerActivity, profile
+    server = _graph_server(cuda, layout, quantize_kv, 8, "8b")
+    server._graphs_on = False
+    rng = np.random.default_rng(3)
+    vocab = server.config.vocab_size
+    for i in range(3):
+        server.submit(DecodeRequest(
+            f"r{i}", rng.integers(1, vocab, 20).astype(np.int32), 40))
+    for _ in range(3):
+        server.step()
+    torch.cuda.synchronize()
+    before = server.stats()["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU]) as trace:
+        for _ in range(4):
+            server.step()
+        torch.cuda.synchronize()
+    steps = server.stats()["decode_steps"] - before
+    index_puts = sum(event.count for event in trace.key_averages()
+                     if event.key == "aten::index_put_")
+    assert steps > 0
+    assert index_puts < steps * server.config.n_layers, (index_puts, steps)
 
 
 def test_wire_replica_equals_direct_steps(cuda, llama3_8b_2l):
@@ -1692,6 +1726,324 @@ def test_spec_server_on_the_card_holds_the_oracle(cuda, quantize_kv):
     balance = server.pool_balance()
     assert balance["free"] + balance["evictable"] + balance["producing"] \
         == balance["total"]
+
+
+# --------------------------------------------------------------------------- #
+# The contiguous layout's chunked forwards on the degenerate pool
+
+#: (slots, rows a slot, T, starts, inactive slots): verify windows at
+#: starts across block edges (the degenerate pool's blocks: 128 rows at
+#: 256, 64 at 64, 16 at 48), one slot inactive; admission chunks at a
+#: block-aligned and an unaligned start.
+DEGENERATE_CASES = {
+    "verify_bs128": (4, 256, 5, (0, 125, 127, 250), (2,)),
+    "verify_bs64": (3, 64, 5, (60, 2, 30), (0,)),
+    "verify_bs16": (4, 48, 9, (14, 31, 0, 39), (3,)),
+    "chunk_aligned": (1, 256, 64, (128,), ()),
+    "chunk_unaligned": (2, 256, 33, (100, 7), ()),
+}
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+@pytest.mark.parametrize("case", sorted(DEGENERATE_CASES))
+def test_degenerate_pool_chunk_equals_the_plain_path(cuda, case, quant_kv):
+    """``llama._chunk_attention_contiguous`` on the card: one
+    ``append_kv_ragged`` and one ``chunk_attention`` launch over the
+    contiguous cache seen as a block pool, the cache bytes equal to the
+    plain ragged slab write's for the active slots, an inactive slot's
+    rows untouched (``chunk_len`` 0), the active slots' outputs within
+    tolerance of ``cached_gqa_attention`` in f32."""
+    slots, max_seq, T, starts, idle = DEGENERATE_CASES[case]
+    config = dataclasses.replace(llama.CONFIGS["llama3_8b"], n_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(len(case) + T)
+    cache = llama.init_cache(config, slots, max_seq, quantize_kv=quant_kv,
+                             device=cuda)[0]
+    for key, src in llama._pool_sources(
+            cache, torch.randn(cache["k"].shape, generator=gen, device=cuda),
+            torch.randn(cache["k"].shape, generator=gen,
+                        device=cuda)).items():
+        cache[key].copy_(src)
+    active = torch.tensor([s not in idle for s in range(slots)], device=cuda)
+    starts_t = torch.where(active, torch.tensor(starts, dtype=torch.int32,
+                                                device=cuda), 0) \
+        .to(torch.int32)
+    lens = torch.where(active, T, 0).to(torch.int32)
+    positions = starts_t.long()[:, None] \
+        + torch.arange(T, device=cuda)[None, :]
+    q = torch.randn((slots, T, 8, 4, 128), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    k_new = torch.randn((slots, T, 8, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    v_new = torch.randn((slots, T, 8, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    got = {key: buf.clone() for key, buf in cache.items()}
+    before = (paged_prefill.append_kv_ragged.launches,
+              paged_prefill.chunk_attention.launches)
+
+    def plain_route(*_):
+        raise AssertionError("the chunk took the plain path on the card")
+    out = llama._chunk_attention_contiguous(q, k_new, v_new, got, starts_t,
+                                            lens, positions, plain_route,
+                                            128, None)
+    assert (paged_prefill.append_kv_ragged.launches - before[0],
+            paged_prefill.chunk_attention.launches - before[1]) == (1, 1)
+    want = {key: buf.clone() for key, buf in cache.items()}
+    live = torch.nonzero(active)[:, 0]
+    sub = {key: buf[live] for key, buf in want.items()}
+    llama._cache_write_ragged_slab(sub, k_new[live], v_new[live],
+                                   starts_t[live])
+    for key in want:
+        want[key][live] = sub[key]
+    for key in got:
+        assert torch.equal(got[key], want[key]), key
+    plain_cache = want if quant_kv else {key: buf.float()
+                                         for key, buf in want.items()}
+    expect = paged_attention.cached_gqa_attention(q.float(), plain_cache,
+                                                  positions, 128)
+    _close(out[live], expect[live], torch.bfloat16)
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_degenerate_pool_verify_and_prefill_chunk_in_the_model(cuda,
+                                                              quantize_kv):
+    """tiny with int8 weights on the card: ``verify_chunk_ragged`` (per-row
+    starts across a 128-row block edge, an inactive slot) and
+    ``prefill_chunk`` launch ``append_kv_ragged`` and ``chunk_attention``
+    once a layer, and give the plain path's logits (the same model with
+    the route off, on the card) to bf16 rounding: every argmax whose top
+    two logits are 0.1 apart agrees.  The inactive slot's rows are
+    untouched."""
+    config = llama.CONFIGS["tiny"]
+    params = llama.random_quantized_params(config, seed=3, device=cuda)
+    rng = np.random.default_rng(5)
+    cache = llama.init_cache(config, 3, 256, quantize_kv=quantize_kv,
+                             device=cuda)
+    prompts = torch.as_tensor(rng.integers(1, 1024, (3, 126))
+                              .astype(np.int32), device=cuda)
+    llama.prefill(params, prompts, cache, config)
+    window = torch.as_tensor(rng.integers(1, 1024, (3, 5)).astype(np.int32),
+                             device=cuda)
+    positions = torch.tensor([125, 90, 124], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, False, True], device=cuda)
+    chunk = torch.as_tensor(rng.integers(1, 1024, (1, 40)).astype(np.int32),
+                            device=cuda)
+
+    def run(route):
+        copy = [{key: buf.clone() for key, buf in layer.items()}
+                for layer in cache]
+        degenerate = llama._degenerate_pool
+        if not route:
+            llama._degenerate_pool = lambda *_: (None, None)
+        try:
+            before = (paged_prefill.append_kv_ragged.launches,
+                      paged_prefill.chunk_attention.launches)
+            verify, copy = llama.verify_chunk_ragged(params, window, copy,
+                                                     positions, active,
+                                                     config)
+            bucket = [{key: buf[:1].clone() for key, buf in layer.items()}
+                      for layer in cache]
+            chunked, _ = llama.prefill_chunk(params, chunk, bucket, 126,
+                                             config)
+            launched = (paged_prefill.append_kv_ragged.launches - before[0],
+                        paged_prefill.chunk_attention.launches - before[1])
+        finally:
+            llama._degenerate_pool = degenerate
+        return verify, chunked, copy, launched
+
+    verify, chunked, copy, launched = run(True)
+    assert launched == (2 * config.n_layers, 2 * config.n_layers)
+    plain_verify, plain_chunked, _, plain_launched = run(False)
+    assert plain_launched == (0, 0)
+    for layer, original in zip(copy, cache):
+        for key in layer:
+            assert torch.equal(layer[key][1], original[key][1]), key
+    for got, want in ((verify[[0, 2]], plain_verify[[0, 2]]),
+                      (chunked, plain_chunked)):
+        assert bool(torch.isfinite(got).all())
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 0.1
+        assert bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_degenerate_pool_spec_server_holds_the_oracle(cuda, quantize_kv):
+    """tiny with int8 weights: the contiguous server with a paired draft
+    and 16-token chunked admission on the card: every served token is the
+    batch-1 oracle's argmax or within 0.1 of its top logit, and
+    ``append_kv_ragged`` and ``chunk_attention`` launch once a target
+    layer a verify and a prefill chunk and once a draft layer a resync."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 1024, n).astype(np.int32)
+               for n in (45, 12, 9, 70)]
+    server = ContinuousBatchingServer(
+        config_name="tiny", slots=3, max_seq=256, chunk_steps=4,
+        quantize=True, quantize_kv=quantize_kv, seed=1,
+        chunk_prefill_tokens=16, spec_k=4, draft_config_name="tiny")
+    server._draft["params"] = server.params
+    requests = [DecodeRequest(f"r{i}", p, 10) for i, p in enumerate(prompts)]
+    chunks = sum(-(-len(p) // 16) for p in prompts if len(p) > 16)
+    before = (paged_prefill.append_kv_ragged.launches,
+              paged_prefill.chunk_attention.launches)
+    for request in requests:
+        server.submit(request)
+    server.run_until_drained()
+    stats = server.stats()
+    layers = server.config.n_layers
+    want = layers * (2 * stats["spec_rounds"] + chunks)
+    assert (paged_prefill.append_kv_ragged.launches - before[0],
+            paged_prefill.chunk_attention.launches - before[1]) \
+        == (want, want)
+    assert stats["spec_tokens_per_target_pass"] > 1.0
+    for request in requests:
+        assert len(request.tokens) == 10, request.request_id
+        assert _worst_oracle_gap(server, request) <= 0.1, request.request_id
+
+
+def test_degenerate_pool_rolling_cache_takes_the_plain_decode(cuda):
+    """mistral_tiny (window 16) with int8 weights: a rolling cache's decode
+    launches no decode attention kernel (the stored-position mask is the
+    plain path's, by layout) but writes its rows by the decode write
+    kernel once a layer a step, keeps the last 16 positions, and serves
+    greedy tokens that a plain cache, whose decode takes the kernel with
+    the window, holds to within 0.1 of its top logit, teacher-forced; the
+    plain cache's own greedy run launches both kernels once a layer a
+    step."""
+    config = llama.CONFIGS["mistral_tiny"]
+    params = llama.random_quantized_params(config, seed=4, device=cuda)
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        1, 1024, (2, 40)).astype(np.int32), device=cuda)
+    launches = {}
+    for rolling in (True, False):
+        cache = llama.init_cache(config, 2, 80, rolling=rolling,
+                                 device=cuda)
+        before = (paged_attention.paged_decode_attention.launches,
+                  paged_prefill.write_kv_rows.launches)
+        logits, cache = llama.prefill(params, prompt, cache, config)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        rest, cache = llama.generate_tokens(params, first, cache, 40, 30,
+                                            config)
+        launches[rolling] = (
+            paged_attention.paged_decode_attention.launches - before[0],
+            paged_prefill.write_kv_rows.launches - before[1])
+        if rolling:
+            tokens = torch.cat([first, rest], dim=1)
+            assert sorted(cache[0]["pos"][0].tolist()) == list(range(54, 70))
+    assert launches == {True: (0, 30 * config.n_layers),
+                        False: (30 * config.n_layers,) * 2}
+    plain = llama.init_cache(config, 2, 80, device=cuda)
+    logits, plain = llama.prefill(params, prompt, plain, config)
+    logits, worst = logits[:, -1], 0.0
+    for index in range(tokens.shape[1]):
+        served = tokens[:, index].long()
+        gap = logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        logits, plain = llama.decode_step(params, tokens[:, index:index + 1],
+                                          plain, 40 + index, config)
+        logits = logits[:, -1]
+    assert worst <= 0.1, worst
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+def test_degenerate_pool_rolling_write_equals_the_plain_write(cuda,
+                                                             quantize_kv):
+    """A rolling cache's decode write on the card (``write_kv_rows`` over
+    the ring seen as ``batch`` blocks of ``window`` rows, row ``pos %
+    window``) gives the bytes of the plain index write, and stores each
+    row's absolute position; the rows it does not write are untouched."""
+    config = llama.CONFIGS["mistral_tiny"]
+    window = config.sliding_window
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    cache = llama.init_cache(config, 3, rolling=True,
+                             quantize_kv=quantize_kv, device=cuda)[0]
+    positions = torch.tensor([window - 1, window, 3 * window + 5],
+                             dtype=torch.int32, device=cuda)
+    shape = (3, 1, config.n_kv_heads, config.head_dim)
+    k = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    want = {key: buf.clone() for key, buf in cache.items()}
+    slots = torch.arange(3, device=cuda)
+    ring = positions.long() % window
+    for key, src in llama._pool_sources(want, k, v).items():
+        want[key][slots, ring] = src[:, 0].to(want[key].dtype)
+    want["pos"][slots, ring] = positions
+    before = paged_prefill.write_kv_rows.launches
+    llama._cache_write_rows(cache, k, v, llama._cache_rows(positions))
+    assert paged_prefill.write_kv_rows.launches - before == 1
+    for key in want:
+        assert torch.equal(cache[key], want[key]), key
+
+
+def test_degenerate_pool_unaligned_rows_raise_on_the_card(cuda):
+    """A contiguous cache of 132 rows (no power-of-two factor of 16, so
+    no block view) raises on the card in the decode attention and in the
+    chunked forwards, and the contiguous server refuses such a
+    ``max_seq``: the kernels launch or the call fails, never the plain
+    path in their place."""
+    config = llama.CONFIGS["tiny"]
+    params = llama.random_quantized_params(config, seed=3, device=cuda)
+    cache = llama.init_cache(config, 1, 132, device=cuda)
+    token = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no block view"):
+        llama.decode_step(params, token, cache, 0, config)
+    with pytest.raises(ValueError, match="no block view"):
+        llama.prefill_chunk(params, token.expand(1, 5).contiguous(), cache,
+                            0, config)
+    with pytest.raises(ValueError, match="no block view"):
+        ContinuousBatchingServer(config_name="tiny", slots=2, max_seq=132,
+                                 chunk_steps=2, quantize=True, seed=1)
+
+
+def test_degenerate_pool_unaligned_entry_points_keep_the_kernels(
+        cuda, monkeypatch):
+    """tiny with int8 weights: ``complete()`` at a prompt of 100 and 32
+    new tokens (132 rows) and ``speculative_generate`` with a ``max_seq``
+    of 133 size their caches to a multiple of 128 rows.  ``complete()``
+    launches the decode kernel once a layer a step and equals ``prefill``
+    + ``generate_tokens`` on a 256-row cache token for token;
+    ``speculative_generate`` launches ``append_kv_ragged`` and
+    ``chunk_attention`` once a layer of every ``prefill_chunk`` (its
+    verifies and resyncs), and each of its tokens is the batch-1 oracle's
+    argmax or within 0.1 of its top logit, teacher-forced."""
+    from aiko_services_tpu_torch.models import speculative
+    config = llama.CONFIGS["tiny"]
+    params = llama.random_quantized_params(config, seed=3, device=cuda)
+    prompt = np.random.default_rng(8).integers(1, 1024, 100) \
+        .astype(np.int32)
+    prompt_t = torch.as_tensor(prompt, device=cuda)[None]
+    before = paged_attention.paged_decode_attention.launches
+    completed = llama.complete(params, prompt[None], config,
+                               max_new_tokens=32)
+    assert paged_attention.paged_decode_attention.launches - before \
+        == 31 * config.n_layers
+    cache = llama.init_cache(config, 1, 256, device=cuda)
+    logits, cache = llama.prefill(params, prompt_t, cache, config)
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    rest, _ = llama.generate_tokens(params, first, cache, 100, 31, config)
+    assert completed[0].tolist() == [int(first[0, 0])] + rest[0].tolist()
+    calls, prefill_chunk = [], llama.prefill_chunk
+
+    def recorded(params, tokens, cache, start, config):
+        calls.append(config.n_layers)
+        return prefill_chunk(params, tokens, cache, start, config)
+    monkeypatch.setattr(llama, "prefill_chunk", recorded)
+    before = (paged_prefill.append_kv_ragged.launches,
+              paged_prefill.chunk_attention.launches)
+    tokens, _ = speculative.speculative_generate(
+        params, params, prompt, 24, config, config, k=4, max_seq=133)
+    assert sum(calls) > 0
+    assert (paged_prefill.append_kv_ragged.launches - before[0],
+            paged_prefill.chunk_attention.launches - before[1]) \
+        == (sum(calls), sum(calls))
+    cache = llama.init_cache(config, 1, 256, device=cuda)
+    logits, cache = llama.prefill(params, prompt_t, cache, config)
+    worst = 0.0
+    for index, token in enumerate(tokens.tolist()):
+        row = logits[0, -1]
+        worst = max(worst, float(row.max() - row[token]))
+        logits, cache = llama.decode_step(
+            params, torch.tensor([[token]], dtype=torch.int32, device=cuda),
+            cache, 100 + index, config)
+    assert worst <= 0.1, worst
 
 
 # --------------------------------------------------------------------------- #

@@ -919,7 +919,6 @@ def test_goodput_accounting_equals_jax():
 @pytest.mark.parametrize("argv,needs", [
     (["--workload", "multitenant"], "models/lora.py"),
     (["--workload", "structured"], "models/constrained.py"),
-    (["--spec-k", "4"], "speculative_generate"),
 ])
 def test_unported_cli_modes_raise_naming_what_they_need(argv, needs):
     with pytest.raises(NotImplementedError, match=needs):

@@ -612,7 +612,6 @@ def test_llama_infer_rejects_overlong_prompt():
 
 
 @pytest.mark.parametrize("factory,needs", [
-    ("make_speculative_infer", "speculative_generate"),
     ("make_constrained_infer", "models/constrained.py")])
 def test_unported_factories_raise_naming_what_they_need(factory, needs):
     with pytest.raises(NotImplementedError, match=re.escape(needs)):

@@ -393,6 +393,7 @@ def _port_sources():
                       REPO / "scripts" / "smoke_kv.py",
                       REPO / "scripts" / "smoke_fleet.py",
                       REPO / "scripts" / "smoke_elastic.py",
+                      REPO / "scripts" / "smoke_contig.py",
                       REPO / "scripts" / "codec_scan.py",
                       REPO / "scripts" / "ring_step_lab.py"]
 

@@ -211,13 +211,31 @@ def test_no_device_raises_without_cuda():
 
 @pytest.mark.parametrize("option", [
     dict(mesh=object()), dict(replica_mesh=object()),
-    dict(adapters={"a": {}}), dict(draft_config_name="tiny"),
-    dict(automata={"g": object()}), dict(chunk_prefill_tokens=16),
+    dict(adapters={"a": {}}), dict(automata={"g": object()}),
     dict(compilation_cache_dir="cache")])
 def test_features_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError):
         ContinuousBatchingServer(config_name=CONFIG, slots=1, max_seq=32,
                                  device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(draft_config_name=CONFIG), dict(chunk_prefill_tokens=16)])
+def test_speculation_and_chunked_admission_serve(option):
+    """The contiguous layout serves a draft model and chunked admission
+    (they raised before the layout had ``verify_chunk_ragged`` and
+    ``prefill_chunk``): tokens equal the JAX server's and the batch-1
+    oracle."""
+    specs = [(5, 6), (40, 5), (3, 9)]
+    jax_server, port_server = _pair(slots=2, max_seq=96, chunk_steps=4,
+                                    seed=3, **option)
+    ref = _serve(jax_server, _requests(jax_continuous.DecodeRequest, specs,
+                                       2))
+    got = _serve(port_server, _requests(DecodeRequest, specs, 2))
+    for want, have in zip(ref, got):
+        assert have.tokens == want.tokens, have.request_id
+        assert have.tokens == reference_greedy(port_server, have.prompt,
+                                               have.max_new_tokens)
 
 
 def test_cancel_update_and_shedding():

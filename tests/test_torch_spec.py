@@ -1,4 +1,4 @@
-"""Port parity: speculative decoding on the paged server, against the JAX
+"""Port parity: speculative decoding on both servers, against the JAX
 package, on the CPU.
 
 * ``ops/paged_prefill.py``: the plain ``append_kv_ragged`` against the JAX
@@ -29,6 +29,11 @@ package, on the CPU.
   equal tokens, spec counters, per-request accepted rounds and block
   accounting; and invariant 11 port against port (speculative greedy
   equals plain greedy).
+* ``orchestration/continuous.py``: the contiguous server the same way
+  (its verify ``verify_chunk_ragged``, its draft on its own cache), its
+  chunked admission and its legacy full-mirror upload against the JAX
+  server, the JAX package's tests/test_spec_continuous.py scenarios, and
+  invariant 11 port against port.
 """
 
 import dataclasses
@@ -616,13 +621,18 @@ def _waves(kind):
     return [list(zip(first, (12, 9, 14))), list(zip(second, (8, 6)))]
 
 
-def _drive(server, module, waves):
+def _drive(server, module, waves, edit=None):
+    """Serve ``waves`` in order; ``edit(server)`` after each wave's first
+    step, while its requests are live."""
     requests = []
     for wave in waves:
         for prompt, new in wave:
             request = module(f"r{len(requests)}", prompt, new)
             requests.append(request)
             server.submit(request)
+        if edit is not None:
+            server.step()
+            edit(server)
         server.run_until_drained()
     return requests
 
@@ -734,11 +744,13 @@ def test_spec_sampled_requests_finish_in_vocab():
 
 
 def test_speculation_options_route_and_raise():
-    """The contiguous server names the paged server; grammars raise on
-    the paged one; bad modes and ladders raise as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="paged server"):
-        ContinuousBatchingServer(config_name=CONFIG, slots=1, max_seq=32,
-                                 device="cpu", draft_mode="ngram")
+    """The contiguous server speculates too (n-gram here); grammars raise
+    on the paged one; bad modes and ladders raise as in the JAX
+    package."""
+    contiguous = ContinuousBatchingServer(config_name=CONFIG, slots=1,
+                                          max_seq=32, device="cpu",
+                                          draft_mode="ngram")
+    assert contiguous.stats()["spec_draft_mode"] == "ngram"
     with pytest.raises(NotImplementedError, match="automata"):
         PagedContinuousServer(config_name=CONFIG, slots=1, max_seq=32,
                               device="cpu", draft_mode="ngram",
@@ -755,3 +767,155 @@ def test_speculation_options_route_and_raise():
     assert server.stats()["spec_draft_mode"] == "ngram"
     server.submit(DecodeRequest("long", np.ones(40, np.int32), 20))
     assert server.run_until_drained()[0].error == "prompt_too_long"
+
+
+# --------------------------------------------------------------------------- #
+# orchestration/continuous.py: speculation, chunked admission and the
+# legacy upload on the contiguous layout
+
+def _contiguous_pair(draft=None, **kwargs):
+    """A JAX contiguous server and the port's (CPU) on the JAX server's
+    target and draft weights.  ``ring_max=2`` pins both rings at two
+    rounds, so the round count follows the traffic alone."""
+    kwargs = dict(dict(slots=2, max_seq=96, chunk_steps=4, seed=3,
+                       ring_max=2), **kwargs)
+    if draft in ("paired", "independent"):
+        kwargs["draft_config_name"] = CONFIG
+    jax_server = jax_continuous.ContinuousBatchingServer(config_name=CONFIG,
+                                                         **kwargs)
+    params = params_from_numpy(jax.tree.map(np.asarray, jax_server.params),
+                               "cpu")
+    draft_params = None
+    if draft == "paired":
+        jax_server._draft["params"] = jax_server.params
+        draft_params = params
+    elif draft == "independent":
+        draft_params = params_from_numpy(
+            jax.tree.map(np.asarray, jax_server._draft["params"]), "cpu")
+    kwargs.pop("seed")
+    port_server = ContinuousBatchingServer(
+        config_name=CONFIG, params=params, draft_params=draft_params,
+        device="cpu", **kwargs)
+    return jax_server, port_server
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_SCENARIOS))
+def test_contiguous_spec_server_matches_jax_server(name):
+    """The contiguous speculative server against the JAX one (int8 KV,
+    16-token chunked admission): tokens, accepted rounds and the spec
+    counters equal."""
+    draft, kwargs = SPEC_SCENARIOS[name]
+    jax_server, port_server = _contiguous_pair(
+        draft, quantize_kv=True, chunk_prefill_tokens=16, **kwargs)
+    if kwargs.get("spec_adaptive"):
+        jax_server.warm_spec_ladder()
+        assert port_server.warm_spec_ladder() == 2       # rungs 2 and 4
+    kind = "ngram" if draft == "ngram" else "model"
+    want = _drive(jax_server, jax_continuous.DecodeRequest, _waves(kind))
+    got = _drive(port_server, DecodeRequest, _waves(kind))
+    for have, ref in zip(got, want):
+        assert have.error is None and ref.error is None, have.request_id
+        assert have.tokens == ref.tokens, have.request_id
+        assert have.spec_accepted_rounds == [
+            int(a) for a in ref.spec_accepted_rounds], have.request_id
+    ours, theirs = port_server.stats(), jax_server.stats()
+    assert {key: ours[key] for key in SPEC_KEYS} \
+        == {key: theirs[key] for key in SPEC_KEYS}
+    assert ours["spec_rounds"] > 0
+    assert ours["prefill_tokens"] == theirs["prefill_tokens"]
+    if name == "paired":
+        assert ours["spec_tokens_per_target_pass"] > 1.0
+    if name == "ngram":
+        assert ours["spec_ngram_hits"] > 0
+
+
+@pytest.mark.parametrize("mode", ["chunked", "legacy_upload"])
+def test_contiguous_admission_and_upload_match_jax(mode):
+    """Chunked admission (16-token chunks into a batch-1 bucket) and the
+    legacy full-mirror upload (with a live sampling edit, which settles
+    the ring first) against the JAX server: equal tokens, prefill tokens
+    and dispatches."""
+    kwargs = (dict(chunk_prefill_tokens=16) if mode == "chunked"
+              else dict(compact_upload=False))
+    jax_server, port_server = _contiguous_pair(**kwargs)
+
+    def edit(server):
+        server.update_sampling("r1", temperature=0.0, top_p=0.5)
+
+    want = _drive(jax_server, jax_continuous.DecodeRequest, _waves("model"),
+                  edit=edit)
+    got = _drive(port_server, DecodeRequest, _waves("model"), edit=edit)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    for key in ("prefill_tokens", "tokens_committed"):
+        assert port_server.stats()[key] == jax_server.stats()[key], key
+    for request in got:
+        assert request.tokens == reference_greedy(
+            port_server, request.prompt, request.max_new_tokens)
+
+
+@pytest.mark.parametrize("option", ["spec", "chunked", "compact"])
+def test_contiguous_options_keep_greedy_tokens(option):
+    """Invariant 11 port against port: speculation (paired, int8 KV),
+    chunked admission and the legacy upload each leave every greedy token
+    the plain server's."""
+    base = dict(config_name=CONFIG, slots=2, max_seq=96, chunk_steps=4,
+                seed=3, device="cpu")
+    plain = ContinuousBatchingServer(quantize_kv=option == "spec", **base)
+    want = _drive(plain, DecodeRequest, _waves("model"))
+    extra = {"spec": dict(quantize_kv=True, draft_config_name=CONFIG,
+                          draft_params=plain.params, spec_k=3,
+                          chunk_prefill_tokens=16),
+             "chunked": dict(chunk_prefill_tokens=32),
+             "compact": dict(compact_upload=False)}[option]
+    other = ContinuousBatchingServer(params=plain.params, **extra, **base)
+    got = _drive(other, DecodeRequest, _waves("model"))
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    if option == "spec":
+        assert other.stats()["spec_tokens_per_target_pass"] > 1.0
+
+
+def test_contiguous_spec_eos_and_headroom():
+    """tests/test_spec_continuous.py: EOS inside a round truncates
+    exactly; a request without k + 1 rows of headroom is rejected."""
+    server = ContinuousBatchingServer(config_name=CONFIG, slots=1,
+                                      max_seq=64, chunk_steps=4, seed=7,
+                                      draft_config_name=CONFIG, spec_k=3,
+                                      device="cpu")
+    prompt = np.arange(1, 9, dtype=np.int32)
+    want = reference_greedy(server, prompt, 12)
+    server.eos_id = want[2]
+    request = DecodeRequest("e", prompt, 12)
+    server.submit(request)
+    server.run_until_drained()
+    assert request.tokens == want[:3]
+    too_long = DecodeRequest("h", np.ones(40, np.int32), 64 - 40 - 1)
+    server.submit(too_long)
+    server.run_until_drained()
+    assert too_long.error == "prompt_too_long"
+
+
+def test_contiguous_spec_sampled_mixed_batch():
+    """tests/test_spec_continuous.py: a sampled request beside a greedy
+    one (draft model, then n-gram): the greedy one equals the oracle, the
+    sampled one finishes in the vocabulary, the same seed repeats it."""
+    for spec in (dict(draft_config_name=CONFIG), dict(draft_mode="ngram")):
+        outs = []
+        for _ in range(2):
+            server = ContinuousBatchingServer(
+                config_name=CONFIG, slots=2, max_seq=96, chunk_steps=4,
+                seed=13, spec_k=3, device="cpu", **spec)
+            rng = np.random.default_rng(21)
+            greedy = DecodeRequest(
+                "g", rng.integers(1, 500, 9).astype(np.int32), 8)
+            sampled = DecodeRequest(
+                "s", rng.integers(1, 500, 7).astype(np.int32), 8,
+                temperature=1.0, top_p=0.9)
+            server.submit(greedy)
+            server.submit(sampled)
+            server.run_until_drained()
+            assert greedy.tokens == reference_greedy(server, greedy.prompt,
+                                                     8)
+            assert len(sampled.tokens) == 8
+            assert all(0 <= t < 1024 for t in sampled.tokens)
+            outs.append(list(sampled.tokens))
+        assert outs[0] == outs[1]
