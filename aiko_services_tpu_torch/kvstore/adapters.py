@@ -4,7 +4,9 @@ The port's copy of ``aiko_services_tpu/kvstore/adapters.py`` (it has no
 JAX in it).  The keys must stay byte-identical to the JAX package's: a
 router matches a request's adapter against replicas' digests by
 :func:`adapter_hex` alone.  The port's router uses that function for
-adapter affinity; the paged adapter pages themselves are not ported yet.
+adapter affinity, and the paged server keys its adapter pages with these
+chains (:meth:`~..orchestration.paged.PagedContinuousServer.
+store_adapter_bytes`).
 
 Adapter pages ride the pool's existing chain-key machinery (index →
 host → disk tiers, spill adoption, export/import), so every page

@@ -71,7 +71,11 @@ arrays ride the numpy codec tag), byte for byte the JAX package's:
                         int8 pools)
 ======================  =============================================
 
-Transfers are base-model only (adapter id 0).  Bit-exactness: exported
+KV transfers are base-model chains (key seed 0); adapter WEIGHT pages
+(seed ``ADAPTER_SEED``, :mod:`~.adapters`) export too, flagged
+``kv_adapter`` 1, and import under that seed, so a peer can warm-load the
+adapter from them.  Per-request adapter KV (a positive seed: the stacked
+index is replica-local) never leaves its replica.  Bit-exactness: exported
 rows are the owner's pool bytes verbatim and
 :func:`~.directory.shareable_blocks` guarantees an imported block is
 never rewritten by the importer's admission seed, so greedy decode after
@@ -79,8 +83,8 @@ an imported prefix equals local prefill bitwise
 (``tests/test_torch_kvstore.py``).
 
 Left out: the pool auditor's flow hooks (the JAX package's
-``pool_audit.AUDITOR``; queue 1 item 8 of ``ROADMAP.md``), tensor-parallel
-pools (item 11) and adapter weight pages (item 6).
+``pool_audit.AUDITOR``; queue 1 item 8 of ``ROADMAP.md``) and
+tensor-parallel pools (item 11).
 """
 
 from __future__ import annotations
@@ -413,10 +417,14 @@ def export_payload(server, keys_hex: List[str], start_depth: int,
             source = block
         if server._depth.get(key) != start_depth + offset + 1:
             break                      # not the chain we advertised
-        if server._key_seed.get(key, 0) != 0:
-            break                      # adapter chains never cross
+        if server._key_seed.get(key, 0) > 0:
+            break    # per-request adapter KV: replica-local, never exported
+            #          (adapter WEIGHT pages do export, flagged below)
         if resolved and server._parent.get(key) != resolved[-1]:
             break                      # chain discontinuity
+        if resolved and server._key_seed.get(key, 0) \
+                != server._key_seed.get(resolved[0], 0):
+            break                      # KV and adapter pages never mix
         resolved.append(key)
         sources.append(source)
     if not resolved:
@@ -430,6 +438,8 @@ def export_payload(server, keys_hex: List[str], start_depth: int,
         "kv_sig": pool_signature(server),
         "kv_dtype": dtype_name(server.pool[0]["k"].dtype),
     }
+    if server._key_seed.get(resolved[0], 0):
+        payload["kv_adapter"] = 1
     layout = _field_layout(server)
     hbm = [source for source in sources if isinstance(source, int)]
     if not fused:
@@ -553,6 +563,11 @@ def import_payload(server, payload: Dict, engine=None,
             scatter_block_rows_legacy(server, blocks, rows)
 
     discard_host = getattr(server, "_host_discard", None)
+    # Adapter weight pages import under their sentinel seed: the importer
+    # can warm-load the adapter from them, and they keep demoting and
+    # advertising as adapter pages, never as base KV.
+    from .adapters import ADAPTER_SEED
+    key_seed = ADAPTER_SEED if payload.get("kv_adapter") else 0
     imported: List[bytes] = []
     for index, key in enumerate(fresh):
         block = blocks[index]
@@ -564,7 +579,7 @@ def import_payload(server, payload: Dict, engine=None,
         server._index[key] = block
         server._block_key[block] = key
         server._refs[block] = 1
-        server._key_seed[key] = 0
+        server._key_seed[key] = key_seed
         server._depth[key] = depth
         server._hex_key[key.hex()[:HEX_KEY_CHARS]] = key
         server._imported_keys.add(key)

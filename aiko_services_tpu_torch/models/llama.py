@@ -283,6 +283,51 @@ def _matmul(x, w):
     return x @ w
 
 
+# --------------------------------------------------------------------------- #
+# Batched multi-adapter LoRA (S-LoRA style serving)
+#
+# Every row of a serving batch may run a DIFFERENT adapter: per-layer factors
+# are stacked over a leading adapter axis, ``a`` (n_adapters, d_in, r) and
+# ``b`` (n_adapters, r, d_out), index 0 the all-zero identity (a base-model
+# row), and each row gathers its own pair.  The base weight stream is paid
+# once for the whole mixed batch through ``_matmul`` (the int8 / int4
+# kernels unchanged); the rank-r delta is two small f32 einsums, as the JAX
+# package computes it outside any kernel.  ``lora``: ``{"scale": alpha / r,
+# "layers": [{target: {"a", "b"}}], "ids": (batch,) int}``, or None, and with
+# None every call site below runs exactly the adapter-free program.
+
+def _lora_delta(x, factors, ids, scale):
+    """Per-row low-rank delta: ``x`` (batch, q, d_in) through row ``i``'s
+    own (A, B) = (factors["a"][ids[i]], factors["b"][ids[i]]), in f32 and
+    cast back: two einsums, ``x @ A`` then ``@ B``."""
+    ids = ids.to(torch.int64)
+    a = factors["a"][ids].to(torch.float32)        # (batch, d_in, r)
+    b = factors["b"][ids].to(torch.float32)        # (batch, r, d_out)
+    hidden = torch.einsum("bqd,bdr->bqr", x.to(torch.float32), a)
+    delta = torch.einsum("bqr,bro->bqo", hidden, b)
+    return (delta * scale).to(x.dtype)
+
+
+def _lora_matmul(x, w, lora_layer, target: str, lora):
+    """The base matmul plus the row-gathered adapter delta when ``target``
+    is adapted; exactly :func:`_matmul` otherwise."""
+    out = _matmul(x, w)
+    factors = lora_layer.get(target) if lora_layer else None
+    if factors is not None:
+        out = out + _lora_delta(x, factors, lora["ids"], lora["scale"])
+    return out
+
+
+def _lora_layers(lora, n_layers: int) -> List:
+    """Per-layer factor dicts of ``lora`` (None a layer without one)."""
+    return lora["layers"] if lora else [None] * n_layers
+
+
+def _with_ids(lora_shared, ids):
+    """The stacked factors ``lora_shared`` (or None) with per-row ``ids``."""
+    return dict(lora_shared, ids=ids) if lora_shared is not None else None
+
+
 def _embed_lookup(params, tokens, dtype):
     embed = params["embed"]
     tokens = tokens.to(torch.int64)
@@ -374,15 +419,19 @@ def apply_rope(x, cos, sin):
                        torch.cat([sin, sin], dim=-1)[:, :, None]))
 
 
-def _qkv(layer, config, x, rope):
+def _qkv(layer, config, x, rope, lora=None, lora_layer=None):
     """Pre-norm q/k/v projections with rotary embeddings applied: q
-    (batch, seq, heads, hd), k/v (batch, seq, kv_heads, hd)."""
+    (batch, seq, heads, hd), k/v (batch, seq, kv_heads, hd); adapted rows
+    add their LoRA deltas (:func:`_lora_matmul`)."""
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     normed = rms_norm(x, layer["attn_norm"], config.norm_eps)
-    q = _matmul(normed, layer["wq"]).reshape(batch, seq, h, hd)
-    k = _matmul(normed, layer["wk"]).reshape(batch, seq, kv, hd)
-    v = _matmul(normed, layer["wv"]).reshape(batch, seq, kv, hd)
+    q = _lora_matmul(normed, layer["wq"], lora_layer, "wq",
+                     lora).reshape(batch, seq, h, hd)
+    k = _lora_matmul(normed, layer["wk"], lora_layer, "wk",
+                     lora).reshape(batch, seq, kv, hd)
+    v = _lora_matmul(normed, layer["wv"], lora_layer, "wv",
+                     lora).reshape(batch, seq, kv, hd)
     # One RoPE pass over q and k together: the same per-element
     # arithmetic in half the host dispatches.
     qk = _rotate(torch.cat([q, k], dim=2), rope)
@@ -398,6 +447,12 @@ def _attend_full(config, q, k, v):
                           window=config.sliding_window)
     return out.transpose(1, 2).reshape(batch, seq,
                                        config.n_heads * config.head_dim)
+
+
+def _wo(out, layer, lora=None, lora_layer=None):
+    """The attention output projection (``wo``, adapted rows with their
+    delta)."""
+    return _lora_matmul(out, layer["wo"], lora_layer, "wo", lora)
 
 
 def _attention_block(layer, config, x, rope):
@@ -566,18 +621,20 @@ def _slot_tables(batch: int, device: torch.device):
 
 
 @torch.no_grad()
-def prefill(params, tokens, cache, config: LlamaConfig):
+def prefill(params, tokens, cache, config: LlamaConfig, lora=None):
     """Run the prompt through the model filling the KV cache (in place);
-    returns (logits of the last position (batch, 1, vocab) f32, cache)."""
+    returns (logits of the last position (batch, 1, vocab) f32, cache).
+    ``lora``: optional batched per-row adapters (:func:`_lora_delta`)."""
     _dense_only(config)
     batch, seq = tokens.shape
     rope = _rope_tables(config, _positions(batch, seq, tokens.device))
     x = _embed_lookup(params, tokens, config.dtype)
-    for layer, cache_layer in zip(params["layers"], cache):
-        q, k, v = _qkv(layer, config, x, rope)
+    for layer, cache_layer, lora_layer in zip(
+            params["layers"], cache, _lora_layers(lora, len(cache))):
+        q, k, v = _qkv(layer, config, x, rope, lora, lora_layer)
         _cache_write_slab(cache_layer, k, v, 0)
         out = _attend_full(config, q, k, v)
-        x = x + _matmul(out, layer["wo"]).to(x.dtype)
+        x = x + _wo(out, layer, lora, lora_layer).to(x.dtype)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = _matmul(x[:, -1:], params["lm_head"]).to(torch.float32)
@@ -631,13 +688,13 @@ def _degenerate_pool(cache_layer, device):
 
 
 def _attention_decode_ragged(layer, config, x, rope, cache_layer,
-                             rows: DecodeRows):
+                             rows: DecodeRows, lora=None, lora_layer=None):
     """Single-token decode where every batch row sits at its OWN cache
     position.  ``x`` (batch, 1, d), ``rows`` the step's
     :func:`_cache_rows`."""
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    q, k, v = _qkv(layer, config, x, rope)
+    q, k, v = _qkv(layer, config, x, rope, lora, lora_layer)
     # q's copy first, so that the attention kernel directly follows the
     # K/V write it depends on (a programmatic dependent launch).
     q_g = q.reshape(batch, seq, kv, h // kv, hd).contiguous()
@@ -645,21 +702,22 @@ def _attention_decode_ragged(layer, config, x, rope, cache_layer,
     out = _decode_attention_contiguous(q_g, cache_layer, rows.positions, hd,
                                        config.sliding_window)
     out = out.reshape(batch, seq, h * hd)
-    return x + _matmul(out, layer["wo"]).to(x.dtype)
+    return x + _wo(out, layer, lora, lora_layer).to(x.dtype)
 
 
 def _decode_core_ragged(params, token, cache, positions,
-                        config: LlamaConfig):
+                        config: LlamaConfig, lora=None):
     """One autoregressive step with PER-ROW cache positions: token
     (batch, 1) + positions (batch,) -> (logits (batch, 1, vocab) f32,
     cache updated in place).  The positions become int32, and the K/V
-    write's targets, once a step."""
+    write's targets, once a step.  ``lora``: per-row adapters."""
     rows = _cache_rows(positions.to(torch.int32))
     rope = _rope_tables(config, rows.positions[:, None])
     x = _embed_lookup(params, token, config.dtype)
-    for layer, cache_layer in zip(params["layers"], cache):
+    for layer, cache_layer, lora_layer in zip(
+            params["layers"], cache, _lora_layers(lora, len(cache))):
         x = _attention_decode_ragged(layer, config, x, rope, cache_layer,
-                                     rows)
+                                     rows, lora, lora_layer)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return _matmul(x, params["lm_head"]).to(torch.float32), cache
@@ -667,12 +725,13 @@ def _decode_core_ragged(params, token, cache, positions,
 
 @torch.no_grad()
 def decode_step(params, token, cache, cache_index: int,
-                config: LlamaConfig):
+                config: LlamaConfig, lora=None):
     """One step at a shared cache position (the ragged core with a
     constant position vector, as in the JAX package)."""
     positions = torch.full((token.shape[0],), int(cache_index),
                            dtype=torch.int32, device=token.device)
-    return _decode_core_ragged(params, token, cache, positions, config)
+    return _decode_core_ragged(params, token, cache, positions, config,
+                               lora=lora)
 
 
 # --------------------------------------------------------------------------- #
@@ -699,7 +758,7 @@ def _chunk_attention_contiguous(q_g, k, v, cache_layer, starts, chunk_lens,
 
 
 def _chunk_forward(params, tokens, cache, starts, active, write_plain,
-                   config: LlamaConfig):
+                   config: LlamaConfig, lora=None):
     """The ONE transformer stack for chunked forwards over an existing
     contiguous cache: :func:`prefill_chunk` (one start for every row) and
     :func:`verify_chunk_ragged` (per-row starts) differ only in their
@@ -715,14 +774,15 @@ def _chunk_forward(params, tokens, cache, starts, active, write_plain,
     chunk_lens = torch.where(active, K, 0).to(torch.int32)
     rope = _rope_tables(config, positions_b)
     x = _embed_lookup(params, tokens, config.dtype)
-    for layer, cache_layer in zip(params["layers"], cache):
-        q, k, v = _qkv(layer, config, x, rope)
+    for layer, cache_layer, lora_layer in zip(
+            params["layers"], cache, _lora_layers(lora, len(cache))):
+        q, k, v = _qkv(layer, config, x, rope, lora, lora_layer)
         out = _chunk_attention_contiguous(
             q.reshape(batch, K, kv, h // kv, hd).contiguous(), k, v,
             cache_layer, starts, chunk_lens, positions_b, write_plain, hd,
             config.sliding_window)
-        x = x + _matmul(out.reshape(batch, K, h * hd),
-                        layer["wo"]).to(x.dtype)
+        x = x + _wo(out.reshape(batch, K, h * hd), layer, lora,
+                    lora_layer).to(x.dtype)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return _matmul(x, params["lm_head"]).to(torch.float32), cache
@@ -730,7 +790,7 @@ def _chunk_forward(params, tokens, cache, starts, active, write_plain,
 
 @torch.no_grad()
 def prefill_chunk(params, tokens, cache, start_index: int,
-                  config: LlamaConfig):
+                  config: LlamaConfig, lora=None):
     """Chunked prefill: run ``tokens (batch, K)`` at absolute positions
     ``start_index + [0, K)``, extending an EXISTING cache prefix.  Returns
     (logits (batch, K, vocab) f32 at every position, cache).  Attention
@@ -758,12 +818,12 @@ def prefill_chunk(params, tokens, cache, start_index: int,
         params, tokens, cache, starts, active,
         lambda cache_layer, k, v: _cache_write_slab(cache_layer, k, v,
                                                     start),
-        config)
+        config, lora=lora)
 
 
 @torch.no_grad()
 def verify_chunk_ragged(params, tokens, cache, positions, active,
-                        config: LlamaConfig):
+                        config: LlamaConfig, lora=None):
     """Teacher-forced scoring of K given tokens per slot, every row at its
     OWN absolute start position: the speculative verify of the contiguous
     serving layout, :func:`prefill_chunk`'s per-row twin.  ``tokens``
@@ -788,7 +848,7 @@ def verify_chunk_ragged(params, tokens, cache, positions, active,
         params, tokens, cache, starts, active,
         lambda cache_layer, k, v: _cache_write_ragged_slab(cache_layer, k,
                                                            v, starts),
-        config)
+        config, lora=lora)
 
 
 # --------------------------------------------------------------------------- #
@@ -980,19 +1040,24 @@ def scatter_state_rows_(state: Dict, rows, packet: Dict) -> Dict:
 @torch.no_grad()
 def serve_chunk_ragged(params, state, cache, num_steps: int,
                        config: LlamaConfig, eos_id: int = -1,
-                       sampled: bool = False, generator=None):
+                       sampled: bool = False, generator=None,
+                       lora_shared=None):
     """``num_steps`` device-resident decode steps for the serving loop:
     per-slot state in the device ``state`` dict, EOS/budget retirement
     on the device, cache updated in place.  Inactive slots write their
     K/V into the scratch row ``max_seq - 1`` so they cannot corrupt a
     live slot's prefix.  ``sampled`` selects the program with sampling
-    math; greedy traffic pays none."""
+    math; greedy traffic pays none.  ``lora_shared``: the stacked adapter
+    factors WITHOUT ids; the rows' ids ride the resident state
+    (``state["adapter_ids"]``)."""
     max_seq = cache[0]["k"].shape[1]
+    lora = _with_ids(lora_shared, state.get("adapter_ids"))
 
     def step_core(token, cache, positions, active):
         write_pos = torch.where(active, positions,
                                 torch.full_like(positions, max_seq - 1))
-        return _decode_core_ragged(params, token, cache, write_pos, config)
+        return _decode_core_ragged(params, token, cache, write_pos, config,
+                                   lora=lora)
 
     return _serve_scan(step_core, state, cache, num_steps, eos_id,
                        sampled, generator)
@@ -1008,12 +1073,19 @@ class ChunkGraph:
     donated.
 
     ``state`` is the server's STATIC state (token, positions, active,
-    remaining, temps, tops; paged: tables): the program reads it and
-    writes the new state back into the same tensors, so a replay finds its
-    inputs where the capture read them.  ``cache`` (a contiguous cache, or
-    with ``paged`` a block pool) is updated in place, as every decode step
-    of the port updates it: that is the donation.  One graph is kept per
-    key (layout, slots, ``num_steps``, KV dtype, ``eos_id``, weight kind).
+    remaining, temps, tops, adapter ids; paged: tables): the program reads
+    it and writes the new state back into the same tensors, so a replay
+    finds its inputs where the capture read them.  ``cache`` (a contiguous
+    cache, or with ``paged`` a block pool) is updated in place, as every
+    decode step of the port updates it: that is the donation.  One graph is
+    kept per key (layout, slots, ``num_steps``, KV dtype, ``eos_id``,
+    weight kind, adapters).  A chunk with adapters passes the stacked
+    factors (``lora_shared``) and a ``lora_key`` that names them: the
+    factors are tensors at fixed addresses, which a server updates in place
+    while their shape holds, so only a change of shape (a new key) costs a
+    capture, and the graphs of the older key, which read the replaced
+    tensors, are released; the rows' adapter ids are a column of the
+    static state.
     The first chunk of a key runs eagerly and is its warm-up: it builds
     what the capture must find made (the lru-cached index tensors, the
     weights' TMA maps, the kernels' scratch, the cache layers' row plans),
@@ -1041,43 +1113,62 @@ class ChunkGraph:
         #: key -> (graph, outputs, launches a replay, scratch held), or
         #: None once the key's eager warm-up chunk ran.
         self._graphs: Dict[Tuple, Any] = {}
+        #: The ``lora_key`` of the adapter graphs kept in ``_graphs``.
+        self._lora_key = None
 
-    def key(self, num_steps: int, eos_id: int) -> Tuple:
+    def key(self, num_steps: int, eos_id: int, lora_key=None) -> Tuple:
         layout, slots, kv_dtype, weights = self._fixed
-        return (layout, slots, int(num_steps), kv_dtype, int(eos_id),
-                weights)
+        key = (layout, slots, int(num_steps), kv_dtype, int(eos_id),
+               weights)
+        return key if lora_key is None else key + (lora_key,)
 
-    def run(self, num_steps: int, eos_id: int = -1):
+    def run(self, num_steps: int, eos_id: int = -1, lora_shared=None,
+            lora_key=None):
         """One greedy chunk of ``num_steps`` steps from the static state:
         returns ``(tokens_out (slots, num_steps), counts (slots,))``, the
         graph's own output buffers once the key is captured (the next
-        replay overwrites them: read them on the stream before it)."""
-        key = self.key(num_steps, eos_id)
+        replay overwrites them: read them on the stream before it).
+        ``lora_shared`` / ``lora_key``: the stacked adapter factors and
+        what names their tensors (None: the adapter-free program)."""
+        key = self.key(num_steps, eos_id, lora_key)
+        if lora_key is not None and lora_key != self._lora_key:
+            self._release_lora_graphs()
+            self._lora_key = lora_key
         if key not in self._graphs:
             self._graphs[key] = None
-            return self._program(num_steps, eos_id)
+            return self._program(num_steps, eos_id, lora_shared)
         captured = self._graphs[key]
         if captured is None:
-            captured = self._graphs[key] = self._capture(num_steps, eos_id)
+            captured = self._graphs[key] = self._capture(num_steps, eos_id,
+                                                         lora_shared)
         graph, outputs, launches, _ = captured
         graph.replay()
         _cuda.add_launches(launches)
         self.ledger.record_replay()
         return outputs
 
-    def _program(self, num_steps: int, eos_id: int):
-        """The chunk: the eager serve function, its new state written back
-        into the static buffers."""
+    def _release_lora_graphs(self):
+        """Drop the graphs (and their outputs, scratch and memory pools)
+        captured under an older adapter stack: a new ``lora_key`` names
+        new factor tensors, and the old key never comes back."""
+        for key in [key for key in self._graphs
+                    if len(key) > len(self._fixed) + 2]:
+            del self._graphs[key]
+
+    def _program(self, num_steps: int, eos_id: int, lora_shared=None):
+        """The chunk: the eager serve function (with ``lora_shared``, the
+        stacked adapter factors, or None), its new state written back into
+        the static buffers."""
         chunk = serve_chunk_paged if self.paged else serve_chunk_ragged
         tokens_out, counts, new_state, _ = chunk(
             self.params, self.state, self.cache, num_steps, self.config,
-            eos_id=eos_id)
+            eos_id=eos_id, lora_shared=lora_shared)
         for key, value in new_state.items():
             if value is not self.state[key]:
                 self.state[key].copy_(value)
         return tokens_out, counts
 
-    def _capture(self, num_steps: int, eos_id: int):
+    def _capture(self, num_steps: int, eos_id: int, lora_shared=None):
         device = self.state["token"].device
         if device.type != "cuda":
             raise ValueError("ChunkGraph: a CUDA graph needs the state on a "
@@ -1086,7 +1177,7 @@ class ChunkGraph:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
-                outputs = self._program(num_steps, eos_id)
+                outputs = self._program(num_steps, eos_id, lora_shared)
         finally:
             launches = _cuda.take_back(before)
         self.ledger.record_capture()
@@ -1131,14 +1222,14 @@ def _paged_write_rows(pool_layer, k, v, rows: DecodeRows):
 
 
 def _attention_decode_paged(layer, config, x, rope, pool_layer,
-                            rows: DecodeRows):
+                            rows: DecodeRows, lora=None, lora_layer=None):
     """Single-token decode against the block pool (per-row positions).  On
     a CUDA tensor the paged decode kernel walks the REAL block tables; on
     the CPU the gathered view goes through the plain attention."""
     batch, seq, _ = x.shape
     h, kv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     tables, positions = rows.tables, rows.positions
-    q, k, v = _qkv(layer, config, x, rope)
+    q, k, v = _qkv(layer, config, x, rope, lora, lora_layer)
     # q's copy first, so that the attention kernel directly follows the
     # K/V write it depends on (a programmatic dependent launch).
     q_g = q.reshape(batch, seq, kv, h // kv, hd).contiguous()
@@ -1153,11 +1244,11 @@ def _attention_decode_paged(layer, config, x, rope, pool_layer,
                                    positions[:, None], hd,
                                    window=config.sliding_window)
     out = out.reshape(batch, seq, h * hd)
-    return x + _matmul(out, layer["wo"]).to(x.dtype)
+    return x + _wo(out, layer, lora, lora_layer).to(x.dtype)
 
 
 def _decode_core_paged(params, token, pool, tables, positions,
-                       config: LlamaConfig):
+                       config: LlamaConfig, lora=None):
     """One paged decode step: token (batch, 1) at per-row ``positions``
     -> (logits (batch, 1, vocab) f32, pool updated in place).  The tables
     and positions become int32, and the K/V write's targets, once a step
@@ -1166,15 +1257,16 @@ def _decode_core_paged(params, token, pool, tables, positions,
     rows = DecodeRows(tables.to(torch.int32), positions.to(torch.int32))
     rope = _rope_tables(config, rows.positions[:, None])
     x = _embed_lookup(params, token, config.dtype)
-    for layer, pool_layer in zip(params["layers"], pool):
+    for layer, pool_layer, lora_layer in zip(
+            params["layers"], pool, _lora_layers(lora, len(pool))):
         x = _attention_decode_paged(layer, config, x, rope, pool_layer,
-                                    rows)
+                                    rows, lora, lora_layer)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return _matmul(x, params["lm_head"]).to(torch.float32), pool
 
 
-def _paged_step_core(params, tables, pool, config: LlamaConfig):
+def _paged_step_core(params, tables, pool, config: LlamaConfig, lora=None):
     """One paged decode step over the slots' ``tables``: inactive lanes
     write scratch block 0 at their slot offset and are never read."""
     block_size = pool[0]["k"].shape[1]
@@ -1186,19 +1278,21 @@ def _paged_step_core(params, tables, pool, config: LlamaConfig):
         write_tables = torch.where(active[:, None], tables, scratch_tables)
         write_pos = torch.where(active, positions, scratch_positions)
         return _decode_core_paged(params, token, pool, write_tables,
-                                  write_pos, config)
+                                  write_pos, config, lora=lora)
     return step_core
 
 
 @torch.no_grad()
 def serve_chunk_paged(params, state, pool, num_steps: int,
                       config: LlamaConfig, eos_id: int = -1,
-                      sampled: bool = False, generator=None):
+                      sampled: bool = False, generator=None,
+                      lora_shared=None):
     """Paged twin of :func:`serve_chunk_ragged`: the block tables ride the
     resident ``state`` (``state["tables"]``), so table updates merge in
-    with the other dirty rows."""
+    with the other dirty rows; so do the rows' adapter ids."""
+    lora = _with_ids(lora_shared, state.get("adapter_ids"))
     return _serve_scan(_paged_step_core(params, state["tables"], pool,
-                                        config),
+                                        config, lora=lora),
                        state, pool, num_steps, eos_id, sampled, generator)
 
 
@@ -1235,7 +1329,7 @@ def _chunk_scan(step_core, tokens, cache, positions, active, num_steps: int,
 def decode_chunk_ragged(params, tokens, cache, positions, active,
                         num_steps: int, config: LlamaConfig,
                         temperatures=None, top_ps=None, generator=None,
-                        return_logits: bool = False):
+                        return_logits: bool = False, lora=None):
     """``num_steps`` decode steps for a slot batch on a contiguous cache,
     each row at its own position with an ``active`` flag (the contiguous
     speculative draft's proposer, and the continuous-batching oracle).
@@ -1257,7 +1351,8 @@ def decode_chunk_ragged(params, tokens, cache, positions, active,
     def step_core(token, cache, positions, active_now):
         write_pos = torch.where(active, positions,
                                 torch.full_like(positions, max_seq - 1))
-        return _decode_core_ragged(params, token, cache, write_pos, config)
+        return _decode_core_ragged(params, token, cache, write_pos, config,
+                                   lora=lora)
 
     return _chunk_scan(step_core, tokens, cache, positions, active,
                        num_steps, temperatures, top_ps, generator,
@@ -1268,7 +1363,7 @@ def decode_chunk_ragged(params, tokens, cache, positions, active,
 def decode_chunk_paged(params, tokens, pool, tables, positions, active,
                        num_steps: int, config: LlamaConfig,
                        temperatures=None, top_ps=None, generator=None,
-                       return_logits: bool = False):
+                       return_logits: bool = False, lora=None):
     """``num_steps`` paged decode steps for every slot, no EOS and no
     budget (the JAX package's paged oracle, and the speculative draft's
     proposer).  Inactive slots write scratch block 0 and do not advance.
@@ -1276,7 +1371,8 @@ def decode_chunk_paged(params, tokens, pool, tables, positions, active,
     positions, pool); ``return_logits=True`` inserts each step's
     next-token logits (slots, num_steps, vocab) after ``tokens_out``, for
     the sampled acceptance of a draft's proposals."""
-    return _chunk_scan(_paged_step_core(params, tables, pool, config),
+    return _chunk_scan(_paged_step_core(params, tables, pool, config,
+                                        lora=lora),
                        tokens, pool, positions, active, num_steps,
                        temperatures, top_ps, generator, return_logits)
 
@@ -1329,7 +1425,7 @@ def paged_gather_blocks(pool, block_ids, bucket, start_block: int = 0):
 
 def _prefill_append_core(params, tokens, pool, tables, start_index: int,
                          config: LlamaConfig, kv_limit: Optional[int] = None,
-                         compute_logits: bool = True):
+                         compute_logits: bool = True, lora=None):
     """Append-attention prefill straight against the block pool: the
     chunk's K/V land in their pool blocks and its queries attend over the
     cached prefix blocks plus the causally visible chunk, with no bucket,
@@ -1349,14 +1445,15 @@ def _prefill_append_core(params, tokens, pool, tables, start_index: int,
     tables = tables.to(torch.int32).contiguous()
     rope = _rope_tables(config, positions_b)
     x = _embed_lookup(params, tokens, config.dtype)
-    for layer, pool_layer in zip(params["layers"], pool):
-        q, k, v = _qkv(layer, config, x, rope)
+    for layer, pool_layer, lora_layer in zip(
+            params["layers"], pool, _lora_layers(lora, len(pool))):
+        q, k, v = _qkv(layer, config, x, rope, lora, lora_layer)
         out, _ = paged_prefill_attention(
             q.reshape(batch, K, kv, h // kv, hd).contiguous(),
             k.contiguous(), v.contiguous(), pool_layer, tables, cached_lens,
             chunk_lens, window=config.sliding_window, kv_limit=kv_limit)
-        x = x + _matmul(out.reshape(batch, K, h * hd),
-                        layer["wo"]).to(x.dtype)
+        x = x + _wo(out.reshape(batch, K, h * hd), layer, lora,
+                    lora_layer).to(x.dtype)
         x = _mlp_block(layer, config, x)
     if not compute_logits:
         return None, pool
@@ -1367,7 +1464,7 @@ def _prefill_append_core(params, tokens, pool, tables, start_index: int,
 @torch.no_grad()
 def prefill_append_paged(params, tokens, pool, tables, start_index: int,
                          config: LlamaConfig, kv_limit: Optional[int] = None,
-                         compute_logits: bool = True):
+                         compute_logits: bool = True, lora=None):
     """Admit a (batch, K) prompt chunk into the block pool by append
     attention; a prefix-cache hit passes ``start_index = n_shared *
     block_size`` and the shared blocks are only read.  ``kv_limit`` bounds
@@ -1376,7 +1473,7 @@ def prefill_append_paged(params, tokens, pool, tables, start_index: int,
     _dense_only(config)
     return _prefill_append_core(params, tokens, pool, tables, start_index,
                                 config, kv_limit=kv_limit,
-                                compute_logits=compute_logits)
+                                compute_logits=compute_logits, lora=lora)
 
 
 @torch.no_grad()
@@ -1384,23 +1481,32 @@ def serve_chunk_mixed(params, state, pool, prefill_tokens, prefill_row: int,
                       prefill_start: int, num_steps: int,
                       config: LlamaConfig, eos_id: int = -1,
                       sampled: bool = False, generator=None,
-                      prefill_kv_limit: Optional[int] = None):
+                      prefill_kv_limit: Optional[int] = None,
+                      lora_shared=None):
     """Sarathi-style mixed step: a chunked-prefill slice for the admitting
     slot ``prefill_row`` (its table row read from the resident state),
     then ``num_steps`` decode steps for the live slots, in one call.  The
     prefilling slot stays inactive in ``state`` until its last slice
-    lands, so the decode steps treat it as a scratch lane."""
-    tables_row = state["tables"][int(prefill_row):int(prefill_row) + 1]
+    lands, so the decode steps treat it as a scratch lane.  With
+    ``lora_shared`` the slice runs under the admitting row's adapter id
+    (resident before the first mixed dispatch) and the decode steps under
+    every row's."""
+    row = slice(int(prefill_row), int(prefill_row) + 1)
+    tables_row = state["tables"][row]
+    prefill_lora = _with_ids(
+        lora_shared, state["adapter_ids"][row] if lora_shared is not None
+        else None)
     _prefill_append_core(params, prefill_tokens, pool, tables_row,
                          prefill_start, config, kv_limit=prefill_kv_limit,
-                         compute_logits=False)
+                         compute_logits=False, lora=prefill_lora)
     return serve_chunk_paged(params, state, pool, num_steps, config,
                              eos_id=eos_id, sampled=sampled,
-                             generator=generator)
+                             generator=generator, lora_shared=lora_shared)
 
 
 def _verify_append_core(params, tokens, pool, tables, positions, active,
-                        config: LlamaConfig, kv_limit: Optional[int] = None):
+                        config: LlamaConfig, kv_limit: Optional[int] = None,
+                        lora=None):
     """Teacher-forced scoring of a (batch, K) speculative window straight
     against the block pool: every row at its OWN absolute start position
     (mid-block starts included), the window's K/V appended into the
@@ -1421,15 +1527,16 @@ def _verify_append_core(params, tokens, pool, tables, positions, active,
                                torch.zeros_like(tables)).to(torch.int32)
     rope = _rope_tables(config, positions_b)
     x = _embed_lookup(params, tokens, config.dtype)
-    for layer, pool_layer in zip(params["layers"], pool):
-        q, k, v = _qkv(layer, config, x, rope)
+    for layer, pool_layer, lora_layer in zip(
+            params["layers"], pool, _lora_layers(lora, len(pool))):
+        q, k, v = _qkv(layer, config, x, rope, lora, lora_layer)
         out, _ = paged_verify_attention(
             q.reshape(batch, K, kv, h // kv, hd).contiguous(),
             k.contiguous(), v.contiguous(), pool_layer, write_tables,
             starts, chunk_lens, window=config.sliding_window,
             kv_limit=kv_limit)
-        x = x + _matmul(out.reshape(batch, K, h * hd),
-                        layer["wo"]).to(x.dtype)
+        x = x + _wo(out.reshape(batch, K, h * hd), layer, lora,
+                    lora_layer).to(x.dtype)
         x = _mlp_block(layer, config, x)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return _matmul(x, params["lm_head"]).to(torch.float32), pool
@@ -1437,7 +1544,8 @@ def _verify_append_core(params, tokens, pool, tables, positions, active,
 
 @torch.no_grad()
 def verify_chunk_paged(params, tokens, pool, tables, positions, active,
-                       config: LlamaConfig, kv_limit: Optional[int] = None):
+                       config: LlamaConfig, kv_limit: Optional[int] = None,
+                       lora=None):
     """Speculative verify on the paged layout: score K tokens per slot
     against the block pool, each row at its own absolute position.
     ``tokens`` (batch, K) int32 windows (seed token + proposals),
@@ -1453,7 +1561,7 @@ def verify_chunk_paged(params, tokens, pool, tables, positions, active,
     (the paged server's worst-case reservation includes ``spec_k + 1``)."""
     _dense_only(config)
     return _verify_append_core(params, tokens, pool, tables, positions,
-                               active, config, kv_limit=kv_limit)
+                               active, config, kv_limit=kv_limit, lora=lora)
 
 
 # --------------------------------------------------------------------------- #

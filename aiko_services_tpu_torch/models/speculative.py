@@ -24,8 +24,10 @@ Rejected proposals leave stale KV rows past the committed position.
 Attention masks by ABSOLUTE position and every row is rewritten before it
 first becomes attendable, so stale rows are unreachable.
 
-The grammar overlay ``merge_forced`` (the constrained decoder's forced
-tokens in a spec round, ``models/constrained.py``) is not ported yet.
+Grammar-constrained rows ride the same round: :func:`merge_forced`
+overlays each constrained row's forced jump-forward segment on the
+proposals, and :func:`~.constrained.constrained_accept_batch` picks their
+committed windows.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from . import llama
 
 __all__ = ["speculative_generate", "speculative_generate_sampled",
            "SpecStats", "mrs_accept_batch", "greedy_accept_batch",
-           "spec_commit", "ngram_propose", "delta_draft_logits"]
+           "spec_commit", "ngram_propose", "delta_draft_logits",
+           "merge_forced"]
 
 
 class SpecStats:
@@ -56,8 +59,7 @@ class SpecStats:
         #: reservation keeps the blocks owned, the stale rows are
         #: unattendable and rewritten before they become reachable.
         self.rollback_blocks = 0
-        #: Grammar-forced tokens committed through jump-forward windows
-        #: (grammars are not ported: stays 0).
+        #: Grammar-forced tokens committed through jump-forward windows.
         self.jump_forward_tokens = 0
         #: Round-slots where the n-gram proposer found a suffix match in
         #: the slot's own history (proposal coverage, not acceptance).
@@ -266,6 +268,15 @@ def ngram_propose(history, k: int, max_ngram: int = 3,
         proposals[:continuation.shape[0]] = continuation.astype(np.int32)
         return proposals, True
     return proposals, False
+
+
+def merge_forced(proposals, forced, forced_mask):
+    """Overlay grammar-forced windows onto a round's proposals: rows with
+    ``forced_mask`` (slots,) take their ``forced`` (slots, k) tokens
+    verbatim (jump-forward segments), the other rows keep the draft or
+    n-gram proposals."""
+    return torch.where(forced_mask[:, None], forced.to(proposals.dtype),
+                       proposals)
 
 
 def delta_draft_logits(proposals, vocab: int):

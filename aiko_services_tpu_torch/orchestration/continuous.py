@@ -48,10 +48,28 @@ its lifetime.
   draft decodes against its own ``(slots, max_seq)`` cache
   (:func:`~..models.llama.decode_chunk_ragged`); the paged server has its
   own.
+* Grammars (``automata=``, named :class:`~..models.constrained.
+  TokenAutomaton` s): a request naming one (``automaton``) decodes through
+  the speculative round with jump-forward: its automaton's forced
+  segments ride as the round's window (:func:`~..models.speculative.
+  merge_forced`), the verify writes their KV, and
+  :func:`~..models.constrained.constrained_accept_batch` commits them with
+  one masked free token; the host advances the automaton and retires a
+  row at a terminal state.  ``automata`` turns speculation on (n-gram
+  without a draft).
+* LoRA adapters (``adapters=`` with ``lora_config=``, or
+  :meth:`load_adapter` at run time): named adapters stacked once
+  (:func:`~..models.lora.stack_adapters`, index 0 the base identity), each
+  slot carries its adapter's index in the resident state
+  (``adapter_ids``), and every forward gathers per-row factors, so a
+  mixed-adapter batch pays the base weights once.  The stacked factors
+  are tensors updated in place while their shape holds: the chunk graph
+  replays with adapters too, and only a load that widens the stack costs
+  a capture.
 
 Greedy decode through this path matches per-request ``prefill`` +
 ``generate_tokens`` output whatever the admission order, with or without
-speculation.
+speculation (constrained rows: the masked-argmax oracle's).
 
 Layout hooks (``_init_layout``, ``_attention_blocks``, ``_reserve_slot``,
 ``_release_slot``, ``_prefill_and_insert``, ``_begin_chunked_prefill``,
@@ -75,11 +93,12 @@ reference's sites.
 wire: ``(infer …)`` in, ``(infer_partial …)`` / ``(infer_response …)``
 out (:mod:`~..runtime`, :mod:`~..transport`, :mod:`.client`).
 
-Left out so far (they raise ``NotImplementedError``): meshes, LoRA
-adapters, grammars and the compilation cache; the on-demand device
-profiler.  On the wire, the KV transfer (``kv_export``, warm starts from a
-``kv_source``) and live migration answer as the reference does for a
-server without them.
+Left out so far (they raise ``NotImplementedError``): meshes and with
+them LoRA on tensor-parallel pools (``ROADMAP.md`` queue 1 item 11), the
+compilation cache and the on-demand device profiler (item 8); adapter
+training is item 10 and mixture-of-experts configs item 7.  On the wire,
+the KV transfer (``kv_export``, warm starts from a ``kv_source``) and live
+migration answer as the reference does for a server without them.
 """
 
 from __future__ import annotations
@@ -96,9 +115,12 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama
+from ..models.constrained import constrained_accept_batch, stack_automata
+from ..models.lora import stack_adapters
 from ..models.speculative import (SpecStats, delta_draft_logits,
-                                  greedy_accept_batch, mrs_accept_batch,
-                                  ngram_propose, spec_commit)
+                                  greedy_accept_batch, merge_forced,
+                                  mrs_accept_batch, ngram_propose,
+                                  spec_commit)
 from ..obs import flight, steplog, trace
 from ..obs.compiles import CaptureLedger
 from ..obs.metrics import REGISTRY, CounterDict, Histogram
@@ -126,7 +148,8 @@ class DecodeRequest:
     top_p: float = 1.0
     #: Deliver partial tokens as chunks complete (used by the replica).
     stream: bool = False
-    #: Named LoRA adapter / grammar: not ported, so any name is rejected.
+    #: Named LoRA adapter / grammar (unknown names are rejected at submit:
+    #: ``unknown_adapter`` / ``unknown_automaton``).
     adapter: Optional[str] = None
     automaton: Optional[str] = None
     #: Absolute host-monotonic deadline; expired requests are rejected at
@@ -190,10 +213,6 @@ class ContinuousBatchingServer:
         unsupported = {
             "mesh": mesh is not None,
             "replica_mesh": replica_mesh is not None,
-            "adapters/lora_config": bool(adapters)
-            or lora_config is not None,
-            "automata (grammar-constrained decoding, "
-            "models/constrained.py)": bool(automata),
             "compilation_cache_dir": compilation_cache_dir is not None,
         }
         named = [name for name, given in unsupported.items() if given]
@@ -248,8 +267,15 @@ class ContinuousBatchingServer:
         #: Speculation policy, set after _init_layout (the ladder validates
         #: against the final prompt-bucket floor); None = plain decode.
         self._spec = None
+        #: Grammars: the stacked table and its device mask (None without
+        #: automata), and each slot's GLOBAL automaton state (-1 =
+        #: unconstrained).
+        self._automata = None
+        self._autostates = None
         self._init_layout()
-        self._init_spec(draft_mode, spec_k, spec_ladder, spec_adaptive)
+        self._init_spec(draft_mode, spec_k, spec_ladder, spec_adaptive,
+                        automata)
+        self._init_adapters(adapters, lora_config)
         # Decode-attention path tag and view geometry, decided once.
         self._attn_block_size, self._attn_total_blocks = \
             self._attention_blocks()
@@ -260,6 +286,7 @@ class ContinuousBatchingServer:
         self.positions = np.zeros((slots,), np.int32)
         self.active = np.zeros((slots,), bool)
         self.tokens = np.zeros((slots, 1), np.int32)
+        self._adapter_ids = np.zeros((slots,), np.int32)
         self._temperatures = np.zeros(slots, np.float32)
         self._top_ps = np.ones(slots, np.float32)
         self._remaining = np.zeros(slots, np.int32)
@@ -391,12 +418,13 @@ class ContinuousBatchingServer:
     def _begin_chunked_prefill(self, slot: int, request, prompt_padded,
                                prompt_len: int) -> None:
         """Open a chunked admission for ``slot``: the contiguous layout
-        prefills into a private batch-1 bucket cache, which
-        :meth:`_advance_prefills` seals into the slot's rows once the
-        prompt is in."""
+        prefills into a private batch-1 bucket cache (under the request's
+        adapter), which :meth:`_advance_prefills` seals into the slot's
+        rows once the prompt is in."""
         self._prefilling[slot] = dict(
             request=request, prompt_padded=prompt_padded,
             prompt_len=prompt_len, start=0,
+            lora=self._request_lora(request),
             bucket=llama.init_cache(self.config, 1, prompt_padded.shape[1],
                                     quantize_kv=self.quantize_kv,
                                     device=self.device))
@@ -413,7 +441,8 @@ class ContinuousBatchingServer:
             size = min(self.chunk_prefill_tokens, padded - start)
             chunk = state["prompt_padded"][:, start:start + size]
             llama.prefill_chunk(self.params, self._upload(chunk),
-                                state["bucket"], start, self.config)
+                                state["bucket"], start, self.config,
+                                lora=state["lora"])
             state["start"] = start + size
             self._note_prefill(size)
             if state["start"] >= state["prompt_len"]:
@@ -430,14 +459,18 @@ class ContinuousBatchingServer:
                             state["prompt_len"])
 
     def _init_spec(self, draft_mode: str, spec_k: int, spec_ladder,
-                   spec_adaptive: bool) -> None:
-        """Speculation wiring.  Two proposers share one verify, accept and
-        commit path: ``model`` (the draft of ``draft_config_name``) and
+                   spec_adaptive: bool, automata=None) -> None:
+        """Speculation wiring.  Three proposers share one verify, accept
+        and commit path: ``model`` (the draft of ``draft_config_name``),
         ``ngram`` (suffix-match proposals from each slot's own committed
-        history, assembled on the host).  ``draft_mode="auto"`` resolves to
-        ``model`` when a draft is configured; speculation is off when
-        there is no draft and no explicit ``ngram``."""
-        if self._draft is None and draft_mode not in ("ngram", "model"):
+        history, assembled on the host) and grammar jump-forward
+        (``automata``: named token automata whose forced segments ride as
+        a constrained request's window).  ``draft_mode="auto"`` resolves
+        to ``model`` when a draft is configured, else ``ngram``;
+        speculation is off when there is no draft, no explicit ``ngram``
+        and no automata."""
+        if self._draft is None and draft_mode not in ("ngram", "model") \
+                and not automata:
             if draft_mode != "auto":
                 raise ValueError(
                     f"draft_mode must be 'model', 'ngram' or 'auto', got "
@@ -469,6 +502,44 @@ class ContinuousBatchingServer:
         self._spec = dict(mode=mode, k=int(ladder[-1]), ladder=ladder,
                           controller=controller)
         self.spec_stats = SpecStats()
+        if automata:
+            table = stack_automata(dict(automata))
+            if table.vocab != self.config.vocab_size:
+                raise ValueError(
+                    f"automata vocab {table.vocab} != model vocab "
+                    f"{self.config.vocab_size}")
+            # The allowed mask goes to the device once; navigation stays on
+            # the host.
+            self._automata = dict(
+                table=table,
+                allowed=torch.as_tensor(table.allowed, device=self.device))
+            self._autostates = np.full(self.slots, -1, np.int64)
+
+    def _init_adapters(self, adapters, lora_config) -> None:
+        """Multi-adapter LoRA serving: stack the named adapters once (index
+        0 the all-zero identity, the base model) on the server's device;
+        each slot carries the index of ITS adapter, and prefill and decode
+        gather per-row factors.  ``_lora_version`` names the stack's
+        tensors for the chunk graphs: it moves only when a load allocates
+        new ones (a wider stack)."""
+        self._adapter_index: Dict[str, int] = {}
+        self._lora_shared = None
+        self._lora_config = lora_config
+        self._free_adapter_ids: List[int] = []
+        self._lora_version = 0
+        #: Load provenance: warm = restacked from paged storage, cold =
+        #: factors shipped in from outside.
+        self.adapter_warm_loads = 0
+        self.adapter_cold_loads = 0
+        if adapters:
+            if lora_config is None:
+                raise ValueError("adapters= requires lora_config=")
+            names = list(adapters)
+            self._adapter_index = {name: i + 1
+                                   for i, name in enumerate(names)}
+            self._lora_shared = stack_adapters(
+                self.config, lora_config, [adapters[name] for name in names],
+                device=self.device)
 
     # ---- device state -------------------------------------------------- #
 
@@ -487,13 +558,16 @@ class ContinuousBatchingServer:
                                  device=device),
             "tops": torch.ones((slots,), dtype=torch.float32,
                                device=device),
+            "adapter_ids": torch.zeros((slots,), dtype=torch.int32,
+                                       device=device),
         }
 
     def _host_state(self) -> Dict[str, np.ndarray]:
         """Host mirror of :meth:`_init_device_state` (same keys)."""
         return {"token": self.tokens, "positions": self.positions,
                 "active": self.active, "remaining": self._remaining,
-                "temps": self._temperatures, "tops": self._top_ps}
+                "temps": self._temperatures, "tops": self._top_ps,
+                "adapter_ids": self._adapter_ids}
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without a stream sync: through
@@ -594,7 +668,7 @@ class ContinuousBatchingServer:
                 static[key].copy_(value)
         self._state = static
 
-    def _graph_chunk(self, steps: int, eos_id: int):
+    def _graph_chunk(self, steps: int, eos_id: int, lora_shared=None):
         """A greedy steady chunk as a replay of the server's
         :class:`~..models.llama.ChunkGraph` over the static state, which
         becomes the resident state: ``(tokens_out, counts)``."""
@@ -604,7 +678,8 @@ class ContinuousBatchingServer:
             self._chunk_graph = llama.ChunkGraph(
                 self.params, self.config, cache, self._static_state, paged,
                 self.graph_ledger)
-        return self._chunk_graph.run(steps, eos_id)
+        return self._chunk_graph.run(steps, eos_id, lora_shared,
+                                     self._lora_graph_key(lora_shared))
 
     def _pow2_rows(self, rows: np.ndarray) -> np.ndarray:
         """Pad a dirty-row index vector to its pow2 bucket (clamped to
@@ -683,9 +758,12 @@ class ContinuousBatchingServer:
             return "empty_prompt"
         if prompt_len + request.max_new_tokens > self.max_seq - 1:
             return "prompt_too_long"
-        if request.adapter is not None:
+        if request.adapter is not None \
+                and request.adapter not in self._adapter_index:
             return "unknown_adapter"
-        if request.automaton is not None:
+        if request.automaton is not None and (
+                self._automata is None or request.automaton
+                not in self._automata["table"].offsets):
             return "unknown_automaton"
         if self._spec is not None and prompt_len + request.max_new_tokens \
                 + self._spec["k"] + 1 > self.max_seq:
@@ -758,6 +836,7 @@ class ContinuousBatchingServer:
         self.tokens[slot, 0] = prompt_padded[0, prompt_len - 1]
         self.positions[slot] = prompt_len - 1
         self.active[slot] = True
+        self._adapter_ids[slot] = self._adapter_id(request)
         self._temperatures[slot] = max(0.0, float(request.temperature))
         self._top_ps[slot] = float(request.top_p)
         self._requests[slot] = request
@@ -771,6 +850,10 @@ class ContinuousBatchingServer:
             # New occupant: forget the previous request's acceptance
             # history (optimistic start at the ladder top).
             self._spec["controller"].reset(slot)
+        if self._automata is not None:
+            name = request.automaton
+            self._autostates[slot] = (self._automata["table"].start(name)
+                                      if name is not None else -1)
         if steplog.RECORDER is not None:
             steplog.RECORDER.record(
                 "sampling_edit", slot=slot,
@@ -780,25 +863,27 @@ class ContinuousBatchingServer:
     def _prefill_and_insert(self, admissions) -> None:
         """Group admissions by bucket size and prefill each group in
         power-of-2 sub-batches, landing each sub-batch's KV rows in its
-        slots with one batched copy."""
+        slots with one batched copy.  A sub-batch's prompt KV is built
+        under the adapters its rows will decode with."""
         groups: Dict[int, List] = {}
-        for slot, _, prompt_padded, _ in admissions:
+        for slot, request, prompt_padded, _ in admissions:
             groups.setdefault(prompt_padded.shape[1], []).append(
-                (slot, prompt_padded))
+                (slot, prompt_padded, self._adapter_id(request)))
         for padded, group in groups.items():
             start = 0
             while start < len(group):
                 size = 1 << ((len(group) - start).bit_length() - 1)
                 sub = group[start:start + size]
                 start += size
-                slots = [slot for slot, _ in sub]
-                prompts = np.concatenate([p for _, p in sub], axis=0)
+                slots = [slot for slot, _, _ in sub]
+                prompts = np.concatenate([p for _, p, _ in sub], axis=0)
                 bucket_cache = llama.init_cache(
                     self.config, len(sub), padded,
                     quantize_kv=self.quantize_kv, device=self.device)
                 _, bucket_cache = llama.prefill(
                     self.params, self._upload(prompts), bucket_cache,
-                    self.config)
+                    self.config,
+                    lora=self._make_lora([aid for _, _, aid in sub]))
                 self._insert_slots(bucket_cache, slots, padded)
                 self._note_prefill(len(sub) * padded)
                 if self._draft is not None:
@@ -835,6 +920,202 @@ class ContinuousBatchingServer:
         self.counters["prefill_tokens"] += int(tokens)
         self.counters["prefill_dispatches"] += 1
 
+    # ---- multi-adapter LoRA ---------------------------------------------- #
+
+    def _adapter_id(self, request) -> int:
+        """Stacked-factor index of a request (0 = the base identity;
+        unknown names are rejected at submit)."""
+        return self._adapter_index.get(request.adapter, 0)
+
+    @property
+    def adapters_loaded(self) -> List[str]:
+        """Names currently servable (operator telemetry)."""
+        return sorted(self._adapter_index)
+
+    def adapter_slot_counts(self) -> Dict[str, int]:
+        """name -> decode slots currently pinned to that adapter."""
+        if not self._adapter_index:
+            return {}
+        return {name: int(np.sum(self._adapter_ids == index))
+                for name, index in sorted(self._adapter_index.items())}
+
+    def _adapter_users(self, name: str) -> int:
+        """Requests pinning adapter ``name``, by NAME: a chunk-prefilling
+        slot holds its request before its id is assigned, and queued
+        requests have no slot at all, yet both will decode under it."""
+        live = sum(1 for r in self._requests
+                   if r is not None and r.adapter == name)
+        return live + sum(1 for r in self._queue if r.adapter == name)
+
+    def _adapter_load_counter(self, kind: str):
+        """The ``aiko_adapter_loads_total{kind=}`` counter, made on the
+        first load (a base-model server never emits the series)."""
+        counters = getattr(self, "_adapter_load_counters", None)
+        if counters is None:
+            counters = self._adapter_load_counters = {}
+        if kind not in counters:
+            counters[kind] = REGISTRY.counter(
+                "aiko_adapter_loads_total",
+                "adapter hot-deploys by provenance (warm = restacked from a "
+                "paged pool copy, cold = client-uploaded factor bytes)",
+                labels=dict(self._metrics_labels, kind=kind))
+        return counters[kind]
+
+    def load_adapter(self, name: str, lora_params=None,
+                     lora_config=None) -> None:
+        """Register (or replace) a LoRA adapter at RUN TIME.  The first load
+        on an adapter-less server defines the shared LoRAConfig; later
+        loads must match it (one stacked shape a server).  Replacing a name
+        needs no live request on it (``adapter_busy``).  ``lora_params``:
+        factors as numpy arrays or tensors (:func:`~..models.lora.
+        stack_adapters`).
+
+        A load into a recycled or replaced index writes the stacked
+        tensors in place (the chunk graphs keep reading them); only an
+        append widens the stack into new tensors, which the next graphed
+        chunk captures once.
+
+        ``lora_params=None`` is a WARM load: the factors restack from the
+        server's paged adapter storage (any tier), with no re-upload;
+        ``KeyError`` (``adapter_cold``) when no paged copy survives."""
+        if lora_params is None:
+            fetched = self._fetch_adapter_pages(name)
+            if fetched is None:
+                raise KeyError(f"adapter_cold: no paged copy of {name!r} "
+                               "to warm-load")
+            lora_params, paged_config = fetched
+            if lora_config is None:
+                lora_config = paged_config
+            self.adapter_warm_loads += 1
+            self._adapter_load_counter("warm").inc()
+        else:
+            self.adapter_cold_loads += 1
+            self._adapter_load_counter("cold").inc()
+        if self._lora_config is None:
+            if lora_config is None:
+                raise ValueError("first load_adapter needs lora_config")
+        elif lora_config is not None and (
+                lora_config.rank != self._lora_config.rank
+                or set(lora_config.targets) != set(self._lora_config.targets)
+                or lora_config.alpha != self._lora_config.alpha):
+            # Targets compare as SETS (PEFT serializes them from a set);
+            # the stacked scale alpha / rank is shared server-wide.
+            raise ValueError(
+                f"adapter {name!r} config (rank {lora_config.rank}, alpha "
+                f"{lora_config.alpha}, targets {lora_config.targets}) does "
+                f"not match the server's (rank {self._lora_config.rank}, "
+                f"alpha {self._lora_config.alpha}, targets "
+                f"{self._lora_config.targets})")
+        # Committed only after stack_adapters validated it: a failed first
+        # load must not wedge the server with a config that never loaded.
+        candidate = self._lora_config or lora_config
+        one = stack_adapters(self.config, candidate, [lora_params],
+                             device=self.device)
+        self._lora_config = candidate
+        if self._lora_shared is None:
+            self._lora_shared = one
+            self._lora_version += 1
+            self._adapter_index[name] = 1
+            self._register_adapter_pages(name, lora_params)
+            return
+        index = self._adapter_index.get(name)
+        if index is not None:
+            if self._adapter_users(name):
+                raise ValueError(f"adapter_busy: {name!r} has live requests")
+            # New weights under an old id: prompt KV cached under the old
+            # weights must not be served.
+            self._invalidate_adapter_cache(index)
+        elif self._free_adapter_ids:
+            index = self._free_adapter_ids.pop()
+        if index is None:
+            layers = []
+            for layer, fresh in zip(self._lora_shared["layers"],
+                                    one["layers"]):
+                layers.append({
+                    target: {key: torch.cat([factors[key],
+                                             fresh[target][key][1:]])
+                             for key in ("a", "b")}
+                    for target, factors in layer.items()})
+            self._lora_shared = dict(self._lora_shared, layers=layers)
+            self._lora_version += 1
+            index = self._lora_stack_size() - 1
+        else:
+            for layer, fresh in zip(self._lora_shared["layers"],
+                                    one["layers"]):
+                for target, factors in layer.items():
+                    for key in ("a", "b"):
+                        factors[key][index].copy_(fresh[target][key][1])
+        self._adapter_index[name] = index
+        self._register_adapter_pages(name, lora_params)
+
+    def unload_adapter(self, name: str) -> None:
+        """Remove a served adapter: its stacked rows are zeroed in place
+        and its index recycled (no new tensors, no capture).  Needs no live
+        request on it.  Paged adapter storage is NOT dropped: the pages
+        stay under the shared eviction clock, so a later
+        ``load_adapter(name)`` warm-loads with no re-upload."""
+        index = self._adapter_index.get(name)
+        if index is None:
+            raise KeyError(name)
+        if self._adapter_users(name):
+            raise ValueError(f"adapter_busy: {name!r} has live requests")
+        for layer in self._lora_shared["layers"]:
+            for factors in layer.values():
+                factors["a"][index].zero_()
+                factors["b"][index].zero_()
+        del self._adapter_index[name]
+        # The id will be recycled: cached KV under it goes first.
+        self._invalidate_adapter_cache(index)
+        self._free_adapter_ids.append(index)
+
+    def _lora_stack_size(self) -> int:
+        """Adapters in the stack, the identity at index 0 included."""
+        first = self._lora_shared["layers"][0]
+        return int(next(iter(first.values()))["a"].shape[0])
+
+    def _invalidate_adapter_cache(self, index: int) -> None:
+        """Layout hook: drop cached state keyed by this stacked adapter id
+        (the paged prefix cache overrides it; the contiguous layout caches
+        nothing across requests)."""
+
+    def _register_adapter_pages(self, name: str, adapter) -> int:
+        """Layout hook: mirror a loaded adapter's factors into paged
+        storage (the paged layout overrides it; no pool here)."""
+        return 0
+
+    def _fetch_adapter_pages(self, name: str):
+        """Layout hook: ``(lora_params, LoRAConfig)`` of a paged adapter,
+        or None when cold (the contiguous layout never pages)."""
+        return None
+
+    def _make_lora(self, ids):
+        """The batched ``lora`` argument for per-row adapter ``ids``, or
+        None when no row runs an adapter: all-base traffic keeps the
+        adapter-free program."""
+        ids = np.asarray(ids, np.int32)
+        if self._lora_shared is None or not ids.any():
+            return None
+        return dict(self._lora_shared, ids=self._upload(ids))
+
+    def _request_lora(self, request):
+        """Batch-1 ``lora`` argument for one request's prefill."""
+        return self._make_lora([self._adapter_id(request)])
+
+    def _serve_lora(self):
+        """The stacked factors for a serve dispatch, WITHOUT ids (rows route
+        by the resident ``adapter_ids``); None while no slot runs an
+        adapter, so all-base traffic keeps the adapter-free program."""
+        if self._lora_shared is None or not self._adapter_ids.any():
+            return None
+        return self._lora_shared
+
+    def _lora_graph_key(self, lora_shared):
+        """What names the stacked tensors a graphed chunk reads: None for
+        the adapter-free program, else the stack's version and size."""
+        if lora_shared is None:
+            return None
+        return (self._lora_version, self._lora_stack_size())
+
     # ---- retirement and control ----------------------------------------- #
 
     def _retire(self, slot: int) -> None:
@@ -845,11 +1126,14 @@ class ContinuousBatchingServer:
         self._release_slot(slot)
         self._requests[slot] = None
         self.active[slot] = False
+        self._adapter_ids[slot] = 0
         self._remaining[slot] = 0
         self._inflight_sched[slot] = 0
         # Any still-in-flight entry's data for this slot is now stale.
         self._slot_serial[slot] += 1
         self._dirty[slot] = True
+        if self._autostates is not None:
+            self._autostates[slot] = -1
         self._temperatures[slot] = 0.0
         self._top_ps[slot] = 1.0
         self._any_sampled = bool((self._temperatures > 0).any())
@@ -1078,12 +1362,14 @@ class ContinuousBatchingServer:
         self._sync_dirty()
         serial = self._slot_serial.copy()
         eos_id = -1 if self.eos_id is None else int(self.eos_id)
+        lora_shared = self._serve_lora()
         if self._graphs_on and not self._any_sampled \
                 and not self._prefilling:
-            tokens_d, counts_d = self._graph_chunk(steps, eos_id)
+            tokens_d, counts_d = self._graph_chunk(steps, eos_id,
+                                                   lora_shared)
         else:
             tokens_d, counts_d, self._state = self._serve_chunk(
-                self._state, steps, eos_id, self._any_sampled)
+                self._state, steps, eos_id, self._any_sampled, lora_shared)
         # Packed on the stream now, before a later replay can overwrite a
         # graph's outputs.
         result = torch.cat([tokens_d, counts_d[:, None],
@@ -1114,12 +1400,14 @@ class ContinuousBatchingServer:
         self._ring.append(dict(entry, result=result, event=event))
         self._note_dispatch()
 
-    def _serve_chunk(self, state, steps: int, eos_id: int, sampled: bool):
+    def _serve_chunk(self, state, steps: int, eos_id: int, sampled: bool,
+                     lora_shared=None):
         tokens_d, counts_d, new_state, self.cache = \
             llama.serve_chunk_ragged(
                 self.params, state, self.cache, steps, self.config,
                 eos_id=eos_id, sampled=sampled,
-                generator=self._generator if sampled else None)
+                generator=self._generator if sampled else None,
+                lora_shared=lora_shared)
         return tokens_d, counts_d, new_state
 
     def _dispatch_spec_round(self) -> bool:
@@ -1134,20 +1422,39 @@ class ContinuousBatchingServer:
 
         Adaptive rounds run at the controller's ``round_k`` (the max rung
         over live slots, always a ladder member); ``round_k == 0`` (every
-        live slot parked at k = 0) runs the plain chunk instead."""
+        live slot parked at k = 0) runs the plain chunk instead.
+
+        Grammar-constrained rows (:meth:`_grammar_windows`) get the full
+        window whatever the controller says: their forced segments replace
+        the proposals, and :func:`~..models.constrained.
+        constrained_accept_batch` commits them with one masked free token.
+        Adapter rows verify under their adapters; the draft proposes
+        without them."""
         plan = self._plan_remaining()
         live = plan > 0
         if not live.any():
             return False
         spec = self._spec
         mode, controller = spec["mode"], spec["controller"]
-        if mode == "ngram" and self._ring:
-            # n-gram proposals read the host's committed history: consume
-            # what is in flight first, dispatch on the next pass.
+        cons_live = None
+        if self._autostates is not None:
+            cons_live = live & (self._autostates >= 0)
+            if not cons_live.any():
+                cons_live = None
+        if (mode == "ngram" or cons_live is not None) and self._ring:
+            # Host-fed proposers need SETTLED host mirrors: n-gram would
+            # propose from stale history (quality only), and a forced
+            # segment walked from a stale automaton state would be
+            # committed unconditionally (a correctness bug).  Consume what
+            # is in flight first, dispatch on the next pass.
             return False
         k, caps_host = spec["k"], None
         if controller is not None:
             k = controller.round_k(live)
+            if cons_live is not None:
+                # Grammar rows always get the full window: forced segments
+                # want width, and the masked free token needs no cap.
+                k = spec["k"]
             caps_host = controller.caps(live)
             controller.note_dispatch(live)
             if k == 0:
@@ -1156,6 +1463,7 @@ class ContinuousBatchingServer:
         self._sync_dirty()
         st = self._state
         sampled = self._any_sampled
+        lora = llama._with_ids(self._serve_lora(), st["adapter_ids"])
         draft_logits = None
         if mode == "model":
             proposals, draft_logits = self._draft_propose(st, k, sampled)
@@ -1170,8 +1478,13 @@ class ContinuousBatchingServer:
             if sampled:
                 draft_logits = delta_draft_logits(proposals,
                                                   self.config.vocab_size)
+        grammar = None
+        if cons_live is not None:
+            grammar = self._grammar_windows(cons_live, k)
+            proposals = merge_forced(proposals, grammar["forced"],
+                                     grammar["mask"])
         logits = self._spec_verify(st, torch.cat([st["token"], proposals],
-                                                 dim=1))
+                                                 dim=1), lora)
         caps = self._upload(caps_host) if caps_host is not None else None
         if sampled:
             window, counts_raw = mrs_accept_batch(
@@ -1180,6 +1493,12 @@ class ContinuousBatchingServer:
         else:
             window, counts_raw = greedy_accept_batch(logits, proposals,
                                                      caps=caps)
+        if grammar is not None:
+            window, counts_raw = constrained_accept_batch(
+                logits, window, counts_raw, grammar["forced"],
+                grammar["counts"], grammar["states"], grammar["mask"],
+                self._automata["allowed"], st["temps"], st["tops"],
+                self._generator if sampled else None)
         emit_tokens, emit_counts, resync, self._state = spec_commit(
             st, window, counts_raw,
             eos_id=-1 if self.eos_id is None else int(self.eos_id))
@@ -1192,14 +1511,43 @@ class ContinuousBatchingServer:
                             counts_full[:, None]], dim=1)
         # A round commits at least one token per live lane, so 1 is the
         # safe in-flight schedule increment (lanes that run out go
-        # inactive on the device and emit nothing).
+        # inactive on the device and emit nothing; a grammar lane at a
+        # terminal state commits none and retires at the consume).
         sched = np.where(live, 1, 0)
         self._inflight_sched += sched
         self._enqueue(result, kind="spec", cols=k + 1, steps=1, sched=sched,
                       serial=self._slot_serial.copy(), caps=caps_host,
                       drafted_host=(int(caps_host[live].sum())
-                                    if caps_host is not None else None))
+                                    if caps_host is not None else None),
+                      cons=(cons_live.copy() if cons_live is not None
+                            else None),
+                      forced=(grammar["counts_host"] if grammar is not None
+                              else None))
         return True
+
+    def _grammar_windows(self, cons_live, k: int) -> Dict:
+        """Jump-forward windows of the constrained live slots: while a
+        slot's automaton state admits exactly one token, that token is the
+        ONLY output a masked decode could produce, so the whole forced
+        chain (up to ``k`` tokens) becomes the slot's window and the
+        verify pass writes its KV.  Returns the device tensors
+        ``forced`` (slots, k), ``counts`` (slots,), ``states`` (slots,)
+        (each row's GLOBAL state at its free position) and ``mask``
+        (slots,), and the host copy ``counts_host``."""
+        table = self._automata["table"]
+        forced = np.zeros((self.slots, k), np.int32)
+        counts = np.zeros(self.slots, np.int32)
+        states = np.zeros(self.slots, np.int64)
+        for slot in np.nonzero(cons_live)[0]:
+            slot = int(slot)
+            segment, end_state = table.deterministic_segment(
+                int(self._autostates[slot]), k)
+            forced[slot, :len(segment)] = segment
+            counts[slot] = len(segment)
+            states[slot] = end_state
+        return dict(forced=self._upload(forced), counts=self._upload(counts),
+                    states=self._upload(states),
+                    mask=self._upload(cons_live.copy()), counts_host=counts)
 
     def _draft_propose(self, st, k: int, sampled: bool):
         """The paired draft proposes ``k`` tokens a slot:
@@ -1231,15 +1579,15 @@ class ContinuousBatchingServer:
             draft["params"], resync, draft["cache"], prev_positions + 1,
             prev_active, draft["config"])
 
-    def _spec_verify(self, st, chunk):
+    def _spec_verify(self, st, chunk, lora=None):
         """Score the (slots, k+1) window against the slot rows, every row
         at its own position (:func:`~..models.llama.verify_chunk_ragged`:
         on the card, ``append_kv_ragged`` + ``chunk_attention`` over the
-        cache as a degenerate block pool); returns the logits for the
-        acceptance kernel."""
+        cache as a degenerate block pool), adapter rows under their
+        adapters; returns the logits for the acceptance kernel."""
         logits, self.cache = llama.verify_chunk_ragged(
             self.params, chunk, self.cache, st["positions"], st["active"],
-            self.config)
+            self.config, lora=lora)
         return logits
 
     def _note_spec_rollback(self, slot: int, advance: int,
@@ -1361,12 +1709,15 @@ class ContinuousBatchingServer:
             full_list = entry["counts_full"].tolist() if spec else count_list
             active_list = entry["active_after"].tolist()
             caps = entry["caps"] if spec else None
+            cons_mask = entry["cons"] if spec else None
             committed_upper += int(entry["counts"].sum())
             for slot in np.nonzero(live)[0]:
                 slot = int(slot)
                 touched_slots.add(slot)
                 request = self._requests[slot]
                 emitted = count_list[slot]
+                constrained = cons_mask is not None and bool(cons_mask[slot])
+                must_retire = not active_list[slot]
                 if emitted:
                     if request.first_token_ts is None:
                         request.first_token_ts = now
@@ -1381,16 +1732,33 @@ class ContinuousBatchingServer:
                         if request.spec_accepted_rounds is None:
                             request.spec_accepted_rounds = []
                         request.spec_accepted_rounds.append(advance - 1)
+                        if constrained:
+                            self.spec_stats.jump_forward_tokens += min(
+                                int(entry["forced"][slot]), emitted)
                     self.positions[slot] += advance
                     self.tokens[slot, 0] = token_rows[slot][advance - 1]
                     delivered += emitted
-                if caps is not None:
+                if caps is not None and not constrained:
                     # Acceptance feedback at the cap this slot ran under
-                    # (k = 0 ticks the re-probe counter instead).
+                    # (k = 0 ticks the re-probe counter instead).  Grammar
+                    # rows stay out: their acceptance is the grammar's.
                     self._spec["controller"].observe(
                         slot, int(caps[slot]),
                         full_list[slot] - 1 if emitted else 0)
-                if not active_list[slot]:
+                if constrained and self._autostates[slot] >= 0:
+                    # Advance the host automaton over the DELIVERED tokens;
+                    # a terminal state ends the request (grammar rounds
+                    # serialize: nothing else is in flight for the lane).
+                    table = self._automata["table"]
+                    state = int(self._autostates[slot])
+                    for token in token_rows[slot][:emitted]:
+                        state = table.advance(state, int(token))
+                        if state < 0:
+                            break
+                    self._autostates[slot] = state
+                    if state < 0 or table.is_terminal(state):
+                        must_retire = True
+                if must_retire:
                     self._retire(slot)
                     batch_live[index + 1:, slot] = False
         self.counters["tokens_committed"] += delivered
@@ -1576,9 +1944,15 @@ class ContinuousReplica(Actor):
     and the digest advertises role ``prefill`` so routers never send it
     decode traffic.  A request whose payload carries ``prefill_only``
     gets the same treatment on any replica.
-    ``adapter_load`` / ``adapter_unload`` answer ``unsupported_command``
-    (the port's servers take no adapters yet), as every other replica
-    protocol speaker does."""
+
+    ``(adapter_load id reply swag{name, path | packed})`` hot-deploys a
+    LoRA adapter to the running server: ``path`` names a PEFT-layout
+    directory (:func:`~..tools.import_weights.import_lora`, which needs
+    ``safetensors``), ``packed`` carries the factor bytes themselves (the
+    ``AIKOLOR1`` stream of :func:`~..models.lora_paged.pack_adapter`, its
+    config in its header).  ``(adapter_unload id reply swag{name})``
+    removes one.  Both answer ``(adapter_response id swag{ok, adapters}
+    | {error})`` and refresh the share's ``adapters``."""
 
     #: Re-advertise the prefix digest this often even when idle — must
     #: stay well under the router directory's ``lease_s``.
@@ -1587,8 +1961,7 @@ class ContinuousReplica(Actor):
     def __init__(self, context, process=None, server=None,
                  prefill_only: bool = False,
                  kv_fetch_timeout_s: float = 2.0):
-        from .serving import (REPLICA_PROTOCOL,
-                              _register_unsupported_adapter_commands)
+        from .serving import REPLICA_PROTOCOL
         context.protocol = context.protocol or REPLICA_PROTOCOL
         super().__init__(context, process)
         self.server = server or ContinuousBatchingServer()
@@ -1598,7 +1971,8 @@ class ContinuousReplica(Actor):
         self._digest_stamp = None
         self._command_handlers["infer"] = self._wire_infer
         self._command_handlers["pump"] = self._pump
-        _register_unsupported_adapter_commands(self)
+        self._command_handlers["adapter_load"] = self._wire_adapter_load
+        self._command_handlers["adapter_unload"] = self._wire_adapter_unload
         self._command_handlers["infer_cancel"] = self._wire_cancel
         self._command_handlers["kv_export"] = self._wire_kv_export
         self._command_handlers["retire"] = self._wire_retire
@@ -2122,6 +2496,61 @@ class ContinuousReplica(Actor):
                 generate("infer_response",
                          [request_id,
                           encode_swag({"error": "cancel_unrouted"})]))
+
+    def _wire_adapter_load(self, request_id, response_topic, payload=None):
+        """``(adapter_load id reply swag{name, path | packed})``: make an
+        adapter servable on the RUNNING replica."""
+        def action(inputs):
+            name = str(inputs["name"])
+            if inputs.get("packed") is not None:
+                from ..models.lora_paged import unpack_adapter
+                lora_params, lora_config = unpack_adapter(
+                    self.server.config,
+                    np.asarray(inputs["packed"], np.uint8))
+            else:
+                from ..tools.import_weights import import_lora
+                lora_params, lora_config = import_lora(
+                    str(inputs["path"]), self.server.config)
+            self.server.load_adapter(name, lora_params, lora_config)
+            return name
+
+        self._adapter_action("adapter_load", action, request_id,
+                             response_topic, payload)
+
+    def _wire_adapter_unload(self, request_id, response_topic,
+                             payload=None):
+        def action(inputs):
+            name = str(inputs["name"])
+            self.server.unload_adapter(name)
+            return name
+
+        self._adapter_action("adapter_unload", action, request_id,
+                             response_topic, payload)
+
+    def _adapter_action(self, what, action, request_id, response_topic,
+                        payload):
+        from ..pipeline.codec import decode_swag, encode_swag
+        try:
+            name = action(decode_swag(payload or {}))
+            outputs = {"ok": name,
+                       "adapters": " ".join(self.server.adapters_loaded)}
+        except Exception as error:  # noqa: BLE001 - must respond
+            self.logger.warning("%s: %s failed: %s", self.name, what, error)
+            outputs = {"error": str(error)}
+        self._share_adapters()
+        if response_topic:
+            self.process.message.publish(
+                str(response_topic),
+                generate("adapter_response",
+                         [request_id, encode_swag(outputs)]))
+
+    def _share_adapters(self):
+        loaded = " ".join(self.server.adapters_loaded)
+        if self.share.get("adapters") == loaded:
+            return
+        self.share["adapters"] = loaded
+        if self.ec_producer is not None:
+            self.ec_producer.update("adapters", loaded)
 
     def _stream_partials(self):
         """Deliver newly decoded tokens for every live streaming

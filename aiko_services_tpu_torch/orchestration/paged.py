@@ -64,11 +64,24 @@ captured chunk graphs hold) — and every kernel and copy runs on PyTorch's
 current stream in dispatch order, so blocks freed by a retirement can be
 reused by the next admission while older chunks are still in flight.
 
-Left out so far (they raise ``NotImplementedError``): adapters (and with
-them adapter weight pages in the pool), grammar-constrained decoding
-(``automata``), replica meshes (TP pools) and the compilation cache; the
-pool auditor and its tier-flow hooks (the pool balance ``free + evictable
-+ producing == total_blocks`` at idle is kept by plain counters).
+* LoRA adapters (the base class's ``adapters`` / :meth:`load_adapter`):
+  prefix chains are scoped to the adapter (chain keys seeded with its
+  stacked index, ``_key_seed``), and each loaded adapter's factor bytes
+  also live as pages in this pool (:mod:`~..models.lora_paged`, keys
+  from :mod:`~..kvstore.adapters`, seed ``ADAPTER_SEED``): they demote,
+  spill, restore, export and re-adopt like KV blocks, so an unloaded
+  adapter stays warm (``load_adapter(name)`` restacks it from its pages)
+  and its residency rides the prefix digest for adapter-aware routing.
+  Decode never reads the pages; per-request adapter KV stays
+  replica-local.
+* Grammars (``automata``): the base class's jump-forward round, with the
+  verify straight into the pool.
+
+Left out so far (they raise ``NotImplementedError``): replica meshes (TP
+pools, LoRA on them included: ``ROADMAP.md`` queue 1 item 11) and the
+compilation cache; the pool auditor and its tier-flow hooks (item 8; the
+pool balance ``free + evictable + producing == total_blocks`` at idle is
+kept by plain counters).
 """
 
 from __future__ import annotations
@@ -80,9 +93,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..kvstore import adapters as _kvadp
 from ..kvstore import directory as _kvdir
 from ..kvstore import transfer as _kvxfer
 from ..models import llama
+from ..models import lora_paged as _lorapg
 from ..runtime.lease import Lease
 from .continuous import ContinuousBatchingServer, _bucket
 
@@ -230,8 +245,9 @@ class PagedContinuousServer(ContinuousBatchingServer):
         #: lands.  Cleared at _finish_prefill; purged on cancel.
         self._producing: Dict[int, int] = {}
         # Distributed KV-cache state:
-        #   _key_seed: chain key -> adapter id that seeded it (always 0
-        #     on the port: no adapters);
+        #   _key_seed: chain key -> what seeded it: 0 base-model KV, the
+        #     stacked adapter id for per-request adapter KV, ADAPTER_SEED
+        #     for adapter weight pages;
         #   _hex_key: directory-width hex16 -> full chain key (export
         #     requests arrive with truncated keys);
         #   _depth: chain key -> position in its chain (1-based);
@@ -393,6 +409,14 @@ class PagedContinuousServer(ContinuousBatchingServer):
             kv_hbm_blocks=self.total_blocks - len(self._free),
             kv_hbm_bytes=(self.total_blocks - len(self._free))
             * self._block_nbytes())
+        pages = self._adapter_page_counts()
+        out.update(
+            adapter_pages_hbm=pages["hbm"],
+            adapter_pages_host=pages["host"],
+            adapter_pages_disk=pages["disk"],
+            adapter_warm_loads=self.adapter_warm_loads,
+            adapter_cold_loads=self.adapter_cold_loads,
+            adapters_loaded_count=len(self._adapter_index))
         return out
 
     def _block_nbytes(self) -> int:
@@ -436,10 +460,11 @@ class PagedContinuousServer(ContinuousBatchingServer):
     # ------------------------------------------------------------- #
     # Prefix cache
 
-    def _chain_keys(self, prompt) -> List[bytes]:
-        """Chained content keys, one per FULL prompt block, byte-identical
-        to the JAX package's (:func:`~..kvstore.directory.chain_keys`)."""
-        return _kvdir.chain_keys(prompt, self.block_size)
+    def _chain_keys(self, prompt, adapter_id: int = 0) -> List[bytes]:
+        """Chained content keys, one per FULL prompt block, seeded with the
+        adapter's stacked index (0: the base model), byte-identical to the
+        JAX package's (:func:`~..kvstore.directory.chain_keys`)."""
+        return _kvdir.chain_keys(prompt, self.block_size, adapter_id)
 
     def _shareable_blocks(self, prompt_len: int) -> int:
         """Full blocks strictly before position ``prompt_len - 1``: the
@@ -471,10 +496,14 @@ class PagedContinuousServer(ContinuousBatchingServer):
         """Evict ONE zero-ref cached block: the least recently used chain
         LEAF (no indexed children), so chains stay rooted.  With a host or
         spill tier it DEMOTES instead of deleting: the rows copy down the
-        tower and the chain key stays addressable."""
+        tower and the chain key stays addressable.  Per-request adapter KV
+        (a positive seed) still deletes: its stacked index is replica-local
+        and a hot unload must purge it at once.  Adapter WEIGHT pages
+        (``ADAPTER_SEED``) demote like base KV."""
         for key, block in self._evictable.items():          # LRU order
             if self._children.get(key, 0) == 0:
-                if self._tier_enabled():
+                if self._tier_enabled() \
+                        and self._key_seed.get(key, 0) <= 0:
                     self._demote(key, block)
                 else:
                     self._purge_cached(key, block)
@@ -566,7 +595,8 @@ class PagedContinuousServer(ContinuousBatchingServer):
             return
         spilled = self._spill_entries(
             [(key, entry) for key, entry in excess
-             if self.spill is not None and self.spill.enabled])
+             if self.spill is not None and self.spill.enabled
+             and self._key_seed.get(key, 0) <= 0])
         for key, entry in excess:
             if key in spilled:
                 self._spill[key] = {"nbytes": entry["nbytes"],
@@ -697,14 +727,16 @@ class PagedContinuousServer(ContinuousBatchingServer):
         chain that is still ROOTED (depth 1 upward, no gaps), in the
         previous process's clock order.  Rootless files are discarded;
         corrupt files were already deleted (and counted) by the scan.
-        Only base-model chains (key seed 0) adopt: adapter weight pages
-        wait for adapters on the port."""
+        Base-model chains and adapter weight pages adopt (a crash restart
+        is a warm start for adapters too); per-request adapter KV never
+        reaches the disk."""
         metas, corrupt = self.spill.scan()
         self.kv_checksum_failures += corrupt
         by_hex: Dict[str, dict] = {}
         for meta in metas:
             hex_key = str(meta.get("key", ""))
-            if len(hex_key) == 64 and meta.get("key_seed", 0) == 0 \
+            if len(hex_key) == 64 \
+                    and meta.get("key_seed", 0) in (0, _kvadp.ADAPTER_SEED) \
                     and int(meta.get("depth", 0)) >= 1:
                 by_hex[hex_key] = meta
         adopted: Dict[str, dict] = {}
@@ -722,7 +754,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             key = bytes.fromhex(hex_key)
             depth = int(meta["depth"])
             self._depth[key] = depth
-            self._key_seed[key] = 0
+            self._key_seed[key] = int(meta.get("key_seed", 0))
             self._key_hits[key] = int(meta.get("hits", 0))
             self._hex_key[hex_key[:_kvdir.HEX_KEY_CHARS]] = key
             parent_hex = meta.get("parent", "")
@@ -935,7 +967,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             return
         demote = []
         for key, block in self._select_victims(want):
-            if self._tier_enabled():
+            if self._tier_enabled() and self._key_seed.get(key, 0) <= 0:
                 demote.append((key, block))
             else:
                 self._purge_cached(key, block)
@@ -960,8 +992,9 @@ class PagedContinuousServer(ContinuousBatchingServer):
         prompt = np.asarray(request.prompt)
         shared: List[int] = []
         keys: List[bytes] = []
+        adapter_id = self._adapter_id(request)
         if self.enable_prefix_cache:
-            keys = self._chain_keys(prompt)[
+            keys = self._chain_keys(prompt, adapter_id)[
                 :self._shareable_blocks(len(prompt))]
             restore_host = restore_wait = False
             for key in keys:
@@ -1046,7 +1079,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             self._index[key] = block
             self._block_key[block] = key
             self._refs[block] = 1
-            self._key_seed[key] = 0
+            self._key_seed[key] = adapter_id
             self._depth[key] = position + 1
             self._hex_key[key.hex()[:_kvdir.HEX_KEY_CHARS]] = key
             if position > 0:
@@ -1152,6 +1185,187 @@ class PagedContinuousServer(ContinuousBatchingServer):
         self.tables[slot] = 0
 
     # ------------------------------------------------------------- #
+    # Adapters in the pool: per-request adapter KV is scoped by its chain
+    # keys' seed; adapter WEIGHT pages (S-LoRA's unified paging) live as
+    # name-keyed chain pages under ``_key_seed == ADAPTER_SEED``, moved by
+    # the tier machinery above.  Decode never reads them: serving runs from
+    # the stacked ``_lora_shared`` factors, so page movement never touches
+    # a chunk program.
+
+    def _invalidate_adapter_cache(self, index: int) -> None:
+        """Hot unload or replace: purge every cached chain seeded by this
+        stacked adapter id (its KV was computed with weights the id no
+        longer names, and the id may be recycled).  The busy check already
+        guarantees no live request pins these blocks."""
+        stale = [key for key, seed in self._key_seed.items()
+                 if seed == index]
+        for key in stale:
+            block = self._index.get(key)
+            if block is not None and not self._refs.get(block, 0):
+                self._purge_cached(key, block)
+        self.digest_epoch += 1
+
+    def _adapter_page_counts(self) -> Dict[str, int]:
+        """``ADAPTER_SEED`` page residency per tier (a subset of the tier
+        totals, never a tier of its own)."""
+        counts = dict(hbm=0, host=0, disk=0)
+        for key, seed in self._key_seed.items():
+            if seed != _kvadp.ADAPTER_SEED:
+                continue
+            if key in self._index:
+                counts["hbm"] += 1
+            elif key in self._host:
+                counts["host"] += 1
+            elif key in self._spill:
+                counts["disk"] += 1
+        return counts
+
+    def _register_adapter_pages(self, name: str, adapter) -> int:
+        """Layout hook (:meth:`load_adapter` calls it after the stack
+        commit): mirror the adapter's canonical packed bytes into pool
+        pages.  Best effort: a pool too tight to hold them changes nothing
+        (the stacked copy serves; the adapter is just not warm-
+        reloadable)."""
+        if not self.enable_prefix_cache or self._lora_config is None:
+            return 0
+        data = _lorapg.pack_adapter(self.config, self._lora_config, adapter)
+        return self.store_adapter_bytes(name, data)
+
+    def store_adapter_bytes(self, name: str, data) -> int:
+        """Write one packed adapter stream into freshly allocated pool
+        pages keyed by ``name``'s chain, replacing any stale chain first.
+        The pages register zero-ref EVICTABLE (MRU end): the shared
+        eviction clock owns them from here on.  Returns the page count (0:
+        the pool is too tight now)."""
+        layout = _kvxfer._field_layout(self)
+        pages = _lorapg.split_pages(data, _lorapg.page_payload_nbytes(layout))
+        if not pages:
+            return 0
+        keys = _kvadp.adapter_chain_keys(name, len(pages))
+        self.drop_adapter_pages(name)
+        needed = len(pages)
+        self._evict_until(needed)
+        if needed > len(self._free):
+            return 0
+        self.digest_epoch += 1
+        blocks = [self._free.pop() for _ in range(needed)]
+        _kvxfer.scatter_block_row_dicts(
+            self, blocks,
+            [_lorapg.payload_to_row_dict(page, layout) for page in pages])
+        for position, (key, block) in enumerate(zip(keys, blocks)):
+            self._host_discard(key)   # a key never resolves two ways
+            self._index[key] = block
+            self._block_key[block] = key
+            self._refs[block] = 0
+            self._key_seed[key] = _kvadp.ADAPTER_SEED
+            self._depth[key] = position + 1
+            self._key_hits.setdefault(key, 0)
+            self._hex_key[key.hex()[:_kvdir.HEX_KEY_CHARS]] = key
+            if position > 0:
+                parent = keys[position - 1]
+                self._parent[key] = parent
+                self._children[parent] = self._children.get(parent, 0) + 1
+            self._evictable[key] = block
+        return needed
+
+    def drop_adapter_pages(self, name: str) -> int:
+        """Purge ``name``'s page chain from every tier (weights replaced
+        under the same name: stale bytes must never warm-load).  A plain
+        unload does NOT call this: pages left resident are the warm pool."""
+        dropped = 0
+        for key in _kvadp.adapter_key_iter(name):
+            if self._key_seed.get(key) != _kvadp.ADAPTER_SEED:
+                break
+            block = self._index.get(key)
+            if block is not None:
+                if self._refs.get(block, 0) or block in self._producing:
+                    break          # never yank a busy page
+                self._purge_cached(key, block)
+            elif key in self._host:
+                entry = self._host.pop(key)
+                self._purge_host_entry(key, entry)
+                self._host_release(entry)
+            elif key in self._spill:
+                self._purge_spill_entry(key, self._spill.pop(key))
+            else:
+                break
+            dropped += 1
+        if dropped:
+            self.digest_epoch += 1
+        return dropped
+
+    def _adapter_page_bytes(self, key) -> Optional[np.ndarray]:
+        """One page's payload bytes from whichever tier holds it (pool rows,
+        a host entry's rows and the spill store's wire rows all decode to
+        the same bytes); None when absent or checksum-tripped."""
+        layout = _kvxfer._field_layout(self)
+        block = self._index.get(key)
+        if block is not None and block not in self._producing:
+            rows = _kvxfer.gather_block_rows(self, [block])
+            return _lorapg.row_dict_to_payload(
+                {field: stack[0] for field, stack in rows.items()}, layout)
+        entry = self._host.get(key)
+        if entry is not None:
+            return _lorapg.row_dict_to_payload(entry["rows"], layout)
+        if key in self._spill:
+            rows = self._spill_rows(key)
+            if rows is not None:
+                return _lorapg.row_dict_to_payload(rows, layout)
+        return None
+
+    def fetch_adapter_bytes(self, name: str) -> Optional[np.ndarray]:
+        """Reassemble ``name``'s packed stream from pages in any mix of
+        tiers.  Page 1's header bounds the walk; any missing page gives
+        None (a cold load: a partly purged chain never yields bytes)."""
+        first = self._adapter_page_bytes(_kvadp.adapter_page_key(name, 0))
+        if first is None:
+            return None
+        try:
+            header_nbytes, payload_nbytes, _config = \
+                _lorapg.parse_header(first)
+        except ValueError:
+            return None
+        total = header_nbytes + payload_nbytes
+        count = _lorapg.page_count(
+            total, _lorapg.page_payload_nbytes(_kvxfer._field_layout(self)))
+        pages = [first]
+        for position in range(1, count):
+            page = self._adapter_page_bytes(
+                _kvadp.adapter_page_key(name, position))
+            if page is None:
+                return None
+            pages.append(page)
+        for key in _kvadp.adapter_chain_keys(name, count):
+            self._key_hits[key] = self._key_hits.get(key, 0) + 1
+        return _lorapg.join_pages(pages)[:total]
+
+    def _fetch_adapter_pages(self, name: str):
+        """Layout hook, the warm :meth:`load_adapter` path: ``(lora_params,
+        LoRAConfig)`` from the resident pages, or None (cold)."""
+        data = self.fetch_adapter_bytes(name)
+        if data is None:
+            return None
+        return _lorapg.unpack_adapter(self.config, data)
+
+    def adapter_residency(self, name: str) -> Optional[int]:
+        """Worst tier across ``name``'s resident page chain (0 device, 1
+        host, 2 disk), or None when page 1 is gone."""
+        worst = None
+        for key in _kvadp.adapter_key_iter(name):
+            if self._key_seed.get(key) != _kvadp.ADAPTER_SEED:
+                break
+            if key in self._index:
+                tier = 0
+            elif key in self._host:
+                tier = 1
+            elif key in self._spill:
+                tier = 2
+            else:
+                break
+            worst = tier if worst is None else max(worst, tier)
+        return worst
+
+    # ------------------------------------------------------------- #
     # Admission: append attention into the block chain
 
     def _tables_row(self, slot: int):
@@ -1170,10 +1384,10 @@ class PagedContinuousServer(ContinuousBatchingServer):
             n_total = prompt_padded.shape[1] // self.block_size
             for block in self._owned[slot][n_shared:n_total]:
                 produced[block] = index
-            plans.append((slot, prompt_padded, n_shared))
+            plans.append((slot, request, prompt_padded, n_shared))
         independent, dependent = [], []
         for index, plan in enumerate(plans):
-            slot, _, n_shared = plan
+            slot, _, _, n_shared = plan
             deps = {produced[block] for block in self._owned[slot][:n_shared]
                     if block in produced and produced[block] != index}
             (dependent if deps else independent).append((index, plan, deps))
@@ -1185,15 +1399,16 @@ class PagedContinuousServer(ContinuousBatchingServer):
             self._append_prefill(*plan)
             ran.add(index)
 
-    def _append_prefill(self, slot: int, prompt_padded,
+    def _append_prefill(self, slot: int, request, prompt_padded,
                         n_shared: int) -> None:
-        """Prefill one admitted prompt past its shared prefix, the
-        uncached tail in descending power-of-two pieces (log-many shapes
-        per bucket)."""
+        """Prefill one admitted prompt past its shared prefix (under the
+        request's adapter), the uncached tail in descending power-of-two
+        pieces (log-many shapes per bucket)."""
         self._pending_shared[slot] = 0
         block_size = self.block_size
         kv_limit = prompt_padded.shape[1] // block_size
         tables_row = self._tables_row(slot)
+        lora = self._request_lora(request)
         start = n_shared * block_size
         # A migration resume on the source's tail has nothing to prefill.
         remaining = 0 if slot in self._resumed else kv_limit - n_shared
@@ -1204,7 +1419,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             llama.prefill_append_paged(
                 self.params, self._upload(prompt_padded[:, start:start + width]),
                 self.pool, tables_row, start, self.config,
-                kv_limit=kv_limit, compute_logits=False)
+                kv_limit=kv_limit, compute_logits=False, lora=lora)
             self._note_prefill(width)
             start += width
             remaining -= size
@@ -1236,6 +1451,10 @@ class PagedContinuousServer(ContinuousBatchingServer):
         for block in self._owned[slot][n_shared:n_total]:
             if block in self._block_key:
                 self._producing[block] = slot
+        # The adapter id must be resident BEFORE the first mixed dispatch,
+        # which slices the prefilling row's id out of the device state; the
+        # slot is decode-inactive, so the early id is otherwise inert.
+        self._adapter_ids[slot] = self._adapter_id(request)
         self._dirty[slot] = True
         self._prefilling[slot] = dict(
             request=request, prompt_padded=prompt_padded,
@@ -1270,7 +1489,8 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 self.params,
                 self._upload(state["prompt_padded"][:, start:start + width]),
                 self.pool, self._tables_row(slot), start, self.config,
-                kv_limit=state["kv_limit"], compute_logits=False)
+                kv_limit=state["kv_limit"], compute_logits=False,
+                lora=self._request_lora(state["request"]))
             state["start"] = start + width
             self._note_prefill(width)
             if state["start"] >= state["prompt_len"]:
@@ -1288,7 +1508,9 @@ class PagedContinuousServer(ContinuousBatchingServer):
         """Run every pow2 slice width up to ``chunk_prefill_tokens`` for
         every prompt bucket's ``kv_limit`` once against the scratch block
         (a zero table row), so the first long admission finds the card's
-        libraries and allocator warm.  Returns the dispatches run."""
+        libraries and allocator warm; with adapters stacked, each width
+        also runs under the identity adapter (id 0).  Returns the
+        dispatches run."""
         if self.slots_active or self._ring or self._prefilling:
             raise RuntimeError(
                 "warm_prefill_ladder must run on an idle engine")
@@ -1301,19 +1523,27 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 bucket *= 2
         tables_row = self._upload(np.zeros((1, self.tables.shape[1]),
                                            np.int32))
+        loras = [None]
+        if self._lora_shared is not None:
+            loras.append(dict(self._lora_shared, ids=self._upload(
+                np.zeros((1,), np.int32))))
         dispatched = 0
         for bucket in buckets:
             width = self.block_size
             while width <= min(self.chunk_prefill_tokens, bucket):
-                llama.prefill_append_paged(
-                    self.params, self._upload(np.zeros((1, width), np.int32)),
-                    self.pool, tables_row, 0, self.config,
-                    kv_limit=bucket // self.block_size, compute_logits=False)
-                dispatched += 1
+                for lora in loras:
+                    llama.prefill_append_paged(
+                        self.params,
+                        self._upload(np.zeros((1, width), np.int32)),
+                        self.pool, tables_row, 0, self.config,
+                        kv_limit=bucket // self.block_size,
+                        compute_logits=False, lora=lora)
+                    dispatched += 1
                 width *= 2
         return dispatched
 
-    def _serve_chunk(self, state, steps: int, eos_id: int, sampled: bool):
+    def _serve_chunk(self, state, steps: int, eos_id: int, sampled: bool,
+                     lora_shared=None):
         """Decode dispatch, MIXED while a chunked admission is in flight:
         the oldest prefilling slot's next slice and the decode chunk run
         in one call (:func:`~..models.llama.serve_chunk_mixed`)."""
@@ -1323,7 +1553,8 @@ class PagedContinuousServer(ContinuousBatchingServer):
             tokens_d, counts_d, new_state, self.pool = \
                 llama.serve_chunk_paged(
                     self.params, state, self.pool, steps, self.config,
-                    eos_id=eos_id, sampled=sampled, generator=generator)
+                    eos_id=eos_id, sampled=sampled, generator=generator,
+                    lora_shared=lora_shared)
             return tokens_d, counts_d, new_state
         prefill = self._prefilling[slot]
         start = prefill["start"]
@@ -1332,7 +1563,8 @@ class PagedContinuousServer(ContinuousBatchingServer):
             self.params, state, self.pool,
             self._upload(prefill["prompt_padded"][:, start:start + width]),
             slot, start, steps, self.config, eos_id=eos_id, sampled=sampled,
-            generator=generator, prefill_kv_limit=prefill["kv_limit"])
+            generator=generator, prefill_kv_limit=prefill["kv_limit"],
+            lora_shared=lora_shared)
         prefill["start"] = start + width
         self._note_prefill(width)
         self.counters["prefill_slices_mixed"] += 1
@@ -1343,14 +1575,15 @@ class PagedContinuousServer(ContinuousBatchingServer):
     # ------------------------------------------------------------- #
     # Speculative decoding on the paged layout
 
-    def _spec_verify(self, st, chunk):
+    def _spec_verify(self, st, chunk, lora=None):
         """Pool-direct verify: the (slots, k+1) window's K/V append straight
-        into each slot's table-resolved blocks at its own position, and the
-        logits come back for the acceptance kernel.  Inactive rows (chunked
-        prefills in flight, free slots) write nothing."""
+        into each slot's table-resolved blocks at its own position (adapter
+        rows under their adapters), and the logits come back for the
+        acceptance kernel.  Inactive rows (chunked prefills in flight, free
+        slots) write nothing."""
         logits, self.pool = llama.verify_chunk_paged(
             self.params, chunk, self.pool, st["tables"], st["positions"],
-            st["active"], self.config)
+            st["active"], self.config, lora=lora)
         return logits
 
     def _note_spec_rollback(self, slot: int, advance: int,
@@ -1424,19 +1657,27 @@ class PagedContinuousServer(ContinuousBatchingServer):
                       migrating: bool = False) -> str:
         """Compact advertisement of this replica's cached prefix blocks
         for the cluster directory (the ``kv_prefixes`` share value):
-        content-complete (not producing) base-model chains, hottest +
-        deepest first, capped at ``max_entries``.  Host-tier entries
-        advertise ``tier=1``, spilled ones ``tier=2`` (plus the adopted
-        flag for warm-restart survivors)."""
+        content-complete (not producing) base-model chains plus one flagged
+        root entry a warm adapter page chain, hottest + deepest first,
+        capped at ``max_entries``.  Host-tier entries advertise
+        ``tier=1``, spilled ones ``tier=2`` (plus the adopted flag for
+        warm-restart survivors)."""
         entries = []
 
         def _entry(key, refs, tier, adopted=0):
-            if self._key_seed.get(key, 0) != 0:
-                return           # adapter chains never leave the replica
-            entries.append((key.hex()[:_kvdir.HEX_KEY_CHARS],
-                            self._depth.get(key, 0), refs,
+            # Per-request adapter KV never leaves the replica; adapter
+            # pages advertise their chain ROOT only, flagged in the 8th
+            # field (page 1 implies the chain).
+            seed = self._key_seed.get(key, 0)
+            if seed > 0:
+                return
+            adapter = seed == _kvadp.ADAPTER_SEED
+            depth = self._depth.get(key, 0)
+            if adapter and depth != 1:
+                return
+            entries.append((key.hex()[:_kvdir.HEX_KEY_CHARS], depth, refs,
                             self._key_hits.get(key, 0), tier, adopted, 0,
-                            0))
+                            int(adapter)))
 
         for key, block in self._index.items():
             if block in self._producing:
@@ -1458,10 +1699,11 @@ class PagedContinuousServer(ContinuousBatchingServer):
         ships — in the prefix index, making it resolvable by ``kv_export``
         like a retired chain.  Returns the number of exportable blocks (0
         = nothing shippable: cache off or a chain shorter than one
-        block).  Registered blocks carry the slot's ref like any
+        block, or an adapter request's chain: adapter chains never cross
+        replicas).  Registered blocks carry the slot's ref like any
         admission-registered key, so ``_release_slot`` at the request's
         retirement leaves them cached-evictable."""
-        if not self.enable_prefix_cache:
+        if not self.enable_prefix_cache or self._adapter_id(request) != 0:
             return 0
         self.digest_epoch += 1
         # Settle the in-flight ring so ``request.tokens`` (and the pool

@@ -1439,7 +1439,7 @@ def make_llama_infer(config_name: str = "tiny", quantize: bool = False,
     (int8 when ``quantize``).  ``device``: where the model runs — the
     card unless the caller names another.  ``checkpoint`` (serving
     trained weights from a safetensors directory) needs the weight
-    importer, which is not ported yet."""
+    importer's ``import_llama`` (item 9c), which is not ported yet."""
     import torch
 
     from ..device import resolve_device
@@ -1448,8 +1448,9 @@ def make_llama_infer(config_name: str = "tiny", quantize: bool = False,
 
     if checkpoint:
         raise NotImplementedError(
-            "make_llama_infer(checkpoint=...) needs tools/import_weights.py"
-            " (the safetensors importer), which is not ported yet")
+            "make_llama_infer(checkpoint=...) needs import_llama of "
+            "tools/import_weights.py (ROADMAP queue 1 item 9c), which is not "
+            "ported yet")
     device = resolve_device(device)
     config = llama.CONFIGS[config_name]
     if params is None:
@@ -1543,11 +1544,65 @@ def make_speculative_infer(target_config="small", draft_config="tiny",
     return infer
 
 
-def make_constrained_infer(*_args, **_kwargs) -> Callable:
-    """The JAX package's grammar-constrained ``infer`` factory.  It needs
-    ``models/constrained.py`` (the token automata and
-    ``constrained_generate``), which is not ported yet."""
-    raise NotImplementedError(
-        "make_constrained_infer needs models/constrained.py "
-        "(constrained_generate and the token automata), which is not "
-        "ported yet")
+def make_constrained_infer(config_name: str = "tiny", automaton=None,
+                           quantize: bool = False,
+                           max_new_tokens: int = 16, seed: int = 0,
+                           temperature: float = 0.0, params=None,
+                           device=None) -> Callable:
+    """Build a ModelReplica ``infer`` callable whose outputs are guaranteed
+    grammatical: a token DFA masks every decode step
+    (:func:`~..models.constrained.constrained_generate`), so the replica
+    can ONLY emit sequences the grammar accepts.  Responses carry
+    ``tokens_out`` (each row the grammatical output followed by
+    ``pad_token`` zeros once its state went terminal) and per-row
+    ``accepted`` flags.
+
+    ``params``: the weights to serve (a test passes bridged weights);
+    without them random weights from ``seed`` (int8 when ``quantize``).
+    ``device``: the card unless the caller names another.  A sampled
+    request (``temperature`` > 0) draws from a generator seeded with the
+    request's ``seed``."""
+    import torch
+
+    from ..device import resolve_device
+    from ..models import llama
+    from ..models.constrained import constrained_generate
+    from ..ops.paged_attention import contiguous_rows
+
+    if automaton is None:
+        raise ValueError("make_constrained_infer requires automaton=")
+    config = llama.CONFIGS[config_name]
+    if automaton.vocab != config.vocab_size:
+        raise ValueError(
+            f"automaton vocab {automaton.vocab} != model vocab "
+            f"{config.vocab_size}")
+    device = resolve_device(device)
+    if params is None:
+        params = llama.init_params(config, seed=seed, device=device)
+        if quantize:
+            params = llama.quantize_params(params)
+    # Device-resident once: re-uploading (n_states, vocab) masks per
+    # request would put a host transfer on the serving path.
+    allowed = torch.as_tensor(automaton.allowed, device=device)
+    next_state = torch.as_tensor(automaton.next_state.astype(np.int64),
+                                 device=device)
+
+    def infer(inputs: Dict) -> Dict:
+        request = _coerce_request(inputs, config, max_new_tokens, device)
+        if isinstance(request, dict):
+            return request
+        tokens, prompt_len, new = request
+        cache = llama.init_cache(config, tokens.shape[0],
+                                 contiguous_rows(prompt_len + new),
+                                 device=device)
+        logits, cache = llama.prefill(params, tokens, cache, config)
+        generator = torch.Generator(device=device).manual_seed(
+            int(np.asarray(inputs.get("seed", 0))))
+        out, states, _ = constrained_generate(
+            params, logits[:, -1], cache, prompt_len, new, config, allowed,
+            next_state, temperature=temperature, generator=generator)
+        accepted = automaton.accepting[states.cpu().numpy()]
+        return {"tokens_out": out.cpu().numpy(),
+                "accepted": accepted.astype(np.int32)}
+
+    return infer

@@ -11,9 +11,12 @@ routing), :func:`run_chaos` (zero lost requests under a replica kill),
 a control run), :func:`run_elastic` / :func:`run_elastic_chaos` /
 :func:`run_rolling_upgrade` (a fleet owned by the
 :class:`~..orchestration.autoscaler.FleetAutoscaler`), :func:`run_longtail`
-(the host tier's capacity A/B) and :func:`run_restart` /
+(the host tier's capacity A/B), :func:`run_restart` /
 :func:`run_restart_ab` (a warm restart from the spill directory against a
-cold one).  Each stands up a Registrar, its
+cold one), :func:`run_structured` (grammar-constrained agentic traffic
+with jump-forward, against the same payloads free) and
+:func:`run_multitenant` (adapter-aware routing against adapter-blind,
+over zipf-popular LoRA tenants).  Each stands up a Registrar, its
 :class:`~..orchestration.continuous.ContinuousReplica` s and a
 :class:`~..orchestration.serving.ReplicaRouter` on one loopback broker and
 one engine thread, and builds its servers through ``make_server(name)``
@@ -29,10 +32,8 @@ as ``PagedContinuousServer(config_name, params=params, device=device, …)``
 Open-loop: requests are posted on schedule regardless of completions
 (late responses still count; missing ones surface as ``timeouts``).
 
-Not ported yet, each with the module it needs (:data:`UNPORTED_MODES`):
-the multi-tenant rig (``models/lora.py``), the structured rig
-(``models/constrained.py``) and :func:`run_compile_cache_ab` (the kernel
-build cache).
+Not ported yet: :func:`run_compile_cache_ab` (the kernel build cache,
+``ROADMAP.md`` queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ __all__ = ["LoadGenerator", "LoadReport", "PHASES", "chaos_schedule",
            "run_elastic", "run_elastic_chaos", "run_longtail",
            "run_migration_chaos", "run_restart", "run_restart_ab",
            "run_rolling_upgrade", "run_shared_prefix", "run_spec_ab",
-           "shared_prefix_payloads"]
+           "shared_prefix_payloads", "command_automaton",
+           "structured_payloads", "run_structured", "multitenant_payloads",
+           "run_multitenant"]
 
 #: Per-phase latency keys the replicas stamp on responses, in report
 #: order (``kv_restore`` is the cross-replica transfer phase).
@@ -1953,19 +1956,298 @@ def run_spec_ab(spec_k: int = 4, n_requests: int = 24,
     return base, spec
 
 
-#: CLI modes of the JAX package's load generator that the port does not
-#: run yet, each with what it needs.
-UNPORTED_MODES = {
-    "multitenant": "models/lora.py (the LoRA adapters and their pages)",
-    "structured": "models/constrained.py (the token automata and "
-                  "constrained_generate)",
-}
+def command_automaton(vocab: int = 1024):
+    """Token grammar of the structured workload's agentic "tool call": a
+    JSON-shaped command ``{ "action" : VERB , "args" : [ ARG{0..2} ] }``
+    where every skeleton token (braces, key names, colons, commas) is the
+    SOLE legal token of its state.  Those states chain into deterministic
+    segments the jump-forward path commits with no model choice: of the
+    8-11 generated tokens only the verb and args are the model's.  Token
+    ids 3-17, so any vocabulary of 18 or more takes it."""
+    from ..models.constrained import automaton_from_rules
+
+    LBRACE, KEY_ACTION, COLON, COMMA = 10, 11, 12, 13
+    KEY_ARGS, LBRACK, RBRACK, RBRACE = 14, 15, 16, 17
+    VERBS, ARGS = (3, 4, 5), (6, 7, 8, 9)
+    return automaton_from_rules(
+        vocab=vocab,
+        rules={
+            0: [((LBRACE,), 1)],
+            1: [((KEY_ACTION,), 2)],      # forced: "action"
+            2: [((COLON,), 3)],           # forced: :
+            3: [(VERBS, 4)],              # the model picks the verb
+            4: [((COMMA,), 5)],           # forced: ,
+            5: [((KEY_ARGS,), 6)],        # forced: "args"
+            6: [((COLON,), 7)],           # forced: :
+            7: [((LBRACK,), 8)],          # forced: [
+            8: [(ARGS, 9), ((RBRACK,), 10)],
+            9: [(ARGS, 11), ((RBRACK,), 10)],
+            11: [((RBRACK,), 10)],        # forced: ] (args capped)
+            10: [((RBRACE,), 12)],        # forced: }
+            12: [],                       # terminal
+        },
+        accepting=[12])
 
 
-def _unported(mode: str) -> None:
-    raise NotImplementedError(
-        f"loadgen {mode} needs {UNPORTED_MODES[mode]}, which is not "
-        "ported yet")
+def structured_payloads(n_contexts: int = 3, context_len: int = 32,
+                        tail_len: int = 8, max_new_tokens: int = 16,
+                        vocab: int = 1024, seed: int = 0,
+                        constrained: bool = True) -> Callable[[int], Dict]:
+    """Agentic structured-output traffic (the JAX rig's payloads):
+    ``n_contexts`` shared "tool context" prefixes (the scaffold every turn
+    re-sends: prefix-cache food), each followed by a fresh observation
+    tail, answered with a grammar-constrained command
+    (``automaton="cmd"``), greedy.  ``constrained=False`` sends the same
+    sequence without the automaton field: the free side of the A/B."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    contexts = [rng.randint(1, vocab, size=context_len).astype(np.int32)
+                for _ in range(n_contexts)]
+
+    def payload_fn(index: int) -> Dict:
+        context = contexts[index % n_contexts]
+        tail = np.asarray(
+            [1 + (7451 * (index + 1) + 17 * position) % (vocab - 1)
+             for position in range(tail_len)], np.int32)
+        payload = {"tokens": np.concatenate([context, tail]),
+                   "max_new_tokens": max_new_tokens, "temperature": 0.0}
+        if constrained:
+            payload["automaton"] = "cmd"
+        return payload
+
+    return payload_fn
+
+
+def run_structured(n_requests: int = 24, rate_hz: float = 50.0,
+                   spec_k: int = 4, draft_mode: str = "ngram",
+                   chaos: bool = False, drain_timeout_s: float = 90.0,
+                   seed: int = 0, make_server: Optional[Callable] = None,
+                   config_name: str = "tiny", params=None, device=None,
+                   payload_kwargs: Optional[Dict] = None
+                   ) -> Tuple[LoadReport, LoadReport]:
+    """Structured-output gate: the SAME seeded agentic payload sequence
+    (:func:`structured_payloads`, with ``payload_kwargs``) through a
+    2-replica paged rig with :func:`command_automaton` registered as
+    ``"cmd"``, once grammar-constrained and once free; returns
+    ``(constrained_report, free_report)``.  Raises unless every
+    constrained final is accepted by the grammar (chaos replays included:
+    half-committed automaton state leaking across a re-dispatch would show
+    here).  The reports carry ``spec_stats`` (``spec_jump_forward_tokens``:
+    the skeleton's forced segments committed through verify windows) and
+    the pair gives the constrained-against-free tokens/s.  ``chaos=True``
+    arms :func:`chaos_schedule` on both sides.  ``make_server(name)``
+    builds each pass's servers (with ``automata={"cmd": ...}`` and
+    speculation); without it ``PagedContinuousServer`` s of
+    ``config_name`` on ``params`` and ``device`` (``draft_mode`` "ngram"
+    runs model-free; "model" a paired draft)."""
+    from ..runtime import faults
+
+    payload_kwargs = dict(payload_kwargs or {})
+    vocab = payload_kwargs.get("vocab", 1024)
+    automaton = command_automaton(vocab)
+    if make_server is None:
+        def make_server(_name: str):
+            from ..orchestration.paged import PagedContinuousServer
+            server = PagedContinuousServer(
+                config_name=config_name, params=params, device=device,
+                slots=2, chunk_steps=4, seed=0, enable_prefix_cache=True,
+                max_queue=256, watchdog_s=5.0, draft_mode=draft_mode,
+                draft_config_name=(config_name if draft_mode == "model"
+                                   else None),
+                spec_k=spec_k, automata={"cmd": automaton})
+            if draft_mode == "model":
+                _enable_paired_draft(server, spec_k)
+            return server
+
+    def one_pass(constrained: bool) -> LoadReport:
+        plan = faults.install(chaos_schedule(seed)) if chaos else None
+        try:
+            with fleet("structured", make_server, kv_transfer=True) as rig:
+                router, servers = rig.router, list(rig.servers.values())
+                generator = LoadGenerator(
+                    rig.make_process(9), f"{router.topic_path}/in",
+                    payload_fn=structured_payloads(
+                        seed=seed, constrained=constrained,
+                        **payload_kwargs),
+                    rate_hz=rate_hz)
+                report = generator.run(n_requests,
+                                       drain_timeout_s=drain_timeout_s)
+                generator.close()
+                report.final_tokens = dict(generator.final_tokens)
+                report.fleet_latency_ms = fleet_latency(servers)
+                report.spec_stats = _fleet_spec_stats(servers)
+                report.spec_accept_hist = dict(generator.spec_accept_hist)
+                report.server_stats = dict(router.counters)
+                if plan is not None:
+                    report.server_stats["faults_fired"] = len(plan.fired)
+                return report
+        finally:
+            if chaos:
+                faults.uninstall()
+
+    cons = one_pass(constrained=True)
+    free = one_pass(constrained=False)
+    bad = [request_id for request_id, tokens
+           in sorted(cons.final_tokens.items())
+           if not automaton.accepts(list(tokens))]
+    if bad:
+        raise AssertionError(
+            f"structured workload: {len(bad)}/{len(cons.final_tokens)} "
+            f"constrained finals ungrammatical (seed={seed}, "
+            f"chaos={chaos}), first {bad[0]}")
+    if not cons.final_tokens:
+        raise AssertionError(
+            "structured workload: zero constrained finals, the grammar gate "
+            "proved nothing")
+    return cons, free
+
+
+def multitenant_payloads(n_adapters: int = 4, zipf_s: float = 1.2,
+                         prompt_len: int = 12, max_new_tokens: int = 4,
+                         vocab: int = 1024, seed: int = 0,
+                         schedule_len: int = 4096) -> Callable[[int], Dict]:
+    """Multi-tenant traffic (the JAX rig's payloads): every request names
+    one of ``n_adapters`` tenants' adapters, drawn from a zipf-shaped
+    popularity (``weight ∝ 1 / rank^zipf_s``: a few hot tenants, a long
+    tail), on per-request prompts with NO shared prefix, so the A/B
+    isolates adapter locality from prefix locality."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    weights = 1.0 / np.arange(1, n_adapters + 1) ** zipf_s
+    weights /= weights.sum()
+    schedule = rng.choice(n_adapters, size=schedule_len, p=weights)
+
+    def payload_fn(index: int) -> Dict:
+        which = int(schedule[index % schedule_len])
+        prompt = np.asarray(
+            [1 + (7919 * (index + 1) + 31 * position) % (vocab - 1)
+             for position in range(prompt_len)], np.int32)
+        return {"tokens": prompt, "max_new_tokens": max_new_tokens,
+                "adapter": f"tenant-{which}"}
+
+    return payload_fn
+
+
+def _noisy_loadgen_adapter(config, lora_config, seed: int):
+    """A host-side random adapter whose B factors are non-zero (a fresh
+    adapter is an exact no-op): numpy only, the JAX rig's draws, so the
+    rig mints tenants without touching the device."""
+    import numpy as np
+
+    from ..models.lora import factor_dims
+    rng = np.random.RandomState(seed)
+    in_dims, out_dims = factor_dims(config)
+    layers = []
+    for _ in range(config.n_layers):
+        layer = {}
+        for target in lora_config.targets:
+            layer[target] = {
+                "a": (rng.randn(in_dims[target], lora_config.rank)
+                      * in_dims[target] ** -0.5).astype(np.float32),
+                "b": (rng.randn(lora_config.rank, out_dims[target])
+                      * 0.05).astype(np.float32)}
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def run_multitenant(n_requests: int = 32, rate_hz: float = 25.0,
+                    n_adapters: int = 4, zipf_s: float = 1.2,
+                    adapter_aware: bool = True, warmup_requests: int = 8,
+                    drain_timeout_s: float = 120.0, seed: int = 0,
+                    make_server: Optional[Callable] = None,
+                    config_name: str = "tiny", params=None, device=None,
+                    lora_config=None,
+                    payload_kwargs: Optional[Dict] = None) -> LoadReport:
+    """Warm-adapter-routing A/B rig: TWO paged replicas, each holding HALF
+    the tenants' adapters (evens on ``replica_a``, odds on ``replica_b``:
+    every adapter warm on exactly one replica), behind the adapter-aware
+    router (``adapter_affinity=1``) or the adapter-blind baseline (0: P2C,
+    never reading the adapter field).  The blind router lands about half
+    the zipf-distributed requests on the WRONG replica, each an
+    ``unknown_adapter`` rejection the client must answer with a re-upload
+    (``adapter_cold_starts``); the aware one reads adapter residency off
+    the same prefix digests and must take ZERO.
+
+    ``make_server(name)`` builds a replica's server; the rig then loads
+    its tenants (``_noisy_loadgen_adapter`` of ``lora_config``, default
+    rank 4 on ``wq``/``wv``, seeds 100 + tenant).  Without it
+    ``PagedContinuousServer`` s of ``config_name`` on ``params`` and
+    ``device`` at the JAX rig's shape.  ``payload_kwargs`` go to
+    :func:`multitenant_payloads`.  The report's ``final_tokens`` and
+    ``final_adapters`` (request id -> tenant) let a caller hold every
+    final to its oracle."""
+    from ..kvstore.adapters import adapter_hex
+    from ..models import llama
+    from ..models.lora import LoRAConfig
+
+    lora_config = lora_config or LoRAConfig(rank=4, alpha=8.0,
+                                            targets=("wq", "wv"))
+    config = llama.CONFIGS[config_name]
+    if make_server is None:
+        def make_server(_name: str):
+            from ..orchestration.paged import PagedContinuousServer
+            return PagedContinuousServer(
+                config_name=config_name, params=params, device=device,
+                slots=4, max_seq=64, chunk_steps=4, seed=0,
+                enable_prefix_cache=True, total_blocks=96, max_queue=256,
+                watchdog_s=10.0)
+    names = ("replica_a", "replica_b")
+
+    def build(name: str):
+        server = make_server(name)
+        # Home placement: each tenant's factors are paged (and
+        # digest-advertised) on exactly one replica, so routing alone
+        # decides warm against cold.
+        for tenant in range(names.index(name), n_adapters, 2):
+            server.load_adapter(
+                f"tenant-{tenant}",
+                _noisy_loadgen_adapter(config, lora_config,
+                                       seed=100 + tenant),
+                lora_config)
+        return server
+
+    payload_fn = multitenant_payloads(n_adapters=n_adapters, zipf_s=zipf_s,
+                                      seed=seed, **(payload_kwargs or {}))
+    with fleet("mtenant", build, names=names,
+               adapter_affinity=1.0 if adapter_aware else 0.0) as rig:
+        router, servers = rig.router, list(rig.servers.values())
+        hexes = [adapter_hex(f"tenant-{t}") for t in range(n_adapters)]
+        _wait_for(lambda: all(
+            router.directory.adapter_owners(h, router.process.event.now())
+            for h in hexes), 30,
+            "mtenant rig: adapter residency in the fleet's digests")
+        generator = LoadGenerator(rig.make_process(9),
+                                  f"{router.topic_path}/in",
+                                  payload_fn=payload_fn, rate_hz=rate_hz)
+        if warmup_requests:
+            generator.run(warmup_requests, drain_timeout_s=drain_timeout_s)
+            for counter in ("adapter_warm_routes", "adapter_cold_routes"):
+                router.counters[counter] = 0
+        report = generator.run(n_requests, drain_timeout_s=drain_timeout_s)
+        generator.close()
+        report.adapter_cold_starts = \
+            report.error_kinds.get("unknown_adapter", 0)
+        report.adapter_warm_routes = \
+            router.counters.get("adapter_warm_routes", 0)
+        report.adapter_cold_routes = \
+            router.counters.get("adapter_cold_routes", 0)
+        report.final_tokens = dict(generator.final_tokens)
+        # Request ids are ``lg<run>_<index>``; the payloads are the
+        # deterministic ``payload_fn(index)``.
+        report.final_adapters = {
+            request_id: payload_fn(int(request_id.rsplit("_", 1)[1]))
+            ["adapter"] for request_id in report.final_tokens}
+        totals = _fleet_kv_stats(servers)
+        _attach_kv_rates(report, totals)
+        _attach_pool_census(report, servers)
+        report.server_stats = dict(router.counters, **{
+            key: sum(server.stats().get(key, 0) for server in servers)
+            for key in ("adapter_warm_loads", "adapter_cold_loads",
+                        "adapter_pages_hbm", "adapter_pages_host",
+                        "adapter_pages_disk")})
+        return report
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -1974,8 +2256,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ``--elastic-chaos``, ``--migrate-mid-stream``, ``--rolling-upgrade``,
     ``--restart-replica``, ``--spec-k K`` (the speculative A/B, under
     the chaos schedule with ``--chaos``) or ``--workload shared_prefix|
-    diurnal|longtail``.  Every rig serves ``tiny`` with random weights from the
-    seed on the card, or on the CPU with ``--device cpu``."""
+    diurnal|longtail|structured|multitenant``.  Every rig serves ``tiny``
+    with random weights from the seed on the card, or on the CPU with
+    ``--device cpu``."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -2009,6 +2292,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                         choices=["shared_prefix", "diurnal", "longtail",
                                  "structured", "multitenant"],
                         help="named workload profile (in-process rig)")
+    parser.add_argument("--tenants", type=int, default=4,
+                        help="multitenant: distinct LoRA adapters "
+                             "(tenants), half warm on each replica")
+    parser.add_argument("--zipf-s", type=float, default=1.2,
+                        help="multitenant: zipf exponent of adapter "
+                             "popularity")
+    parser.add_argument("--draft-mode", default="ngram",
+                        choices=["ngram", "model"],
+                        help="structured: proposer for the free rows")
+    parser.add_argument("--structured-k", type=int, default=4,
+                        help="structured: speculation window (jump-forward "
+                             "segments ride it)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=40)
     parser.add_argument("--rate-hz", type=float, default=100.0)
@@ -2064,9 +2359,46 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "outputs, report acceptance histograms "
                              "(with --chaos: under the fault schedule)")
     args = parser.parse_args(argv)
-    if args.workload in ("structured", "multitenant"):
-        _unported(args.workload)
     serving = dict(device=args.device)
+    if args.workload == "structured":
+        cons, free = run_structured(
+            n_requests=args.requests, rate_hz=args.rate_hz,
+            spec_k=args.structured_k, draft_mode=args.draft_mode,
+            chaos=args.chaos, seed=args.seed, **serving)
+        print("constrained:", cons)
+        print("free:", free)
+        jump = (cons.spec_stats or {}).get("spec_jump_forward_tokens", 0)
+        print(f"structured A/B: constrained {cons.throughput_tps:.1f} tok/s "
+              f"against free {free.throughput_tps:.1f} tok/s; every "
+              f"constrained final grammatical; jump-forward tokens {jump}")
+        if cons.lost or cons.timeouts or not jump:
+            print(f"STRUCTURED FAIL (seed={args.seed}): {cons.lost} lost, "
+                  f"{cons.timeouts} hung, {jump} jump-forward tokens")
+            return 1
+        return 0
+    if args.workload == "multitenant":
+        aware = run_multitenant(
+            n_requests=args.requests, rate_hz=args.rate_hz,
+            n_adapters=args.tenants, zipf_s=args.zipf_s,
+            adapter_aware=True, seed=args.seed, **serving)
+        blind = run_multitenant(
+            n_requests=args.requests, rate_hz=args.rate_hz,
+            n_adapters=args.tenants, zipf_s=args.zipf_s,
+            adapter_aware=False, seed=args.seed, **serving)
+        print("adapter-aware:", aware)
+        print("adapter-blind:", blind)
+        failed = (aware.adapter_cold_starts or aware.lost
+                  or aware.timeouts
+                  or aware.adapter_warm_routes < aware.completed
+                  or blind.adapter_cold_starts == 0)
+        print(f"warm-routing A/B ({args.tenants} tenants, zipf "
+              f"s={args.zipf_s}): aware {aware.adapter_cold_starts} cold "
+              f"starts ({aware.adapter_warm_routes} warm routes) against "
+              f"blind {blind.adapter_cold_starts}")
+        if failed:
+            print(f"MULTITENANT FAIL (seed={args.seed})")
+            return 1
+        return 0
     if args.spec_k:
         base, spec = run_spec_ab(
             spec_k=args.spec_k, n_requests=args.requests,

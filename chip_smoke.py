@@ -52,11 +52,12 @@ Phases (any failure exits non-zero):
    window at positions ~1,025-1,120; then that window at 64 slots (512-row tables,
    bf16 KV, 128-token prompts).
 5. Speculative serving: phase 4's server with spec_k = 4 (SPEC_RUNS):
-   bf16 KV with a paired draft (the target as its own draft), an int8 1b
-   draft under the adaptive controller and n-gram self-drafting, then the
-   paired draft with int8 KV, every greedy token held to phase 4's oracle
-   and the verify's launches held to the spec rounds; the bf16-KV paired
-   run with its steady window.
+   bf16 KV with a paired draft (the target as its own draft), the int8
+   1b draft under the adaptive controller at int8 KV, then the paired
+   draft at int8 KV (n-gram self-drafting on this server shape: phase 13
+   (b)), every greedy token held to phase 4's oracle and the verify's
+   launches held to the spec rounds; the bf16-KV paired run with its
+   steady window.
 6. int4 weights: llama3_8b with random int4 weights built on the card
    (int8 embedding), through the contiguous server (phase 3's traffic
    and steady window, then 64 slots at the JAX bench's int4 shape:
@@ -65,7 +66,7 @@ Phases (any failure exits non-zero):
    verify at m = 40 and the resync at m = 32 through the int4 kernel),
    each held as phases 3-5 are, the launches of both int4 instances exact
    (every prefill slice of m > 64 through the m-tiled one), TTFT p50
-   printed beside the int8 runs', the 64-slot steady step's weight
+   printed beside the int8 runs', and the 64-slot steady step's weight
    matmul ms beside its device ms (int4 and int8), and the paged 64-slot
    steady window.  One line a steady window then sets the graphed step
    beside the eager one (ms, tok/s, busy share, kernels a replay or a
@@ -178,7 +179,7 @@ Phases (any failure exits non-zero):
    chunk_attention and append_kv_ragged launches held to (verify passes +
    prefill chunks) x 32 + resyncs x the draft's layers, the paired draft
    above one token a target pass; (b) speculative_generate (1b draft, a
-   256-token prompt, 128 tokens, 512-row caches) held to the oracle and
+   256-token prompt, 64 tokens, 512-row caches) held to the oracle and
    beside complete(), itself equal to prefill + generate_tokens, the
    sampled loop at 0.8 in the vocabulary and at 0 (given an unaligned
    max_seq of 511) the greedy loop, launches held to the prefill_chunk
@@ -190,6 +191,33 @@ Phases (any failure exits non-zero):
    held to a plain 4,384-row cache (the decode kernel with the window), and
    both caches' memory.
    Prints each part's seconds.
+13. Grammars and adapters (run after phase 11, on phase 4's int8
+   weights; GRAMMAR_LORA_PARTS, scripts/smoke_grammar_lora.py runs it
+   alone): (a) constrained_generate at phase 3's contiguous shape (8 rows
+   of 256 tokens, 16 steps) masked by loadgen's command automaton at
+   llama3_8b's vocabulary: every row grammatical then padded, every token
+   the masked batch-1 oracle's within TIE_GAP, the launches one prefill's
+   and 15 decode steps'; (b) run_structured on two phase-4-shaped
+   replicas handed in, n-gram speculation with spec_k = 4 and the
+   automaton as "cmd", 24 requests constrained then free: every
+   constrained final grammatical, jump-forward tokens committed,
+   constrained tokens held to the masked oracle and free ones to phase
+   4's, the launches the rounds' and slices' (no decode step), then 8
+   sampled constrained requests at 0.9 grammatical; tokens/s constrained
+   against free printed as a figure; (c) a phase-4-shaped server with four
+   rank-8 tenants on wq / wv (non-zero B) loaded at run time (their pages
+   in the pool) on phase 4's 12 requests, every fifth on the base: base
+   rows bitwise the tokens of phase 4's bf16-KV run (an adapter-free
+   server of the same shape on the same schedule), adapter rows held to a
+   batch-1 oracle under their adapter, launches by phase 4's formula; a
+   steady 8-slot graphed window with adapters (step ms beside phase 4's
+   base step, no capture after the fence); tenant-0 unloaded, its pages
+   demoted to the host tier, warm-loaded from them and its request served
+   again to the same tokens; adapter_load / adapter_unload over the wire
+   with packed factor bytes (no safetensors needed); (d) run_multitenant
+   aware then blind on two replicas handed in (each warmed under its home
+   tenants and fenced): 0 cold starts aware, at least one blind, every
+   final held to its tenant's oracle, launches per fleet part.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -219,6 +247,7 @@ card, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1621,9 +1650,9 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
     # around the model's prefill entry point, for the expected counts.
     dispatches, prefill = [], llama.prefill
 
-    def recorded_prefill(params, tokens, cache, config):
+    def recorded_prefill(params, tokens, cache, config, **kwargs):
         dispatches.append(tuple(tokens.shape))
-        return prefill(params, tokens, cache, config)
+        return prefill(params, tokens, cache, config, **kwargs)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1883,11 +1912,11 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     spans, chunk_graph = [], server._chunk_graph
     run = chunk_graph.run
 
-    def timed_run(num_steps, eos_id=-1):
+    def timed_run(num_steps, eos_id=-1, *lora):
         began, ended = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
         began.record()
-        out = run(num_steps, eos_id)
+        out = run(num_steps, eos_id, *lora)
         ended.record()
         spans.append((began, ended, num_steps))
         return out
@@ -1988,9 +2017,9 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
         for i in range(WIDE_SLOTS)]
     dispatches, prefill = [], llama.prefill
 
-    def recorded_prefill(params, tokens, cache, config):
+    def recorded_prefill(params, tokens, cache, config, **kwargs):
         dispatches.append(tuple(tokens.shape))
-        return prefill(params, tokens, cache, config)
+        return prefill(params, tokens, cache, config, **kwargs)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2058,6 +2087,12 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
 
 # --------------------------------------------------------------------------- #
 # Phase 4: the paged server
+
+#: The tokens of phase 4's runs, by (weights label, int8 KV): phase 13 (c)
+#: holds its base rows to the bf16-KV int8 run's, served by an adapter-free
+#: server of its shape on the same schedule.
+PAGED_TOKENS = {}
+
 
 def paged_traffic(np, vocab):
     """Three waves, 12 requests: six share a 1,024-token prefix with tails
@@ -2209,6 +2244,8 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
                                      request.prompt, False, device,
                                      rows=PAGED_MAX_SEQ)
     exact, equal, checked, ties = check_requests(torch, requests, oracle)
+    PAGED_TOKENS[(weights.label, quantize_kv)] = [list(r.tokens)
+                                                  for r in requests]
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
     totals = sorted((r.finished_ts - r.submitted_ts) * 1e3
@@ -2282,21 +2319,11 @@ def spec_traffic(np, vocab, kind):
     """(prompt, temperature) waves.  ``model``: 10 prompts of 64-1,100
     tokens, two sharing a 512-token prefix (the second arrives after the
     first prefilled: a prefix hit); ``adaptive``: six of them; ``short``:
-    five of them (the two sharing the prefix, 64, 1,100 and 300); ``ngram``:
-    five prompts of a 16-token phrase repeated (with a distinct tail), one
-    of them sampled at temperature 0.8, top_p 0.95."""
+    five of them (the two sharing the prefix, 64, 1,100 and 300)."""
     rng = np.random.default_rng(23)
 
     def ints(n):
         return rng.integers(1, vocab, n).astype(np.int32)
-    if kind == "ngram":
-        prompts = []
-        for reps, tail in ((20, 8), (8, 30), (40, 0), (12, 16), (30, 3)):
-            prompts.append(np.concatenate([np.tile(ints(16), reps),
-                                           ints(tail)]))
-        temps = [0.0, 0.8, 0.0, 0.0, 0.0]
-        return [list(zip(prompts[:3], temps[:3])),
-                list(zip(prompts[3:], temps[3:]))]
     prefix = ints(512)
     shared = [np.concatenate([prefix, ints(tail)]) for tail in (64, 200)]
     distinct = [ints(n) for n in (64, 1100, 300, 700, 128, 97, 850, 400)]
@@ -2310,12 +2337,11 @@ def spec_traffic(np, vocab, kind):
             [(shared[1], 0.0)] + [(p, 0.0) for p in distinct[5:]]]
 
 
-#: Phase 5's runs: (draft mode, int8 KV).  The int8-KV adaptive and n-gram
-#: runs were cut to make room for phase 12, whose (a) runs the same
-#: proposers on the contiguous layout (the 1b adaptive and the n-gram at
-#: bf16 KV, the paired draft at int8 KV).
-SPEC_RUNS = (("paired", False), ("adaptive", False), ("ngram", False),
-             ("paired", True))
+#: Phase 5's runs: (draft mode, int8 KV).  The 1b draft under the adaptive
+#: controller runs at int8 KV (the ladder's verify widths on an int8 pool);
+#: the paged n-gram rounds run in phase 13 (b), whose free pass holds every
+#: token to phase 4's oracle and the launches to the rounds and slices.
+SPEC_RUNS = (("paired", False), ("adaptive", True), ("paired", True))
 
 
 def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
@@ -2323,8 +2349,8 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
                steady_plain=None, short=False):
     """PagedContinuousServer as phase 4 (8 slots, 16-row blocks, prefix
     cache, 256-token chunked admission) with spec_k = 4: ``mode`` is
-    "paired" (the target as its own draft), "adaptive" (an independent
-    int8 1b draft, spec_adaptive) or "ngram" (self-drafting).  Every
+    "paired" (the target as its own draft) or "adaptive" (an independent
+    int8 1b draft, spec_adaptive).  Every
     greedy token is held to phase 4's batch-1 oracle, every request must
     finish with 32 tokens in the vocabulary, the pool must balance, and
     the launches of the verify's kernels are held exactly to the spec
@@ -2333,24 +2359,20 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
     made (MatmulShapes).  ``short``: the five-request traffic and no
     steady window."""
     config = llama.CONFIGS["llama3_8b"]
-    draft_name = {"paired": "llama3_8b", "adaptive": "1b"}.get(mode)
+    draft_name = {"paired": "llama3_8b", "adaptive": "1b"}[mode]
     kwargs = dict(config_name="llama3_8b", slots=SLOTS,
                   max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
                   params=params, quantize=True, quantize_kv=quantize_kv,
                   block_size=BLOCK, enable_prefix_cache=True,
-                  chunk_prefill_tokens=CHUNK, spec_k=SPEC_K, device=device)
-    if mode == "ngram":
-        kwargs["draft_mode"] = "ngram"
-    else:
-        kwargs.update(draft_config_name=draft_name, draft_params=draft_params,
-                      spec_adaptive=mode == "adaptive")
+                  chunk_prefill_tokens=CHUNK, spec_k=SPEC_K, device=device,
+                  draft_config_name=draft_name, draft_params=draft_params,
+                  spec_adaptive=mode == "adaptive")
 
     def make_server():
         return server_cls(**kwargs)
     server = make_server()
     server.warm_spec_ladder()          # each rung once on the idle engine
     waves = spec_traffic(np, config.vocab_size,
-                         "ngram" if mode == "ngram" else
                          "adaptive" if mode == "adaptive" else
                          "short" if short else "model")
     widths, core = [], llama._prefill_append_core
@@ -2399,15 +2421,14 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
         fail(f"spec {mode}: {len(widths)} slices recorded, {slices} counted, "
              f"{rounds} rounds")
     layers = config.n_layers
-    draft_layers = llama.CONFIGS[draft_name].n_layers if draft_name else 0
+    draft_layers = llama.CONFIGS[draft_name].n_layers
     want = {"append_kv_ragged": (layers + draft_layers) * rounds,
             "chunk_attention": layers * slices
             + (layers + draft_layers) * rounds,
             "append_kv": layers * slices,
             "flash_attention": draft_layers * len(requests)}
     if mode != "adaptive":
-        # Fixed k: every decode step is a draft proposal step (none at all
-        # when the slot's own history drafts).
+        # Fixed k: every decode step is a draft proposal step.
         want["paged_decode_attention"] = draft_layers * SPEC_K * rounds
     # Every decode step's attention follows its K/V write, one each a layer
     # (the adaptive controller's k varies: the two counts tie).
@@ -2424,9 +2445,8 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
                  f"{expected} (rounds {rounds}, slices {slices}, requests "
                  f"{len(requests)})")
     used = (weights.name, "append_kv", "append_kv_ragged",
-            "chunk_attention") + (() if mode == "ngram" else (
-                "paged_decode_attention", "write_kv_rows",
-                "flash_attention"))
+            "chunk_attention", "paged_decode_attention", "write_kv_rows",
+            "flash_attention")
     for name in used:
         if not launches[name]:
             fail(f"spec {mode}: {name} was never launched")
@@ -2454,7 +2474,7 @@ def serve_spec(torch, np, llama, quant, weights, kernels, server_cls,
                         if quant.int4_kernel_shape(*shape)})
     run = dict(weights=weights.label, kv="int8" if quantize_kv else "bf16",
                mode=mode, int4_kernel_rows=int4_rows, peak_gb=peak_gb,
-               draft=draft_name or "ngram", requests=len(requests),
+               draft=draft_name, requests=len(requests),
                greedy_requests=len(greedy), requests_exact=exact,
                tokens_checked=checked, tokens_equal=equal,
                accepted_near_ties=ties, launches=launches,
@@ -3591,6 +3611,34 @@ def serve_kv_wire(torch, np, llama, weights, kernels, server_cls,
 # --------------------------------------------------------------------------- #
 # Phase 10: the fleet
 
+#: The smoke's fleet rigs (phases 10, 11, 13): the registrar's primary
+#: search, and the replicas' idle digest period where a rig waits for an
+#: advertisement (disaggregated roles, adapter residency).
+ELECTION_S, ADVERTISE_S = 0.05, 0.5
+
+
+@contextlib.contextmanager
+def quick_fleet(advertise_s=None):
+    """Cut a fleet rig's idle waits: the registrar's primary search to
+    ELECTION_S (one registrar a broker: nothing contests it) and, given
+    ``advertise_s``, the replicas' idle digest advertisement to that period
+    (the router's directory lease is 30 s).  Both are restored on exit."""
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.registry import registrar
+
+    search = registrar.PRIMARY_SEARCH_TIMEOUT
+    period = ContinuousReplica.KV_ADVERTISE_S
+    registrar.PRIMARY_SEARCH_TIMEOUT = ELECTION_S
+    if advertise_s is not None:
+        ContinuousReplica.KV_ADVERTISE_S = advertise_s
+    try:
+        yield
+    finally:
+        registrar.PRIMARY_SEARCH_TIMEOUT = search
+        ContinuousReplica.KV_ADVERTISE_S = period
+
+
 #: Phase 10's parts: (a) prefix routing, (b) chaos, (c) live migration,
 #: (d) disaggregated prefill.
 FLEET_PARTS = ("prefix", "chaos", "migration", "disaggregation")
@@ -3799,11 +3847,12 @@ def serve_fleet(torch, np, llama, weights, kernels, server_cls, request_cls,
             fail("fleet: the servers do not share one weight set")
         return servers
 
-    def part(label, count, rig, killed=()):
+    def part(label, count, rig, killed=(), advertise_s=None):
         servers = build(count)
         try:
-            return fleet_part(torch, llama, weights, kernels, config, label,
-                              servers, rig, killed=killed)
+            with quick_fleet(advertise_s):
+                return fleet_part(torch, llama, weights, kernels, config,
+                                  label, servers, rig, killed=killed)
         finally:
             del servers
             reset_brokers()
@@ -3944,7 +3993,8 @@ def fleet_disaggregation(torch, np, llama, params, config, device, part,
         "(d) disaggregated", 2, lambda make_server: loadgen
         .run_shared_prefix(n_requests=len(prompts), rate_hz=FLEET_RATE_HZ,
                            disaggregate=True, drain_timeout_s=WIRE_TIMEOUT_S,
-                           payload_fn=payload_fn, make_server=make_server))
+                           payload_fn=payload_fn, make_server=make_server),
+        advertise_s=ADVERTISE_S)
     fleet_served(report, "(d) disaggregated", len(prompts))
     stats = report.server_stats
     if len(report.client_ttfts_ms) != len(prompts) \
@@ -4058,14 +4108,11 @@ def serve_elastic(torch, np, llama, weights, kernels, server_cls,
     migrated final against the drain turns' and those held to the oracle;
     (c) ``run_restart_ab`` in RESTART_TURNS pairs, on servers the rig
     builds over its spill directories.  The registrar's primary search is
-    cut to 50 ms for the phase (nothing contests it).  ``parts`` names the
-    parts to run (ELASTIC_PARTS)."""
-    from aiko_services_tpu_torch.registry import registrar
+    cut to ELECTION_S for the phase (:func:`quick_fleet`).  ``parts`` names
+    the parts to run (ELASTIC_PARTS)."""
     from aiko_services_tpu_torch.transport import reset_brokers
 
     config = llama.CONFIGS["llama3_8b"]
-    search = registrar.PRIMARY_SEARCH_TIMEOUT
-    registrar.PRIMARY_SEARCH_TIMEOUT = 0.05
     torch.cuda.reset_peak_memory_stats()
 
     def part(label, count, rig, **kwargs):
@@ -4089,7 +4136,7 @@ def serve_elastic(torch, np, llama, weights, kernels, server_cls,
             torch.cuda.empty_cache()
 
     out = {}
-    try:
+    with quick_fleet():
         if "chaos" in parts:
             out["chaos"] = elastic_chaos(torch, np, llama, params, config,
                                          device, part)
@@ -4100,8 +4147,6 @@ def serve_elastic(torch, np, llama, weights, kernels, server_cls,
             out["restart"] = elastic_restart(torch, np, llama, server_cls,
                                              request_cls, params, config,
                                              device, part)
-    finally:
-        registrar.PRIMARY_SEARCH_TIMEOUT = search
     out["peak_gb"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
     return out
 
@@ -4372,7 +4417,7 @@ def print_elastic(elastic, smi):
 #: STANDALONE_MAX_SEQ rows (128-row blocks: the chunked forwards keep to
 #: the kernels; a row count with no power-of-two block of 16 or more
 #: would take the plain path).
-STANDALONE_MAX_SEQ, STANDALONE_PROMPT, STANDALONE_NEW = 512, 256, 128
+STANDALONE_MAX_SEQ, STANDALONE_PROMPT, STANDALONE_NEW = 512, 256, 64
 #: Phase 12 (b)'s sampled loop: its temperature, and the tokens of its
 #: temperature-0 run (the greedy loop's first tokens).
 STANDALONE_TEMP, STANDALONE_ZERO_NEW = 0.8, 32
@@ -4641,7 +4686,7 @@ def serve_contig(torch, np, llama, kernels, server_cls, request_cls, params,
 def serve_standalone(torch, np, llama, speculative, kernels, params,
                      draft_1b, device):
     """Phase 12 (b): the standalone batch-1 loops, llama3_8b int8 with the
-    int8 1b draft, k = 4, one 256-token prompt, 128 new tokens, caches of
+    int8 1b draft, k = 4, one 256-token prompt, 64 new tokens, caches of
     512 rows.  ``speculative_generate``'s tokens are set beside
     ``complete()``'s greedy tokens, which must equal ``prefill`` +
     ``generate_tokens`` on the same 384-row cache bit for bit (the oracle's
@@ -4650,23 +4695,24 @@ def serve_standalone(torch, np, llama, speculative, kernels, params,
     ``append_kv_ragged`` launch once a layer of every ``prefill_chunk``
     call (the verify on the target, the resync on the draft), and the
     verifies are the target passes after the prefill.  The sampled loop at
-    STANDALONE_TEMP gives 128 tokens in the vocabulary; at temperature 0,
+    STANDALONE_TEMP gives 64 tokens in the vocabulary; at temperature 0,
     given the unaligned max_seq STANDALONE_UNALIGNED_MAX_SEQ (its caches
     round up to 512 rows), its first STANDALONE_ZERO_NEW tokens are the
     greedy loop's, with the chunk kernels launched once a layer of each of
     its ``prefill_chunk`` calls.  ``complete()`` at the unaligned 256 +
-    STANDALONE_UNALIGNED_NEW rows (rounded up to 384) gives the 128-token
+    STANDALONE_UNALIGNED_NEW rows (rounded up to 384) gives the 64-token
     completion's first tokens and launches the decode attention and write
     kernels once a layer a step."""
+    from aiko_services_tpu_torch.ops.paged_attention import contiguous_rows
     config, draft_config = llama.CONFIGS["llama3_8b"], llama.CONFIGS["1b"]
     kernels_by_name = {kernel.__name__: kernel for kernel in kernels}
     prompt = np.random.default_rng(31).integers(
         1, config.vocab_size, STANDALONE_PROMPT).astype(np.int32)
     calls, prefill_chunk = [], llama.prefill_chunk
 
-    def recorded_chunk(params, tokens, cache, start, config):
+    def recorded_chunk(params, tokens, cache, start, config, **kwargs):
         calls.append(config.n_layers)
-        return prefill_chunk(params, tokens, cache, start, config)
+        return prefill_chunk(params, tokens, cache, start, config, **kwargs)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -4731,8 +4777,8 @@ def serve_standalone(torch, np, llama, speculative, kernels, params,
              "loop")
     completed, complete_ms = timed(lambda: llama.complete(
         params, prompt[None], config, max_new_tokens=STANDALONE_NEW))
-    cache = llama.init_cache(config, 1, STANDALONE_PROMPT + STANDALONE_NEW,
-                             device=device)
+    cache = llama.init_cache(config, 1, contiguous_rows(
+        STANDALONE_PROMPT + STANDALONE_NEW), device=device)
     logits, cache = llama.prefill(
         params, torch.as_tensor(prompt, device=device)[None], cache, config)
     first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
@@ -4754,7 +4800,7 @@ def serve_standalone(torch, np, llama, speculative, kernels, params,
                  f"{steps}")
     if unaligned[0].tolist() != reference[:STANDALONE_UNALIGNED_NEW]:
         fail(f"{where}: complete() at {rows} rows differs from the "
-             f"{STANDALONE_PROMPT + STANDALONE_NEW}-row completion")
+             f"{STANDALONE_NEW}-token completion")
     served = [int(t) for t in tokens]
     agree = next((i for i, (a, b) in enumerate(zip(served, reference))
                   if a != b), STANDALONE_NEW)
@@ -4952,6 +4998,722 @@ def print_contiguous_phase(phase, smi):
     log("phase 12 parts: " + ", ".join(
         f"{key[:-2]} {value:.1f} s" for key, value in phase.items()
         if key.endswith("_s")) + f"; {smi}")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 13: grammars and adapters
+
+#: The phase's parts (scripts/smoke_grammar_lora.py names them).
+GRAMMAR_LORA_PARTS = ("constrained", "structured", "adapters", "multitenant")
+#: (a) constrained_generate at phase 3's contiguous shape: 8 rows of 256
+#: prompt tokens, 16 constrained steps (the command grammar ends within 12).
+GRAMMAR_BATCH, GRAMMAR_PROMPT, GRAMMAR_NEW = 8, 256, 16
+#: (b) run_structured's requests (each pass), their arrival rate (every
+#: request in well under a second: the passes are decode-bound), and the
+#: temperature of its sampled constrained check.
+STRUCTURED_REQUESTS, STRUCTURED_RATE_HZ, STRUCTURED_TEMP = 24, 48.0, 0.9
+#: (c), (d): four tenants of rank 8 on wq / wv with non-zero B (the JAX
+#: tests' noisy adapters, numpy from loadgen's seeds), tenant t at stacked
+#: index t + 1 of the oracle's stack.
+TENANTS, TENANT_RANK, TENANT_ALPHA = 4, 8, 16.0
+#: (c) the host tier that takes tenant-0's demoted pages (2 MiB a block).
+ADAPTER_HOST_BLOCKS = 16
+#: (d) run_multitenant's measured requests an arm (after 8 warm-up ones).
+MULTITENANT_REQUESTS = 16
+
+
+def tenant_config(lora):
+    return lora.LoRAConfig(rank=TENANT_RANK, alpha=TENANT_ALPHA,
+                           targets=("wq", "wv"))
+
+
+def tenant_factors(loadgen, config, lora_config, index):
+    """Tenant ``index``'s factors: loadgen's noisy adapter (seed 100 +
+    index, the multi-tenant rig's)."""
+    return loadgen._noisy_loadgen_adapter(config, lora_config, 100 + index)
+
+
+def hold_constrained(torch, np, llama, params, config, device, label, table,
+                     start, pairs, pad=None, rows=None):
+    """Hold constrained (prompt, tokens) pairs to a teacher-forced oracle
+    whose logits are masked to the automaton's allowed set: every token
+    the masked argmax or within TIE_GAP of it, and legal.  Pairs of one
+    prompt length prefill together, at most ``rows`` at a time (None: all
+    of them), and decode on their served tokens; ``rows=1`` is the batch-1
+    oracle, which a batched program under test cannot share.  ``pad``: the
+    token a row emits once its state is terminal (constrained_generate); a
+    served row otherwise ends there."""
+    allowed = torch.as_tensor(table.allowed, device=device)
+    groups = {}
+    for number, (prompt, tokens) in enumerate(pairs):
+        groups.setdefault(len(prompt), []).append(
+            (number, np.asarray(prompt, np.int32), list(tokens)))
+    batches = []
+    for length, group in sorted(groups.items()):
+        step = rows or len(group)
+        batches += [(length, group[i:i + step])
+                    for i in range(0, len(group), step)]
+    checked, equal, ties = 0, 0, []
+    for length, group in batches:
+        new = max(len(tokens) for _, _, tokens in group)
+        prompts = torch.as_tensor(np.stack([p for _, p, _ in group]),
+                                  device=device)
+        cache = llama.init_cache(config, len(group),
+                                 -(-(length + new) // 128) * 128,
+                                 device=device)
+        logits, cache = llama.prefill(params, prompts, cache, config)
+        logits = logits[:, -1]
+        states = [start] * len(group)
+        for index in range(new):
+            masked = torch.where(allowed[torch.as_tensor(
+                states, device=device)], logits,
+                torch.full_like(logits, -torch.inf))
+            best = masked.argmax(-1).tolist()
+            scores = masked.float().cpu()
+            feed = []
+            for row, (number, _, tokens) in enumerate(group):
+                if index >= len(tokens):
+                    feed.append(0)
+                    continue
+                served = int(tokens[index])
+                feed.append(served)
+                if table.is_terminal(states[row]):
+                    if pad is None or served != pad:
+                        fail(f"{label}: row {number} emitted {served} past "
+                             "its terminal state")
+                    continue
+                if not table.allowed[states[row], served]:
+                    fail(f"{label}: row {number} token {index} ({served}) is "
+                         f"illegal in state {states[row]}")
+                checked += 1
+                if served == best[row]:
+                    equal += 1
+                else:
+                    gap = float(scores[row, best[row]] - scores[row, served])
+                    if gap > TIE_GAP:
+                        fail(f"{label}: row {number} token {index} is "
+                             f"{served}, masked oracle {best[row]}, gap "
+                             f"{gap:.4f}")
+                    ties.append((number, index, round(gap, 4)))
+                states[row] = int(table.next_state[states[row], served])
+            if index + 1 < new:
+                out, cache = llama.decode_step(
+                    params, torch.tensor(feed, dtype=torch.int32,
+                                         device=device)[:, None],
+                    cache, length + index, config)
+                logits = out[:, -1]
+    return dict(tokens_checked=checked, tokens_equal=equal,
+                accepted_near_ties=ties)
+
+
+def hold_adapted(torch, np, llama, params, config, device, label, stack,
+                 triples):
+    """Hold (prompt, tokens, stacked adapter index) triples to a
+    teacher-forced batch-1 oracle under the same adapter: contiguous
+    prefill + decode_step with per-row ``lora`` from ``stack``
+    (near-ties within TIE_GAP), one batch a (prompt length, budget)."""
+    groups = {}
+    for prompt, tokens, index in triples:
+        groups.setdefault((len(prompt), len(tokens)), []).append(
+            (np.asarray(prompt, np.int32), list(tokens), int(index)))
+    checked, equal, ties = 0, 0, []
+    for (length, new), group in sorted(groups.items()):
+        prompts = torch.as_tensor(np.stack([p for p, _, _ in group]),
+                                  device=device)
+        served = torch.as_tensor([t for _, t, _ in group],
+                                 dtype=torch.int64, device=device)
+        lora = dict(stack, ids=torch.as_tensor([i for _, _, i in group],
+                                               dtype=torch.int32,
+                                               device=device))
+        cache = llama.init_cache(config, len(group),
+                                 -(-(length + new) // 128) * 128,
+                                 device=device)
+        logits, cache = llama.prefill(params, prompts, cache, config,
+                                      lora=lora)
+        logits = logits[:, -1]
+        for index in range(new):
+            want = served[:, index]
+            best = logits.argmax(-1)
+            gaps = (logits.gather(1, best[:, None])
+                    - logits.gather(1, want[:, None]))[:, 0].tolist()
+            for row, (hit, gap) in enumerate(zip((best == want).tolist(),
+                                                 gaps)):
+                if hit:
+                    equal += 1
+                elif gap > TIE_GAP:
+                    fail(f"{label}: request {row} of {len(group)} (prompt "
+                         f"{length}, adapter {group[row][2]}): token {index}"
+                         f" is {int(want[row])}, oracle {int(best[row])}, "
+                         f"gap {gap:.4f}")
+                else:
+                    ties.append((row, index, round(gap, 4)))
+            checked += len(group)
+            if index + 1 < new:
+                out, cache = llama.decode_step(
+                    params, want[:, None].to(torch.int32), cache,
+                    length + index, config, lora=lora)
+                logits = out[:, -1]
+    return dict(tokens_checked=checked, tokens_equal=equal,
+                accepted_near_ties=ties)
+
+
+def grammar_generate(torch, np, llama, constrained, loadgen, weights,
+                     kernels, params, device):
+    """(a) ``constrained_generate`` at phase 3's shape: 8 rows of
+    GRAMMAR_PROMPT tokens prefilled together on a contiguous cache, then
+    GRAMMAR_NEW steps masked by loadgen's command automaton at llama3_8b's
+    vocabulary.  Every row is grammatical (then padding), every token the
+    masked oracle's within TIE_GAP, the launches one prefill's and
+    GRAMMAR_NEW - 1 decode steps'."""
+    from aiko_services_tpu_torch.ops.paged_attention import contiguous_rows
+    config = llama.CONFIGS["llama3_8b"]
+    automaton = loadgen.command_automaton(config.vocab_size)
+    table = constrained.stack_automata({"cmd": automaton})
+    prompts = np.random.default_rng(41).integers(
+        1, config.vocab_size, (GRAMMAR_BATCH, GRAMMAR_PROMPT)).astype(np.int32)
+    torch.cuda.synchronize()
+    with LaunchWindow(llama, kernels) as window:
+        began = time.monotonic()
+        cache = llama.init_cache(config, GRAMMAR_BATCH,
+                                 contiguous_rows(GRAMMAR_PROMPT + GRAMMAR_NEW),
+                                 device=device)
+        logits, cache = llama.prefill(params, torch.as_tensor(
+            prompts, device=device), cache, config)
+        tokens, states, _ = constrained.constrained_generate(
+            params, logits[:, -1], cache, GRAMMAR_PROMPT, GRAMMAR_NEW, config,
+            automaton.allowed, automaton.next_state)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+    launches = window.launches
+    steps = GRAMMAR_NEW - 1
+    want = {"flash_attention": config.n_layers,
+            "paged_decode_attention": config.n_layers * steps,
+            "write_kv_rows": config.n_layers * steps,
+            "append_kv": 0, "chunk_attention": 0, "append_kv_ragged": 0,
+            weights.name: matmul_launches(weights, config, GRAMMAR_BATCH,
+                                          GRAMMAR_PROMPT)
+            + matmul_launches(weights, config, GRAMMAR_BATCH, 1) * steps}
+    for name, expected in want.items():
+        if launches.get(name, 0) != expected:
+            fail(f"phase 13 (a) {name}: {launches.get(name)} launches, "
+                 f"expected {expected}")
+    rows = tokens.cpu().numpy()
+    for row in rows:
+        # The command ends at its closing brace (token 17), then pads.
+        emitted = [int(t) for t in row]
+        close = emitted.index(17) if 17 in emitted else None
+        if close is None or not automaton.accepts(emitted[:close + 1]) \
+                or any(emitted[close + 1:]):
+            fail(f"phase 13 (a): row not grammatical then padded: {emitted}")
+    held = hold_constrained(torch, np, llama, params, config, device,
+                            "phase 13 (a)", table, 0,
+                            list(zip(prompts, rows.tolist())), pad=0, rows=1)
+    accepted = automaton.accepting[states.cpu().numpy()]
+    if not accepted.all():
+        fail(f"phase 13 (a): final states {states.tolist()} not accepting")
+    return dict(rows=GRAMMAR_BATCH, prompt=GRAMMAR_PROMPT, steps=GRAMMAR_NEW,
+                launches=launches, wall_s=wall,
+                command_tokens=[int(np.count_nonzero(row)) for row in rows],
+                **held)
+
+
+def structured_server(server_cls, params, device, automaton):
+    """Phase 4's paged shape with n-gram speculation (spec_k = 4) and the
+    command automaton as ``"cmd"``: the structured rig's replica."""
+    return server_cls(config_name="llama3_8b", slots=SLOTS,
+                      max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                      params=params, quantize=True, block_size=BLOCK,
+                      enable_prefix_cache=True, chunk_prefill_tokens=CHUNK,
+                      draft_mode="ngram", spec_k=SPEC_K,
+                      automata={"cmd": automaton}, device=device)
+
+
+def serve_structured(torch, np, llama, loadgen, weights, kernels, server_cls,
+                     request_cls, params, device):
+    """(b) ``run_structured`` on two replicas handed in (phase 4's shape,
+    n-gram speculation, the command automaton): STRUCTURED_REQUESTS
+    requests constrained, then the same free.  Every constrained final is
+    grammatical (the rig raises otherwise), jump-forward tokens were
+    committed, constrained tokens hold to the masked oracle and free ones
+    to phase 4's; the launches are the rounds' and slices' (the verify
+    and append windows, no decode step: n-gram rounds only); then
+    STRUCTURED_TEMP sampled constrained requests stay grammatical."""
+    config = llama.CONFIGS["llama3_8b"]
+    automaton = loadgen.command_automaton(config.vocab_size)
+    servers = [structured_server(server_cls, params, device, automaton)
+               for _ in range(2)]
+    for server in servers:
+        server.warm_spec_ladder()
+    handed = []
+
+    def make_server(name):
+        server = servers[len(handed) % 2]
+        handed.append(server)
+        return server
+    before = [server.stats() for server in servers]
+    errors = ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    torch.cuda.synchronize()
+    try:
+        with quick_fleet(), LaunchWindow(llama, kernels) as window:
+            began = time.monotonic()
+            cons, free = loadgen.run_structured(
+                n_requests=STRUCTURED_REQUESTS, rate_hz=STRUCTURED_RATE_HZ,
+                spec_k=SPEC_K,
+                drain_timeout_s=240.0, make_server=make_server,
+                payload_kwargs=dict(vocab=config.vocab_size))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - began
+    finally:
+        logging.getLogger().removeHandler(errors)
+    if errors.records:
+        fail(f"phase 13 (b): logged failures: {errors.records}")
+    after = [server.stats() for server in servers]
+    rounds = sum(delta(a, b, "spec_rounds") for a, b in zip(after, before))
+    steps = sum(delta(a, b, "decode_steps") for a, b in zip(after, before))
+    slices = sum(delta(a, b, "prefill_dispatches")
+                 for a, b in zip(after, before))
+    jump = sum(delta(a, b, "spec_jump_forward_tokens")
+               for a, b in zip(after, before))
+    launches = window.launches
+    if len(window.widths) != slices:
+        fail(f"phase 13 (b): {len(window.widths)} slices recorded, "
+             f"{slices} counted")
+    layers, verify_m = config.n_layers, SLOTS * (SPEC_K + 1)
+    rule = weights.rules[weights.name]
+    want = {"append_kv": layers * slices, "append_kv_ragged": layers * rounds,
+            "chunk_attention": layers * (slices + rounds),
+            "paged_decode_attention": layers * (steps - rounds),
+            "write_kv_rows": layers * (steps - rounds), "flash_attention": 0,
+            weights.name: rounds * (layer_launches(weights, config, verify_m)
+                                    + rule(verify_m, config.d_model,
+                                           config.vocab_size))
+            + sum(layer_launches(weights, config, w) for w in window.widths)}
+    for name, expected in want.items():
+        if launches.get(name, 0) != expected:
+            fail(f"phase 13 (b) {name}: {launches.get(name)} launches, "
+                 f"expected {expected} (rounds {rounds}, steps {steps}, "
+                 f"slices {window.widths})")
+    for label, report in (("constrained", cons), ("free", free)):
+        if (report.completed, report.errors, report.timeouts) != (
+                STRUCTURED_REQUESTS, 0, 0):
+            fail(f"phase 13 (b) {label}: {report} ({report.error_kinds})")
+    if not jump or not (cons.spec_stats or {}).get(
+            "spec_jump_forward_tokens"):
+        fail(f"phase 13 (b): no jump-forward token ({cons.spec_stats})")
+    payloads = {flag: loadgen.structured_payloads(
+        vocab=config.vocab_size, constrained=flag) for flag in (True, False)}
+    table = servers[0]._automata["table"]
+    held_cons = hold_constrained(
+        torch, np, llama, params, config, device, "phase 13 (b) constrained",
+        table, table.start("cmd"),
+        [(payloads[True](index)["tokens"], tokens)
+         for index, tokens in sorted(finals_by_index(cons).items())])
+    held_free = hold_to_oracle(
+        torch, np, llama, params, config, device, "phase 13 (b) free",
+        [(payloads[False](index)["tokens"], tokens)
+         for index, tokens in sorted(finals_by_index(free).items())], set())
+    # Sampled constrained rows on an idle replica: grammatical, whatever
+    # they draw.
+    rng = np.random.default_rng(43)
+    sampled = [request_cls(f"t{i}", rng.integers(
+        1, config.vocab_size, 40).astype(np.int32), 16,
+        temperature=STRUCTURED_TEMP, top_p=0.95, automaton="cmd")
+        for i in range(SLOTS)]
+    for request in sampled:
+        servers[0].submit(request)
+    servers[0].run_until_drained()
+    for request in sampled:
+        if request.error is not None or not automaton.accepts(request.tokens):
+            fail(f"phase 13 (b) sampled {request.request_id}: "
+                 f"{request.error}, {request.tokens}")
+    cons_tokens = [len(t) for t in cons.final_tokens.values()]
+    return dict(
+        requests=STRUCTURED_REQUESTS, launches=launches, spec_rounds=rounds,
+        prefill_slices=slices, jump_forward_tokens=jump,
+        jump_forward_per_request=jump / STRUCTURED_REQUESTS,
+        constrained_tokens_mean=sum(cons_tokens) / len(cons_tokens),
+        constrained_tok_s=cons.throughput_tps, free_tok_s=free.throughput_tps,
+        constrained_ttft_ms_p50=cons.ttft_p50_ms,
+        free_ttft_ms_p50=free.ttft_p50_ms,
+        tokens_per_target_pass=cons.spec_stats[
+            "spec_tokens_per_target_pass"],
+        free_tokens_per_target_pass=(free.spec_stats or {}).get(
+            "spec_tokens_per_target_pass"),
+        sampled_grammatical=len(sampled), wall_s=wall,
+        held_constrained=held_cons, held_free=held_free)
+
+
+def adapter_server(server_cls, params, device, **kwargs):
+    """Phase 4's paged shape (8 slots, 4096-row tables of 16-row blocks,
+    prefix cache, 256-token slices, bf16 KV), adapters loaded later."""
+    return server_cls(config_name="llama3_8b", slots=SLOTS,
+                      max_seq=PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                      params=params, quantize=True, block_size=BLOCK,
+                      enable_prefix_cache=True, chunk_prefill_tokens=CHUNK,
+                      device=device, **kwargs)
+
+
+def paged_waves(server, request_cls, waves, adapter_of):
+    """Phase 4's wave schedule of ``waves`` through ``server``, request i
+    under ``adapter_of(i)``: the requests."""
+    requests = []
+    for index, wave in enumerate(waves):
+        batch = [request_cls(f"p{len(requests) + i}", prompt, NEW_TOKENS,
+                             adapter=adapter_of(len(requests) + i))
+                 for i, prompt in enumerate(wave)]
+        requests += batch
+        for request in batch:
+            server.submit(request)
+        if index == 0:
+            while batch[0].first_token_ts is None:
+                server.step()
+        elif index == 1:
+            while any(r.finished_ts is None for r in requests[:4]):
+                server.step()
+    server.run_until_drained()
+    return requests
+
+
+def serve_adapters(torch, np, llama, lora, lora_paged, loadgen, weights,
+                   kernels, server_cls, request_cls, params, device,
+                   base_step_ms, base_tokens=None):
+    """(c) A mixed-adapter paged server: TENANTS tenants loaded at run time
+    (pages in the pool), phase 4's 12 requests, request i on tenant
+    (i % 5) - 1 (every fifth on the base).  Base rows are bitwise the
+    tokens of an adapter-free server of the same shape on the same
+    schedule (``base_tokens``: phase 4's bf16-KV run's; without them such
+    a server is run here); adapter rows hold to a batch-1 oracle under
+    their adapter;
+    the launches are phase 4's formula (the LoRA delta launches no
+    kernel).  Then a steady 8-slot window with adapters (graphed, step ms
+    beside phase 4's base step, no capture after the fence); tenant-0
+    unloaded, its pages demoted to the host tier, warm-loaded from there
+    and its request served again to the same tokens; and ``adapter_load``
+    / ``adapter_unload`` over the wire with packed factor bytes."""
+    import importlib.util
+
+    from aiko_services_tpu_torch import runtime
+    from aiko_services_tpu_torch.kvstore import adapters as kvadapters
+    from aiko_services_tpu_torch.kvstore import transfer
+    from aiko_services_tpu_torch.orchestration.continuous import (
+        ContinuousReplica)
+    from aiko_services_tpu_torch.pipeline import codec
+    from aiko_services_tpu_torch.utils import sexpr
+    config = llama.CONFIGS["llama3_8b"]
+    lc = tenant_config(lora)
+    names = [f"tenant-{i}" for i in range(TENANTS)]
+    factors = [tenant_factors(loadgen, config, lc, i) for i in range(TENANTS)]
+    stack = lora.stack_adapters(config, lc, factors, device=device)
+    server = adapter_server(server_cls, params, device,
+                            host_tier_blocks=ADAPTER_HOST_BLOCKS)
+    load_began = time.monotonic()
+    for name, tree in zip(names, factors):
+        server.load_adapter(name, tree, lc)
+    torch.cuda.synchronize()
+    load_ms = (time.monotonic() - load_began) * 1e3 / TENANTS
+    pages = server._adapter_page_counts()["hbm"]
+    if pages != TENANTS * len(lora_paged.split_pages(
+            lora_paged.pack_adapter(config, lc, factors[0]),
+            lora_paged.page_payload_nbytes(transfer._field_layout(server)))):
+        fail(f"phase 13 (c): {pages} adapter pages in the pool")
+
+    def adapter_of(index):
+        tenant = index % (TENANTS + 1) - 1
+        return names[tenant] if tenant >= 0 else None
+    waves = paged_traffic(np, config.vocab_size)
+    torch.cuda.synchronize()
+    before = server.stats()
+    with LaunchWindow(llama, kernels) as window:
+        began = time.monotonic()
+        requests = paged_waves(server, request_cls, waves, adapter_of)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+    stats = server.stats()
+    launches = window.hold("phase 13 (c)", weights, config,
+                           delta(stats, before, "decode_steps"),
+                           delta(stats, before, "prefill_dispatches"))
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS:
+            fail(f"phase 13 (c) {request.request_id}: {request.error}, "
+                 f"{len(request.tokens)} tokens")
+    if base_tokens is None:
+        plain = adapter_server(server_cls, params, device)
+        base_tokens = [r.tokens for r in paged_waves(
+            plain, request_cls, waves, lambda index: None)]
+        del plain
+    base_rows = [i for i, r in enumerate(requests) if r.adapter is None]
+    for index in base_rows:
+        if requests[index].tokens != base_tokens[index]:
+            fail(f"phase 13 (c): base row {index} differs from the "
+                 "adapter-free server's tokens")
+    held = hold_adapted(
+        torch, np, llama, params, config, device, "phase 13 (c)", stack,
+        [(r.prompt, r.tokens, names.index(r.adapter) + 1)
+         for r in requests if r.adapter is not None])
+
+    # A steady 8-slot window with adapters: every row on a tenant or the
+    # base, graphed once captured, no capture after the fence.
+    rng = np.random.default_rng(47)
+    steady = [request_cls(f"s{i}", rng.integers(
+        1, config.vocab_size, 128).astype(np.int32), 128,
+        adapter=adapter_of(i)) for i in range(SLOTS)]
+    for request in steady:
+        server.submit(request)
+    while any(r.first_token_ts is None for r in steady) \
+            or (server._graphs_on
+                and delta(server.stats(), stats, "graph_replays") == 0):
+        server.step()
+    server.graph_ledger.fence()
+    turns = []
+    for _ in range(2):
+        start = server.counters["decode_steps"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while server.counters["decode_steps"] - start < TURN_STEPS:
+            server.step()
+        torch.cuda.synchronize()
+        turns.append((time.perf_counter() - t0) * 1e3
+                     / (server.counters["decode_steps"] - start))
+    server.run_until_drained()
+    steady_stats = server.stats()
+    if steady_stats["graph_captures_steady_state"]:
+        fail(f"phase 13 (c): {steady_stats['graph_captures_steady_state']} "
+             "captures after the fence with adapters loaded")
+
+    # Hot unload, demotion of the pages, warm load from the host tier.
+    name, first = names[0], next(r for r in requests if r.adapter == names[0])
+    n_pages = pages // TENANTS
+    keys = kvadapters.adapter_chain_keys(name, n_pages)
+    golden = server.fetch_adapter_bytes(name)
+    server.unload_adapter(name)
+    demoted = server.kv_demotions
+    for _ in range(n_pages):
+        server._evict_one()
+    if any(key in server._index for key in keys) \
+            or server.kv_demotions - demoted != n_pages \
+            or server.adapter_residency(name) != 1:
+        fail(f"phase 13 (c): {name}'s pages did not demote to the host tier "
+             f"({server.kv_demotions - demoted} demotions)")
+    server.load_adapter(name)
+    if server.adapter_warm_loads != 1 \
+            or not np.array_equal(server.fetch_adapter_bytes(name), golden):
+        fail("phase 13 (c): the warm load did not restack the paged bytes")
+    again = request_cls("again", first.prompt.copy(), NEW_TOKENS,
+                        adapter=name)
+    server.submit(again)
+    server.run_until_drained()
+    if again.tokens != first.tokens:
+        fail(f"phase 13 (c): {name} after the warm load served other tokens")
+
+    # adapter_load / adapter_unload over the wire, the factors as bytes.
+    wire_factors = tenant_factors(loadgen, config, lc, TENANTS)
+    packed = lora_paged.pack_adapter(config, lc, wire_factors)
+    engine = runtime.EventEngine(clock=runtime.VirtualClock())
+    process = runtime.Process(namespace="phase13", hostname="h", pid="1",
+                              engine=engine, broker="phase13-adapters")
+    replica = runtime.compose_instance(
+        ContinuousReplica, runtime.actor_args("adapters"), process=process,
+        server=server)
+    events = {}
+
+    def on_reply(_topic, payload):
+        command, params_ = sexpr.parse(payload)
+        events[str(params_[0])] = (command, codec.decode_swag(params_[1]))
+    process.add_message_handler(on_reply, "phase13/replies")
+
+    def call(command, rid, swag):
+        process.message.publish(replica.topic_in, sexpr.generate(
+            command, [rid, "phase13/replies", codec.encode_swag(swag)]))
+        for _ in range(200_000):
+            if rid in events:
+                return events[rid][1]
+            engine.advance(0.001)
+        fail(f"phase 13 (c): no answer to {command} {rid}")
+    wire_began = time.monotonic()
+    loaded = call("adapter_load", "w1", {"name": "wire", "packed": packed})
+    answer = call("infer", "w2", {"tokens": first.prompt,
+                                  "max_new_tokens": 8, "adapter": "wire"})
+    unloaded = call("adapter_unload", "w3", {"name": "wire"})
+    wire_ms = (time.monotonic() - wire_began) * 1e3
+    if loaded.get("ok") != "wire" or unloaded.get("ok") != "wire" \
+            or "error" in answer or "wire" in server.adapters_loaded:
+        fail(f"phase 13 (c) wire: {loaded}, {answer}, {unloaded}")
+    wire_stack = lora.stack_adapters(config, lc, [wire_factors],
+                                     device=device)
+    held_wire = hold_adapted(
+        torch, np, llama, params, config, device, "phase 13 (c) wire",
+        wire_stack, [(first.prompt, [int(t) for t in np.asarray(
+            answer["tokens_out"])], 1)])
+    process.terminate()
+    return dict(
+        tenants=TENANTS, rank=TENANT_RANK, adapter_pages=pages,
+        load_ms_per_adapter=load_ms, requests=len(requests),
+        base_rows_bitwise=len(base_rows), launches=launches, wall_s=wall,
+        served_tok_s=len(requests) * NEW_TOKENS / wall,
+        held_adapter_rows=held, steady_step_ms=sum(turns) / len(turns),
+        steady_step_ms_turns=turns, phase4_base_step_ms=base_step_ms,
+        steady_graph_captures_after_fence=steady_stats[
+            "graph_captures_steady_state"],
+        graph_captures=steady_stats["graph_captures"],
+        graph_replays=steady_stats["graph_replays"],
+        warm_reload_tokens_equal=NEW_TOKENS, wire_packed_bytes=int(
+            packed.nbytes), wire_ms=wire_ms, held_wire=held_wire,
+        safetensors_importable=importlib.util.find_spec("safetensors")
+        is not None)
+
+
+def serve_multitenant(torch, np, llama, lora, loadgen, weights, kernels,
+                      server_cls, request_cls, params, device):
+    """(d) ``run_multitenant`` aware, then blind, each on two replicas
+    handed in (paged, 8 slots, 256-row tables, prefix cache; each warmed
+    under its home tenants and fenced): the aware arm takes no cold start,
+    the blind one at least one; every final holds to the batch-1 oracle
+    under its tenant; launches per :func:`fleet_part`.  The replicas
+    advertise their adapter residency every ADVERTISE_S while idle
+    (:func:`quick_fleet`), so the rig's wait for it is short."""
+    config = llama.CONFIGS["llama3_8b"]
+    lc = tenant_config(lora)
+    factors = [tenant_factors(loadgen, config, lc, i) for i in range(TENANTS)]
+    stack = lora.stack_adapters(config, lc, factors, device=device)
+    payload_fn = loadgen.multitenant_payloads(n_adapters=TENANTS,
+                                              vocab=config.vocab_size)
+    arms = {}
+    for aware in (True, False):
+        servers = []
+        for home in range(2):
+            server = server_cls(config_name="llama3_8b", slots=SLOTS,
+                                max_seq=256, chunk_steps=CHUNK_STEPS,
+                                params=params, quantize=True,
+                                block_size=BLOCK, enable_prefix_cache=True,
+                                total_blocks=96, device=device)
+            for tenant in range(home, TENANTS, 2):
+                server.load_adapter(f"tenant-{tenant}", factors[tenant], lc)
+            rng = np.random.default_rng(53)
+            for index in range(2):
+                server.submit(request_cls(
+                    f"warm{index}", rng.integers(1, config.vocab_size, 12)
+                    .astype(np.int32), 5, adapter=f"tenant-{home}"))
+                server.run_until_drained()
+            server.graph_ledger.fence()
+            servers.append(server)
+        with quick_fleet(ADVERTISE_S):
+            report, counts = fleet_part(
+                torch, llama, weights, kernels, config,
+                f"phase 13 (d) {'aware' if aware else 'blind'}", servers,
+                lambda make_server: loadgen.run_multitenant(
+                    n_requests=MULTITENANT_REQUESTS, rate_hz=25.0,
+                    n_adapters=TENANTS, adapter_aware=aware,
+                    drain_timeout_s=240.0, make_server=make_server,
+                    config_name="llama3_8b", lora_config=lc,
+                    payload_kwargs=dict(vocab=config.vocab_size)))
+        held = hold_adapted(
+            torch, np, llama, params, config, device,
+            f"phase 13 (d) {'aware' if aware else 'blind'}", stack,
+            [(payload_fn(index)["tokens"], tokens,
+              int(payload_fn(index)["adapter"].split("-")[1]) + 1)
+             for index, tokens in sorted(finals_by_index(report).items())])
+        arms["aware" if aware else "blind"] = dict(
+            completed=report.completed, cold_starts=report.adapter_cold_starts,
+            warm_routes=report.adapter_warm_routes,
+            cold_routes=report.adapter_cold_routes, lost=report.lost,
+            timeouts=report.timeouts, ttft_ms_p50=report.ttft_p50_ms,
+            tok_s=report.throughput_tps, held=held, **counts,
+            adapter_pages=report.server_stats.get("adapter_pages_hbm"))
+        del servers
+        gc.collect()
+        torch.cuda.empty_cache()
+    aware, blind = arms["aware"], arms["blind"]
+    if aware["cold_starts"] or aware["lost"] or aware["timeouts"] \
+            or aware["warm_routes"] < aware["completed"] \
+            or aware["completed"] != MULTITENANT_REQUESTS:
+        fail(f"phase 13 (d) aware arm: {aware}")
+    if not blind["cold_starts"] or blind["lost"] or blind["timeouts"]:
+        fail(f"phase 13 (d) blind arm: {blind}")
+    return arms
+
+
+def serve_grammar_lora_phase(torch, np, llama, kernels, server_cls,
+                             request_cls, params, device, weights,
+                             base_step_ms=None, parts=GRAMMAR_LORA_PARTS):
+    """Phase 13, the parts named in ``parts``: (a) constrained_generate,
+    (b) the structured rig, (c) the mixed-adapter server, (d) the
+    multi-tenant rig.  Returns ``{part: result}`` with each part's
+    seconds."""
+    from aiko_services_tpu_torch.models import constrained, lora, lora_paged
+    from aiko_services_tpu_torch.tools import loadgen
+    out = {}
+    for part in parts:
+        began = time.monotonic()
+        if part == "constrained":
+            out[part] = grammar_generate(torch, np, llama, constrained,
+                                         loadgen, weights, kernels, params,
+                                         device)
+        elif part == "structured":
+            out[part] = serve_structured(torch, np, llama, loadgen, weights,
+                                         kernels, server_cls, request_cls,
+                                         params, device)
+        elif part == "adapters":
+            out[part] = serve_adapters(torch, np, llama, lora, lora_paged,
+                                       loadgen, weights, kernels, server_cls,
+                                       request_cls, params, device,
+                                       base_step_ms,
+                                       PAGED_TOKENS.get(("int8", False)))
+        else:
+            out[part] = serve_multitenant(torch, np, llama, lora, loadgen,
+                                          weights, kernels, server_cls,
+                                          request_cls, params, device)
+        out[f"{part}_s"] = time.monotonic() - began
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_grammar_lora_phase(phase, smi):
+    """One line a part of phase 13, each with the card's name and power
+    limit."""
+    if "constrained" in phase:
+        run = phase["constrained"]
+        log("--- phase 13 (a) constrained_generate, llama3_8b int8: "
+            + json.dumps(run))
+        log(f"phase 13 (a): {run['rows']} rows of {run['prompt']} tokens, "
+            f"{run['steps']} masked steps in {run['wall_s']:.2f} s, "
+            f"{run['tokens_equal']} of {run['tokens_checked']} tokens the "
+            f"masked oracle's argmax; {smi}")
+    if "structured" in phase:
+        run = phase["structured"]
+        log("--- phase 13 (b) run_structured, llama3_8b int8: "
+            + json.dumps(run))
+        log(f"phase 13 (b): {run['jump_forward_tokens']} jump-forward tokens "
+            f"({run['jump_forward_per_request']:.2f} a request), "
+            f"{run['tokens_per_target_pass']:.4f} tokens a target pass "
+            f"constrained against {run['free_tokens_per_target_pass']} free;"
+            f" constrained {run['constrained_tok_s']:.1f} tok/s against free"
+            f" {run['free_tok_s']:.1f} (a figure, not a gate); {smi}")
+    if "adapters" in phase:
+        run = phase["adapters"]
+        log("--- phase 13 (c) mixed-adapter paged server, llama3_8b int8: "
+            + json.dumps(run))
+        log(f"phase 13 (c): {run['tenants']} tenants of rank {run['rank']} "
+            f"({run['adapter_pages']} pages), {run['base_rows_bitwise']} "
+            f"base rows bitwise the adapter-free server's; steady 8-slot "
+            f"graphed step with adapters {run['steady_step_ms']:.3f} ms "
+            f"against phase 4's base {fmt_ms(run['phase4_base_step_ms'])} "
+            f"ms, {run['steady_graph_captures_after_fence']} captures after "
+            f"the fence; {smi}")
+    if "multitenant" in phase:
+        arms = phase["multitenant"]
+        log("--- phase 13 (d) run_multitenant, llama3_8b int8: "
+            + json.dumps(arms))
+        log(f"phase 13 (d): aware {arms['aware']['cold_starts']} cold starts"
+            f" ({arms['aware']['warm_routes']} warm routes), blind "
+            f"{arms['blind']['cold_starts']} cold starts; TTFT p50 "
+            f"{arms['aware']['ttft_ms_p50']:.1f} / "
+            f"{arms['blind']['ttft_ms_p50']:.1f} ms; {smi}")
+    log("phase 13 parts: " + ", ".join(
+        f"{key[:-2]} {value:.1f} s" for key, value in phase.items()
+        if key.endswith("_s") and key[:-2] in GRAMMAR_LORA_PARTS)
+        + f"; {smi}")
 
 
 # --------------------------------------------------------------------------- #
@@ -5382,7 +6144,7 @@ def main() -> None:
     log(f"1b int8 draft params on the card in {time.monotonic() - t0:.1f} s")
     spec_runs = []
     for mode, quantize_kv in SPEC_RUNS:
-        draft = {"paired": params, "adaptive": draft_1b}.get(mode)
+        draft = {"paired": params, "adaptive": draft_1b}[mode]
         run = serve_spec(torch, np, llama, quant, w8, spec_kernels,
                          PagedContinuousServer, DecodeRequest, params,
                          quantize_kv, device, mode, draft,
@@ -5507,6 +6269,15 @@ def main() -> None:
         "ReplicaRouter), llama3_8b int8, bf16 KV: " + json.dumps(elastic))
     print_elastic(elastic, smi)
     log(f"phase 11 took {time.monotonic() - t0:.1f} s; {smi}")
+
+    # ---- phase 13: grammars and adapters (phase 4's weights) ----
+    t0 = time.monotonic()
+    grammar_lora = serve_grammar_lora_phase(
+        torch, np, llama, paged_kernels + (pp.append_kv_ragged,),
+        PagedContinuousServer, DecodeRequest, params, device, w8,
+        base_step_ms=paged_runs[0]["steady_step_ms"])
+    print_grammar_lora_phase(grammar_lora, smi)
+    log(f"phase 13 took {time.monotonic() - t0:.1f} s; {smi}")
 
     # ---- phase 6: int4 weights through every server ----
     del params, draft_1b

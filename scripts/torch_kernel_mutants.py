@@ -32,10 +32,15 @@ operand) from the next stage of its ring, and its streamed-weight path's
 last K slice never reaches the split merge; the contiguous cache's route
 to the chunk kernels (``models/llama.py``) leaves an inactive slot's
 ``chunk_len`` at the window's width (it writes its rows), or hands the
-kernels iota block tables shifted by one block.  Each copy is built and
-held to the same checks the working tree passes: ``chip_smoke.py``'s phase
-2 for that kernel (at the llama3_8b shapes; phase 7 for the ring, phase
-12's route check for the contiguous route) and the kernel's tests in
+kernels iota block tables shifted by one block; the LoRA delta gathers
+each row's neighbour's adapter (``lora_ids_shifted``), and the speculative
+round stops serializing on grammar-constrained rows, so a forced segment
+is walked from an automaton state that in-flight rounds have moved past
+(``forced_from_stale_state``).  Each copy is built and held to the same
+checks the working tree passes: ``chip_smoke.py``'s phase 2 for that
+kernel (at the llama3_8b shapes; phase 7 for the ring, phase 12's route
+check for the contiguous route, phase 13's mixed-adapter server (c) and
+structured rig (b) for the last two) and the matching tests in
 ``tests/test_torch_cuda.py``.
 A mutant that passes either means a tolerance too loose to see the bug.
 
@@ -66,6 +71,7 @@ WSTREAM = "aiko_services_tpu_torch/csrc/weight_stream.cuh"
 RING = "aiko_services_tpu_torch/csrc/ring_matmul.cu"
 RING_HOST = "aiko_services_tpu_torch/parallel/rdma_collective.py"
 LLAMA = "aiko_services_tpu_torch/models/llama.py"
+CONTINUOUS = "aiko_services_tpu_torch/orchestration/continuous.py"
 #: name -> (source, text replaced, replacement)
 MUTANTS = {
     "flash_drop_tile": (
@@ -211,6 +217,13 @@ MUTANTS = {
         "tables = ((_iota(batch * blocks_per_row, device, torch.int32) + 1)"
         "\n              % (batch * blocks_per_row)).reshape(batch, "
         "blocks_per_row)"),
+    "lora_ids_shifted": (
+        LLAMA, "    ids = ids.to(torch.int64)\n",
+        "    ids = ids.to(torch.int64).roll(1)\n"),
+    "forced_from_stale_state": (
+        CONTINUOUS, "if (mode == \"ngram\" or cons_live is not None) and "
+        "self._ring:",
+        "if mode == \"ngram\" and cons_live is None and self._ring:"),
 }
 #: mutant prefix -> the kernel's tests in tests/test_torch_cuda.py (-k)
 SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
@@ -218,7 +231,8 @@ SELECTION = {"flash": "flash_attention", "decode": "paged_decode",
              "kvwrite": "append or write_kv", "int4": "int4",
              "int8": "int8",
              "ag": "ring", "rs": "ring", "ring": "ring",
-             "contig": "degenerate"}
+             "contig": "degenerate", "lora": "adapter",
+             "forced": "constrained"}
 
 
 def make_copy(name: str, workdir: pathlib.Path) -> pathlib.Path:
@@ -276,6 +290,28 @@ def phase2(name: str) -> bool:
         worst = max(row["ratio"] for row in rows)
     elif kind == "contig":
         rows, worst = chip_smoke.check_contiguous_chunk(torch, llama, device)
+    elif kind in ("lora", "forced"):
+        import numpy as np
+
+        from aiko_services_tpu_torch.orchestration.continuous import (
+            DecodeRequest)
+        from aiko_services_tpu_torch.orchestration.paged import (
+            PagedContinuousServer)
+        params = llama.random_quantized_params(llama.CONFIGS["llama3_8b"],
+                                               seed=0, device=device)
+        kernels = (quant.int8_matmul, attention.flash_attention,
+                   paged_attention.paged_decode_attention,
+                   paged_prefill.write_kv_rows, paged_prefill.append_kv,
+                   paged_prefill.chunk_attention,
+                   paged_prefill.append_kv_ragged)
+        try:
+            chip_smoke.serve_grammar_lora_phase(
+                torch, np, llama, kernels, PagedContinuousServer,
+                DecodeRequest, params, device, chip_smoke.Weights(quant, 8),
+                parts=("adapters",) if kind == "lora" else ("structured",))
+        except Exception as error:  # noqa: BLE001 - the bug broke the run
+            failures.append(repr(error))
+        rows, worst = [], 0.0
     elif kind in ("ragged", "kvwrite"):
         # Byte-equality checks: the rows' max abs error is the measure.
         rows, _ = chip_smoke.check_append_ragged(torch, paged_prefill, llama,
@@ -290,7 +326,8 @@ def phase2(name: str) -> bool:
         rows, worst, _ = chip_smoke.check_chunk(torch, paged_prefill, llama,
                                                 device)
     measure = "max abs err" if kind in ("ragged", "kvwrite") else "err/tol"
-    phase = {"ag": "7", "rs": "7", "ring": "7", "contig": "12"}.get(kind, "2")
+    phase = {"ag": "7", "rs": "7", "ring": "7", "contig": "12",
+             "lora": "13 (c)", "forced": "13 (b)"}.get(kind, "2")
     print(f"{name}: smoke phase {phase} reported {len(failures)} failures over "
           f"{len(rows)} cases, worst {measure} {worst:.3f}")
     for row in rows:

@@ -2704,3 +2704,328 @@ def test_elastic_fleet_respawns_a_killed_replica_bitwise_a_direct_server(
         direct.run_until_drained()
         assert future.tokens == request.tokens
     assert built[-1].stats()["graph_replays"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# Grammars and adapters
+
+
+def _tenants(config, count=2, rank=4):
+    """Noisy adapters (non-zero B, the multi-tenant rig's draws) of
+    ``rank`` on wq / wv, as numpy factors."""
+    from aiko_services_tpu_torch.models import lora
+    from aiko_services_tpu_torch.tools import loadgen
+    lora_config = lora.LoRAConfig(rank=rank, alpha=2.0 * rank,
+                                  targets=("wq", "wv"))
+    return lora_config, {
+        f"t{i}": loadgen._noisy_loadgen_adapter(config, lora_config, 100 + i)
+        for i in range(count)}
+
+
+def _adapter_server(cuda, layout, quantize_kv, width, params=None,
+                    **kwargs):
+    """:func:`_graph_server` with two tenants loaded at run time."""
+    server = _graph_server(cuda, layout, quantize_kv, 8, width,
+                           params=params)
+    lora_config, tenants = _tenants(server.config)
+    for name, factors in tenants.items():
+        server.load_adapter(name, factors, lora_config)
+    return server
+
+
+def _adapter_traffic(server, seed):
+    """:func:`_graph_traffic`'s staggered waves, the requests on the base,
+    t0 and t1 in turn."""
+    rng = np.random.default_rng(seed)
+    vocab = server.config.vocab_size
+    names = (None, "t0", "t1")
+    requests = [DecodeRequest(f"r{i}", rng.integers(1, vocab, plen)
+                              .astype(np.int32), new, adapter=names[i % 3])
+                for i, (plen, new) in enumerate(
+                    [(5, 9), (40, 4), (3, 12), (33, 7), (12, 3), (21, 8)])]
+    for start in range(0, len(requests), 2):
+        for request in requests[start:start + 2]:
+            server.submit(request)
+        for _ in range(2):
+            server.step()
+    server.run_until_drained()
+    torch.cuda.synchronize()
+    return requests
+
+
+def test_constrained_accept_and_merge_forced_on_cuda_equal_cpu(cuda):
+    """The grammar round's device functions give on the card what they give
+    on the CPU on the same inputs (greedy rows; a terminal row commits its
+    forced prefix only)."""
+    from aiko_services_tpu_torch.models import constrained, speculative
+    from aiko_services_tpu_torch.tools import loadgen
+    table = constrained.stack_automata(
+        {"cmd": loadgen.command_automaton(300)})
+    gen = torch.Generator().manual_seed(5)
+    slots, k, vocab = 6, 4, 300
+    cpu = dict(
+        target_logits=torch.randn((slots, k + 1, vocab), generator=gen),
+        base_window=torch.randint(0, vocab, (slots, k + 1), generator=gen,
+                                  dtype=torch.int32),
+        base_counts=torch.randint(1, k + 2, (slots,), generator=gen,
+                                  dtype=torch.int32),
+        forced=torch.randint(0, vocab, (slots, k), generator=gen,
+                             dtype=torch.int32),
+        forced_counts=torch.tensor([0, 2, 4, 1, 0, 3], dtype=torch.int32),
+        states=torch.tensor([0, 3, 8, 12, 9, 4], dtype=torch.int64),
+        cons_mask=torch.tensor([True, True, True, True, False, True]))
+    allowed = torch.as_tensor(table.allowed)
+    temps, tops = torch.zeros(slots), torch.ones(slots)
+    want = constrained.constrained_accept_batch(*cpu.values(), allowed,
+                                                temps, tops)
+    got = constrained.constrained_accept_batch(
+        *[v.to(cuda) for v in cpu.values()], allowed.to(cuda),
+        temps.to(cuda), tops.to(cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[1][3]) == 1          # state 12 is terminal
+    mask = cpu["cons_mask"]
+    assert torch.equal(
+        speculative.merge_forced(cpu["base_window"][:, :k].to(cuda),
+                                 cpu["forced"].to(cuda),
+                                 mask.to(cuda)).cpu(),
+        speculative.merge_forced(cpu["base_window"][:, :k], cpu["forced"],
+                                 mask))
+
+
+@pytest.mark.parametrize("width", ["narrow", "8b"])
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_adapter_rows_graphed_equal_eager(cuda, llama3_8b_2l, layout,
+                                          quantize_kv, width):
+    """A mixed batch of base and adapter rows through captured chunk graphs
+    against the same server with graphs off: tokens, decode steps, state,
+    every cache byte and every kernel's launches bitwise equal (the graphs
+    read the stacked factors and the rows' adapter ids in place)."""
+    eager = _adapter_server(cuda, layout, quantize_kv, width)
+    eager._graphs_on = False
+    graphed = _adapter_server(cuda, layout, quantize_kv, width,
+                              params=eager.params)
+    runs = []
+    for server in (eager, graphed):
+        before = {fn.__name__: fn.launches for fn in _cuda.COUNTED}
+        requests = _adapter_traffic(server, 9)
+        launches = {fn.__name__: fn.launches - before[fn.__name__]
+                    for fn in _cuda.COUNTED}
+        runs.append((requests, server.stats(), launches))
+    (want, want_stats, want_launches), (got, stats, launches) = runs
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert all(len(r.tokens) == r.max_new_tokens for r in got)
+    assert stats["decode_steps"] == want_stats["decode_steps"]
+    assert launches == want_launches
+    assert stats["graph_captures"] > 0 and stats["graph_replays"] > 0
+    keys = [key for key in graphed._chunk_graph._graphs if len(key) == 7]
+    assert keys, "no chunk ran with the adapters"
+    for key, value in eager._state.items():
+        assert torch.equal(graphed._state[key], value), key
+    layers = (eager.cache, graphed.cache) if layout == "contiguous" \
+        else (eager.pool, graphed.pool)
+    for want_layer, got_layer in zip(*layers):
+        for key in want_layer:
+            assert torch.equal(got_layer[key], want_layer[key]), key
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_no_capture_after_warm_up_with_adapters(cuda, layout, quantize_kv):
+    """With adapters loaded: two warm-up runs, the fence, the traffic
+    again with no capture; an unload and a load into the recycled index
+    (the stacked tensors written in place) capture nothing either."""
+    server = _adapter_server(cuda, layout, quantize_kv, "narrow")
+    for _ in range(2):
+        _adapter_traffic(server, 5)
+    server.graph_ledger.fence()
+    requests = _adapter_traffic(server, 5)
+    assert all(len(r.tokens) == r.max_new_tokens for r in requests)
+    lora_config, tenants = _tenants(server.config)
+    stack = server._lora_shared["layers"][0]["wq"]["a"]
+    server.unload_adapter("t1")
+    server.load_adapter("t1", tenants["t1"], lora_config)
+    assert server._lora_shared["layers"][0]["wq"]["a"] is stack
+    again = _adapter_traffic(server, 5)
+    stats = server.stats()
+    assert stats["graph_captures_steady_state"] == 0
+    assert [r.tokens for r in again] == [r.tokens for r in requests]
+
+
+def test_adapter_pages_demote_and_restore_bitwise(cuda, tmp_path):
+    """An adapter's pages demote to the host tier and spill to disk (one
+    host block: the unload purged the request's adapter-scoped chain, so
+    the pages alone overflow it), come back byte for byte, and the warm
+    load serves the tokens it served before the unload."""
+    server = PagedContinuousServer(
+        config_name="tiny", slots=3, max_seq=128, chunk_steps=2,
+        params=llama.random_quantized_params(llama.CONFIGS["tiny"], seed=2,
+                                             device=cuda),
+        quantize=True, block_size=16,
+        enable_prefix_cache=True, host_tier_blocks=1,
+        spill_dir=str(tmp_path / "spill"), device=cuda)
+    lora_config, tenants = _tenants(server.config, count=1)
+    server.load_adapter("t0", tenants["t0"], lora_config)
+    golden = server.fetch_adapter_bytes("t0")
+    prompt = np.arange(3, 24, dtype=np.int32)
+    first = DecodeRequest("a", prompt, 6, adapter="t0")
+    server.submit(first)
+    server.run_until_drained()
+    total = sum(server._adapter_page_counts().values())
+    server.unload_adapter("t0")
+    while server._evict_one():
+        pass
+    pages = server._adapter_page_counts()
+    assert pages["hbm"] == 0 and pages["disk"] > 0
+    assert pages["host"] + pages["disk"] == total
+    assert np.array_equal(server.fetch_adapter_bytes("t0"), golden)
+    server.load_adapter("t0")
+    again = DecodeRequest("b", prompt.copy(), 6, adapter="t0")
+    server.submit(again)
+    server.run_until_drained()
+    assert server.adapter_warm_loads == 1 and again.tokens == first.tokens
+
+
+def test_lora_none_keeps_each_wrappers_launches(cuda, llama3_8b_2l):
+    """Every forward the servers call, with ``lora=None`` against the call
+    without it: bitwise the same output and launches; and with adapters
+    the same launches (the LoRA delta is PyTorch, no kernel)."""
+    from aiko_services_tpu_torch.models import lora
+    config = llama.CONFIGS["llama3_8b_2l"]
+    params = llama.random_quantized_params(config, seed=2, device=cuda)
+    lora_config, tenants = _tenants(config)
+    stack = lora.stack_adapters(config, lora_config, list(tenants.values()),
+                                device=cuda)
+    ids = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = torch.as_tensor(rng.integers(1, 1000, (3, 32)).astype(
+        np.int32), device=cuda)
+    window = torch.as_tensor(rng.integers(1, 1000, (3, 5)).astype(np.int32),
+                             device=cuda)
+    positions = torch.tensor([32, 20, 27], dtype=torch.int32, device=cuda)
+    active = torch.ones(3, dtype=torch.bool, device=cuda)
+    tables = torch.arange(1, 3 * 8 + 1, dtype=torch.int32,
+                          device=cuda).reshape(3, 8)
+
+    def fresh_cache():
+        cache = llama.init_cache(config, 3, 128, device=cuda)
+        llama.prefill(params, prompts, cache, config)
+        return cache
+
+    def fresh_pool():
+        pool = llama.init_paged_cache(config, 3 * 8 + 1, 16, device=cuda)
+        for row in range(3):
+            llama.prefill_append_paged(params, prompts[row:row + 1], pool,
+                                       tables[row:row + 1], 0, config)
+        return pool
+
+    forwards = {
+        "prefill": lambda **kw: llama.prefill(
+            params, prompts, llama.init_cache(config, 3, 128, device=cuda),
+            config, **kw)[0],
+        "decode_step": lambda **kw: llama.decode_step(
+            params, window[:, :1], fresh_cache(), 32, config, **kw)[0],
+        "verify_chunk_ragged": lambda **kw: llama.verify_chunk_ragged(
+            params, window, fresh_cache(), positions, active, config,
+            **kw)[0],
+        "prefill_chunk": lambda **kw: llama.prefill_chunk(
+            params, window, fresh_cache(), 32, config, **kw)[0],
+        "verify_chunk_paged": lambda **kw: llama.verify_chunk_paged(
+            params, window, fresh_pool(), tables, positions, active, config,
+            **kw)[0],
+        "prefill_append_paged": lambda **kw: llama.prefill_append_paged(
+            params, prompts[:1, :16], fresh_pool(), tables[:1], 32, config,
+            **{key: (dict(value, ids=ids[1:2]) if value else value)
+               for key, value in kw.items()})[0],
+    }
+    for name, forward in forwards.items():
+        outs, counts = [], []
+        for kwargs in ({}, {"lora": None}, {"lora": dict(stack, ids=ids)}):
+            forward(**kwargs)                    # setup launches excluded
+            torch.cuda.synchronize()
+            before = {fn.__name__: fn.launches for fn in _cuda.COUNTED}
+            outs.append(forward(**kwargs))
+            torch.cuda.synchronize()
+            counts.append({fn.__name__: fn.launches - before[fn.__name__]
+                           for fn in _cuda.COUNTED})
+        # The forward's own launches: setup (caches, pools) counted alike.
+        assert counts[0] == counts[1] == counts[2], name
+        assert torch.equal(outs[0], outs[1]), name
+        assert not torch.equal(outs[0], outs[2]), name
+
+
+def test_adapter_rows_equal_batch_one_and_base_rows_equal_plain(cuda):
+    """In a mixed batch every row runs its own adapter: base rows give the
+    adapter-free server's tokens, each adapter row the tokens of the same
+    request served alone (a row that gathered a neighbour's factors would
+    differ from both)."""
+    params = llama.random_quantized_params(llama.CONFIGS["tiny"], seed=2,
+                                           device=cuda)
+    mixed = _adapter_server(cuda, "paged", False, "narrow", params=params)
+    requests = _adapter_traffic(mixed, 13)
+    plain = _graph_server(cuda, "paged", False, 8, "narrow", params=params)
+    for request in requests:
+        if request.adapter is None:
+            twin = DecodeRequest("p", request.prompt.copy(),
+                                 request.max_new_tokens)
+            plain.submit(twin)
+            plain.run_until_drained()
+        else:
+            alone = _adapter_server(cuda, "paged", False, "narrow",
+                                    params=params)
+            twin = DecodeRequest("a", request.prompt.copy(),
+                                 request.max_new_tokens,
+                                 adapter=request.adapter)
+            alone.submit(twin)
+            alone.run_until_drained()
+        assert twin.tokens == request.tokens, request.request_id
+
+
+def test_constrained_server_rows_follow_the_grammar(cuda):
+    """Grammar-constrained rows through the paged server's speculative
+    round on the card (n-gram, k 4, jump-forward): every request is
+    accepted by the grammar and holds to the masked batch-1 oracle
+    (teacher-forced, near-ties within 0.1), and forced segments were
+    committed."""
+    from aiko_services_tpu_torch.models import constrained
+    from aiko_services_tpu_torch.tools import loadgen
+    config = llama.CONFIGS["tiny"]
+    automaton = loadgen.command_automaton(config.vocab_size)
+    server = PagedContinuousServer(
+        config_name="tiny", slots=3, max_seq=128, chunk_steps=2,
+        params=llama.random_quantized_params(config, seed=2, device=cuda),
+        quantize=True, block_size=16, draft_mode="ngram", spec_k=4,
+        automata={"cmd": automaton}, device=cuda)
+    rng = np.random.default_rng(17)
+    requests = [DecodeRequest(f"c{i}", rng.integers(1, 1000, 9 + 4 * i)
+                              .astype(np.int32), 16, automaton="cmd")
+                for i in range(6)]
+    for request in requests:
+        server.submit(request)
+    server.run_until_drained()
+    table = constrained.stack_automata({"cmd": automaton})
+    for request in requests:
+        assert automaton.accepts(request.tokens), request.tokens
+        cache = llama.init_cache(config, 1, 128, device=cuda)
+        logits, cache = llama.prefill(
+            server.params, torch.as_tensor(request.prompt,
+                                           device=cuda)[None], cache, config)
+        state, position = 0, len(request.prompt)
+        for index, token in enumerate(request.tokens):
+            masked = torch.where(torch.as_tensor(table.allowed[state],
+                                                 device=cuda),
+                                 logits[0, -1], -torch.inf)
+            # The verify's chunk kernel against the decode kernel: bf16
+            # near-ties within 0.1 of the masked best, teacher-forced.
+            best = int(masked.argmax())
+            assert table.allowed[state, token], (request.request_id, index)
+            assert best == token or float(masked[best] - masked[token]) \
+                <= 0.1, (request.request_id, index)
+            state = int(table.next_state[state, token])
+            logits, cache = llama.decode_step(
+                server.params, torch.tensor([[token]], dtype=torch.int32,
+                                            device=cuda), cache, position,
+                config)
+            position += 1
+    assert server.stats()["spec_jump_forward_tokens"] > 0

@@ -611,14 +611,39 @@ def test_llama_infer_rejects_overlong_prompt():
         {"tokens": np.zeros((1, too_long), np.int32)})["error"]
 
 
-@pytest.mark.parametrize("factory,needs", [
-    ("make_constrained_infer", "models/constrained.py")])
-def test_unported_factories_raise_naming_what_they_need(factory, needs):
-    with pytest.raises(NotImplementedError, match=re.escape(needs)):
-        getattr(serving, factory)()
+def test_unported_factories_raise_naming_what_they_need():
     with pytest.raises(NotImplementedError, match="import_weights"):
         serving.make_llama_infer(CONFIG, checkpoint="weights",
                                  device="cpu")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_make_constrained_infer_answers_as_in_jax(temperature):
+    """``make_constrained_infer`` (which raised before the grammar slice)
+    on the JAX factory's weights: greedy rows equal the JAX factory's
+    answer, sampled rows grammatical, ``accepted`` set on both."""
+    from aiko_services_tpu.models.constrained import (
+        automaton_from_rules as jax_rules)
+    from aiko_services_tpu_torch.models.constrained import (
+        automaton_from_rules)
+    rules = {0: [((1,), 1)], 1: [((3, 4, 5), 2)],
+             2: [((6, 7, 8, 9), 4), ((2,), 3)], 4: [((2,), 3)], 3: []}
+    automaton = automaton_from_rules(1024, rules, [3])
+    infer = serving.make_constrained_infer(
+        CONFIG, automaton=automaton, max_new_tokens=8,
+        temperature=temperature, params=bridged(), device="cpu")
+    inputs = {"tokens": np.asarray([[30, 40, 50, 60], [7, 8, 9, 10]],
+                                   np.int32)}
+    out = infer(inputs)
+    assert out["accepted"].tolist() == [1, 1]
+    for row in out["tokens_out"]:
+        row = [int(t) for t in row]
+        assert automaton.accepts(row[:row.index(2) + 1])
+    if temperature == 0.0:
+        want = jax_serving.make_constrained_infer(
+            CONFIG, automaton=jax_rules(1024, rules, [3]),
+            max_new_tokens=8)(inputs)
+        np.testing.assert_array_equal(out["tokens_out"], want["tokens_out"])
 
 
 def _router_rig(engine, broker, n_replicas=2, **router_kwargs):

@@ -18,7 +18,9 @@ K/V write past the end of the cache, on the CPU.
   dirty rows merged in place, a replay's outputs packed before the next
   one) with the capture stood in for by a replay of the eager program:
   the tokens of the eager chunks, with staggered admissions, retirements,
-  mixed steps and speculation rounds between graphed chunks.
+  mixed steps and speculation rounds between graphed chunks; with adapter
+  rows too, a load that widens the stack releasing the older stack's
+  graphs.
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ import torch
 from aiko_services_tpu.models import llama as jax_llama
 from aiko_services_tpu.obs.compiles import CompileLedger
 from aiko_services_tpu.obs.metrics import MetricsRegistry
-from aiko_services_tpu_torch.models import llama
+from aiko_services_tpu_torch.models import llama, lora
 from aiko_services_tpu_torch.obs.compiles import CaptureLedger
 from aiko_services_tpu_torch.ops import _cuda, quant
 from aiko_services_tpu_torch.ops import paged_prefill as pp
@@ -40,6 +42,7 @@ from aiko_services_tpu_torch.orchestration.continuous import (
     ContinuousBatchingServer, DecodeRequest)
 from aiko_services_tpu_torch.orchestration.paged import (
     PagedContinuousServer)
+from aiko_services_tpu_torch.tools import loadgen
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -333,12 +336,13 @@ class _EagerReplay:
         self.outputs[1].copy_(counts)
 
 
-def _replayed_capture(self, num_steps, eos_id):
+def _replayed_capture(self, num_steps, eos_id, lora_shared=None):
     slots = self.state["token"].shape[0]
     outputs = (torch.full((slots, num_steps), -7, dtype=torch.int32),
                torch.full((slots,), -7, dtype=torch.int32))
     self.ledger.record_capture()
-    return (_EagerReplay(lambda: self._program(num_steps, eos_id), outputs),
+    return (_EagerReplay(lambda: self._program(num_steps, eos_id,
+                                               lora_shared), outputs),
             outputs, {}, ())
 
 
@@ -378,3 +382,60 @@ def test_server_graph_wiring_keeps_the_eager_tokens(monkeypatch, layout,
         assert stats["spec_rounds"] > 0
     if eos is not None:
         assert all(k[4] == eos for k in keys)
+
+
+def _tenant_traffic(server, tenant, seed):
+    """Two waves of two requests on one tenant's adapter, as _traffic."""
+    rng = np.random.default_rng(seed)
+    requests = [DecodeRequest(f"{tenant}{i}", rng.integers(1, 1024, plen)
+                              .astype(np.int32), new, adapter=tenant)
+                for i, (plen, new) in enumerate(SPECS[:4])]
+    for start in range(0, len(requests), 2):
+        for request in requests[start:start + 2]:
+            server.submit(request)
+        for _ in range(2):
+            server.step()
+    server.run_until_drained()
+    return requests
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_graph_wiring_with_adapters_releases_the_older_stacks_graphs(
+        monkeypatch, layout):
+    """Adapter rows through the servers' graph path (the capture stood in
+    for as above) give the eager server's tokens; a load that widens the
+    stack gives the chunks a new ``lora_key``, and the graphs captured
+    under the older stack are released while the new key warms up,
+    captures and replays."""
+    monkeypatch.setattr(llama.ChunkGraph, "_capture", _replayed_capture)
+    cls, kwargs = LAYOUTS[layout]
+    kwargs = dict(kwargs, config_name="tiny", slots=2, chunk_steps=3,
+                  seed=3, device="cpu")
+    config = llama.CONFIGS["tiny"]
+    lc = lora.LoRAConfig(rank=4, alpha=8.0, targets=("wq", "wv"))
+    factors = [loadgen._noisy_loadgen_adapter(config, lc, 100 + i)
+               for i in range(2)]
+    runs = []
+    for graphs in (False, True):
+        server = cls(**kwargs)
+        if graphs:
+            server._static_state = server._state
+            server._graphs_on = True
+        server.load_adapter("t0", factors[0], lc)
+        first = _tenant_traffic(server, "t0", 5)
+        keys = {} if not graphs else dict(server._chunk_graph._graphs)
+        captures = server.stats()["graph_captures"]
+        server.load_adapter("t1", factors[1], lc)
+        second = _tenant_traffic(server, "t1", 6)
+        runs.append((server, first + second, keys, captures))
+    (eager, want, _, _), (graphed, got, old, captures) = runs
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert all(len(r.tokens) == r.max_new_tokens for r in got)
+    old_keys = {key for key in old if len(key) == 7}
+    assert old_keys and captures > 0
+    keys = graphed._chunk_graph._graphs
+    new_keys = {key for key in keys if len(key) == 7}
+    assert new_keys and not new_keys & old_keys
+    assert {key[-1] for key in new_keys} == {
+        graphed._lora_graph_key(graphed._lora_shared)}
+    assert graphed.stats()["graph_captures"] > captures

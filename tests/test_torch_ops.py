@@ -394,6 +394,7 @@ def _port_sources():
                       REPO / "scripts" / "smoke_fleet.py",
                       REPO / "scripts" / "smoke_elastic.py",
                       REPO / "scripts" / "smoke_contig.py",
+                      REPO / "scripts" / "smoke_grammar_lora.py",
                       REPO / "scripts" / "codec_scan.py",
                       REPO / "scripts" / "ring_step_lab.py"]
 
@@ -412,7 +413,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "orchestration/migration.py", "tools/loadgen.py",
                  "orchestration/autoscaler.py", "orchestration/lifecycle.py",
                  "orchestration/process_manager.py", "runtime/proxy.py",
-                 "runtime/category.py"):
+                 "runtime/category.py", "models/constrained.py",
+                 "models/lora.py", "models/lora_paged.py",
+                 "tools/import_weights.py"):
         assert REPO / "aiko_services_tpu_torch" / name in sources
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -609,9 +609,7 @@ def test_warm_prefill_ladder_matches_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(adapters={"a": {}}),
-    dict(replica_mesh=object()), dict(automata={"g": object()}),
-    dict(compilation_cache_dir="cache")])
+    dict(replica_mesh=object()), dict(compilation_cache_dir="cache")])
 def test_paged_features_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError):
         PagedContinuousServer(config_name=CONFIG, slots=1, max_seq=32,

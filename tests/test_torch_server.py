@@ -211,12 +211,66 @@ def test_no_device_raises_without_cuda():
 
 @pytest.mark.parametrize("option", [
     dict(mesh=object()), dict(replica_mesh=object()),
-    dict(adapters={"a": {}}), dict(automata={"g": object()}),
     dict(compilation_cache_dir="cache")])
 def test_features_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError):
         ContinuousBatchingServer(config_name=CONFIG, slots=1, max_seq=32,
                                  device="cpu", **option)
+
+
+@pytest.mark.parametrize("feature", ["adapters", "automata"])
+def test_adapters_and_automata_serve_as_in_jax(feature):
+    """The contiguous server takes ``adapters=`` / ``lora_config=`` and
+    ``automata=`` (they raised before the grammar and LoRA slice): a mixed
+    batch, half the requests on an adapter or a grammar, gives the JAX
+    server's tokens on the same weights."""
+    from aiko_services_tpu.models.constrained import (
+        automaton_from_rules as jax_rules)
+    from aiko_services_tpu_torch.models.constrained import (
+        automaton_from_rules)
+
+    from .test_multi_lora import LORA, _noisy_adapter
+    rules = {0: [((1,), 1)], 1: [((3, 4, 5), 2)],
+             2: [((6, 7, 8, 9), 4), ((2,), 3)], 4: [((2,), 3)], 3: []}
+    if feature == "adapters":
+        adapter = _noisy_adapter(jax_llama.CONFIGS[CONFIG],
+                                 jax.random.PRNGKey(4))
+        jax_kwargs = dict(adapters={"ft": adapter}, lora_config=LORA)
+        from aiko_services_tpu_torch.models.lora import LoRAConfig
+        port_kwargs = dict(
+            adapters={"ft": jax.tree.map(np.asarray, adapter)},
+            lora_config=LoRAConfig(rank=LORA.rank, alpha=LORA.alpha,
+                                   targets=LORA.targets))
+    else:
+        jax_kwargs = dict(automata={"g": jax_rules(1024, rules, [3])},
+                          draft_mode="ngram", spec_k=4)
+        port_kwargs = dict(automata={"g": automaton_from_rules(1024, rules,
+                                                               [3])},
+                           draft_mode="ngram", spec_k=4)
+    kwargs = dict(slots=2, max_seq=64, chunk_steps=4, ring_max=2)
+    jax_server = jax_continuous.ContinuousBatchingServer(
+        config_name=CONFIG, seed=2, **kwargs, **jax_kwargs)
+    params = params_from_numpy(jax.tree.map(np.asarray, jax_server.params),
+                               "cpu")
+    port_server = ContinuousBatchingServer(config_name=CONFIG, params=params,
+                                           device="cpu", **kwargs,
+                                           **port_kwargs)
+    pick = {"adapters": dict(adapter="ft"), "automata": dict(automaton="g")}
+    tokens = []
+    for module, server in ((jax_continuous, jax_server),
+                           (None, port_server)):
+        rng = np.random.default_rng(6)
+        requests = []
+        for index in range(4):
+            prompt = rng.integers(1, 1024, 5 + 3 * index).astype(np.int32)
+            cls = module.DecodeRequest if module else DecodeRequest
+            requests.append(cls(f"r{index}", prompt, 8,
+                                **(pick[feature] if index % 2 else {})))
+        for request in requests:
+            server.submit(request)
+        server.run_until_drained()
+        tokens.append([list(r.tokens) for r in requests])
+    assert tokens[0] == tokens[1]
 
 
 @pytest.mark.parametrize("option", [

@@ -744,17 +744,19 @@ def test_spec_sampled_requests_finish_in_vocab():
 
 
 def test_speculation_options_route_and_raise():
-    """The contiguous server speculates too (n-gram here); grammars raise
-    on the paged one; bad modes and ladders raise as in the JAX
-    package."""
+    """The contiguous server speculates too (n-gram here); grammars alone
+    turn speculation on (n-gram) on the paged one; bad modes and ladders
+    raise as in the JAX package."""
+    from aiko_services_tpu_torch.models.constrained import (
+        automaton_from_rules)
     contiguous = ContinuousBatchingServer(config_name=CONFIG, slots=1,
                                           max_seq=32, device="cpu",
                                           draft_mode="ngram")
     assert contiguous.stats()["spec_draft_mode"] == "ngram"
-    with pytest.raises(NotImplementedError, match="automata"):
-        PagedContinuousServer(config_name=CONFIG, slots=1, max_seq=32,
-                              device="cpu", draft_mode="ngram",
-                              automata={"g": object()})
+    grammar = PagedContinuousServer(
+        config_name=CONFIG, slots=1, max_seq=32, device="cpu",
+        automata={"g": automaton_from_rules(1024, {0: [((1,), 1)]}, [1])})
+    assert grammar.stats()["spec_draft_mode"] == "ngram"
     for kwargs, message in ((dict(draft_mode="bogus"), "draft_mode"),
                             (dict(draft_mode="model"), "draft_config_name"),
                             (dict(draft_mode="ngram", spec_k=16), "ladder")):

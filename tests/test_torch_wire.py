@@ -526,9 +526,9 @@ def test_prefix_cached_paged_replica_never_touches_the_kv_wire():
 
 @pytest.mark.parametrize("command", ["adapter_load", "adapter_unload"])
 def test_adapter_commands_answer_with_an_error(command):
-    """Adapter hot-deploy has no server to land on yet: the replica still
-    answers (adapter_response id (error: …)), so a client future
-    resolves."""
+    """A failed adapter command (no PEFT directory at the path, no such
+    adapter to unload) still answers (adapter_response id (error: …)), so
+    a client future resolves."""
     server = _servers(slots=1, max_seq=32, chunk_steps=2)["torch"]
     wire = Wire("torch", server, "adapters")
     wire.publish(sexpr.generate(command, [
