@@ -82,9 +82,9 @@ never rewritten by the importer's admission seed, so greedy decode after
 an imported prefix equals local prefill bitwise
 (``tests/test_torch_kvstore.py``).
 
-Left out: the pool auditor's flow hooks (the JAX package's
-``pool_audit.AUDITOR``; queue 1 item 8 of ``ROADMAP.md``) and
-tensor-parallel pools (item 11).
+The importer books its pool inflow with the pool auditor
+(:mod:`~..obs.pool_audit`, ``alloc`` flows) as the JAX package's does.
+Left out: tensor-parallel pools (queue 1 item 11 of ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -95,6 +95,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..obs import pool_audit
 from .directory import HEX_KEY_CHARS, chain_keys, shareable_blocks
 
 __all__ = ["pool_signature", "export_payload", "import_payload",
@@ -554,6 +555,11 @@ def import_payload(server, payload: Dict, engine=None,
     if needed > len(server._free):
         return 0
     blocks = [server._free.pop() for _ in range(needed)]
+    if pool_audit.AUDITOR is not None:
+        # The accountant's pool inflow for imported blocks: their tier-out
+        # happened on the exporting peer, not here.
+        pool_audit.AUDITOR.flow("alloc", needed,
+                                needed * server._block_nbytes())
     queue_async = bool(async_import) and engine is not None \
         and hasattr(server, "_queue_import")
     if not queue_async:
@@ -639,6 +645,8 @@ def seed_chain(server, tokens, adapter_id: int = 0) -> int:
         if not server._free:
             break
         block = server._free.pop()
+        if pool_audit.AUDITOR is not None:
+            pool_audit.AUDITOR.flow("alloc", 1, server._block_nbytes())
         server._index[key] = block
         server._block_key[block] = key
         server._refs[block] = 0

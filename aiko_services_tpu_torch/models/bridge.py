@@ -2,7 +2,9 @@
 numpy arrays, into the port's tensors.
 
 The layouts are kept as they are: weights ``(in, out)``, int8 leaves
-``{"q": int8 (in, out), "s": f32 (1, out)}``, KV ``(batch, max_seq,
+``{"q": int8 (in, out), "s": f32 (1, out)}``, int4 leaves ``{"q4", "s"}``,
+a MoE layer's ``moe`` dict (the router 2-D, dense or quantized; the
+experts 3-D, ``(E, d, f)`` / ``(E, f, d)``), KV ``(batch, max_seq,
 kv_heads, head_dim)`` and int8 KV scales ``(batch, max_seq, kv_heads)``
 f32.  bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, what ``np.asarray``
 of a JAX bf16 array gives) travel as their raw 16-bit patterns, so the

@@ -47,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -91,7 +92,10 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 2048
     dtype: Any = torch.bfloat16
-    #: > 0 = mixture-of-experts MLP (not ported yet: such configs raise).
+    #: > 0 switches the MLP to a mixture-of-experts (Mixtral-class,
+    #: :mod:`.moe`).  Capacity-based dropping makes routing batch-dependent;
+    #: ``moe_capacity_factor >= n_experts / moe_top_k`` drops nothing, which
+    #: keeps decode exactly consistent with the full-sequence forward.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -104,6 +108,14 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def moe_config(self):
+        from .moe import MoEConfig
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         n_experts=self.n_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         dtype=self.dtype)
 
 
 #: The JAX package's named configs, same names and sizes.
@@ -153,12 +165,6 @@ CONFIGS: Dict[str, LlamaConfig] = {
 }
 
 
-def _dense_only(config: LlamaConfig) -> None:
-    if config.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts configs are not ported yet")
-
-
 # --------------------------------------------------------------------------- #
 # Parameters
 
@@ -173,8 +179,8 @@ def init_params(config: LlamaConfig, seed: int = 0,
                 device=None) -> Dict:
     """Random dense parameters (fan-in-scaled gaussians, unit norms) in
     the JAX package's tree layout, drawn from a ``torch.Generator``
-    seeded with ``seed`` on ``device``."""
-    _dense_only(config)
+    seeded with ``seed`` on ``device``.  MoE configs draw ``layer["moe"]``
+    (:func:`~.moe.init_moe_params`) in place of the dense MLP."""
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     dt = config.dtype
@@ -186,17 +192,22 @@ def init_params(config: LlamaConfig, seed: int = 0,
 
     layers = []
     for _ in range(config.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": torch.ones((d,), dtype=dt, device=device),
             "wq": dense((d, h * hd)),
             "wk": dense((d, kv * hd)),
             "wv": dense((d, kv * hd)),
             "wo": dense((h * hd, d)),
             "mlp_norm": torch.ones((d,), dtype=dt, device=device),
-            "w_gate": dense((d, f)),
-            "w_up": dense((d, f)),
-            "w_down": dense((f, d)),
-        })
+        }
+        if config.n_experts:
+            from .moe import init_moe_params
+            layer["moe"] = init_moe_params(config.moe_config, device=device,
+                                           generator=generator)
+        else:
+            layer.update({"w_gate": dense((d, f)), "w_up": dense((d, f)),
+                          "w_down": dense((f, d))})
+        layers.append(layer)
     return {
         "embed": dense((config.vocab_size, d), 1.0),
         "layers": layers,
@@ -209,7 +220,9 @@ def quantize_params(params, bits: int = 8) -> Dict:
     """Weight-only quantization of every 2-D float leaf (norm vectors stay
     in the model dtype).  ``bits=8``: per-output-channel int8.  ``bits=4``:
     nibble-packed int4 with per-128-row-group scales; the embedding stays
-    int8, because its read path is a row gather."""
+    int8, because its read path is a row gather.  A MoE layer's 2-D router
+    quantizes and its 3-D experts stay in the model dtype, the same
+    tensors in the int8 and the int4 tree."""
     if bits == 4:
         quantized = quantize_tree(params, bits=4)
         quantized["embed"] = quantize_tree(params["embed"])
@@ -228,7 +241,10 @@ def random_quantized_params(config: LlamaConfig, seed: int = 0,
     in/128), out)}`` with the embedding int8.  Scales make the dequantized
     weights look like fan-in-scaled gaussians, so activations stay finite
     through all layers."""
-    _dense_only(config)
+    if config.n_experts:
+        raise NotImplementedError(
+            "random_quantized_params covers dense configs; MoE expert "
+            "weights are 3-D and stay bf16 under quantize_params")
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     device = resolve_device(device)
@@ -463,7 +479,14 @@ def _attention_block(layer, config, x, rope):
 
 
 def _mlp_block(layer, config, x):
+    """The pre-norm MLP and its residual: SwiGLU, or on a MoE layer
+    :func:`~.moe.moe_ffn` over every token of ``x`` in one call (the
+    capacity follows the call's token count, as in the JAX package)."""
     normed = rms_norm(x, layer["mlp_norm"], config.norm_eps)
+    if "moe" in layer:
+        from .moe import moe_ffn
+        return x + moe_ffn(layer["moe"], normed,
+                           config.moe_config).to(x.dtype)
     gate = F.silu(_matmul(normed, layer["w_gate"]).to(torch.float32))
     up = _matmul(normed, layer["w_up"]).to(torch.float32)
     return x + _matmul((gate * up).to(x.dtype), layer["w_down"])
@@ -480,7 +503,6 @@ def _positions(batch: int, seq: int, device):
 def forward(params, tokens, config: LlamaConfig):
     """Full-sequence forward: tokens (batch, seq) int -> logits (batch,
     seq, vocab) f32."""
-    _dense_only(config)
     batch, seq = tokens.shape
     rope = _rope_tables(config, _positions(batch, seq, tokens.device))
     x = _embed_lookup(params, tokens, config.dtype)
@@ -625,7 +647,6 @@ def prefill(params, tokens, cache, config: LlamaConfig, lora=None):
     """Run the prompt through the model filling the KV cache (in place);
     returns (logits of the last position (batch, 1, vocab) f32, cache).
     ``lora``: optional batched per-row adapters (:func:`_lora_delta`)."""
-    _dense_only(config)
     batch, seq = tokens.shape
     rope = _rope_tables(config, _positions(batch, seq, tokens.device))
     x = _embed_lookup(params, tokens, config.dtype)
@@ -802,7 +823,6 @@ def prefill_chunk(params, tokens, cache, start_index: int,
     Rolling caches are rejected for K > 1: the slab lands before the
     attention runs, so ring rows still inside earlier chunk queries'
     windows would be overwritten.  Feed them K = 1 chunks."""
-    _dense_only(config)
     batch, K = tokens.shape
     if cache and "pos" in cache[0] and K > 1:
         raise ValueError(
@@ -838,7 +858,6 @@ def verify_chunk_ragged(params, tokens, cache, positions, active,
     route writes nothing for it (``chunk_len`` 0).  Its logits are garbage
     the acceptance mask discards.  Stale rows past a rejected proposal
     are unattendable until rewritten."""
-    _dense_only(config)
     if cache and "pos" in cache[0]:
         raise ValueError(
             "verify_chunk_ragged does not support rolling caches")
@@ -1099,7 +1118,7 @@ class ChunkGraph:
     taken back and added again on every replay (``ops/_cuda.py``).  A
     capture that fails raises; nothing falls back to the eager chunk.
     ``ledger`` (:class:`~..obs.compiles.CaptureLedger`) counts captures
-    and replays.  On the card only: CPU tensors never capture."""
+    (each with its host ms and key) and replays.  On the card only: CPU tensors never capture."""
 
     def __init__(self, params, config: LlamaConfig, cache, state: Dict,
                  paged: bool, ledger):
@@ -1175,12 +1194,15 @@ class ChunkGraph:
                              f"card, not on {device}")
         before = _cuda.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        began = time.perf_counter()
         try:
             with torch.cuda.graph(graph):
                 outputs = self._program(num_steps, eos_id, lora_shared)
         finally:
             launches = _cuda.take_back(before)
-        self.ledger.record_capture()
+        self.ledger.record_capture(
+            (time.perf_counter() - began) * 1e3,
+            signature=str(self.key(num_steps, eos_id, None)))
         return graph, outputs, launches, _cuda.scratch_buffers(device)
 
 
@@ -1470,7 +1492,6 @@ def prefill_append_paged(params, tokens, pool, tables, start_index: int,
     block_size`` and the shared blocks are only read.  ``kv_limit`` bounds
     the kernel's block sweep to the request's own allocation.  Returns
     (logits (batch, K, vocab) f32 or None, pool)."""
-    _dense_only(config)
     return _prefill_append_core(params, tokens, pool, tables, start_index,
                                 config, kv_limit=kv_limit,
                                 compute_logits=compute_logits, lora=lora)
@@ -1559,7 +1580,6 @@ def verify_chunk_paged(params, tokens, pool, tables, positions, active,
     absolute-position mask until a later round rewrites them).  Callers
     reserve ``K`` rows of block headroom past the last committed position
     (the paged server's worst-case reservation includes ``spec_k + 1``)."""
-    _dense_only(config)
     return _verify_append_core(params, tokens, pool, tables, positions,
                                active, config, kv_limit=kv_limit, lora=lora)
 

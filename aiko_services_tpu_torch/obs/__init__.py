@@ -6,15 +6,25 @@
 * :mod:`.trace` — distributed request spans riding the wire's ``trace``
   field; NVTX ranges in place of JAX profiler annotations.
 * :mod:`.steplog` — the engine step-event ring (off unless installed).
-* :mod:`.flight` — the flight recorder, without the sections that read
-  modules the port does not have yet.
-* :mod:`.compiles` — the CUDA graph capture ledger, the torch meaning of
-  the reference's compile ledger.
+* :mod:`.flight` — the flight recorder: capture bundles with the
+  manifest, spans, steplog, counters, compiles, profile and census
+  sections.
+* :mod:`.attrib` — step-time attribution, the tax budget table; its
+  device probe times on CUDA events.
+* :mod:`.compiles` — the CUDA graph capture ledgers (one an engine, and
+  the process-wide ledger with labels, records, the steady-state
+  detector and the kernel library's cache counters).
+* :mod:`.profiler` — the on-demand ``(profile N)`` bracket on
+  ``torch.profiler``.
+* :mod:`.pool_audit` — the KV memory accountant and the online pool
+  auditor behind ``(census)``.
 
 Import discipline as in the reference: ``obs`` modules import nothing
 from the rest of the package (``torch`` strictly lazily).
 """
 
-from . import compiles, flight, metrics, steplog, trace  # noqa: F401
+from . import (attrib, compiles, flight, metrics,  # noqa: F401
+               pool_audit, profiler, steplog, trace)
 
-__all__ = ["compiles", "flight", "metrics", "steplog", "trace"]
+__all__ = ["attrib", "compiles", "flight", "metrics", "pool_audit",
+           "profiler", "steplog", "trace"]

@@ -1,12 +1,7 @@
 """Flight recorder: anomaly-triggered capture bundles + p95 drift.
 
 The port's copy of ``aiko_services_tpu/obs/flight.py`` (it has no JAX in
-it); its imports point at the port's own modules.  The port's bundle has
-the manifest, spans, steplog and counters sections.  It leaves out the
-reference's ``compiles``, ``profile`` and ``census`` sections: they read
-the compile ledger, the device profiler and the pool auditor
-(``compiles.LEDGER``, ``profiler.LAST``, ``pool_audit.AUDITOR``), which the
-port has not ported yet (``ROADMAP.md``, queue 1 item 8).
+it); its imports point at the port's own modules.
 
 The span trees, step log and mergeable histograms make the fleet
 *observable*.  This module makes it *self-recording*: a
@@ -25,8 +20,13 @@ self-contained **capture bundle** — a single JSON file that
 - ``counters``  — the metrics registry snapshot, the baseline snapshot
   taken at install time (so the doctor diffs them), and any attached
   provider dicts (e.g. a server's ``stats()``);
-- (the reference's ``compiles``, ``profile`` and ``census`` sections
-  are left out; see above).
+- ``compiles``  — the compile-ledger snapshot when a ledger is
+  installed (graph-capture records with program, signature and wall ms,
+  plus the kernel library's cache hit/miss/saved counters);
+- ``profile``   — the most recent device-profile manifest when one
+  exists (the exported trace, per-chunk device ms);
+- ``census``    — the pool auditor's snapshot when one is installed
+  (per-tier KV census, flow integrals, audit violations).
 
 Every section is stamped with the SAME trace id, so bundles from
 different processes join into one fleet-wide forensic record: the
@@ -62,7 +62,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
-from . import metrics, steplog, trace
+from . import compiles, metrics, pool_audit, profiler, steplog, trace
 
 __all__ = ["FlightRecorder", "P95DriftDetector", "FLIGHT", "install",
            "uninstall", "new_trace_id", "FORMAT_VERSION"]
@@ -216,6 +216,14 @@ class FlightRecorder:
                 "providers": providers,
             },
         }
+        if compiles.LEDGER is not None:
+            bundle["compiles"] = dict(compiles.LEDGER.snapshot(),
+                                      trace_id=trace_id)
+        if profiler.LAST is not None:
+            bundle["profile"] = dict(profiler.LAST)
+        if pool_audit.AUDITOR is not None:
+            bundle["census"] = dict(pool_audit.AUDITOR.snapshot(),
+                                    trace_id=trace_id)
 
         os.makedirs(self.out_dir, exist_ok=True)
         name = f"capture_{trigger}_{seq:04d}_{os.getpid()}.json"

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -108,11 +109,30 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libaiko_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _record_build(target: pathlib.Path, hit: bool, wall_ms: float,
+                  saved_ms: float = 0.0) -> None:
+    """Book a lookup of the library with the compile ledger's cache
+    counters (obs/compiles.py): found built (a hit) or built (a miss)."""
+    from ..obs import compiles
+    compiles.record_kernel_build(target.name, hit, wall_ms, saved_ms)
+
+
 def build() -> pathlib.Path:
     """Compile every source in parallel and link the shared library (a
-    no-op when the library for these sources already exists)."""
+    no-op when the library for these sources already exists: the digest
+    names the sources and flags, so the library found is theirs).  The
+    build's wall ms is kept beside the library; a later lookup that finds
+    it books that time as saved."""
+    began = time.perf_counter()
     target = library_path()
+    timing = target.with_name(target.name + ".ms")
     if target.exists():
+        lookup_ms = (time.perf_counter() - began) * 1e3
+        try:
+            built_ms = float(timing.read_text())
+        except (OSError, ValueError):
+            built_ms = lookup_ms
+        _record_build(target, True, lookup_ms, built_ms - lookup_ms)
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -141,6 +161,12 @@ def build() -> pathlib.Path:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(staged, target)   # atomic: concurrent builders agree
+    built_ms = (time.perf_counter() - began) * 1e3
+    try:
+        timing.write_text(f"{built_ms:.1f}")
+    except OSError:
+        pass
+    _record_build(target, False, built_ms)
     return target
 
 

@@ -119,8 +119,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     if not kernel_shape(m, k, n):
         # Prefill-sized m is compute-bound: the JAX package leaves it to
         # XLA's convert+dot (f32 result, then the scale), the port to the
-        # card's matrix product with an f32 result.
-        out = torch.mm(x2, q.to(x.dtype), out_dtype=torch.float32) * s
+        # card's matrix product with an f32 result.  f32 activations (the
+        # MoE router's) take the f32 product itself.
+        if x2.dtype == torch.float32:
+            out = torch.mm(x2, q.to(torch.float32)) * s
+        else:
+            out = torch.mm(x2, q.to(x.dtype), out_dtype=torch.float32) * s
         return out.to(x.dtype).reshape(*lead, n)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"int8_matmul: the kernel takes bf16 activations, "
@@ -390,7 +394,8 @@ def int4_matmul_grouped(x2: torch.Tensor, q4: torch.Tensor,
     ``"mgk,gkn,gn->mn"``) written out for a CUDA tensor at a shape no
     kernel instance tiles: per group of x's columns and q's rows, one
     ``torch.mm`` with an f32 result (the nibbles are exact in bf16),
-    scaled by ``s[g]`` in f32 and summed.  No weight is rounded."""
+    scaled by ``s[g]`` in f32 and summed.  No weight is rounded.  f32
+    activations (the MoE router's) take f32 products."""
     khalf, n = q4.shape
     k, groups = 2 * khalf, s.shape[0]
     group = k // groups
@@ -399,8 +404,11 @@ def int4_matmul_grouped(x2: torch.Tensor, q4: torch.Tensor,
                       device=x2.device)
     for g in range(groups):
         rows = slice(g * group, (g + 1) * group)
-        out += torch.mm(x2[:, rows], codes[rows], out_dtype=torch.float32) \
-            * s[g].to(torch.float32)
+        if x2.dtype == torch.float32:
+            part = torch.mm(x2[:, rows], codes[rows])
+        else:
+            part = torch.mm(x2[:, rows], codes[rows], out_dtype=torch.float32)
+        out += part * s[g].to(torch.float32)
     return out.to(x2.dtype)
 
 

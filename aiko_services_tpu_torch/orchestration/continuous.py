@@ -93,12 +93,22 @@ reference's sites.
 wire: ``(infer …)`` in, ``(infer_partial …)`` / ``(infer_response …)``
 out (:mod:`~..runtime`, :mod:`~..transport`, :mod:`.client`).
 
+Mixture-of-experts configs (``moe_tiny`` … ``mixtral_8x7b``) serve
+through every path, speculation with a dense draft included: their
+layers route every token of a call (:mod:`~..models.moe`).  The
+``(profile N)`` bracket (:meth:`ContinuousBatchingServer.request_profile`,
+:mod:`~..obs.profiler`) runs N steps synchronously in a ``torch.profiler``
+trace, each chunk timed by CUDA events; with the compile ledger installed
+(:mod:`~..obs.compiles`) each graph capture is recorded under its
+dispatch label.
+
 Left out so far (they raise ``NotImplementedError``): meshes and with
 them LoRA on tensor-parallel pools (``ROADMAP.md`` queue 1 item 11), the
-compilation cache and the on-demand device profiler (item 8); adapter
-training is item 10 and mixture-of-experts configs item 7.  On the wire,
-the KV transfer (``kv_export``, warm starts from a ``kv_source``) and live
-migration answer as the reference does for a server without them.
+compilation cache directory (``compilation_cache_dir``: a fresh engine's
+cold arm would be a kernel build, and pointing the build elsewhere a new
+knob); adapter training is item 10.  On the wire, the KV transfer
+(``kv_export``, warm starts from a ``kv_source``) and live migration
+answer as the reference does for a server without them.
 """
 
 from __future__ import annotations
@@ -121,7 +131,7 @@ from ..models.speculative import (SpecStats, delta_draft_logits,
                                   greedy_accept_batch, merge_forced,
                                   mrs_accept_batch, ngram_propose,
                                   spec_commit)
-from ..obs import flight, steplog, trace
+from ..obs import compiles, flight, profiler, steplog, trace
 from ..obs.compiles import CaptureLedger
 from ..obs.metrics import REGISTRY, CounterDict, Histogram
 from ..ops.paged_attention import contiguous_block_size
@@ -218,7 +228,10 @@ class ContinuousBatchingServer:
         named = [name for name, given in unsupported.items() if given]
         if named:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(named)}")
+                f"not ported: {', '.join(named)} (meshes are ROADMAP.md "
+                "queue 1 item 11; a compilation cache directory would be a "
+                "knob that points the kernel build elsewhere, queued under "
+                "item 8)")
         self.device = resolve_device(device)
         self.config = llama.CONFIGS[config_name]
         if params is not None:
@@ -338,6 +351,11 @@ class ContinuousBatchingServer:
         self.max_queue = max_queue
         self._instance_id = next(_SERVER_INSTANCE_IDS)
         self._metrics_labels = {"instance": f"srv{self._instance_id}"}
+        #: The ``(profile)`` bracket (obs/profiler.py): the last measured
+        #: device ms a step, brackets finished, idle bracket passes.
+        self._device_step_ms: Optional[float] = None
+        self._profiles = 0
+        self._profile_idle = 0
         self.counters: Dict = CounterDict(dict(
             dispatches=0, decode_steps=0, tokens_committed=0,
             host_syncs=0, sync_wait_ms=0.0, sync_elements=0,
@@ -673,6 +691,8 @@ class ContinuousBatchingServer:
         :class:`~..models.llama.ChunkGraph` over the static state, which
         becomes the resident state: ``(tokens_out, counts)``."""
         self._adopt_static()
+        if compiles.LEDGER is not None:
+            compiles.set_label("serve_chunk", f"s{steps}")
         if self._chunk_graph is None:
             cache, paged = self._graph_cache()
             self._chunk_graph = llama.ChunkGraph(
@@ -1287,6 +1307,19 @@ class ContinuousBatchingServer:
         self._evict_expired()
         self._admit()
         self._advance_prefills()
+        if profiler.PROFILER is not None \
+                and profiler.PROFILER.wants(id(self)):
+            # On-demand device profiling: the FIRST engine whose step loop
+            # sees a pending session claims it (the profiler's tracing is
+            # process-global) and runs its next N steps synchronously in
+            # the bracket, the one step mode that gives up the ring: each
+            # chunk's CUDA-event span is the device ms the attribution
+            # table wants.
+            self._profiled_step()
+            if self._watchdog_tripped:
+                self._fail_all("watchdog_stalled")
+            done, self.completed = self.completed, []
+            return done
         if self.slots_active and not self._ring:
             self.counters["ring_starved_steps"] += 1
             self._starved_streak += 1
@@ -1798,6 +1831,76 @@ class ContinuousBatchingServer:
         while self._ring:
             self._consume_ready(len(self._ring))
 
+    # ---- on-demand device profiling -------------------------------------- #
+
+    def request_profile(self, steps: int = 4, reason: str = "",
+                        trace_id: str = "", out_dir=None) -> bool:
+        """Ask for a ``(profile)`` bracket around this process's next
+        ``steps`` engine steps.  False when a session is already pending
+        (one bracket at a time a process: the profiler's tracing is
+        process-global)."""
+        session = profiler.request(
+            out_dir=out_dir, steps=steps, reason=reason, trace_id=trace_id,
+            service=f"srv{self._instance_id}")
+        return session is not None
+
+    def _profiled_step(self) -> None:
+        """One SYNCHRONOUS timed round inside the profiler bracket: drain
+        the ring, start the trace (first pass), dispatch one round, drain
+        it, and book its span as that chunk's device ms: CUDA events
+        recorded around the dispatch on the card (the host clock on a CPU
+        engine; the manifest says which).  An idle engine (nothing live to
+        dispatch) finishes the session after a bounded number of empty
+        passes rather than holding the process-wide profiler hostage."""
+        session = profiler.PROFILER
+        if session is None:
+            return
+        self._drain_ring()
+        cuda = self.device.type == "cuda"
+        if not session.ensure_started(cuda=cuda):
+            return                       # start failed; session closed
+        steps_before = self.counters["decode_steps"]
+        began = time.monotonic()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        dispatched = self._dispatch_round()
+        if cuda:
+            end.record()
+        self._drain_ring()
+        if dispatched:
+            self._profile_idle = 0
+            ms = (start.elapsed_time(end) if cuda
+                  else (time.monotonic() - began) * 1e3)
+            session.chunk_done(
+                ms, int(self.counters["decode_steps"] - steps_before))
+        else:
+            self._profile_idle += 1
+        if session.remaining == 0 or self._profile_idle >= 50:
+            self._finish_profile(session)
+
+    def _finish_profile(self, session) -> None:
+        self._profile_idle = 0
+        live_ids = []
+        for request in self._requests:
+            if request is not None and request.trace_ctx:
+                context = trace.extract(request.trace_ctx)
+                if context:
+                    live_ids.append(context.trace_id)
+        manifest = session.finish(live_trace_ids=live_ids)
+        if manifest.get("steps"):
+            self._device_step_ms = manifest["device_step_ms"]
+        self._profiles += 1
+        if flight.FLIGHT is not None:
+            # Park the manifest in a bundle at once: the trace directory is
+            # outside the bundle ring, but the manifest (and the ledger
+            # section) ride the ring like any capture.
+            flight.FLIGHT.capture(
+                "profile", trace_id=session.trace_id or None,
+                reason=manifest.get("reason", "")
+                or f"profile bracket: {manifest.get('steps', 0)} steps")
+
     # ---- reporting ------------------------------------------------------- #
 
     def stats(self) -> Dict:
@@ -1845,6 +1948,18 @@ class ContinuousBatchingServer:
                                   if controller is not None else "-"),
                 spec_jump_forward_tokens=stats.jump_forward_tokens,
                 spec_ngram_hits=stats.ngram_hits)
+        if compiles.LEDGER is not None:
+            # The process-wide ledger: a multi-engine process reports the
+            # same numbers from each engine.
+            out.update(
+                compiles=compiles.LEDGER.compiles,
+                compiles_steady_state=compiles.LEDGER.steady_compiles,
+                compile_cache_hits=compiles.LEDGER.cache_hits,
+                compile_cache_misses=compiles.LEDGER.cache_misses,
+                compile_wall_ms=round(compiles.LEDGER.total_ms, 1))
+        if self._device_step_ms is not None:
+            out.update(device_step_ms=round(self._device_step_ms, 3),
+                       profiles=self._profiles)
         return out
 
     def warm_spec_ladder(self, sampled: bool = False) -> int:

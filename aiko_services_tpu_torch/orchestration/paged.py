@@ -77,11 +77,17 @@ reused by the next admission while older chunks are still in flight.
 * Grammars (``automata``): the base class's jump-forward round, with the
   verify straight into the pool.
 
+* The memory accountant: :meth:`PagedContinuousServer.pool_census` is a
+  byte-exact census of every tier (a host-side walk, no device sync), and
+  every block movement books a tier flow (``_flow``) with the pool
+  auditor when one is installed (:mod:`~..obs.pool_audit`), which sweeps
+  the pool after each step's dispatch; ``stats()`` then carries
+  ``kv_audit_sweeps`` / ``kv_audit_violations``.  Nothing of it touches a
+  tensor.
+
 Left out so far (they raise ``NotImplementedError``): replica meshes (TP
 pools, LoRA on them included: ``ROADMAP.md`` queue 1 item 11) and the
-compilation cache; the pool auditor and its tier-flow hooks (item 8; the
-pool balance ``free + evictable + producing == total_blocks`` at idle is
-kept by plain counters).
+compilation cache directory.
 """
 
 from __future__ import annotations
@@ -98,6 +104,8 @@ from ..kvstore import directory as _kvdir
 from ..kvstore import transfer as _kvxfer
 from ..models import llama
 from ..models import lora_paged as _lorapg
+from ..obs import pool_audit
+from ..runtime import faults as _faults
 from ..runtime.lease import Lease
 from .continuous import ContinuousBatchingServer, _bucket
 
@@ -417,6 +425,10 @@ class PagedContinuousServer(ContinuousBatchingServer):
             adapter_warm_loads=self.adapter_warm_loads,
             adapter_cold_loads=self.adapter_cold_loads,
             adapters_loaded_count=len(self._adapter_index))
+        if pool_audit.AUDITOR is not None:
+            out.update(kv_audit_sweeps=pool_audit.AUDITOR.sweeps,
+                       kv_audit_violations=pool_audit.AUDITOR
+                       .violations_total)
         return out
 
     def _block_nbytes(self) -> int:
@@ -427,6 +439,144 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 row_bytes for *_rest, row_bytes
                 in _kvxfer._field_layout(self))
         return self._block_bytes_cache
+
+    # ------------------------------------------------------------- #
+    # Memory accountant (obs/pool_audit.py): ground-truth census and the
+    # tier-flow hooks.  All host-side bookkeeping: nothing here touches a
+    # tensor, so served tokens, cache bytes and graph replays are the same
+    # with the auditor installed or absent.
+
+    def _flow(self, name: str, blocks: int,
+              nbytes: Optional[int] = None) -> None:
+        """Book one tier flow with the accountant (no-op pointer test
+        when the auditor is uninstalled).  ``nbytes`` defaults to the
+        pool block size — host/disk sites pass their entry's bytes."""
+        if pool_audit.AUDITOR is not None:
+            if nbytes is None:
+                nbytes = int(blocks) * self._block_nbytes()
+            pool_audit.AUDITOR.flow(name, int(blocks), int(nbytes))
+
+    def pool_census(self, max_records: int = 64) -> dict:
+        """Byte-exact ground-truth pool census across the tier tower
+        (the memory accountant's source of truth, the JAX package's
+        layout).  A host-side dict walk only — no device sync, safe to
+        call from the ``(census)`` wire command while the engine serves.  ``blocks`` carries up
+        to ``max_records`` per-block attribution records (owner chain
+        key, depth, tier, bytes, refcount, pin/producing/RESTORING
+        state, adapter-seeded flag); the tier and state totals are
+        always exact regardless of the cap."""
+        block_bytes = self._block_nbytes()
+        used = self.total_blocks - len(self._free)
+        producing = restoring = 0
+        for owner in self._producing.values():
+            if owner == RESTORING:
+                restoring += 1
+            else:
+                producing += 1
+        pinned = evictable = 0
+        for block in self._block_key:
+            if block in self._producing:
+                continue
+            if self._refs.get(block, 0):
+                pinned += 1
+            else:
+                evictable += 1
+        private = sum(1 for blocks in self._owned for block in blocks
+                      if block not in self._block_key)
+        records = []
+        for block, key in self._block_key.items():
+            if len(records) >= max_records:
+                break
+            owner = self._producing.get(block)
+            state = ("restoring" if owner == RESTORING
+                     else "producing" if owner is not None
+                     else "pinned" if self._refs.get(block, 0)
+                     else "evictable")
+            records.append(dict(
+                block=block, tier="hbm",
+                key=key.hex()[:_kvdir.HEX_KEY_CHARS],
+                depth=self._depth.get(key, 0), bytes=block_bytes,
+                refs=self._refs.get(block, 0), state=state,
+                adapter=bool(self._key_seed.get(key, 0))))
+        for tier, store in (("host", self._host),
+                            ("disk", self._spill)):
+            for key, entry in store.items():
+                if len(records) >= max_records:
+                    break
+                records.append(dict(
+                    tier=tier, key=key.hex()[:_kvdir.HEX_KEY_CHARS],
+                    depth=self._depth.get(key, 0),
+                    bytes=int(entry["nbytes"]), refs=0, state=tier,
+                    clock=int(entry.get("clock", 0)),
+                    adopted=key in self._adopted_keys,
+                    adapter=bool(self._key_seed.get(key, 0))))
+        layout = _kvxfer._field_layout(self)
+        dtype = layout[0][2] if layout else ""
+        # Pool-resident draft KV (speculation v2, model mode): its own
+        # SECTION, not a tier — the draft pool shadows the target's
+        # block tables 1:1 (used count mirrors the target's) and never
+        # participates in the prefix-cache/host/disk tier flows the
+        # auditor balances, so the tier equations stay exact.
+        draft_section = None
+        draft_block_bytes = self._draft_block_nbytes()
+        if draft_block_bytes:
+            draft_section = dict(
+                block_bytes=draft_block_bytes,
+                total_blocks=self.total_blocks,
+                blocks=used, bytes=used * draft_block_bytes)
+        # Multi-tenant adapter view: weight-page residency per tier
+        # (ADAPTER_SEED keys — a subset of the tier totals above, not
+        # a new tier) and per-adapter live slot occupancy from the
+        # host-side id mirror.  No device sync.
+        adapter_section = dict(
+            pages=self._adapter_page_counts(),
+            slots=self.adapter_slot_counts())
+        return dict(
+            ts=time.time(), dtype=dtype, block_bytes=block_bytes,
+            total_blocks=self.total_blocks,
+            evict_clock=self._evict_clock,
+            restore_queue_depth=len(self._restoring),
+            adopted_chains=len(self._adopted_keys),
+            draft=draft_section,
+            adapters=adapter_section,
+            tiers=dict(
+                hbm=dict(blocks=used, bytes=used * block_bytes),
+                host=dict(blocks=len(self._host),
+                          bytes=int(self.kv_host_bytes)),
+                disk=dict(blocks=len(self._spill),
+                          bytes=int(self.kv_disk_bytes))),
+            states=dict(free=len(self._free), private=private,
+                        producing=producing, restoring=restoring,
+                        pinned=pinned, evictable=evictable,
+                        host=len(self._host), disk=len(self._spill)),
+            blocks=records)
+
+    def _pool_fault_check(self) -> None:
+        """Pool-accounting corruption faults (``leak_block`` /
+        ``skew_refcount``): deliberately unbalance the bookkeeping
+        WITHOUT touching any row a request reads — serving stays
+        bit-exact, and only the pool auditor can tell anything
+        happened (the detection tests lean on exactly that)."""
+        params = _faults.PLAN.check("leak_block", key="paged_pool")
+        if params is not None and self._free:
+            self._free.pop()          # no owner registered: a leak
+        params = _faults.PLAN.check("skew_refcount", key="paged_pool")
+        if params is not None:
+            for block in self._block_key:
+                self._refs[block] = self._refs.get(block, 0) \
+                    + int(params.get("by", 2))
+                break
+
+    def _draft_block_nbytes(self) -> int:
+        """Bytes one DRAFT-pool block holds across every layer
+        field (0 without a pool-resident draft)."""
+        if self._draft is None or "pool" not in self._draft:
+            return 0
+        total = 0
+        for layer in self._draft["pool"]:
+            for buf in layer.values():
+                total += buf.numel() * buf.element_size() // buf.shape[0]
+        return int(total)
 
     # ------------------------------------------------------------- #
     # Admission size checks
@@ -491,6 +641,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 del self._children[parent]
         self._children.pop(key, None)
         self._free.append(block)
+        self._flow("free", 1)
 
     def _evict_one(self) -> bool:
         """Evict ONE zero-ref cached block: the least recently used chain
@@ -581,6 +732,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
         self._host[key] = entry
         self.kv_demotions += 1
         self.kv_host_bytes += entry["nbytes"]
+        self._flow("demote", 1, entry["nbytes"])
         self._host_overflow()
 
     def _host_overflow(self) -> None:
@@ -604,6 +756,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 self.kv_host_bytes -= entry["nbytes"]
                 self.kv_spills += 1
                 self.kv_disk_bytes += entry["nbytes"]
+                self._flow("spill", 1, entry["nbytes"])
             else:
                 self._purge_host_entry(key, entry)
             self._host_release(entry)
@@ -635,6 +788,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
         nowhere lower to go): its chain identity goes too."""
         self.kv_host_bytes -= entry["nbytes"]
         self.prefix_evictions += 1
+        self._flow("purge_host", 1, entry["nbytes"])
         self._purge_tier_identity(key)
 
     def _purge_spill_entry(self, key, meta) -> None:
@@ -645,6 +799,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
         self.kv_disk_bytes -= meta["nbytes"]
         self._adopted_keys.discard(key)
         self.prefix_evictions += 1
+        self._flow("purge_disk", 1, meta["nbytes"])
         self._purge_tier_identity(key)
 
     def _purge_tier_identity(self, key) -> None:
@@ -667,6 +822,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
         entry = self._host.pop(key, None)
         if entry is not None:
             self.kv_host_bytes -= entry["nbytes"]
+            self._flow("discard_host", 1, entry["nbytes"])
             self._host_release(entry)
         meta = self._spill.pop(key, None)
         if meta is not None:
@@ -674,6 +830,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             self._adopted_keys.discard(key)
             if self.spill is not None:
                 self.spill.discard(key.hex())
+            self._flow("discard_disk", 1, meta["nbytes"])
 
     def _spill_rows(self, key) -> Optional[Dict]:
         """Checksum-verified rows of a spilled block in the pool's wire
@@ -765,6 +922,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
                                 "clock": int(meta.get("clock", 0))}
             self.kv_disk_bytes += nbytes
             self._adopted_keys.add(key)
+            self._flow("adopt", 1, nbytes)
             self._evict_clock = max(self._evict_clock,
                                     int(meta.get("clock", 0)))
             if depth == 1:
@@ -840,6 +998,8 @@ class PagedContinuousServer(ContinuousBatchingServer):
         self._evict_until(needed)
         fits = needed <= len(self._free)
         blocks = [self._free.pop() for _ in range(needed)] if fits else []
+        if fits:
+            self._flow("alloc", needed)
         for block in shared:
             self._refs[block] -= 1
             if self._refs[block] == 0:
@@ -852,7 +1012,10 @@ class PagedContinuousServer(ContinuousBatchingServer):
                 entry["clock"] = self._evict_clock
                 self._host[key] = entry
                 if entry.pop("src", None) == "disk":
+                    # The disk bytes were consumed by _take_spill: the rows
+                    # now live in the host tier instead.
                     self.kv_host_bytes += entry["nbytes"]
+                    self._flow("disk_to_host", 1, entry["nbytes"])
             self._host_overflow()
             return False
         for (position, key, entry), block in zip(segment, blocks):
@@ -867,6 +1030,9 @@ class PagedContinuousServer(ContinuousBatchingServer):
             src = entry.get("src")
             if src != "disk":
                 self.kv_host_bytes -= entry["nbytes"]
+                self._flow("restore", 1, entry["nbytes"])
+            else:
+                self._flow("disk_restore", 1, entry["nbytes"])
             self._restoring.append(dict(key=key, block=block,
                                         rows=entry["rows"], group=None,
                                         src=src,
@@ -933,7 +1099,14 @@ class PagedContinuousServer(ContinuousBatchingServer):
         # Restores land BEFORE admission so a deferred head request adopts
         # freshly landed chains this very step.
         self._advance_restores()
-        return super().step()
+        if _faults.PLAN is not None:
+            self._pool_fault_check()
+        out = super().step()
+        # The audit sweep AFTER the dispatch: the auditor reads a settled
+        # post-step pool (host-side only; obs/pool_audit.py).
+        if pool_audit.AUDITOR is not None:
+            pool_audit.AUDITOR.maybe_sweep(self)
+        return out
 
     def _select_victims(self, want: int) -> List:
         """Leaf-first LRU victims without touching the index: exactly what
@@ -1037,6 +1210,8 @@ class PagedContinuousServer(ContinuousBatchingServer):
             return False
         self._evict_until(private_needed)
         private = [self._free.pop() for _ in range(private_needed)]
+        if private:
+            self._flow("alloc", len(private))
         blocks = shared + private
         self._owned[slot] = blocks
         self._pending_shared[slot] = len(shared)
@@ -1171,10 +1346,12 @@ class PagedContinuousServer(ContinuousBatchingServer):
                     self._purge_cached(key, block)
                 else:
                     self._free.append(block)
+                    self._flow("free", 1)
                 continue
             key = self._block_key.get(block)
             if key is None:
                 self._free.append(block)        # plain private block
+                self._flow("free", 1)
                 continue
             self._refs[block] -= 1
             if self._refs[block] == 0:
@@ -1249,6 +1426,7 @@ class PagedContinuousServer(ContinuousBatchingServer):
             return 0
         self.digest_epoch += 1
         blocks = [self._free.pop() for _ in range(needed)]
+        self._flow("alloc", needed)
         _kvxfer.scatter_block_row_dicts(
             self, blocks,
             [_lorapg.payload_to_row_dict(page, layout) for page in pages])

@@ -210,21 +210,27 @@ class Actor(Service):
 
     def census(self, trace_id: str = "", response_topic: str = "",
                reason: str = ""):
-        """Dump a flight capture bundle on a census trigger:
+        """Dump a KV pool census into a flight capture bundle:
         ``(census [trace_id] [response_topic] [reason])`` →
-        ``(census_response <name>
-        <path|uninstalled|suppressed|unsupported>)``.  Every actor
-        answers, keeping the fleet fan-out one reply per process like
-        ``(capture)``.  The port has no pool census yet
-        (``obs/pool_audit.py``): an actor carrying an engine, whose
-        bundle would hold its pool's census, answers ``unsupported``
-        rather than a bundle without one; an actor with none (the
-        router) still dumps its bundle.  No recorder installed → reply
-        says so; never an error."""
-        from ..obs import flight
-        if getattr(self, "server", None) is not None:
-            result = "unsupported"
-        elif flight.FLIGHT is not None:
+        ``(census_response <name> <path|uninstalled|suppressed>)``.
+        Every actor answers — a process with a paged engine snapshots
+        its pool (``pool_census``) into the auditor's accountant
+        first, so the bundle's ``census`` section carries byte-exact
+        per-tier attribution; processes without one (the router
+        itself) still dump a bundle on the shared trace id, keeping
+        the fleet fan-out one-reply-per-process like ``(capture)``.
+        No recorder installed → reply says so; never an error."""
+        from ..obs import flight, pool_audit
+        server = getattr(self, "server", None)
+        if pool_audit.AUDITOR is not None and server is not None \
+                and hasattr(server, "pool_census"):
+            try:
+                pool_audit.AUDITOR.observe_census(
+                    server.pool_census())
+            except Exception:  # noqa: BLE001 - census stays passive
+                self.logger.exception("%s: pool census failed",
+                                      self.name)
+        if flight.FLIGHT is not None:
             path = flight.FLIGHT.capture(
                 "census", trace_id=str(trace_id) or None,
                 reason=str(reason) or f"(census) on {self.name}")

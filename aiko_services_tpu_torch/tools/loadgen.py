@@ -32,8 +32,10 @@ as ``PagedContinuousServer(config_name, params=params, device=device, …)``
 Open-loop: requests are posted on schedule regardless of completions
 (late responses still count; missing ones surface as ``timeouts``).
 
-Not ported yet: :func:`run_compile_cache_ab` (the kernel build cache,
-``ROADMAP.md`` queue 1 item 8).
+Not ported: :func:`run_compile_cache_ab`.  Its cold arm would be a fresh
+engine's kernel build (minutes of ``nvcc``), and aiming the build at
+another directory would be a new knob (``ROADMAP.md``, queued under item
+8).
 """
 
 from __future__ import annotations
@@ -1537,12 +1539,16 @@ def run_restart_ab(n_requests: int = 18, rate_hz: float = 25.0,
 
 
 def run_compile_cache_ab(*_args, **_kwargs):
-    """The JAX package's persistent-compilation-cache A/B.  Its port
-    needs a kernel build cache that a fresh engine reuses (``ROADMAP.md``
-    queue 1 item 8), which the port does not have yet."""
+    """The JAX package's persistent-compilation-cache A/B.  The port's
+    kernel build cache is the digest-named library under ``BUILD_DIR``
+    (its hits and misses ride the compile ledger); an A/B of it would
+    need a fresh engine whose cold arm is an ``nvcc`` build and a knob
+    that points the build at another directory (``ROADMAP.md``, queued
+    under item 8)."""
     raise NotImplementedError(
-        "run_compile_cache_ab needs the kernel build cache (ROADMAP.md "
-        "queue 1 item 8), which is not ported yet")
+        "run_compile_cache_ab needs a cold arm on the kernel build cache "
+        "(an nvcc build in another directory; ROADMAP.md, queued under "
+        "item 8), which is not ported")
 
 
 def diurnal_trace(duration_s: float, base_hz: float = 2.0,

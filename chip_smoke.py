@@ -101,7 +101,13 @@ Phases (any failure exits non-zero):
    the wire's own time a request (send-to-answer less total_ms).  The
    servers' own stamps (the responses' *_ms fields, which start at the
    server's submit and so leave out the wire's time) are printed as the
-   server layer's, beside phase 4's direct step() run.
+   server layer's, beside phase 4's direct step() run.  After the first
+   wire turn's traffic, with a flight recorder, the capture ledger and
+   the pool auditor installed: (profile 4) must answer started, two
+   requests carry the bracket, whose manifest must carry device ms a
+   step by CUDA events; (census) must answer a bundle path whose bundle
+   has the census, profile and compiles sections, and tools/doctor
+   renders it (wire_observability).
 9. The KV tiers and the KV wire (run after phase 8, on phase 4's int8
    weights), bf16 KV then int8 KV, on phase 4's server shape: (a) a pool
    of TIER_POOL blocks with a host tier: later waves demote the shared
@@ -121,7 +127,10 @@ Phases (any failure exits non-zero):
    must land with no fall-back to local prefill (KV_FETCH_TIMEOUT_S), the
    restores and adoptions are counted, the five kernels' launches are
    held to the decode steps and prefill slices, and graph replays go on
-   with no capture after the fence.
+   with no capture after the fence.  The pool auditor is installed over
+   (a)'s server and each of (b)'s, before it is built, sweeping every
+   step: no violation, and the tiers' blocks and bytes integrated from
+   its flow counters equal the server's census.
 10. The fleet (run after phase 9, on phase 4's weights): a Registrar, a
    ReplicaRouter and two ContinuousReplicas, each over its own phase-8
    server (warmed and fenced) on the one weight set, one loopback broker
@@ -150,11 +159,12 @@ Phases (any failure exits non-zero):
    slow-started): lost 0, timeouts 0, no duplicated final or stream
    mismatch, converged to the target, drains completed, spawn failures,
    slow starts and deaths observed; (b) run_rolling_upgrade with two
-   replicas in UPGRADE_TURNS (live migration, drain): both replicas
+   replicas in UPGRADE_TURNS (one live-migration turn, one drain turn):
+   both replicas
    replaced a turn, a migration started in every migrating turn and each
    completed one resumed on its source's tail rows, every migrated final
-   bit-exact against the drain turns'; (c) run_restart_ab in
-   RESTART_TURNS pairs: the only replica killed after its warm-up and
+   bit-exact against the drain turn's; (c) run_restart_ab in
+   RESTART_TURNS pair: the only replica killed after its warm-up and
    respawned cold and warm (adopting its spill directory), the arms
    bit-exact, warm adopting chains and restoring from disk, cold adopting
    none, no checksum failed, warm's hit rate above cold's, the respawn
@@ -218,6 +228,28 @@ Phases (any failure exits non-zero):
    aware then blind on two replicas handed in (each warmed under its home
    tenants and fenced): 0 cold starts aware, at least one blind, every
    final held to its tenant's oracle, launches per fleet part.
+14. Mixture-of-experts (run after phase 6 frees its weights; MOE_PARTS,
+   scripts/smoke_moe.py runs it alone): mixtral_8x7b at its full width
+   (d 4,096, 32 / 8 heads, d_ff 14,336, 8 experts, top-2, cf 4.0, vocab
+   32,000, rope theta 1e6) cut to MOE_LAYERS of its 32 layers (its bf16
+   experts are 2.82 GB a layer: 32 layers do not fit the card), random
+   weights from seed 0 through init_params + quantize_params (int8 and
+   int4 attention and LM head on the same bf16 experts).  The router's
+   f32 products (N = 8: no kernel shape) against the CPU's, with TF32
+   staying off; (a) ContinuousBatchingServer, 8 slots, 1,024 rows, eight
+   requests of 40-512 tokens in two waves, then the steady 8-slot window
+   (step ms beside the bound: the weights a step reads over 3.35 TB/s);
+   (b) PagedContinuousServer, 16-row blocks, prefix cache, 256-token
+   slices, four requests sharing a 512-token prefix, mixed steps; (c)
+   (a)'s server with the dense small config as draft, spec_k = 4; (d) the
+   int4 tree through (a)'s server.  Every token is held by TIE_GAP to a
+   batch-1 oracle at the served shapes (the request alone, prefilled as
+   the server prefills it, then decode steps, or (c)'s verify windows, of
+   8 rows with the request in its served slot): a MoE layer routes every
+   token of a call, so a bf16 oracle at batch 1 would round the experts'
+   products otherwise and reroute near-tied tokens.  Launches by the
+   phases' formulas, prefix hits and a balanced pool in (b), no capture
+   after the fence, peak device memory under 80 GB.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -343,11 +375,16 @@ def compare(got, want, rel=TOL_REL, row=TOL_ROW):
 
 
 def projections(config):
-    """(K, N) of every int8 projection a layer runs, in order."""
+    """(K, N) of every int8 projection a layer runs, in order.  A MoE
+    layer's MLP is its router (N = n_experts, which no kernel instance
+    takes: the f32 plain product, as in the JAX package) and bf16 expert
+    products."""
     d, kvd = config.d_model, config.n_kv_heads * config.head_dim
-    return [(d, config.n_heads * config.head_dim), (d, kvd), (d, kvd),
-            (config.n_heads * config.head_dim, d), (d, config.d_ff),
-            (d, config.d_ff), (config.d_ff, d)]
+    attention = [(d, config.n_heads * config.head_dim), (d, kvd), (d, kvd),
+                 (config.n_heads * config.head_dim, d)]
+    if config.n_experts:
+        return attention + [(d, config.n_experts)]
+    return attention + [(d, config.d_ff), (d, config.d_ff), (config.d_ff, d)]
 
 
 class Weights:
@@ -1731,10 +1768,12 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
                 **steady)
 
 
-#: Decode steps of each timed turn of the steady window (graphed, eager,
-#: eager, graphed), of the eager window under cProfile, and of each
-#: profiled or event-timed window.
+#: Decode steps of each timed turn of the steady window (STEADY_TURNS), of
+#: the eager window under cProfile, and of each profiled or event-timed
+#: window.
 TURN_STEPS, TRACE_STEPS = 12, 8
+#: The timed turns of a steady window, graphed (True) and eager.
+STEADY_TURNS = (True, False, True)
 #: The eager path's window under torch.profiler: its CPU-op records make
 #: the trace's processing most of a steady window's seconds (on the H100,
 #: 3.4 s of a paged 8-slot window's 8.9 at 8 steps), so it traces half as
@@ -1749,7 +1788,7 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
     has its first token and the steady chunk's graph is captured, the
     capture ledger's fence drops and the same server decodes in turns of
     TURN_STEPS steps with its chunk graphs on and off (graphed, eager,
-    eager, graphed; ``_graphs_on``, the private switch), timed with
+    graphed; ``_graphs_on``, the private switch), timed with
     nothing attached.  Then, on the eager path, a window of TURN_STEPS
     under cProfile (the host's top functions by own time are printed; the
     K/V write's microseconds a call, llama's ``_cache_write_rows`` /
@@ -1814,7 +1853,7 @@ def steady_decode(torch, np, weights, make_server, request_cls, quantize_kv,
             server.counters["decode_steps"] - start
 
     turns = {True: [], False: []}
-    for graphed in ((True, False, False, True) if graphs else (False,)):
+    for graphed in (STEADY_TURNS if graphs else (False,)):
         wall, steps = window(TURN_STEPS, graphed)
         turns[graphed].append(wall * 1e3 / steps)
     eager_ms = sum(turns[False]) / len(turns[False])
@@ -1994,8 +2033,9 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
                params, device):
     """ContinuousBatchingServer at 64 slots, bf16 KV: 64 requests of
     WIDE_PROMPT tokens and WIDE_NEW new tokens submitted together.  Every
-    request must finish; WIDE_CHECKED of them are held to the batch-1
-    oracle; every kernel's launches are held to the decode steps and
+    request must finish; WIDE_CHECKED of them are held to their batch-1
+    oracles, walked side by side (:func:`check_lockstep`); every
+    kernel's launches are held to the decode steps and
     prefill dispatches of the run; peak memory < 80 GB; then the steady
     decode window at 64 slots."""
     config = llama.CONFIGS["llama3_8b"]
@@ -2064,10 +2104,10 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
     if not peak_gb < 80:
         fail(f"64 slots: peak device memory {peak_gb:.2f} GB")
     checked_requests = requests[::WIDE_SLOTS // WIDE_CHECKED]
-    exact, equal, checked, ties = check_requests(
-        torch, checked_requests, lambda request: contiguous_oracle(
-            torch, llama, params, config, request.prompt, False, device,
-            rows=WIDE_MAX_SEQ))
+    exact, equal, checked, ties = check_lockstep(
+        torch, checked_requests, *lockstep_contiguous(
+            torch, llama, params, config, checked_requests, device,
+            WIDE_MAX_SEQ))
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
     steady = steady_decode(torch, np, weights, make_server, request_cls,
@@ -2732,7 +2772,7 @@ def serve_direct_twin(torch, np, config, server, request_cls):
 
 
 def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
-                    request_cls, params, device):
+                    request_cls, params, device, observe=False):
     """Phase 4's traffic through the wire, once: a fresh
     PagedContinuousServer (:func:`warm_wire_server`) behind a
     ContinuousReplica on a loopback broker, an InferClient on a real
@@ -2744,7 +2784,8 @@ def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
     run, the served requests and the cancelled one, for the oracle.
     End-to-end numbers are the client's (:func:`caller_side`); the
     responses' ``*_ms`` fields, stamped by the server from its submit,
-    are the server layer's."""
+    are the server layer's.  With ``observe``, after the traffic:
+    :func:`wire_observability` over the same replica."""
     import threading
 
     from aiko_services_tpu_torch.orchestration.client import InferClient
@@ -2851,6 +2892,8 @@ def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
             "metrics", [f"{replica.topic_path}/scrape"]))
         if not scrape_done.wait(WIRE_TIMEOUT_S):
             fail("wire: no (metrics_response ...)")
+        observed = (wire_observability(np, process, replica, client,
+                                       config) if observe else None)
         deadline = time.monotonic() + WIRE_TIMEOUT_S
         while (replica._pumping or server.busy) \
                 and time.monotonic() < deadline:
@@ -2873,9 +2916,10 @@ def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
         fail(f"wire: logged failures: {errors.records}")
     if pumping:
         fail("wire: the replica still pumps after the drain")
-    if replica.share.get("requests_served") != len(sent) + 1:
+    extra = len(WIRE_PROFILED) if observe else 0
+    if replica.share.get("requests_served") != len(sent) + 1 + extra:
         fail(f"wire: requests_served {replica.share.get('requests_served')}"
-             f", expected {len(sent) + 1}")
+             f", expected {len(sent) + 1 + extra}")
 
     served = []
     for name, prompt, future in sent:
@@ -2961,7 +3005,108 @@ def serve_wire_turn(torch, np, llama, weights, kernels, server_cls,
                - before["graph_replays"],
                graph_captures_steady_state=stats[
                    "graph_captures_steady_state"])
+    if observed is not None:
+        run["observability"] = observed
     return run, served, cancel_request
+
+
+#: The wire turn's (profile 4) bracket: two requests (prompt tokens, new
+#: tokens) that keep the replica stepping through it.
+WIRE_PROFILED = ((24, 16), (40, 16))
+WIRE_PROFILE_STEPS = 4
+
+
+def wire_observability(np, process, replica, client, config):
+    """Phase 8's observability hooks over its replica, on the engine
+    thread: with a flight recorder, the capture ledger and the pool
+    auditor installed, ``(profile 4)`` must answer ``started``; two
+    requests carry the bracket (its manifest must carry device step ms
+    by CUDA events); ``(census)`` must answer a bundle path whose bundle
+    has the census, profile and compiles sections, which
+    ``tools/doctor`` renders.  Everything is uninstalled after."""
+    import shutil
+    import tempfile
+    import threading
+
+    from aiko_services_tpu_torch.obs import (compiles, flight, pool_audit,
+                                             profiler)
+    from aiko_services_tpu_torch.tools import doctor
+    from aiko_services_tpu_torch.utils.sexpr import generate, parse
+
+    root = tempfile.mkdtemp(prefix="aiko_obs_")
+    answers, answered = {}, threading.Event()
+    topic = f"{replica.topic_path}/ops"
+
+    def on_answer(_topic, payload):
+        command, params_ = parse(payload)
+        answers[command] = str(params_[1])
+        answered.set()
+    process.add_message_handler(on_answer, topic)
+
+    def ask(command, args):
+        answered.clear()
+        process.message.publish(replica.topic_in, generate(command, args))
+        if not answered.wait(WIRE_TIMEOUT_S):
+            fail(f"wire: no answer to ({command} ...)")
+    try:
+        flight.install(out_dir=root, service="smoke")
+        compiles.install(service="smoke")
+        pool_audit.install(service="smoke", sweep_every=8)
+        began = time.monotonic()
+        ask("profile", [WIRE_PROFILE_STEPS, "", topic, "phase 8"])
+        if answers.get("profile_response") != "started":
+            fail(f"wire: (profile) answered {answers}")
+        rng = np.random.default_rng(41)
+        futures = [client.submit(rng.integers(1, config.vocab_size, plen)
+                                 .astype(np.int32), max_new_tokens=new,
+                                 request_id=f"prof{i}")
+                   for i, (plen, new) in enumerate(WIRE_PROFILED)]
+        for future, (_, new) in zip(futures, WIRE_PROFILED):
+            client.wait(future, timeout=WIRE_TIMEOUT_S)
+            if future.error is not None or len(future.tokens) != new:
+                fail(f"wire: a bracket request answered {future.error!r}")
+        manifest = profiler.LAST
+        if profiler.PROFILER is not None or manifest is None \
+                or not manifest["ok"] or manifest["timing"] != "cuda_events" \
+                or not manifest["device_step_ms"] > 0 \
+                or manifest["steps"] < WIRE_PROFILE_STEPS:
+            fail(f"wire: the profile bracket did not finish: {manifest}")
+        ask("census", ["", topic, "phase 8"])
+        path = answers.get("census_response", "")
+        if not os.path.isfile(path):
+            fail(f"wire: (census) answered {path!r}")
+        with open(path) as handle:
+            bundle = json.load(handle)
+        if not {"census", "profile", "compiles"} <= set(bundle):
+            fail(f"wire: the census bundle has sections {sorted(bundle)}")
+        census = bundle["census"]
+        if not census["census"]["tiers"]["hbm"]["blocks"] \
+                or census["violations_total"]:
+            fail(f"wire: census {census['census']['tiers']}, "
+                 f"{census['violations_total']} violations")
+        report = doctor.render_report(bundle)
+        if "pool census:" not in report or "device profile" not in report:
+            fail("wire: the doctor's report lacks the census or profile")
+        return dict(profile_response=answers["profile_response"],
+                    profile_steps=manifest["steps"],
+                    profile_device_step_ms=manifest["device_step_ms"],
+                    profile_chunks=manifest["chunks"],
+                    trace_bytes=sum(a["bytes"]
+                                    for a in manifest["artifacts"]),
+                    census_tiers=census["census"]["tiers"],
+                    audit_sweeps=census["sweeps"],
+                    audit_violations=census["violations_total"],
+                    compiles_section=dict(
+                        captures=bundle["compiles"]["compiles"],
+                        cache_hits=bundle["compiles"]["cache_hits"]),
+                    doctor_lines=len(report.splitlines()),
+                    seconds=round(time.monotonic() - began, 1))
+    finally:
+        profiler.uninstall()
+        pool_audit.uninstall()
+        compiles.uninstall()
+        flight.uninstall()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 #: Phase 8's turns, in order, each on a fresh server warmed the same way:
@@ -2994,7 +3139,7 @@ def serve_wire(torch, np, llama, weights, kernels, server_cls, request_cls,
         if kind == "wire":
             run, served, cancel_request = serve_wire_turn(
                 torch, np, llama, weights, kernels, server_cls, request_cls,
-                params, device)
+                params, device, observe=first is None)
             if first is None:
                 first = run
                 exact, equal, checked, ties = check_requests(
@@ -3163,6 +3308,35 @@ def host_memory(torch):
                 resident=resident)
 
 
+def audit_begin(where):
+    """Phase 9's pool auditor, installed before the server it watches is
+    built (so the flow integral is exact from block zero), sweeping every
+    step."""
+    from aiko_services_tpu_torch.obs import pool_audit
+    return pool_audit.install(service=f"phase9_{where}", sweep_every=1)
+
+
+def audit_end(where, server):
+    """Uninstall the auditor after its server's run: its sweeps found no
+    violation, and the tiers' blocks and bytes integrated from its flow
+    counters alone equal the server's census."""
+    from aiko_services_tpu_torch.obs import pool_audit
+    auditor = pool_audit.AUDITOR
+    pool_audit.uninstall()
+    census = server.pool_census()["tiers"]
+    integral = {field: auditor.accountant.occupancy_from_flows(field)
+                for field in ("blocks", "bytes")}
+    want = {field: {tier: census[tier][field] for tier in pool_audit.TIERS}
+            for field in ("blocks", "bytes")}
+    if auditor.violations_total or not auditor.sweeps or integral != want:
+        fail(f"{where}: {auditor.violations_total} audit violations "
+             f"({auditor.last_violations}) in {auditor.sweeps} sweeps; flow "
+             f"integral {integral} against the census {want}")
+    return dict(audit_sweeps=auditor.sweeps,
+                audit_violations=auditor.violations_total,
+                flow_integral_blocks=integral["blocks"])
+
+
 def serve_tier(torch, np, llama, weights, kernels, server_cls, request_cls,
                params, quantize_kv, device):
     """Phase 9 (a): the host tier.  Phase 4's server shape with a pool of
@@ -3179,6 +3353,7 @@ def serve_tier(torch, np, llama, weights, kernels, server_cls, request_cls,
     from aiko_services_tpu_torch.kvstore.directory import chain_keys
 
     config = llama.CONFIGS["llama3_8b"]
+    audit_begin("tier")
     server = warm_wire_server(
         np, server_cls, request_cls, params, device, config,
         quantize_kv=quantize_kv, total_blocks=TIER_POOL,
@@ -3234,6 +3409,7 @@ def serve_tier(torch, np, llama, weights, kernels, server_cls, request_cls,
         torch.cuda.synchronize()
         wall = time.monotonic() - began
     stats = server.stats()
+    audit = audit_end("tier", server)
     for request in requests:
         if request.error is not None \
                 or len(request.tokens) != request.max_new_tokens:
@@ -3284,7 +3460,7 @@ def serve_tier(torch, np, llama, weights, kernels, server_cls, request_cls,
         prefix_ttft_ms=ttft["prefix"], restored_ttft_ms=ttft["again"],
         run_graph_replays=delta(stats, before, "graph_replays"),
         graph_captures_steady_state=stats["graph_captures_steady_state"],
-        wall_s=wall)
+        wall_s=wall, **audit)
 
 
 def serve_spill(torch, np, llama, weights, kernels, server_cls, request_cls,
@@ -3320,16 +3496,19 @@ def serve_spill(torch, np, llama, weights, kernels, server_cls, request_cls,
     try:
         torch.cuda.synchronize()
         with LaunchWindow(llama, kernels) as window:
+            audit_begin("spill")
             first = make_server()
             for name, prompt in (("prefix", shared0), ("long0", long0),
                                  ("long1", long1)):
                 first.submit(request_cls(name, prompt, 4))
                 first.run_until_drained()
             spilled = first.stats()
+            audit_spill = audit_end("spill", first)
             files = sum(name.endswith(".kvb") for name in os.listdir(root))
             disk_bytes = sum(os.path.getsize(os.path.join(root, name))
                              for name in os.listdir(root))
             del first                   # the restart: the host tier is lost
+            audit_begin("adopt")
             t0 = time.monotonic()
             second = make_server()
             adopt_ms = (time.monotonic() - t0) * 1e3
@@ -3339,6 +3518,7 @@ def serve_spill(torch, np, llama, weights, kernels, server_cls, request_cls,
             second.run_until_drained()
             torch.cuda.synchronize()
         stats = second.stats()
+        audit_adopt = audit_end("spill, the adopting server", second)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if again.error is not None or len(again.tokens) != NEW_TOKENS:
@@ -3369,7 +3549,8 @@ def serve_spill(torch, np, llama, weights, kernels, server_cls, request_cls,
         adopted_blocks=adopted["kv_disk_blocks"], adopt_ms=adopt_ms,
         disk_restores=stats["kv_disk_restores"],
         restored_ttft_ms=(again.first_token_ts - again.submitted_ts) * 1e3,
-        run_graph_replays=stats["graph_replays"])
+        run_graph_replays=stats["graph_replays"],
+        audit_spill=audit_spill, audit_adopt=audit_adopt)
 
 
 def serve_kv_wire(torch, np, llama, weights, kernels, server_cls,
@@ -4070,7 +4251,7 @@ ELASTIC_DURATION_S, ELASTIC_SERVERS = 6.0, 4
 #: Phase 11 (b): the rolling upgrade's turns (live migration or drain),
 #: its trace's seconds and tokens a request; two replicas and their two
 #: successors a turn.
-UPGRADE_TURNS = ("migrate", "drain", "drain", "migrate")
+UPGRADE_TURNS = ("migrate", "drain")
 UPGRADE_DURATION_S, UPGRADE_TOKENS, UPGRADE_SERVERS = 4.0, 48, 4
 #: Phase 11 (c): run_restart_ab's pairs (a cold then a warm arm each) and
 #: the rig's sizing at llama3_8b: three 96-token prefixes with 8-token
@@ -4079,7 +4260,7 @@ UPGRADE_DURATION_S, UPGRADE_TOKENS, UPGRADE_SERVERS = 4.0, 48, 4
 #: not fit and every demotion spills to disk; 64-token slices, 16 blocks
 #: restored a step.  (The rig's defaults, 192-token prefixes over 20
 #: blocks, spill 2 MiB blocks twice as often: 31 s a pair on the card.)
-RESTART_TURNS, RESTART_REQUESTS = 2, 12
+RESTART_TURNS, RESTART_REQUESTS = 1, 12
 RESTART_PREFIX, RESTART_TAIL = 96, 8
 RESTART_POOL, RESTART_SLICE, RESTART_RATE = 10, 64, 16
 
@@ -5717,6 +5898,639 @@ def print_grammar_lora_phase(phase, smi):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 14: mixture-of-experts at mixtral_8x7b's width
+
+#: Phase 14's parts: (a) the contiguous server, (b) the paged server, (c)
+#: speculation with a dense draft, (d) int4 weights on the same experts.
+MOE_PARTS = ("contiguous", "paged", "spec", "int4")
+#: mixtral_8x7b at its full width (d 4,096, 32 / 8 heads, d_ff 14,336, 8
+#: experts, top-2, cf 4.0, vocab 32,000, rope theta 1e6), cut to 8 of its
+#: 32 layers: its bf16 experts are 2.82 GB a layer (the JAX package's
+#: quantize policy leaves 3-D expert weights dense), so 32 layers (90.2 GB)
+#: do not fit one card.
+MOE_BASE, MOE_NAME, MOE_LAYERS = "mixtral_8x7b", "mixtral_8x7b_8l", 8
+#: (a)'s eight prompts in two waves of four, 32 new tokens each; (c) and
+#: (d) serve the first MOE_SHORT of them.  The buckets of a wave differ,
+#: so each prompt prefills alone, as its oracle does.
+MOE_PROMPTS = (64, 512, 128, 256, 40, 448, 180, 97)
+MOE_SHORT = 4
+#: (b): four requests share a MOE_PREFIX-token prefix (the producer first,
+#: three sharers once it has prefilled), with four distinct prompts.
+MOE_PREFIX, MOE_TAILS, MOE_DISTINCT = 512, (40, 16, 100, 7), (64, 333, 180,
+                                                              256)
+MOE_PAGED_MAX_SEQ = 1024
+#: (c)'s draft: the dense ``small`` config (vocabulary 32,000, as
+#: mixtral's), int8 weights from seed 1.
+MOE_DRAFT = "small"
+#: Token counts of the router check: a decode step of 8 slots, (c)'s
+#: verify of 8 x 5, and a 256-token slice.
+MOE_ROUTER_TOKENS = (8, 40, 256)
+
+
+def moe_config(llama):
+    """Register MOE_NAME (mixtral_8x7b cut to MOE_LAYERS layers) in the
+    port's config table and return it."""
+    config = dataclasses.replace(llama.CONFIGS[MOE_BASE], n_layers=MOE_LAYERS)
+    llama.CONFIGS[MOE_NAME] = config
+    return config
+
+
+def streamed_bytes(torch, params) -> int:
+    """Bytes a decode step reads: every layer's weights (all experts: the
+    reference's dispatch runs each expert over its capacity buffer) and
+    the LM head; the embedding is a row gather."""
+    total = 0
+    for tree in (params["layers"], params["lm_head"], params["final_norm"]):
+        stack = [tree]
+        while stack:
+            node = stack.pop()
+            if torch.is_tensor(node):
+                total += node.numel() * node.element_size()
+            elif isinstance(node, dict):
+                stack += list(node.values())
+            else:
+                stack += list(node)
+    return total
+
+
+def check_moe_router(torch, moe, quant, params8, params4, device):
+    """The router's f32-activation products on the card against f32 plain
+    versions computed on the CPU from the same leaves: int8 through
+    ``int8_matmul`` (N = 8 takes no kernel shape: the f32 product) and
+    int4 through ``int4_matmul`` (K 4,096 in 32 groups, N 8: the grouped
+    f32 products), at MOE_ROUTER_TOKENS; TF32 must stay off after them.
+    Returns the rows and the worst relative error."""
+    gen = torch.Generator(device=device).manual_seed(14)
+    rows, worst = [], 0.0
+    for bits, params in ((8, params8), (4, params4)):
+        router = params["layers"][0]["moe"]["router"]
+        cpu = {key: value.cpu() for key, value in router.items()}
+        for tokens in MOE_ROUTER_TOKENS:
+            x = torch.randn((tokens, params8["layers"][0]["moe"]["w_gate"]
+                             .shape[1]), generator=gen, device=device)
+            got = moe._router_logits(router, x)
+            x_cpu = x.cpu()
+            if bits == 8:
+                want = quant.int8_matmul_reference(x_cpu, cpu["q"], cpu["s"])
+            else:
+                want = quant.int4_matmul_reference(x_cpu, cpu["q4"],
+                                                   cpu["s"])
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                fail(f"router int{bits} at {tokens} tokens: {got.dtype} "
+                     f"{tuple(got.shape)}")
+            err = float((got.cpu() - want).abs().max())
+            rel = err / float(want.abs().max())
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                fail(f"router int{bits} at {tokens} tokens: max abs err "
+                     f"{err:.3g} ({rel:.3g} of the largest logit)")
+            same = bool((got.cpu().topk(2).indices
+                         == want.topk(2).indices).all())
+            rows.append(dict(bits=bits, tokens=tokens, max_abs_err=err,
+                             rel_err=rel, top2_equal=same))
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("a router product turned TF32 back on")
+    return rows, worst
+
+
+def moe_launches_want(weights, config, steps, dispatches=(), widths=(),
+                      contiguous=True):
+    """Expected launches of a MoE serving run: decode steps at SLOTS rows,
+    contiguous prefill dispatches ``(rows, seq)`` (flash + logits) or paged
+    slices of ``widths`` (append + chunk attention, no logits)."""
+    layers = config.n_layers
+    want = {name: matmul_launches(weights, config, SLOTS, 1, name) * steps
+            + sum(matmul_launches(weights, config, rows, seq, name)
+                  for rows, seq in dispatches)
+            + sum(layer_launches(weights, config, w, name) for w in widths)
+            for name in weights.rules}
+    want.update(paged_decode_attention=layers * steps,
+                write_kv_rows=layers * steps)
+    if contiguous:
+        want["flash_attention"] = layers * len(dispatches)
+    else:
+        want.update(append_kv=layers * len(widths),
+                    chunk_attention=layers * len(widths))
+    return want
+
+
+def record_slots(server):
+    """request id -> the slot the server activated it in (the oracles run
+    the request in that slot: :func:`lockstep_contiguous`)."""
+    slots, activate = {}, server._activate_slot
+
+    def recorded(slot, request, *args, **kwargs):
+        slots[request.request_id] = slot
+        return activate(slot, request, *args, **kwargs)
+    server._activate_slot = recorded
+    return slots
+
+
+def check_lockstep(torch, requests, first_logits, step):
+    """:func:`check_requests`' rule for requests whose batch-1 oracles walk
+    side by side: ``first_logits[r]`` are row r's logits for its first
+    served token, ``step(tokens, positions, live)`` runs one decode step of
+    every row (a served token and its position a row; rows not ``live``
+    idle) and returns each row's logits.  The step computes each row as it
+    computes it alone (its kernels' row results do not depend on the other
+    rows: the card tests' batch invariance), so row r's walk is request
+    r's batch-1 walk, teacher-forced on the served tokens; the rows share
+    its launches.  Returns (requests exactly equal, tokens equal, tokens
+    checked, near-ties)."""
+    logits = list(first_logits)
+    equal = [0] * len(requests)
+    ties = []
+    longest = max(len(request.tokens) for request in requests)
+    for index in range(longest):
+        for row, request in enumerate(requests):
+            if index >= len(request.tokens):
+                continue
+            served, best = request.tokens[index], int(logits[row].argmax())
+            if served == best:
+                equal[row] += 1
+                continue
+            gap = float(logits[row][best] - logits[row][served])
+            if gap > TIE_GAP:
+                fail(f"request {request.request_id} (prompt "
+                     f"{len(request.prompt)}): token {index} is {served}, "
+                     f"oracle {best}, logit gap {gap:.4f} > {TIE_GAP}")
+            ties.append((request.request_id, index, round(gap, 4)))
+        live = [index + 1 < len(request.tokens) for request in requests]
+        if not any(live):
+            break
+        tokens = [request.tokens[index] if on else 0
+                  for request, on in zip(requests, live)]
+        positions = [len(request.prompt) + index
+                     for request in requests]
+        out = step(tokens, positions, live)
+        logits = [out[row] for row in range(len(requests))]
+    exact = sum(count == len(request.tokens)
+                for count, request in zip(equal, requests))
+    return exact, sum(equal), sum(len(r.tokens) for r in requests), ties
+
+
+def check_in_slots(torch, requests, slots, oracle):
+    """:func:`check_lockstep` over groups of ``requests`` whose served
+    ``slots`` (request id -> slot) differ, in serving order (a slot a
+    finished request left is reused by a later one, which then walks in
+    a later group); ``oracle(group, group_slots)`` -> (first logits,
+    step).  Sums the groups' counts."""
+    groups = []
+    for request in requests:
+        slot = slots[request.request_id]
+        group = next((g for g in groups
+                      if all(slots[r.request_id] != slot for r in g)), None)
+        if group is None:
+            groups.append([request])
+        else:
+            group.append(request)
+    totals = [0, 0, 0, []]
+    for group in groups:
+        result = check_lockstep(torch, group, *oracle(
+            group, [slots[r.request_id] for r in group]))
+        for index, value in enumerate(result):
+            totals[index] += value
+    return tuple(totals)
+
+
+def lockstep_contiguous(torch, llama, params, config, requests, device,
+                        rows, slots=None, bucket=None, verify=False):
+    """(first logits, step) of :func:`check_lockstep` on a contiguous
+    cache of ``rows`` rows a slot.  Each request is prefilled alone at
+    batch 1 (its prompt, or with ``bucket(len)`` its prompt right-padded
+    to its bucket, as the contiguous server prefills it) and landed in
+    row r of a cache of one row a request, or with ``slots`` in row
+    ``slots[r]`` of a SLOTS-row cache (the server's shape); a step decodes
+    every row at its own position, or with ``verify`` scores a verify
+    window of SPEC_K + 1 tokens a row (the row's token then zeros) at its
+    first position.  Idle rows write the scratch row ``rows - 1``."""
+    batch = SLOTS if slots is not None else len(requests)
+    slots = list(slots) if slots is not None else list(range(len(requests)))
+    cache = llama.init_cache(config, batch, rows, device=device)
+    first = []
+    for request, slot in zip(requests, slots):
+        plen = len(request.prompt)
+        width = bucket(plen) if bucket is not None else plen
+        tokens = torch.zeros((1, width), dtype=torch.int32, device=device)
+        tokens[0, :plen] = torch.as_tensor(request.prompt, device=device)
+        filled = llama.init_cache(config, 1, rows if bucket is None
+                                  else width, device=device)
+        logits, filled = llama.prefill(params, tokens, filled, config)
+        for layer, source in zip(cache, filled):
+            for key, dst in layer.items():
+                dst[slot, :source[key].shape[1]] = source[key][0]
+        first.append(logits[0, -1])
+    index = torch.as_tensor(slots, device=device)
+
+    def rows_of(values, fill):
+        out = torch.full((batch,), fill, dtype=torch.int32, device=device)
+        out[index] = torch.as_tensor(values, dtype=torch.int32,
+                                     device=device)
+        return out
+
+    def step(tokens, positions, live):
+        nonlocal cache
+        positions = [p if on else rows - 1 for p, on in zip(positions, live)]
+        with torch.no_grad():
+            if verify:
+                window = torch.zeros((batch, SPEC_K + 1), dtype=torch.int32,
+                                     device=device)
+                window[:, 0] = rows_of(tokens, 0)
+                active = torch.zeros((batch,), dtype=torch.bool,
+                                     device=device)
+                active[index] = torch.as_tensor(live, device=device)
+                logits, cache = llama.verify_chunk_ragged(
+                    params, window, cache, rows_of(positions, 0), active,
+                    config)
+                return logits[index, 0]
+            logits, cache = llama._decode_core_ragged(
+                params, rows_of(tokens, 0)[:, None], cache,
+                rows_of(positions, rows - 1), config)
+        return logits[index, -1]
+    if bucket is not None:
+        # The server seeds a slot with the last prompt token at prompt_len
+        # - 1 and its first decode step (or verify round) emits the first
+        # token: the prefill's own logits are not what it served.
+        first = list(step([int(r.prompt[-1]) for r in requests],
+                          [len(r.prompt) - 1 for r in requests],
+                          [True] * len(requests)))
+    return first, step
+
+
+def lockstep_paged(torch, llama, server_cls, request_cls, params, config,
+                   requests, slots, device):
+    """(first logits, step) of :func:`check_lockstep` for (b): an 8-slot
+    paged server of the served configuration admits the requests one at a
+    time in serving order, each alone, on the served slice schedule (the
+    prefix cache on, so a sharer finds the producer's prefix as it did
+    when served), with no decode in between; then decode steps of SLOTS
+    rows with each request's table in its served slot and the other
+    lanes on scratch block 0, as the server's idle lanes."""
+    oracle = server_cls(config_name=MOE_NAME, slots=SLOTS,
+                        max_seq=MOE_PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                        params=params, quantize=True, block_size=BLOCK,
+                        enable_prefix_cache=True,
+                        chunk_prefill_tokens=CHUNK, device=device)
+    tables = torch.zeros((SLOTS, oracle.tables.shape[1]), dtype=torch.int32,
+                         device=device)
+    for request, slot in zip(requests, slots):
+        twin = request_cls(request.request_id, request.prompt, NEW_TOKENS)
+        oracle.submit(twin)
+        oracle._admit()
+        while oracle._prefilling:
+            oracle._advance_prefills()
+        own = oracle._requests.index(twin)
+        # The oracle server never decodes: a live slot would hold the next
+        # admission's slices for the mixed dispatch.
+        oracle.active[own] = False
+        tables[slot] = torch.as_tensor(oracle.tables[own], device=device)
+    index = torch.as_tensor(list(slots), device=device)
+    idle = torch.arange(SLOTS, dtype=torch.int32, device=device) % BLOCK
+
+    def step(tokens, positions, live):
+        batch_tokens = torch.zeros((SLOTS, 1), dtype=torch.int32,
+                                   device=device)
+        batch_tokens[index, 0] = torch.as_tensor(tokens, dtype=torch.int32,
+                                                 device=device)
+        batch_positions = idle.clone()
+        batch_positions[index] = torch.as_tensor(positions,
+                                                 dtype=torch.int32,
+                                                 device=device)
+        lanes = torch.zeros_like(tables)
+        lanes[index] = tables[index]
+        dead = index[~torch.as_tensor(live, device=device)]
+        lanes[dead] = 0
+        batch_positions[dead] = idle[dead]
+        with torch.no_grad():
+            logits, _ = llama._decode_core_paged(
+                params, batch_tokens, oracle.pool, lanes, batch_positions,
+                config)
+        return logits[index, -1]
+    first = step([int(r.prompt[-1]) for r in requests],
+                 [len(r.prompt) - 1 for r in requests],
+                 [True] * len(requests))
+    return list(first), step
+
+
+def hold_launches(where, launches, want):
+    for name, expected in want.items():
+        if launches[name] != expected or expected == 0:
+            fail(f"{where}: {name} {launches[name]} launches, expected "
+                 f"{expected}")
+    for name, count in launches.items():
+        if name not in want and count:
+            fail(f"{where}: {name} launched {count} times")
+
+
+def serve_moe_contiguous(torch, np, llama, weights, kernels, server_cls,
+                         request_cls, params, config, device, count,
+                         where, steady=False, draft=None):
+    """(a), (c), (d): ContinuousBatchingServer of MOE_NAME, 8 slots,
+    1,024-row cache, int8 (or int4) attention and LM head, bf16 experts:
+    the first ``count`` of MOE_PROMPTS in waves of four, NEW_TOKENS each,
+    every token held to its batch-1 oracle at the served shapes
+    (:func:`lockstep_contiguous`), the launches to the decode steps and
+    prefill
+    dispatches (with ``draft``, spec_k = 4: chunk_attention and
+    append_kv_ragged to the rounds); with ``steady``, the steady window."""
+    kwargs = dict(config_name=MOE_NAME, slots=SLOTS, max_seq=MAX_SEQ,
+                  chunk_steps=CHUNK_STEPS, params=params, quantize=True,
+                  device=device)
+    if draft is not None:
+        kwargs.update(draft_config_name=MOE_DRAFT, draft_params=draft,
+                      spec_k=SPEC_K)
+    rng = np.random.default_rng(14)
+    warm = server_cls(**kwargs)
+    warm.submit(request_cls("warm", rng.integers(
+        1, config.vocab_size, 100).astype(np.int32), 4))
+    warm.run_until_drained()
+    del warm
+    server = server_cls(**kwargs)
+    slots = record_slots(server)
+    rng = np.random.default_rng(15)
+    requests = [request_cls(f"m{i}", rng.integers(
+        1, config.vocab_size, plen).astype(np.int32), NEW_TOKENS)
+        for i, plen in enumerate(MOE_PROMPTS[:count])]
+    dispatches, prefill = [], llama.prefill
+
+    def recorded_prefill(params, tokens, cache, config, **kw):
+        dispatches.append(tuple(tokens.shape))
+        return prefill(params, tokens, cache, config, **kw)
+    torch.cuda.synchronize()
+    llama.prefill = recorded_prefill
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        for index in range(0, len(requests), 4):
+            for request in requests[index:index + 4]:
+                server.submit(request)
+            for _ in range(3):
+                server.step()
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama.prefill = prefill
+    stats = server.stats()
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS:
+            fail(f"{where} request {request.request_id}: error "
+                 f"{request.error}, {len(request.tokens)} tokens")
+    steps = stats["decode_steps"]
+    if draft is None:
+        if len(dispatches) != stats["prefill_dispatches"]:
+            fail(f"{where}: {len(dispatches)} prefill calls recorded, the "
+                 f"server counted {stats['prefill_dispatches']}")
+        hold_launches(where, launches, moe_launches_want(
+            weights, config, steps, dispatches))
+    else:
+        rounds = stats["spec_rounds"]
+        want = config.n_layers * rounds \
+            + llama.CONFIGS[MOE_DRAFT].n_layers * rounds
+        if rounds <= 0:
+            fail(f"{where}: no speculation round")
+        for name in ("chunk_attention", "append_kv_ragged"):
+            if launches[name] != want:
+                fail(f"{where}: {name} {launches[name]} launches, expected "
+                     f"{want} ({rounds} rounds)")
+        for name in ("int8_matmul", "flash_attention",
+                     "paged_decode_attention", "write_kv_rows"):
+            if not launches[name]:
+                fail(f"{where}: {name} was never launched")
+    from aiko_services_tpu_torch.orchestration import continuous
+    exact, equal, checked, ties = check_in_slots(
+        torch, requests, slots, lambda group, group_slots:
+        lockstep_contiguous(
+            torch, llama, params, config, group, device, MAX_SEQ,
+            slots=group_slots,
+            bucket=lambda n: min(continuous._bucket(n, 16), MAX_SEQ),
+            verify=draft is not None))
+    ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
+                   for r in requests)
+    result = dict(weights=weights.label, requests=len(requests),
+                  requests_exact=exact, tokens_checked=checked,
+                  tokens_equal=equal, accepted_near_ties=ties,
+                  launches=launches, decode_steps=steps,
+                  prefill_dispatches=dispatches, wall_s=wall,
+                  served_tok_s=len(requests) * NEW_TOKENS / wall,
+                  ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1])
+    if draft is not None:
+        result.update({key: stats[key] for key in (
+            "spec_rounds", "spec_proposed", "spec_accepted",
+            "spec_tokens_per_target_pass")})
+    else:
+        result.update(graph_counts(stats, where))
+    if steady:
+        result.update(steady_decode(
+            torch, np, weights, lambda: server_cls(**kwargs), request_cls,
+            False, config))
+    return result
+
+
+def serve_moe_paged(torch, np, llama, weights, kernels, server_cls,
+                    request_cls, params, config, device):
+    """(b): PagedContinuousServer of MOE_NAME, 8 slots, 16-row blocks,
+    prefix cache, 256-token chunked admission; four requests share a
+    512-token prefix.  Mixed steps route a slice's tokens and the decode
+    tokens in their own calls; every token held to its batch-1 oracle at
+    the served shapes (:func:`lockstep_paged`), launches by phase 4's
+    formula, prefix hits > 0, the pool balanced."""
+    kwargs = dict(config_name=MOE_NAME, slots=SLOTS,
+                  max_seq=MOE_PAGED_MAX_SEQ, chunk_steps=CHUNK_STEPS,
+                  params=params, quantize=True, block_size=BLOCK,
+                  enable_prefix_cache=True, chunk_prefill_tokens=CHUNK,
+                  device=device)
+    rng = np.random.default_rng(16)
+    vocab = config.vocab_size
+    prefix = rng.integers(1, vocab, MOE_PREFIX).astype(np.int32)
+    shared = [np.concatenate([prefix, rng.integers(1, vocab, tail).astype(
+        np.int32)]) for tail in MOE_TAILS]
+    distinct = [rng.integers(1, vocab, n).astype(np.int32)
+                for n in MOE_DISTINCT]
+    waves = [[shared[0]] + distinct[:3], shared[1:] + distinct[3:]]
+    server = server_cls(**kwargs)
+    slots = record_slots(server)
+    widths, core = [], llama._prefill_append_core
+
+    def recorded_core(params, tokens, *args, **kw):
+        widths.append(int(tokens.shape[1]))
+        return core(params, tokens, *args, **kw)
+    requests = []
+    torch.cuda.synchronize()
+    llama._prefill_append_core = recorded_core
+    try:
+        for kernel in kernels:
+            kernel.launches = 0
+        began = time.monotonic()
+        for index, wave in enumerate(waves):
+            batch = [request_cls(f"q{len(requests) + i}", prompt, NEW_TOKENS)
+                     for i, prompt in enumerate(wave)]
+            requests += batch
+            for request in batch:
+                server.submit(request)
+            if index == 0:
+                while batch[0].first_token_ts is None:
+                    server.step()
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - began
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    finally:
+        llama._prefill_append_core = core
+    stats = server.stats()
+    where = "phase 14 (b) paged"
+    for request in requests:
+        if request.error is not None or len(request.tokens) != NEW_TOKENS:
+            fail(f"{where} request {request.request_id}: error "
+                 f"{request.error}, {len(request.tokens)} tokens")
+    if len(widths) != stats["prefill_dispatches"]:
+        fail(f"{where}: {len(widths)} slices recorded, the server counted "
+             f"{stats['prefill_dispatches']}")
+    hold_launches(where, launches, moe_launches_want(
+        weights, config, stats["decode_steps"], widths=widths,
+        contiguous=False))
+    if stats["prefix_hits"] <= 0:
+        fail(f"{where}: no prefix hit ({stats['prefix_misses']} misses)")
+    if not stats["prefill_slices_mixed"]:
+        fail(f"{where}: no mixed step")
+    balance = server.pool_balance()
+    if balance["free"] + balance["evictable"] + balance["producing"] \
+            != balance["total"] or balance["producing"]:
+        fail(f"{where}: pool out of balance after the drain: {balance}")
+    exact, equal, checked, ties = check_in_slots(
+        torch, requests, slots, lambda group, group_slots: lockstep_paged(
+            torch, llama, server_cls, request_cls, params, config, group,
+            group_slots, device))
+    ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
+                   for r in requests)
+    return dict(requests=len(requests), requests_exact=exact,
+                tokens_checked=checked, tokens_equal=equal,
+                accepted_near_ties=ties, launches=launches,
+                decode_steps=stats["decode_steps"],
+                prefill_slices=len(widths), slice_widths=widths,
+                slices_mixed=stats["prefill_slices_mixed"],
+                prefix_hits=stats["prefix_hits"],
+                prefix_blocks_reused=stats["prefix_blocks_reused"],
+                pool_balance=balance, wall_s=wall,
+                served_tok_s=len(requests) * NEW_TOKENS / wall,
+                ttft_ms_p50=ttfts[len(ttfts) // 2], ttft_ms_max=ttfts[-1],
+                **graph_counts(stats, where))
+
+
+def serve_moe_phase(torch, np, llama, quant, kernels, kernels4, server_cls,
+                    paged_cls, request_cls, device, parts=MOE_PARTS):
+    """Phase 14: random mixtral_8x7b weights (MOE_LAYERS layers) from seed
+    0 through ``init_params`` + ``quantize_params`` (int8 and int4 trees
+    on the same bf16 expert tensors), the router check, then ``parts``.
+    Returns each part's result, the weights' bytes, the step's bound and
+    the phase's peak device memory."""
+    from aiko_services_tpu_torch.models import moe
+    config = moe_config(llama)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    dense = llama.init_params(config, seed=0, device=device)
+    params8 = llama.quantize_params(dense)
+    params4 = llama.quantize_params(dense, bits=4)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if params4["layers"][0]["moe"]["w_gate"] is not \
+            params8["layers"][0]["moe"]["w_gate"]:
+        fail("phase 14: the int8 and int4 trees do not share the experts")
+    phase = dict(config=MOE_NAME, layers=MOE_LAYERS,
+                 weights_s=time.monotonic() - t0,
+                 step_bytes=streamed_bytes(torch, params8),
+                 step_bytes_int4=streamed_bytes(torch, params4))
+    phase["step_bound_ms"] = phase["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    phase["router"], phase["router_worst_rel"] = check_moe_router(
+        torch, moe, quant, params8, params4, device)
+    w8, w4 = Weights(quant, 8), Weights(quant, 4)
+    part_s = {}
+    if "contiguous" in parts:
+        t0 = time.monotonic()
+        phase["contiguous"] = serve_moe_contiguous(
+            torch, np, llama, w8, kernels, server_cls, request_cls, params8,
+            config, device, len(MOE_PROMPTS), "phase 14 (a) contiguous",
+            steady=True)
+        part_s["contiguous"] = time.monotonic() - t0
+    if "paged" in parts:
+        t0 = time.monotonic()
+        phase["paged"] = serve_moe_paged(
+            torch, np, llama, w8, kernels, paged_cls, request_cls, params8,
+            config, device)
+        part_s["paged"] = time.monotonic() - t0
+    if "spec" in parts:
+        t0 = time.monotonic()
+        draft = llama.random_quantized_params(llama.CONFIGS[MOE_DRAFT],
+                                              seed=1, device=device)
+        phase["spec"] = serve_moe_contiguous(
+            torch, np, llama, w8, kernels, server_cls, request_cls, params8,
+            config, device, MOE_SHORT, "phase 14 (c) spec",
+            draft=draft)
+        del draft
+        part_s["spec"] = time.monotonic() - t0
+    if "int4" in parts:
+        t0 = time.monotonic()
+        phase["int4"] = serve_moe_contiguous(
+            torch, np, llama, w4, kernels4, server_cls, request_cls, params4,
+            config, device, MOE_SHORT, "phase 14 (d) int4")
+        part_s["int4"] = time.monotonic() - t0
+    phase["part_s"] = part_s
+    phase["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not phase["peak_gb"] < 80:
+        fail(f"phase 14: peak device memory {phase['peak_gb']:.2f} GB")
+    del params8, params4
+    llama.CONFIGS.pop(MOE_NAME, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phase
+
+
+def print_moe_phase(phase, smi):
+    log(f"--- phase 14, {phase['config']} ({phase['layers']} of 32 layers, "
+        f"full width), random int8 / int4 weights from seed 0 in "
+        f"{phase['weights_s']:.1f} s: " + json.dumps(phase))
+    log(f"phase 14 router: f32 products on the card against the CPU's, "
+        f"worst {phase['router_worst_rel']:.3g} of the largest logit; top-2 "
+        f"experts equal in {sum(r['top2_equal'] for r in phase['router'])} "
+        f"of {len(phase['router'])} cases; {smi}")
+    for part, label in (("contiguous", "(a) contiguous int8"),
+                        ("paged", "(b) paged int8"),
+                        ("spec", "(c) speculation, small draft"),
+                        ("int4", "(d) contiguous int4")):
+        run = phase.get(part)
+        if run is None:
+            continue
+        log(f"phase 14 {label}: {run['tokens_equal']} of "
+            f"{run['tokens_checked']} tokens the oracle's argmax, near-ties "
+            f"{run['accepted_near_ties']}; {run['served_tok_s']:.1f} tok/s "
+            f"served, TTFT p50 {run['ttft_ms_p50']:.1f} ms, max "
+            f"{run['ttft_ms_max']:.1f} ms; {phase['part_s'][part]:.1f} s; "
+            f"{smi}")
+    run = phase.get("contiguous")
+    if run and "steady_step_ms" in run:
+        log(f"phase 14 steady 8-slot step: graphed {run['steady_step_ms']:.3f}"
+            f" ms ({run['steady_decode_tok_s']:.1f} tok/s, busy by events "
+            f"{run['graphed_busy_by_events']:.3f}), eager "
+            f"{run['eager_step_ms']:.3f} ms; captures after the fence "
+            f"{run['graph_captures_steady_state']}; bound "
+            f"{phase['step_bound_ms']:.3f} ms ({phase['step_bytes'] / 1e9:.2f}"
+            f" GB of weights a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+            f"{smi}")
+    run = phase.get("paged")
+    if run:
+        log(f"phase 14 (b): {run['prefill_slices']} slices "
+            f"({run['slices_mixed']} mixed), prefix hits "
+            f"{run['prefix_hits']}, blocks reused "
+            f"{run['prefix_blocks_reused']}, pool {run['pool_balance']}")
+    log(f"phase 14 peak device memory {phase['peak_gb']:.2f} GB; {smi}")
+
+
+# --------------------------------------------------------------------------- #
 # Phase 7: the ring collective matmuls
 
 #: Ranks of the ring on the one card, and llama3_8b's TP-4 MLP shapes:
@@ -6195,6 +7009,15 @@ def main() -> None:
             + (f", the wire's own time a request (send-to-answer less "
                f"total_ms) p50 {turn['wire_ms_per_request_p50']:.2f} ms"
                if turn["kind"] == "wire" else "") + f"; {smi}")
+    obs = wire["observability"]
+    log(f"phase 8 observability: (profile {WIRE_PROFILE_STEPS}) answered "
+        f"{obs['profile_response']}, the bracket {obs['profile_steps']} "
+        f"steps at {obs['profile_device_step_ms']:.3f} device ms a step "
+        f"(CUDA events; chunks {obs['profile_chunks']}), trace "
+        f"{obs['trace_bytes']} bytes; (census) bundle with tiers "
+        f"{obs['census_tiers']}, {obs['audit_violations']} audit violations"
+        f" in {obs['audit_sweeps']} sweeps; the doctor rendered "
+        f"{obs['doctor_lines']} lines; {obs['seconds']} s; {smi}")
     spread = wire["spread"]
     log("phase 8 spread over turns (min-max), caller side: " + "; ".join(
         f"{key}: wire {spread[f'wire_{key}_min']:.1f}-"
@@ -6224,12 +7047,22 @@ def main() -> None:
             f"{tier['restore_steps']} steps "
             f"({tier['restore_steps_with_decode_tokens']} with decode "
             f"tokens); TTFT of the prefix cold {tier['prefix_ttft_ms']:.1f} "
-            f"ms, restored {tier['restored_ttft_ms']:.1f} ms; {smi}")
+            f"ms, restored {tier['restored_ttft_ms']:.1f} ms; pool auditor "
+            f"{tier['audit_sweeps']} sweeps, {tier['audit_violations']} "
+            f"violations, flow integral {tier['flow_integral_blocks']} "
+            f"blocks = the census; {smi}")
         log(f"phase 9 (b) spill, {kv} KV: {spill['spills']} blocks spilled "
             f"({spill['spill_dir_bytes']} bytes in {spill['spill_files']} "
             f"files), {spill['adopted_blocks']} adopted in "
             f"{spill['adopt_ms']:.1f} ms, {spill['disk_restores']} restored "
-            f"from disk; TTFT {spill['restored_ttft_ms']:.1f} ms; {smi}")
+            f"from disk; TTFT {spill['restored_ttft_ms']:.1f} ms; pool "
+            f"auditor {spill['audit_spill']['audit_sweeps']} + "
+            f"{spill['audit_adopt']['audit_sweeps']} sweeps, "
+            f"{spill['audit_spill']['audit_violations']} + "
+            f"{spill['audit_adopt']['audit_violations']} violations, flow "
+            f"integrals {spill['audit_spill']['flow_integral_blocks']} and "
+            f"{spill['audit_adopt']['flow_integral_blocks']} blocks = the "
+            f"censuses; {smi}")
         for index, turn in enumerate(wire9["turns"]):
             log(f"phase 9 (c) turn {index} ({turn['kind']}), {kv} KV: TTFT "
                 f"{turn['ttft_ms']:.1f} ms, send-to-answer "
@@ -6359,9 +7192,20 @@ def main() -> None:
         int4_ms = int4_after["ms"]
     int4_tiled = int4_steps["tiled"]
 
-    # ---- phase 7: the ring collective matmuls, 4 ranks on the card ----
+    # ---- phase 14: mixture-of-experts at mixtral_8x7b's width ----
     del params4
+    gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    moe_phase = serve_moe_phase(
+        torch, np, llama, quant, paged_kernels + (pp.append_kv_ragged,),
+        kernels4 + (pp.append_kv, pp.chunk_attention, pp.append_kv_ragged),
+        ContinuousBatchingServer, PagedContinuousServer, DecodeRequest,
+        device)
+    print_moe_phase(moe_phase, smi)
+    log(f"phase 14 took {time.monotonic() - t0:.1f} s; {smi}")
+
+    # ---- phase 7: the ring collective matmuls, 4 ranks on the card ----
     t0 = time.monotonic()
     ring_rows, ring_launches, ring_copies = check_ring(torch, parallel,
                                                        device)

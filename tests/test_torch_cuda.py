@@ -1190,13 +1190,17 @@ def test_write_kv_rows_past_the_end(cuda, layout, quantize_kv, past):
 
 def _graph_server(cuda, layout, quantize_kv, bits, width, params=None):
     """A server of ``width`` ("narrow": tiny; "8b": llama3_8b's widths
-    with two layers, registered as ``llama3_8b_2l``) on int8 or int4
-    weights: 3 slots, 2-step chunks, a fixed ring depth (so that the
+    with two layers, registered as ``llama3_8b_2l``; "moe": moe_small, 8
+    experts) on int8 or int4 weights: 3 slots, 2-step chunks, a fixed ring depth (so that the
     dispatches, and with them the chunks' keys, do not follow the host's
     timing)."""
-    name = "tiny" if width == "narrow" else "llama3_8b_2l"
+    name = {"narrow": "tiny", "8b": "llama3_8b_2l", "moe": "moe_small"}[width]
     config = llama.CONFIGS[name]
-    if params is None:
+    if params is None and config.n_experts:
+        # MoE: bf16 experts under the quantize policy (no direct int8 draw).
+        params = llama.quantize_params(
+            llama.init_params(config, seed=2, device=cuda), bits=bits)
+    elif params is None:
         params = llama.random_quantized_params(config, seed=2, bits=bits,
                                                device=cuda)
     kwargs = dict(config_name=name, slots=3, max_seq=128, chunk_steps=2,
@@ -1237,7 +1241,7 @@ def llama3_8b_2l(monkeypatch):
         llama.CONFIGS["llama3_8b"], n_layers=2))
 
 
-@pytest.mark.parametrize("width", ["narrow", "8b"])
+@pytest.mark.parametrize("width", ["narrow", "8b", "moe"])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("quantize_kv", [False, True])
 @pytest.mark.parametrize("layout", ["contiguous", "paged", "paged_spec"])
@@ -1278,14 +1282,16 @@ def test_graphed_chunks_equal_eager_chunks(cuda, llama3_8b_2l, layout,
         assert stats["spec_rounds"] > 0
 
 
+@pytest.mark.parametrize("width", ["narrow", "moe"])
 @pytest.mark.parametrize("quantize_kv", [False, True])
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
-def test_no_capture_after_warm_up(cuda, layout, quantize_kv):
+def test_no_capture_after_warm_up(cuda, layout, quantize_kv, width):
     """Two staggered runs (a key met once is warmed up by its eager chunk
     and captured at its second), the fence, then the same traffic again:
     every chunk of the last run replays a graph captured before it, at
-    either KV dtype."""
-    server = _graph_server(cuda, layout, quantize_kv, 8, "narrow")
+    either KV dtype, dense and MoE (the MoE chunk reads nothing back to
+    the host: its capacity is a Python int of the shapes)."""
+    server = _graph_server(cuda, layout, quantize_kv, 8, width)
     for _ in range(2):
         _graph_traffic(server, 5)
     warm = server.stats()
@@ -2793,7 +2799,7 @@ def test_constrained_accept_and_merge_forced_on_cuda_equal_cpu(cuda):
                                  mask))
 
 
-@pytest.mark.parametrize("width", ["narrow", "8b"])
+@pytest.mark.parametrize("width", ["narrow", "8b", "moe"])
 @pytest.mark.parametrize("quantize_kv", [False, True])
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
 def test_adapter_rows_graphed_equal_eager(cuda, llama3_8b_2l, layout,
@@ -3029,3 +3035,62 @@ def test_constrained_server_rows_follow_the_grammar(cuda):
                 config)
             position += 1
     assert server.stats()["spec_jump_forward_tokens"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# Mixture-of-experts
+
+
+@pytest.mark.parametrize("tokens", [1, 8, 40, 256])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_moe_router_f32_products_equal_plain(cuda, bits, tokens):
+    """The router's f32-activation products on the card (int8: N = 8 takes
+    no kernel shape, the f32 product; int4 at K 1,024 in 8 groups: the
+    grouped f32 products) against the plain f32 versions computed on the
+    CPU from the same leaves, within 1e-5 of the largest logit; no launch,
+    and TF32 stays off."""
+    from aiko_services_tpu_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(bits * 1000 + tokens)
+    router = quant.quantize_tree(
+        {"r": torch.randn((1024, 8), generator=gen, device=cuda)},
+        bits=bits)["r"]
+    x = torch.randn((tokens, 1024), generator=gen, device=cuda)
+    before = {fn.__name__: fn.launches for fn in _cuda.COUNTED}
+    got = moe._router_logits(router, x.to(torch.bfloat16))
+    assert {fn.__name__: fn.launches for fn in _cuda.COUNTED} == before
+    cpu = {key: value.cpu() for key, value in router.items()}
+    x32 = x.to(torch.bfloat16).cpu().float()
+    want = (quant.int8_matmul_reference(x32, cpu["q"], cpu["s"]) if bits == 8
+            else quant.int4_matmul_reference(x32, cpu["q4"], cpu["s"]))
+    assert got.dtype == torch.float32 and got.shape == (tokens, 8)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_moe_ffn_on_cuda_matches_the_cpu(cuda):
+    """``moe_ffn`` of a moe_small layer (bf16 experts, int8 router) on the
+    card against the same call on the CPU: the routing (dispatch one-hots)
+    equal and the output within the bf16 bound."""
+    from aiko_services_tpu_torch.models import moe
+    config = llama.CONFIGS["moe_small"]
+    params = llama.quantize_params(
+        llama.init_params(config, seed=4, device=cuda))
+    layer = params["layers"][0]["moe"]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 24, config.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    got = moe.moe_ffn(layer, x, config.moe_config)
+    cpu_layer = {key: ({k: v.cpu() for k, v in value.items()}
+                       if isinstance(value, dict) else value.cpu())
+                 for key, value in layer.items()}
+    want = moe.moe_ffn(cpu_layer, x.cpu(), config.moe_config)
+    xt = x.reshape(-1, config.d_model)
+    slots = moe.capacity(config.moe_config, xt.shape[0])
+    routed = moe.top_k_gating(moe._router_logits(layer["router"], xt),
+                              config.moe_top_k, slots)[0]
+    cpu_routed = moe.top_k_gating(
+        moe._router_logits(cpu_layer["router"], xt.cpu()), config.moe_top_k,
+        slots)[0]
+    assert torch.equal(routed.cpu(), cpu_routed)
+    _close(got.cpu(), want.float(), torch.bfloat16)

@@ -453,9 +453,11 @@ def test_steady_capture_watch_raises_the_fleet_anomaly(engine):
 def test_fleet_commands_fan_out_and_every_replica_answers(engine):
     """``(capture)``, ``(profile)`` and ``(census)`` sent to the router
     reach every replica on one trace id, and every actor answers the
-    caller — a port replica answers ``(profile)`` and ``(census)`` with
-    ``unsupported`` (the device-profile bracket and the pool census are
-    not ported), never silence."""
+    caller, never silence: the first replica's engine claims the
+    process's one profile bracket (``started``), the other finds it
+    pending (``busy``), the router has no engine (``unsupported``); with
+    no flight recorder installed every ``(capture)`` and ``(census)``
+    answers ``uninstalled``."""
     broker = "fanout"
     registry.Registrar(process=make_process(engine, 1, broker))
     engine.advance(4.0)
@@ -484,10 +486,13 @@ def test_fleet_commands_fan_out_and_every_replica_answers(engine):
         by_command.setdefault(command, {})[params[0]] = params[1]
     assert by_command["capture_response"] == dict.fromkeys(
         names + ["router"], "uninstalled")
-    assert by_command["profile_response"] == dict.fromkeys(
-        names + ["router"], "unsupported")
-    assert by_command["census_response"] == dict(
-        dict.fromkeys(names, "unsupported"), router="uninstalled")
+    from aiko_services_tpu_torch.obs import profiler
+    profiler.uninstall()
+    profiles = by_command["profile_response"]
+    assert profiles.pop("router") == "unsupported"
+    assert sorted(profiles.values()) == ["busy", "started"]
+    assert by_command["census_response"] == dict.fromkeys(
+        names + ["router"], "uninstalled")
     assert (router.counters["fleet_captures"],
             router.counters["fleet_profiles"],
             router.counters["fleet_censuses"]) == (1, 1, 1)

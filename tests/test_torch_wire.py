@@ -542,8 +542,9 @@ def test_adapter_commands_answer_with_an_error(command):
 
 def test_operator_commands_answer():
     """(metrics) names the server's counters and latency histograms in
-    Prometheus text; (profile) answers unsupported (no device profiler
-    yet); (census) answers unsupported (no pool census yet)."""
+    Prometheus text; (profile) starts a bracket on the replica's engine;
+    (census) answers uninstalled (no flight recorder installed: no
+    bundle to write)."""
     server = _servers(slots=1, max_seq=32, chunk_steps=2)["torch"]
     wire = Wire("torch", server, "ops")
     wire.infer("m", np.arange(1, 6, dtype=np.int32), max_new_tokens=3)
@@ -560,12 +561,14 @@ def test_operator_commands_answer():
             args = [4, "", "test/ops"]
         wire.publish(sexpr.generate(command, args))
     wire.run(lambda w: len(got) == 3)
+    from aiko_services_tpu_torch.obs import profiler
+    profiler.uninstall()
     label = f'instance="srv{server._instance_id}"'
     assert f"aiko_server_decode_steps{{{label}}}" in got["metrics_response"]
     assert f"aiko_latency_ttft_ms_count{{{label}}} 1" \
         in got["metrics_response"]
-    assert got["profile_response"] == "unsupported"
-    assert got["census_response"] == "unsupported"
+    assert got["profile_response"] == "started"
+    assert got["census_response"] == "uninstalled"
 
 
 def test_retire_drains_and_advertises():
