@@ -6,7 +6,12 @@ The layouts are kept as they are: weights ``(in, out)``, int8 leaves
 a MoE layer's ``moe`` dict (the router 2-D, dense or quantized; the
 experts 3-D, ``(E, d, f)`` / ``(E, f, d)``), KV ``(batch, max_seq,
 kv_heads, head_dim)`` and int8 KV scales ``(batch, max_seq, kv_heads)``
-f32.  bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, what ``np.asarray``
+f32.  The pipeline's encoder models take their JAX trees the same way,
+as they are: the vision encoder's and the classifier's (weights ``(in,
+out)``, the class token ``(1, 1, d)``) and the detector's, whose conv
+weights stay HWIO ``(kh, kw, c_in, c_out)`` (``detector.forward`` turns
+them into ``conv2d``'s layout inside, so its checkpoints and the bridge
+share one layout).  bfloat16 arrays (numpy's ``ml_dtypes.bfloat16``, what ``np.asarray``
 of a JAX bf16 array gives) travel as their raw 16-bit patterns, so the
 port's tensors are bit-identical to the JAX leaves.  Nothing here imports
 JAX: callers convert their arrays with ``np.asarray`` first.

@@ -1192,18 +1192,13 @@ class ChunkGraph:
         if device.type != "cuda":
             raise ValueError("ChunkGraph: a CUDA graph needs the state on a "
                              f"card, not on {device}")
-        before = _cuda.launch_counts()
-        graph = torch.cuda.CUDAGraph()
         began = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                outputs = self._program(num_steps, eos_id, lora_shared)
-        finally:
-            launches = _cuda.take_back(before)
+        captured = _cuda.capture_graph(
+            lambda: self._program(num_steps, eos_id, lora_shared), device)
         self.ledger.record_capture(
             (time.perf_counter() - began) * 1e3,
             signature=str(self.key(num_steps, eos_id, None)))
-        return graph, outputs, launches, _cuda.scratch_buffers(device)
+        return captured
 
 
 # --------------------------------------------------------------------------- #

@@ -58,7 +58,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 __all__ = ["Span", "SpanContext", "Tracer", "TRACER", "install",
            "uninstall", "current_ids", "inject", "extract",
            "encode_spans", "decode_spans", "chrome_events",
-           "export_chrome", "now", "synth_span"]
+           "export_chrome", "now", "synth_span", "annotate"]
 
 
 class SpanContext:
@@ -259,6 +259,25 @@ def install(tracer: Optional[Tracer] = None, **kwargs) -> Tracer:
 def uninstall():
     global TRACER
     TRACER = None
+
+
+@contextlib.contextmanager
+def annotate(name: str, cuda: bool = False):
+    """A ``torch.profiler`` range named ``name`` around the body and, with
+    ``cuda``, an NVTX range of the same name: the port's counterpart of
+    ``jax.profiler.TraceAnnotation`` (the pipeline's fused stages name
+    theirs ``stage:<name>``).  Needs no tracer; with no profiler running
+    the range costs a few microseconds of host."""
+    import torch
+    with torch.profiler.record_function(name):
+        if not cuda:
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
 
 
 def current_ids() -> Optional[Tuple[str, str]]:

@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -243,7 +243,11 @@ def scratch(device: torch.device, floats: int,
 
 def scratch_buffers(device: torch.device) -> Tuple[torch.Tensor, ...]:
     """The scratch pair now in use on ``device`` (empty before the first
-    launch that needs one): what a graph captured holds on to."""
+    launch that needs one): what a graph captured holds on to.  A card
+    named without its index is the current one, as a tensor's is."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return _SCRATCH.get(device, ())
 
 
@@ -282,6 +286,26 @@ def add_launches(delta: Dict) -> None:
     """Count one replay of a graph whose capture gained ``delta``."""
     for wrapper, count in delta.items():
         wrapper.launches += count
+
+
+def capture_graph(program: Callable[[], Any], device: torch.device,
+                  stream: Optional[torch.cuda.Stream] = None) -> Tuple:
+    """Capture ``program()`` as one CUDA graph on ``stream`` (None:
+    ``torch.cuda.graph``'s own side stream).  Run it eagerly once before:
+    that sizes the kernels' scratch and makes what a capture may not make.
+    Returns (graph, outputs, launches a replay, scratch held): the counts
+    the capture gained are taken back, for :func:`add_launches` to add on
+    every replay, and the scratch pair the graph writes stays referenced
+    while the tuple is kept, so a caller that grows the scratch later
+    frees no memory a replay writes.  A capture that fails raises."""
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            outputs = program()
+    finally:
+        launches = take_back(before)
+    return graph, outputs, launches, scratch_buffers(device)
 
 
 def ptr(tensor: Optional[torch.Tensor]) -> Optional[int]:

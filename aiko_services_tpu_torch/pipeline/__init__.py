@@ -1,5 +1,17 @@
-"""The port's copy of the pipeline payload codec
-(``aiko_services_tpu/pipeline/codec.py``).  The pipeline engine itself is
-queue 1 item 9 of ``ROADMAP.md``."""
+"""The pipeline engine of the port (``aiko_services_tpu/pipeline/``):
+definitions, the graph's streams and frames, ``Pipeline``, the payload
+codec, the fused device stages (:mod:`.tpu_stage`, CUDA graphs on the
+card) and the prefetcher.  The CLI is :mod:`.cli` (``python -m
+aiko_services_tpu_torch.pipeline.cli create <definition>``)."""
 
-from .codec import decode_swag, decode_value, encode_swag, encode_value
+from .stream import (
+    Stream, Frame, StreamEvent, StreamState, DEFAULT_STREAM_ID,
+)
+from .definition import (
+    PipelineDefinition, PipelineElementDefinition,
+    parse_pipeline_definition, load_pipeline_definition,
+)
+from .codec import encode_swag, decode_swag, encode_value, decode_value
+from .element import PipelineElement
+from .pipeline import Pipeline, PipelineRemote, DEFAULT_GRACE_TIME
+from .prefetch import DevicePrefetcher

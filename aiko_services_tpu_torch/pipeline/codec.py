@@ -31,11 +31,24 @@ from typing import Any, Dict
 import numpy as np
 
 __all__ = ["encode_value", "decode_value", "encode_swag", "decode_swag",
-           "RAW_NBYTES"]
+           "host_array", "RAW_NBYTES"]
 
 #: Arrays at or above this many bytes skip zlib (``N`` tag): token id
 #: vectors stay tiny-and-compressible, KV block payloads are entropy.
 RAW_NBYTES = 16384
+
+
+def host_array(value: Any) -> np.ndarray:
+    """``value`` as a numpy array on the host: a tensor (on any device) is
+    copied back first, bfloat16 widened to float32 (exact), since numpy
+    has no bfloat16 of its own.  Anything else goes through
+    ``np.asarray``."""
+    if hasattr(value, "detach") and hasattr(value, "cpu"):
+        value = value.detach().cpu()
+        if str(value.dtype) == "torch.bfloat16":
+            value = value.float()
+        return value.numpy()
+    return np.asarray(value)
 
 
 def encode_value(value: Any) -> str:
@@ -50,7 +63,7 @@ def encode_value(value: Any) -> str:
     if isinstance(value, float):
         return f"f:{value!r}"
     if hasattr(value, "__array__") or isinstance(value, np.ndarray):
-        array = np.asarray(value)
+        array = host_array(value)
         buffer = io.BytesIO()
         np.save(buffer, array, allow_pickle=False)
         raw = buffer.getvalue()

@@ -250,6 +250,29 @@ Phases (any failure exits non-zero):
    products otherwise and reroute near-tied tokens.  Launches by the
    phases' formulas, prefix hits and a balanced pool in (b), no capture
    after the fence, peak device memory under 80 GB.
+15. The vision-LLM pipeline (run after phase 14 frees its weights):
+   examples/vision_llm's graph
+   and element names through the port's Pipeline (compose_instance(
+   Pipeline, pipeline_args(...)), what the CLI wraps), with the port's
+   module paths and no device given: ImageNormalize, VisionEncoderElement
+   (clip_base) and DetectorElement (yolo_n) fused into one stage captured
+   as a CUDA graph, the example's PromptBuilder (this script's copy),
+   LlamaChatElement (llama3_8b, random int8 weights from seed 0, 32 new
+   tokens); one warm-up frame, then 8 seeded 224 x 224 uint8 images on one
+   stream with device_metrics_interval 2.  Held: the stage captured once
+   and replayed every frame, each frame's stage outputs bitwise the same
+   elements run eagerly on the card, each tokens_out the greedy prefill +
+   generate_tokens oracle's on the element's params, the launches of
+   flash_attention, paged_decode_attention, int8_matmul and write_kv_rows
+   over the 8 frames exactly the prefills' and decode steps', one
+   DevicePrefetcher pass over the images equal to the host arrays.
+   Prints frames/s, time_{stage} and time_{stage}_device per stage, the
+   chat's tokens_per_second.
+
+The batch-1 oracles of phases 3, 4 (bf16 KV) and 6 walk side by side
+(lockstep_results: each request prefilled alone, then one decode step a
+token for all of them, each row computed as it is alone), as the wide
+runs' do.
 
 Phase 2 holds int8_matmul at every projection width and m = 1, 8, 40
 (the verify of 8 slots x 5) and 64, with torch._weight_int8pack_mm as
@@ -286,6 +309,7 @@ import json
 import logging
 import math
 import os
+import queue
 import subprocess
 import sys
 import time
@@ -473,9 +497,11 @@ class MatmulShapes:
 # Phase 2: kernels against their plain versions
 
 #: Rows of x in the int8 checks: batch-1 decode, the 8-slot decode batch,
-#: the verify of k = 4 on 8 slots (8 x 5), and 64 (the 64-slot decode
-#: batch and the largest kernel prefill).
-INT8_ROWS = (1, 8, 40, 64)
+#: phase 15's chat prefill (12 tokens, a part-filled 16-row instance), 16
+#: and 32 (the 16- and 32-row instances full), the verify of k = 4 on 8
+#: slots (8 x 5), and 64 (the 64-slot decode batch and the largest kernel
+#: prefill): every row instance of the kernel (8, 16, 32, 64).
+INT8_ROWS = (1, 8, 12, 16, 32, 40, 64)
 
 
 def check_int8_matmul(torch, quant, device, config):
@@ -750,15 +776,18 @@ def _visible_pairs(q_len, k_len, window):
     return total
 
 
-#: (batch, sequence, windows) of the phase-2 flash rows: admission buckets
-#: 64..1024 at batch 1, then the 64-slot admission shape (64 rows of 128).
-FLASH_CASES = [(1, 64, (None, 256)), (1, 256, (None, 256)),
-               (1, 1024, (None, 256)), (64, 128, (None,))]
+#: (batch, sequence, windows) of the phase-2 flash rows: phase 15's chat
+#: prefill (12 tokens, a part-filled tile), admission buckets 64..1024 at
+#: batch 1, then the 64-slot admission shape (64 rows of 128).
+FLASH_CASES = [(1, 12, (None,)), (1, 64, (None, 256)),
+               (1, 256, (None, 256)), (1, 1024, (None, 256)),
+               (64, 128, (None,))]
 
 
 def check_flash(torch, attention, device):
     """Admission prefill: llama3_8b heads (32 q, 8 kv, hd 128), batch 1,
-    buckets 64..1024, window off and 256; and batch 64 at 128 tokens."""
+    12 tokens (phase 15's chat prompt) and buckets 64..1024, window off
+    and 256; and batch 64 at 128 tokens."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(1)
     h, kv, hd = 32, 8, 128
@@ -1627,20 +1656,39 @@ def check_request(torch, request, first_logits, step):
 CHECKED = {}
 
 
-def check_requests(torch, requests, oracle, memo=None):
+def check_requests(torch, requests, oracle, memo=None, side_by_side=False):
     """``oracle(request)`` -> (first logits, step) for every request:
     (requests exactly equal, tokens equal, tokens checked, near-ties).
     ``memo`` names the oracle (weights, KV dtype, cache rows): a request
-    whose prompt and tokens it has held before is not walked again."""
-    exact, equal, checked, ties = 0, 0, 0, []
-    for request in requests:
-        key = (memo, np_bytes(request.prompt), tuple(request.tokens))
-        result = CHECKED.get(key) if memo is not None else None
-        if result is None:
-            result = check_request(torch, request, *oracle(request))
+    whose prompt and tokens it has held before is not walked again.  With
+    ``side_by_side``, ``oracle(requests)`` -> (first logits, step) of
+    :func:`lockstep_results` for the requests not held before, whose
+    batch-1 oracles then walk side by side (the same walks, one step a
+    token for all of them), but for the first, which walks alone: a fault
+    that mixes the rows of one decode step shows in the served run and in
+    the side-by-side walks alike, and still shows against that one."""
+    keys = [(memo, np_bytes(request.prompt), tuple(request.tokens))
+            for request in requests]
+    results = {key: CHECKED[key] for key in keys
+               if memo is not None and key in CHECKED}
+    todo = [(request, key) for request, key in zip(requests, keys)
+            if key not in results]
+    if todo:
+        walking = [request for request, _ in todo]
+        if side_by_side:
+            walked = [result for part in (walking[:1], walking[1:]) if part
+                      for result in lockstep_results(torch, part,
+                                                     *oracle(part))]
+        else:
+            walked = [check_request(torch, request, *oracle(request))
+                      for request in walking]
+        for (_, key), result in zip(todo, walked):
+            results[key] = result
             if memo is not None:
                 CHECKED[key] = result
-        same, near = result
+    exact, equal, checked, ties = 0, 0, 0, []
+    for request, key in zip(requests, keys):
+        same, near = results[key]
         exact += not near and same == len(request.tokens)
         equal += same
         checked += len(request.tokens)
@@ -1743,9 +1791,11 @@ def serve(torch, np, llama, weights, kernels, server_cls, request_cls,
         fail(f"peak device memory {peak_gb:.2f} GB")
 
     exact, equal, checked, ties = check_requests(
-        torch, requests, lambda request: contiguous_oracle(
-            torch, llama, params, config, request.prompt, quantize_kv,
-            device), memo=("contiguous", id(params), quantize_kv, MAX_SEQ))
+        torch, requests, lambda todo: lockstep_contiguous(
+            torch, llama, params, config, todo, device, MAX_SEQ,
+            quantize_kv=quantize_kv),
+        memo=("contiguous", id(params), quantize_kv, MAX_SEQ),
+        side_by_side=True)
 
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
@@ -2034,7 +2084,7 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
     """ContinuousBatchingServer at 64 slots, bf16 KV: 64 requests of
     WIDE_PROMPT tokens and WIDE_NEW new tokens submitted together.  Every
     request must finish; WIDE_CHECKED of them are held to their batch-1
-    oracles, walked side by side (:func:`check_lockstep`); every
+    oracles, walked side by side (:func:`check_requests`); every
     kernel's launches are held to the decode steps and
     prefill dispatches of the run; peak memory < 80 GB; then the steady
     decode window at 64 slots."""
@@ -2104,10 +2154,10 @@ def serve_wide(torch, np, llama, weights, kernels, server_cls, request_cls,
     if not peak_gb < 80:
         fail(f"64 slots: peak device memory {peak_gb:.2f} GB")
     checked_requests = requests[::WIDE_SLOTS // WIDE_CHECKED]
-    exact, equal, checked, ties = check_lockstep(
-        torch, checked_requests, *lockstep_contiguous(
-            torch, llama, params, config, checked_requests, device,
-            WIDE_MAX_SEQ))
+    exact, equal, checked, ties = check_requests(
+        torch, checked_requests, lambda todo: lockstep_contiguous(
+            torch, llama, params, config, todo, device, WIDE_MAX_SEQ),
+        side_by_side=True)
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
                    for r in requests)
     steady = steady_decode(torch, np, weights, make_server, request_cls,
@@ -2275,15 +2325,15 @@ def serve_paged(torch, np, llama, weights, kernels, server_cls, request_cls,
         fail(f"pool out of balance after the drain: {balance}")
 
     if quantize_kv:
-        def oracle(request):
-            return paged_oracle(torch, llama, server_cls, request_cls,
-                                params, config, request.prompt, device)
+        exact, equal, checked, ties = check_requests(
+            torch, requests, lambda request: paged_oracle(
+                torch, llama, server_cls, request_cls, params, config,
+                request.prompt, device))
     else:
-        def oracle(request):
-            return contiguous_oracle(torch, llama, params, config,
-                                     request.prompt, False, device,
-                                     rows=PAGED_MAX_SEQ)
-    exact, equal, checked, ties = check_requests(torch, requests, oracle)
+        exact, equal, checked, ties = check_requests(
+            torch, requests, lambda todo: lockstep_contiguous(
+                torch, llama, params, config, todo, device, PAGED_MAX_SEQ),
+            side_by_side=True)
     PAGED_TOKENS[(weights.label, quantize_kv)] = [list(r.tokens)
                                                   for r in requests]
     ttfts = sorted((r.first_token_ts - r.submitted_ts) * 1e3
@@ -6026,20 +6076,20 @@ def record_slots(server):
     return slots
 
 
-def check_lockstep(torch, requests, first_logits, step):
-    """:func:`check_requests`' rule for requests whose batch-1 oracles walk
-    side by side: ``first_logits[r]`` are row r's logits for its first
-    served token, ``step(tokens, positions, live)`` runs one decode step of
-    every row (a served token and its position a row; rows not ``live``
-    idle) and returns each row's logits.  The step computes each row as it
-    computes it alone (its kernels' row results do not depend on the other
-    rows: the card tests' batch invariance), so row r's walk is request
-    r's batch-1 walk, teacher-forced on the served tokens; the rows share
-    its launches.  Returns (requests exactly equal, tokens equal, tokens
-    checked, near-ties)."""
+def lockstep_results(torch, requests, first_logits, step):
+    """Batch-1 oracles walked side by side: ``first_logits[r]`` are row
+    r's logits for its first served token, ``step(tokens, positions,
+    live)`` runs one decode step of every row (a served token and its
+    position a row; rows not ``live`` idle) and returns each row's logits.
+    The step computes each row as it computes it alone (its kernels' row
+    results do not depend on the other rows: the card tests' batch
+    invariance), so row r's walk is request r's batch-1 walk,
+    teacher-forced on the served tokens; the rows share its launches.
+    Returns :func:`check_request`'s (tokens equal, [(index, gap)]) a
+    request."""
     logits = list(first_logits)
     equal = [0] * len(requests)
-    ties = []
+    ties = [[] for _ in requests]
     longest = max(len(request.tokens) for request in requests)
     for index in range(longest):
         for row, request in enumerate(requests):
@@ -6054,7 +6104,7 @@ def check_lockstep(torch, requests, first_logits, step):
                 fail(f"request {request.request_id} (prompt "
                      f"{len(request.prompt)}): token {index} is {served}, "
                      f"oracle {best}, logit gap {gap:.4f} > {TIE_GAP}")
-            ties.append((request.request_id, index, round(gap, 4)))
+            ties[row].append((index, round(gap, 4)))
         live = [index + 1 < len(request.tokens) for request in requests]
         if not any(live):
             break
@@ -6064,17 +6114,15 @@ def check_lockstep(torch, requests, first_logits, step):
                      for request in requests]
         out = step(tokens, positions, live)
         logits = [out[row] for row in range(len(requests))]
-    exact = sum(count == len(request.tokens)
-                for count, request in zip(equal, requests))
-    return exact, sum(equal), sum(len(r.tokens) for r in requests), ties
+    return list(zip(equal, ties))
 
 
 def check_in_slots(torch, requests, slots, oracle):
-    """:func:`check_lockstep` over groups of ``requests`` whose served
-    ``slots`` (request id -> slot) differ, in serving order (a slot a
-    finished request left is reused by a later one, which then walks in
-    a later group); ``oracle(group, group_slots)`` -> (first logits,
-    step).  Sums the groups' counts."""
+    """:func:`check_requests` side by side over groups of ``requests``
+    whose served ``slots`` (request id -> slot) differ, in serving order
+    (a slot a finished request left is reused by a later one, which then
+    walks in a later group); ``oracle(group, group_slots)`` -> (first
+    logits, step).  Sums the groups' counts."""
     groups = []
     for request in requests:
         slot = slots[request.request_id]
@@ -6086,16 +6134,19 @@ def check_in_slots(torch, requests, slots, oracle):
             group.append(request)
     totals = [0, 0, 0, []]
     for group in groups:
-        result = check_lockstep(torch, group, *oracle(
-            group, [slots[r.request_id] for r in group]))
+        result = check_requests(
+            torch, group, lambda todo: oracle(
+                todo, [slots[r.request_id] for r in todo]),
+            side_by_side=True)
         for index, value in enumerate(result):
             totals[index] += value
     return tuple(totals)
 
 
 def lockstep_contiguous(torch, llama, params, config, requests, device,
-                        rows, slots=None, bucket=None, verify=False):
-    """(first logits, step) of :func:`check_lockstep` on a contiguous
+                        rows, slots=None, bucket=None, verify=False,
+                        quantize_kv=False):
+    """(first logits, step) of :func:`lockstep_results` on a contiguous
     cache of ``rows`` rows a slot.  Each request is prefilled alone at
     batch 1 (its prompt, or with ``bucket(len)`` its prompt right-padded
     to its bucket, as the contiguous server prefills it) and landed in
@@ -6103,10 +6154,13 @@ def lockstep_contiguous(torch, llama, params, config, requests, device,
     ``slots[r]`` of a SLOTS-row cache (the server's shape); a step decodes
     every row at its own position, or with ``verify`` scores a verify
     window of SPEC_K + 1 tokens a row (the row's token then zeros) at its
-    first position.  Idle rows write the scratch row ``rows - 1``."""
+    first position.  Idle rows write the scratch row ``rows - 1``.
+    ``quantize_kv``: the caches hold int8 K/V, as :func:`contiguous_oracle`'s
+    do with it."""
     batch = SLOTS if slots is not None else len(requests)
     slots = list(slots) if slots is not None else list(range(len(requests)))
-    cache = llama.init_cache(config, batch, rows, device=device)
+    cache = llama.init_cache(config, batch, rows, quantize_kv=quantize_kv,
+                             device=device)
     first = []
     for request, slot in zip(requests, slots):
         plen = len(request.prompt)
@@ -6114,7 +6168,8 @@ def lockstep_contiguous(torch, llama, params, config, requests, device,
         tokens = torch.zeros((1, width), dtype=torch.int32, device=device)
         tokens[0, :plen] = torch.as_tensor(request.prompt, device=device)
         filled = llama.init_cache(config, 1, rows if bucket is None
-                                  else width, device=device)
+                                  else width, quantize_kv=quantize_kv,
+                                  device=device)
         logits, filled = llama.prefill(params, tokens, filled, config)
         for layer, source in zip(cache, filled):
             for key, dst in layer.items():
@@ -6159,7 +6214,7 @@ def lockstep_contiguous(torch, llama, params, config, requests, device,
 
 def lockstep_paged(torch, llama, server_cls, request_cls, params, config,
                    requests, slots, device):
-    """(first logits, step) of :func:`check_lockstep` for (b): an 8-slot
+    """(first logits, step) of :func:`lockstep_results` for (b): an 8-slot
     paged server of the served configuration admits the requests one at a
     time in serving order, each alone, on the served slice schedule (the
     prefix cache on, so a sharer finds the producer's prefix as it did
@@ -6528,6 +6583,288 @@ def print_moe_phase(phase, smi):
             f"{run['prefix_hits']}, blocks reused "
             f"{run['prefix_blocks_reused']}, pool {run['pool_balance']}")
     log(f"phase 14 peak device memory {phase['peak_gb']:.2f} GB; {smi}")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 15: the pipeline engine and its compute plane
+
+#: examples/vision_llm/pipeline_vision_llm.json's graph and element names,
+#: at full width: clip_base and yolo_n fused into one graphed stage, the
+#: prompt builder, llama3_8b int8 chat.
+VISION_GRAPH = ("(ImageNormalize (VisionEncoderElement PromptBuilder) "
+                "(DetectorElement PromptBuilder) "
+                "(PromptBuilder LlamaChatElement))")
+VISION_STAGE = "ImageNormalize+VisionEncoderElement+DetectorElement"
+VISION_STAGE_KEYS = ("image", "embedding", "patch_features", "boxes",
+                     "scores", "classes", "keep")
+VISION_FRAMES, VISION_IMAGE, VISION_NEW_TOKENS = 8, 224, 32
+VISION_VISUAL_TOKENS, VISION_METRICS_INTERVAL = 8, 2
+
+
+def vision_llm_definition(vocab_size: int) -> dict:
+    """The example's definition with the port's module paths (the prompt
+    builder is this script's) and llama3_8b's vocabulary."""
+    ml = "aiko_services_tpu_torch.elements"
+
+    def spec(name, inputs, outputs, parameters=None, module=ml):
+        return {"name": name,
+                "input": [{"name": n, "type": "array"} for n in inputs],
+                "output": [{"name": n, "type": t} for n, t in outputs],
+                "parameters": parameters or {},
+                "deploy": {"local": {"module": module, "class_name": name}}}
+
+    arrays = [("boxes", "array"), ("scores", "array"), ("classes", "array"),
+              ("keep", "array")]
+    return {
+        "version": 0, "name": "p_vision_llm", "runtime": "tpu",
+        "graph": [VISION_GRAPH],
+        "parameters": {"device_metrics_interval": VISION_METRICS_INTERVAL},
+        "elements": [
+            spec("ImageNormalize", ["image"], [("image", "array")]),
+            spec("VisionEncoderElement", ["image"],
+                 [("embedding", "array"), ("patch_features", "array")],
+                 {"model_config": "clip_base"}),
+            spec("DetectorElement", ["image"], arrays,
+                 {"model_config": "yolo_n"}),
+            spec("PromptBuilder", ["embedding", "scores", "classes"],
+                 [("tokens", "array")],
+                 {"vocab_size": vocab_size,
+                  "n_visual_tokens": VISION_VISUAL_TOKENS},
+                 module=__name__),
+            spec("LlamaChatElement", ["tokens"],
+                 [("tokens_out", "array"), ("tokens_per_second", "float")],
+                 {"model_config": "llama3_8b", "param_init": "random_int8",
+                  "max_new_tokens": VISION_NEW_TOKENS}),
+        ]}
+
+
+def install_prompt_builder(np, PipelineElement, StreamEvent, host_array):
+    """Set ``PromptBuilder`` on this module, where the definition deploys
+    it from: examples/vision_llm/elements_vision_llm.py's element on the
+    port (the swag's tensors read back through ``host_array``).  Made here
+    because the port is imported only once a card is found."""
+
+    class PromptBuilder(PipelineElement):
+        """The embedding vector-quantized into ``n_visual_tokens`` ids,
+        then the four best-scoring detection classes."""
+
+        def process_frame(self, stream, embedding, scores, classes):
+            vocab, _ = self.get_parameter("vocab_size", 1024, stream=stream)
+            n_visual, _ = self.get_parameter("n_visual_tokens", 8,
+                                             stream=stream)
+            vocab, n_visual = int(vocab), int(n_visual)
+            embedding = host_array(embedding).astype(np.float32)
+            if embedding.ndim > 1 and embedding.shape[0] != 1:
+                self.logger.error("%s: PromptBuilder is batch-1 (got %s)",
+                                  self.my_id(stream), embedding.shape)
+                return StreamEvent.ERROR, {}
+            embedding = embedding.reshape(-1)
+            lo, hi = embedding.min(), embedding.max()
+            span = max(float(hi - lo), 1e-6)
+            visual = ((embedding[:n_visual] - lo) / span
+                      * (vocab - 2)).astype(np.int32) + 1
+            classes = host_array(classes).astype(np.int32).reshape(-1)
+            scores = host_array(scores).astype(np.float32).reshape(-1)
+            top = classes[np.argsort(-scores)[:4]] % (vocab - 1) + 1
+            tokens = np.concatenate([visual, top]).astype(np.int32)[None, :]
+            return StreamEvent.OKAY, {"tokens": tokens}
+
+    setattr(sys.modules[__name__], "PromptBuilder", PromptBuilder)
+
+
+def serve_vision_llm(torch, np, llama, quant, kernels, device):
+    """Phase 15: examples/vision_llm's graph through the port's Pipeline
+    (``compose_instance(Pipeline, pipeline_args(...))``, what the CLI
+    wraps), no device given: every element takes the card.  One warm-up
+    frame on its own stream (the stage's capture, cuBLAS / cuDNN set-up),
+    then VISION_FRAMES seeded 224 x 224 images on one stream.  Holds: the
+    three device elements fused into one stage that captured once and
+    replayed every frame; each frame's stage outputs bitwise equal to the
+    same elements run eagerly on the card; each frame's ``tokens_out``
+    equal to a direct prefill + generate_tokens greedy oracle on the chat
+    element's params and the frame's prompt; the launches of
+    ``kernels`` (flash_attention, paged_decode_attention, int8_matmul,
+    write_kv_rows) over the 8 frames exactly the prefills' and decode
+    steps'; one DevicePrefetcher pass over the images handing back equal
+    tensors on the card."""
+    from aiko_services_tpu_torch import transport
+    from aiko_services_tpu_torch.ops.paged_attention import contiguous_rows
+    from aiko_services_tpu_torch.pipeline import (
+        DevicePrefetcher, Pipeline, PipelineElement, StreamEvent,
+        parse_pipeline_definition)
+    from aiko_services_tpu_torch.pipeline.codec import host_array
+    from aiko_services_tpu_torch.pipeline.tpu_stage import to_tensor
+    from aiko_services_tpu_torch.runtime import (
+        EventEngine, Process, VirtualClock, compose_instance, pipeline_args)
+
+    install_prompt_builder(np, PipelineElement, StreamEvent, host_array)
+    config = llama.CONFIGS["llama3_8b"]
+    rng = np.random.default_rng(15)
+    shape = (1, VISION_IMAGE, VISION_IMAGE, 3)
+    warm_image = rng.integers(0, 256, shape, dtype=np.uint8)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for _ in range(VISION_FRAMES)]
+    phase = {}
+
+    # The prefetcher: pinned staging, side-stream copies, ordered use.
+    with DevicePrefetcher(iter(images), depth=2) as prefetcher:
+        staged = list(prefetcher)
+    if prefetcher.copy_stream is None or len(staged) != len(images):
+        fail(f"phase 15 prefetcher: {len(staged)} batches, copy stream "
+             f"{prefetcher.copy_stream}")
+    for host, got in zip(images, staged):
+        if got.device != device or not torch.equal(
+                got.cpu(), torch.from_numpy(host)):
+            fail("phase 15 prefetcher: a staged batch differs from its "
+                 "host array")
+    phase["prefetched"] = len(staged)
+    del staged
+
+    t0 = time.monotonic()
+    engine = EventEngine(clock=VirtualClock())
+    process = Process(namespace="smoke", hostname="card", pid="15",
+                      engine=engine, broker="vision_llm")
+    definition = parse_pipeline_definition(
+        vision_llm_definition(config.vocab_size))
+    pipeline = compose_instance(
+        Pipeline, pipeline_args(definition.name, definition=definition),
+        process=process)
+    torch.cuda.synchronize()
+    phase["build_s"] = time.monotonic() - t0
+    stages = list(pipeline._fused_stages.values())
+    if [stage.name for stage in stages] != [VISION_STAGE] or \
+            stages[0].device.type != "cuda":
+        fail(f"phase 15: fused stages {[s.name for s in stages]} on "
+             f"{[str(s.device) for s in stages]}")
+    stage = stages[0]
+    chat = pipeline.elements["LlamaChatElement"]
+    if chat.device.type != "cuda" or \
+            not quant.is_quantized(chat.params["layers"][0]["wq"]):
+        fail("phase 15: the chat element's int8 weights are not on the card")
+
+    out = queue.Queue()
+
+    def drive(stream_id, frames):
+        pipeline.create_stream(stream_id, queue_response=out)
+        for image in frames:
+            pipeline.post_frame(stream_id, {"image": image})
+        engine.drain()
+        torch.cuda.synchronize()
+        if out.qsize() != len(frames):
+            fail(f"phase 15 stream {stream_id}: {out.qsize()} of "
+                 f"{len(frames)} frames completed")
+        done = [out.get_nowait()[1] for _ in frames]
+        pipeline.destroy_stream(stream_id)
+        return done
+
+    t0 = time.monotonic()
+    warm = drive("warm", [warm_image])[0]
+    phase["warm_frame_s"] = time.monotonic() - t0
+    for kernel in kernels:
+        kernel.launches = 0
+    began = time.monotonic()
+    frames = drive("s", images)
+    wall = time.monotonic() - began
+    launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    phase.update(frames=len(frames), wall_s=wall,
+                 frames_per_s=len(frames) / wall,
+                 captures=stage._compiled.captures,
+                 replays=stage._compiled.replays)
+    if stage._compiled.captures != 1 or \
+            stage._compiled.replays != len(frames) + 1:
+        fail(f"phase 15: the stage captured {stage._compiled.captures} "
+             f"times and replayed {stage._compiled.replays} (want 1 and "
+             f"{len(frames) + 1})")
+
+    # Held: the stage's replays against the same elements run eagerly.
+    for index, (image, frame) in enumerate(zip(images, frames)):
+        with torch.no_grad():
+            want = stage._trace(stage._params,
+                                {"image": to_tensor(image, device)})
+        for key in VISION_STAGE_KEYS:
+            got = frame.swag[key]
+            if got.dtype != want[key].dtype or not torch.equal(got,
+                                                               want[key]):
+                fail(f"phase 15 frame {index}: the graphed stage's {key} "
+                     "is not bitwise the eager elements'")
+        embedding = frame.swag["embedding"]
+        if tuple(embedding.shape) != (1, 512) or \
+                not bool(torch.isfinite(embedding).all()) or \
+                tuple(frame.swag["boxes"].shape) != (1, 49, 4):
+            fail(f"phase 15 frame {index}: embedding "
+                 f"{tuple(embedding.shape)}, boxes "
+                 f"{tuple(frame.swag['boxes'].shape)}")
+
+    # Held: tokens_out against a direct greedy oracle, and the launches.
+    prompt_lens = set()
+    for index, frame in enumerate(frames):
+        tokens = torch.as_tensor(frame.swag["tokens"], device=device)
+        prompt_len = tokens.shape[1]
+        prompt_lens.add(prompt_len)
+        cache = llama.init_cache(config, 1, contiguous_rows(
+            prompt_len + VISION_NEW_TOKENS), device=device)
+        logits, cache = llama.prefill(chat.params, tokens, cache, config)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        generated, _ = llama.generate_tokens(
+            chat.params, first, cache, prompt_len, VISION_NEW_TOKENS - 1,
+            config)
+        want = torch.cat([tokens, first, generated], dim=1)
+        got = frame.swag["tokens_out"]
+        if tuple(got.shape) != tuple(want.shape) or \
+                not torch.equal(got, want):
+            fail(f"phase 15 frame {index}: tokens_out is not the greedy "
+                 "oracle's")
+    if prompt_lens != {VISION_VISUAL_TOKENS + 4}:
+        fail(f"phase 15: prompt lengths {prompt_lens}")
+    weights = Weights(quant, 8)
+    steps = VISION_NEW_TOKENS - 1
+    n = len(frames)
+    want = dict(
+        flash_attention=config.n_layers * n,
+        paged_decode_attention=config.n_layers * steps * n,
+        write_kv_rows=config.n_layers * steps * n,
+        int8_matmul=n * (matmul_launches(weights, config, 1,
+                                         VISION_VISUAL_TOKENS + 4)
+                         + steps * matmul_launches(weights, config, 1, 1)))
+    for name, expected in want.items():
+        if launches[name] != expected or expected == 0:
+            fail(f"phase 15 {name}: {launches[name]} launches, expected "
+                 f"{expected}")
+    phase["launches"] = launches
+
+    metrics = {}
+    for key in frames[0].metrics:
+        values = [f.metrics[key] for f in frames if key in f.metrics]
+        metrics[key] = dict(mean_ms=1e3 * sum(values) / len(values),
+                            frames=len(values))
+    phase["metrics"] = metrics
+    phase["warm_metrics_ms"] = {k: 1e3 * v for k, v in warm.metrics.items()}
+    rates = [float(f.swag["tokens_per_second"]) for f in frames]
+    phase["chat_tokens_per_s_mean"] = sum(rates) / len(rates)
+    phase["chat_tokens_per_s_min"] = min(rates)
+    pipeline.stop()
+    transport.reset_brokers()
+    del pipeline, chat, stage, stages, frames, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phase
+
+
+def print_vision_llm(phase, smi):
+    log("--- phase 15, the vision-LLM pipeline (clip_base + yolo_n fused and "
+        "graphed, llama3_8b int8 chat, 32 new tokens): " + json.dumps(phase))
+    log(f"phase 15: {phase['frames']} frames in {phase['wall_s']:.3f} s, "
+        f"{phase['frames_per_s']:.3f} frames/s (the warm-up frame, with the "
+        f"stage's capture, {phase['warm_frame_s']:.3f} s); the pipeline "
+        f"built in {phase['build_s']:.1f} s; {smi}")
+    for key, value in sorted(phase["metrics"].items()):
+        log(f"phase 15 {key}: {value['mean_ms']:.3f} ms mean over "
+            f"{value['frames']} frames; {smi}")
+    log(f"phase 15 chat tokens_per_second: mean "
+        f"{phase['chat_tokens_per_s_mean']:.1f}, min "
+        f"{phase['chat_tokens_per_s_min']:.1f} (batch 1, eager decode); "
+        f"launches {phase['launches']}; stage captures {phase['captures']}, "
+        f"replays {phase['replays']}; {smi}")
 
 
 # --------------------------------------------------------------------------- #
@@ -7204,6 +7541,13 @@ def main() -> None:
         device)
     print_moe_phase(moe_phase, smi)
     log(f"phase 14 took {time.monotonic() - t0:.1f} s; {smi}")
+
+    # ---- phase 15: the vision-LLM pipeline (after phase 14 freed its
+    # weights) ----
+    t0 = time.monotonic()
+    vision_llm = serve_vision_llm(torch, np, llama, quant, kernels, device)
+    print_vision_llm(vision_llm, smi)
+    log(f"phase 15 took {time.monotonic() - t0:.1f} s; {smi}")
 
     # ---- phase 7: the ring collective matmuls, 4 ranks on the card ----
     t0 = time.monotonic()

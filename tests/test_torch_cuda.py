@@ -3094,3 +3094,163 @@ def test_moe_ffn_on_cuda_matches_the_cpu(cuda):
         slots)[0]
     assert torch.equal(routed.cpu(), cpu_routed)
     _close(got.cpu(), want.float(), torch.bfloat16)
+
+
+# --------------------------------------------------------------------------- #
+# The pipeline's compute plane: fused stages as CUDA graphs, the prefetcher
+
+
+def _vision_stage_pipeline(device_name):
+    """examples/vision_llm's fused half (normalize, the CLIP-class encoder,
+    the YOLO-class detector; tiny configs, bf16) as the port's Pipeline on
+    ``device_name``."""
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
+    from aiko_services_tpu_torch.runtime import (
+        EventEngine, Process, VirtualClock, compose_instance, pipeline_args)
+    ml = "aiko_services_tpu_torch.elements"
+
+    def spec(name, inputs, outputs, parameters=None):
+        return {"name": name,
+                "input": [{"name": n, "type": "array"} for n in inputs],
+                "output": [{"name": n, "type": "array"} for n in outputs],
+                "parameters": parameters or {},
+                "deploy": {"local": {"module": ml, "class_name": name}}}
+
+    definition = parse_pipeline_definition({
+        "version": 0, "name": "p_stage", "runtime": "tpu",
+        "graph": ["(ImageNormalize (VisionEncoderElement) "
+                  "(DetectorElement))"],
+        "parameters": {"device": device_name},
+        "elements": [
+            spec("ImageNormalize", ["image"], ["image"]),
+            spec("VisionEncoderElement", ["image"],
+                 ["embedding", "patch_features"], {"model_config": "tiny"}),
+            spec("DetectorElement", ["image"],
+                 ["boxes", "scores", "classes", "keep"],
+                 {"model_config": "tiny"})]})
+    process = Process(namespace="test", hostname="h", pid="1",
+                      engine=EventEngine(clock=VirtualClock()),
+                      broker="stage")
+    return compose_instance(
+        Pipeline, pipeline_args(definition.name, definition=definition),
+        process=process)
+
+
+def test_fused_stage_graph_replay_is_eager_bitwise(cuda):
+    """The fused stage's CUDA-graph replays give the eager program's bits,
+    and a later frame's replay leaves an earlier frame's outputs as they
+    were (each is copied out of the graph's static buffers)."""
+    from aiko_services_tpu_torch.pipeline.tpu_stage import to_tensor
+    pipeline = _vision_stage_pipeline("cuda")
+    stage = pipeline._fused_stages["ImageNormalize"]
+    assert stage.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8)
+              for _ in range(3)]
+    outputs = [stage({"image": image, "note": "kept"}) for image in images]
+    assert stage._compiled.captures == 1 and stage._compiled.replays == 3
+    keys = ("image", "embedding", "patch_features", "boxes", "scores",
+            "classes", "keep")
+    for image, got in zip(images, outputs):
+        assert got["note"] == "kept"
+        with torch.no_grad():
+            want = stage._trace(stage._params,
+                                {"image": to_tensor(image, cuda)})
+        for key in keys:
+            assert got[key].dtype == want[key].dtype
+            assert torch.equal(got[key], want[key]), key
+    assert not torch.equal(outputs[0]["embedding"], outputs[1]["embedding"])
+    # Another shape is another graph; the first one's frames stay.
+    wide = rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    got = stage({"image": wide})
+    assert stage._compiled.captures == 2
+    assert got["embedding"].shape == (2, 64)
+    with torch.no_grad():
+        want = stage._trace(stage._params, {"image": to_tensor(wide, cuda)})
+    assert torch.equal(got["embedding"], want["embedding"])
+    pipeline.stop()
+
+
+def test_standalone_device_element_graph_is_eager_bitwise(cuda):
+    """A TpuElement outside any fused run is one graphed program too."""
+    from aiko_services_tpu_torch.pipeline.tpu_stage import to_tensor
+    pipeline = _vision_stage_pipeline("cuda")
+    element = pipeline.elements["VisionEncoderElement"]
+    image = to_tensor(np.random.default_rng(1).random(
+        (1, 32, 32, 3), dtype=np.float32), cuda)
+    for _ in range(2):
+        _, got = element.process_frame(None, image=image)
+    assert element._program.captures == 1 and element._program.replays == 2
+    with torch.no_grad():
+        want = element.compute(element.params, {"image": image})
+    for key in ("embedding", "patch_features"):
+        assert torch.equal(got[key], want[key])
+    pipeline.stop()
+
+
+def test_graphed_program_holds_the_kernel_scratch_it_writes(cuda):
+    """A graphed program whose function launches a counted kernel with
+    split-K scratch (int8_matmul at m = 8) keeps the scratch pair its
+    graph writes: a later caller that grows the scratch replaces the
+    module's pair, and the replays still write the held one, give the
+    eager bits and count their launch."""
+    from aiko_services_tpu_torch.pipeline.tpu_stage import GraphedProgram
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k, n = 4096, 512
+    params = {"q": torch.randint(-127, 128, (k, n), generator=gen,
+                                 device=cuda, dtype=torch.int8),
+              "s": torch.rand((1, n), generator=gen, device=cuda) * 1e-3}
+
+    def fn(params, arrays):
+        return {"y": quant.int8_matmul(arrays["x"], params["q"],
+                                       params["s"])}
+    program = GraphedProgram(fn, cuda)
+    x = torch.randn((8, k), generator=gen, device=cuda).to(torch.bfloat16)
+    first = program(params, {"x": x})["y"]
+    in_use = _cuda.scratch_buffers(cuda)
+    (*_, held), = program._graphs.values()
+    assert len(held) == 2
+    assert all(a is b for a, b in zip(held, in_use))
+    _cuda.scratch(x.device, 2 * held[0].numel(), 2 * held[1].numel())
+    assert _cuda.scratch_buffers(cuda)[0] is not held[0]
+    before = quant.int8_matmul.launches
+    got = program(params, {"x": x})["y"]
+    assert quant.int8_matmul.launches == before + 1
+    assert program.captures == 1 and program.replays == 2
+    want = fn(params, {"x": x})["y"]
+    assert torch.equal(got, want) and torch.equal(first, want)
+
+
+def test_prefetcher_copies_on_its_stream_ordered_before_use(cuda):
+    """The prefetcher's copies run on its own stream, behind whatever that
+    stream holds (here a ~0.5 s device sleep queued before the source
+    yields), and next() orders the consumer's stream after them: a read on
+    the consumer's stream right away sees the host's values."""
+    import threading
+    from aiko_services_tpu_torch.pipeline import DevicePrefetcher
+    release = threading.Event()
+    host = [np.random.default_rng(i).standard_normal(
+        (1024, 1024)).astype(np.float32) for i in range(3)]
+
+    def source():
+        release.wait(10)
+        yield from host
+
+    prefetcher = DevicePrefetcher(source(), depth=2)
+    copy_stream = prefetcher.copy_stream
+    assert copy_stream is not None
+    assert copy_stream != torch.cuda.current_stream()
+    with torch.cuda.stream(copy_stream):
+        torch.cuda._sleep(1_000_000_000)        # ~0.5 s of device time
+    release.set()
+    first = next(prefetcher)
+    assert not copy_stream.query()              # the copy still pending
+    assert first.device.type == "cuda"
+    total = first.sum()                         # on the consumer stream
+    assert torch.equal(first.cpu(), torch.from_numpy(host[0]))
+    assert float(total) == pytest.approx(float(host[0].sum()), rel=1e-4)
+    rest = list(prefetcher)
+    for got, want in zip(rest, host[1:]):
+        assert torch.equal(got.cpu(), torch.from_numpy(want))
+    prefetcher.close()

@@ -415,7 +415,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "orchestration/process_manager.py", "runtime/proxy.py",
                  "runtime/category.py", "models/constrained.py",
                  "models/lora.py", "models/lora_paged.py",
-                 "tools/import_weights.py"):
+                 "tools/import_weights.py", "elements/ml.py",
+                 "elements/common_io.py", "elements/text_io.py",
+                 "elements/image_io.py", "pipeline/pipeline.py",
+                 "pipeline/tpu_stage.py", "pipeline/prefetch.py",
+                 "pipeline/cli.py", "utils/graph.py", "utils/importer.py",
+                 "models/vision.py", "models/detector.py",
+                 "models/classifier.py", "models/common.py"):
         assert REPO / "aiko_services_tpu_torch" / name in sources
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
